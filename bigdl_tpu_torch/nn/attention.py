@@ -1,14 +1,16 @@
 """Attention and Transformer blocks — the port of the language-model
 half of ``bigdl_tpu.nn.attention``.
 
-Only what the served LM runs is here: plain masked attention (the flash
-training kernel and sequence parallelism come with the training slice),
-the dense FFN, the pre-LN block and ``Transformer(mode="lm")`` with its
+Only what the LM serves and trains through is here: attention with the
+flash kernel dispatch (plain masked attention otherwise; sequence
+parallelism and attention dropout in training are not ported), the dense
+FFN, the pre-LN block and ``Transformer(mode="lm")`` with its
 sqrt(d)-scaled embedding, sinusoidal positions and weight-tied output
 projection.  Parameter names and layouts follow the JAX params tree so
 ``bigdl_tpu_torch.utils.convert`` copies weights one to one."""
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear, xavier_
+from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.tensor.policy import cast_compute
 
 
@@ -55,11 +58,19 @@ def _attn_project(attn, x, w, b):
 
 class MultiHeadAttention(nn.Module):
     """Multi-head self-attention with q/k/v/out projections; weights
-    (in, out) named ``wq wk wv wo`` with biases ``bq bk bv bo``."""
+    (in, out) named ``wq wk wv wo`` with biases ``bq bk bv bo``.
+
+    ``use_flash`` picks the attention as the JAX layer does: ``None``
+    (auto) takes :func:`~bigdl_tpu_torch.ops.flash_attention.flash_attention`
+    when there is no mask, no active attention dropout, the tensors are on
+    CUDA and ``BIGDL_TPU_FLASH`` is not ``"0"`` (the JAX package's kill
+    switch); ``True`` takes it on any device when there is no mask or
+    active dropout (its plain version on the CPU); ``False`` never."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attn_dropout: float = 0.0, causal: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_flash: Optional[bool] = None):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
@@ -68,6 +79,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.causal = causal
+        self.use_flash = use_flash
         self.dropout = Dropout(attn_dropout)
         d = hidden_size
         for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"),
@@ -87,15 +99,28 @@ class MultiHeadAttention(nn.Module):
         if self.training and self.dropout.p > 0.0:
             raise NotImplementedError("attention dropout in training is not "
                                       "ported yet")
-        if self.causal:
-            lq, lk = q.shape[2], k.shape[2]
-            cmask = torch.ones(lq, lk, dtype=torch.bool,
-                               device=x.device).tril()
-            mask = cmask if mask is None else (mask & cmask)
-        out = dot_product_attention(q, k, v, mask=mask)
+        # no attention dropout is active past this point
+        flash_ok = mask is None
+        if self.use_flash is None:
+            use_flash = (flash_ok and q.is_cuda
+                         and os.environ.get("BIGDL_TPU_FLASH") != "0")
+        else:
+            use_flash = self.use_flash and flash_ok
+        if use_flash:
+            out = flash_attention(q, k, v, causal=self.causal)
+        else:
+            out = self._plain(q, k, v, mask)
         b, h, t, dh = out.shape
         out = out.transpose(1, 2).reshape(b, t, h * dh)
         return _attn_project(self, out, "wo", "bo").to(x.dtype)
+
+    def _plain(self, q, k, v, mask):
+        if self.causal:
+            lq, lk = q.shape[2], k.shape[2]
+            cmask = torch.ones(lq, lk, dtype=torch.bool,
+                               device=q.device).tril()
+            mask = cmask if mask is None else (mask & cmask)
+        return dot_product_attention(q, k, v, mask=mask)
 
 
 class PositionwiseFFN(nn.Module):

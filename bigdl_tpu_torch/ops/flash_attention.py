@@ -1,38 +1,81 @@
-"""Paged decode-step attention — the port of
-``bigdl_tpu.ops.flash_attention.paged_decode_attention``.
+"""Attention kernels — the port of ``bigdl_tpu.ops.flash_attention``.
 
-The wrapper launches the hand-written CUDA kernel
-(``csrc/paged_decode_attention.cu``) for CUDA tensors and takes the
-plain PyTorch version, :func:`paged_decode_attention_ref`, only for
-tensors that lie on the CPU.  There is no fallback: a CUDA tensor
-either reaches the kernel or the call raises."""
+Two functions, each with a hand-written CUDA kernel (``csrc/``) beside a
+plain PyTorch version of the same math:
+
+- :func:`flash_attention` — blockwise (flash) attention for training, a
+  ``torch.autograd.Function`` whose forward (``flash_attention_fwd.cu``)
+  and backward (``flash_attention_bwd.cu``) are both kernels;
+- :func:`paged_decode_attention` — single-query attention over a paged KV
+  cache, for serving (``paged_decode_attention.cu``).
+
+A wrapper launches its kernel for CUDA tensors and takes the plain
+version (``*_ref``) only for tensors that lie on the CPU.  There is no
+fallback: a CUDA tensor either reaches the kernel or the call raises."""
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops.common import LAUNCHES
 
 KERNEL = "paged_decode_attention"
+FLASH_FWD = "flash_attention_fwd"
+FLASH_BWD_DQ = "flash_attention_bwd_dq"
+FLASH_BWD_DKDV = "flash_attention_bwd_dkdv"
 _HEAD_DIMS = (32, 64, 128)
-_fn = None
+# the TPU kernel's _NEG_INF: masked scores, and the running max's start
+_NEG_INF = -1e30
+
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+_VIEW = [_P, _LL, _LL, _LL]  # pointer, batch / head / seq strides
+# batch, heads, sq, skv, head_dim, sm_scale, causal, stream
+_FLASH_DIMS = [_I] * 5 + [_F, _I, _P]
+# kernel -> (library in csrc/, C symbol, argument types)
+_SIGNATURES = {
+    KERNEL: (KERNEL, "paged_decode_attention_f32",
+             [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_F, _P]),
+    FLASH_FWD: (FLASH_FWD, "flash_attention_fwd_f32",
+                _VIEW * 3 + [_P] * 2 + _FLASH_DIMS),
+    FLASH_BWD_DQ: ("flash_attention_bwd", "flash_attention_bwd_dq_f32",
+                   _VIEW * 5 + [_P] * 3 + _FLASH_DIMS),
+    FLASH_BWD_DKDV: ("flash_attention_bwd", "flash_attention_bwd_dkdv_f32",
+                     _VIEW * 4 + [_P] * 4 + _FLASH_DIMS),
+}
+_entries: Dict[str, tuple] = {}
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        lib = _build.load(KERNEL)
-        fn = lib.paged_decode_attention_f32
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
+def _entry(kernel: str):
+    """(C function, error-string function) of ``kernel``, built and
+    loaded at first use."""
+    if kernel not in _entries:
+        lib_name, symbol, argtypes = _SIGNATURES[kernel]
+        lib = _build.load(lib_name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.paged_decode_attention_error.argtypes = [ctypes.c_int]
-        lib.paged_decode_attention_error.restype = ctypes.c_char_p
-        _fn = (fn, lib.paged_decode_attention_error)
-    return _fn
+        err_str = getattr(lib, f"{lib_name}_error")
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _entries[kernel] = (fn, err_str)
+    return _entries[kernel]
+
+
+def _launch(kernel: str, device: torch.device, *args) -> None:
+    """Call ``kernel``'s C entry point on ``device``'s current stream,
+    raise on a nonzero CUDA error, and count the launch."""
+    fn, err_str = _entry(kernel)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel failed: CUDA error {err} "
+                           f"({err_str(err).decode()})")
+    LAUNCHES[kernel] += 1
 
 
 def _check(q, k_pages, v_pages, page_table, lengths):
@@ -101,17 +144,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     S, h, _ = q.shape
     page = k_pages.shape[2]
     out = torch.empty_like(q)
-    fn, err_str = _entry()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), page_table.stride(0),
-                 lengths.data_ptr(), out.data_ptr(), S, h, page,
-                 page_table.shape[1], d, scale, stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} kernel failed: CUDA error {err} "
-                           f"({err_str(err).decode()})")
-    LAUNCHES[KERNEL] += 1
+    _launch(KERNEL, device, q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), page_table.data_ptr(), page_table.stride(0),
+            lengths.data_ptr(), out.data_ptr(), S, h, page,
+            page_table.shape[1], d, scale)
     return out
 
 
@@ -137,3 +173,190 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("shk,shkd->shd", p, v)
     return (o / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+
+
+# ---- blockwise (flash) attention ------------------------------------------
+
+def _causal_mask(sq: int, skv: int, device) -> torch.Tensor:
+    """(sq, skv) True where key j is visible to query i: j <= i, top-left
+    aligned as the TPU kernel masks (also when sq != skv)."""
+    return torch.ones(sq, skv, dtype=torch.bool, device=device).tril()
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool, sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the flash forward: (out, lse), ``lse`` (b, h, sq)
+    the per-row logsumexp of the scaled scores.  Computed in float32 (or
+    float64 for float64 inputs); a row with no visible key divides by 1."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct) * sm_scale, k.to(ct))
+    if causal:
+        mask = _causal_mask(q.shape[2], k.shape[2], q.device)
+        s = s.masked_fill(~mask, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if causal:
+        p = p.masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(ct)) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, g, *, causal: bool,
+                            sm_scale: float):
+    """Plain version of the flash backward, the recurrence of the TPU
+    package's ``_blockwise_bwd``: p = exp(q·kᵀ·scale − lse),
+    D = rowsum(g ⊙ out), dS = p ⊙ (g·vᵀ − D)·scale.  Returns (dq, dk, dv)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, gf = q.to(ct), k.to(ct), v.to(ct), g.to(ct)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse.to(ct)[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_mask(q.shape[2], k.shape[2], q.device),
+                          0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    delta = (gf * out.to(ct)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash(q, k, v, *more) -> torch.device:
+    """Shapes (q (b, h, sq, d), k and v (b, h, skv, d)) and one device;
+    on CUDA also float32 and a head_dim the kernels take."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"q, k, v must be (batch, heads, seq, head_dim), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if tuple(k.shape) != tuple(v.shape) or (k.shape[0], k.shape[1],
+                                            k.shape[3]) != (b, h, d):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    devices = {t.device for t in (q, k, v, *more)}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    device = devices.pop()
+    if device.type == "cuda":
+        for t in (q, k, v, *more):
+            if t.dtype != torch.float32:
+                raise ValueError(f"the flash kernels take float32, got "
+                                 f"{t.dtype}")
+        if d not in _HEAD_DIMS:
+            raise ValueError(f"head_dim {d} is not supported by the "
+                             f"kernels (one of {_HEAD_DIMS})")
+    elif device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA tensors (kernels) "
+                         f"or CPU tensors (plain versions), got {device}")
+    return device
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernels read it in place: a contiguous
+    head_dim row, the other strides whole float4s and a 16-byte aligned
+    start.  Else a contiguous copy.  So the transposed (b, h, s, d) views
+    that ``MultiHeadAttention`` and autograd hand over are passed by
+    their strides, without a copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+            and all(s % 4 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _view(t: torch.Tensor):
+    """The (pointer, batch, head, seq strides) a C entry point takes for
+    one (b, h, s, d) operand."""
+    return (t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """The flash forward: (out, lse).  CUDA tensors launch
+    ``flash_attention_fwd.cu``; CPU tensors take
+    :func:`flash_attention_fwd_ref`."""
+    device = _check_flash(q, k, v)
+    scale = float(q.shape[-1] ** -0.5 if sm_scale is None else sm_scale)
+    if device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, causal=causal,
+                                       sm_scale=scale)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    b, h, sq, d = q.shape
+    out = q.new_empty((b, h, sq, d))
+    lse = q.new_empty((b, h, sq))
+    _launch(FLASH_FWD, device, *_view(q), *_view(k), *_view(v),
+            out.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[2], d, scale,
+            int(bool(causal)))
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """The flash backward: (dq, dk, dv) from the forward's residuals and
+    the output gradient ``g``.  CUDA tensors launch the two kernels of
+    ``flash_attention_bwd.cu`` (dq, which also writes D = rowsum(g ⊙ out),
+    then dk/dv); CPU tensors take :func:`flash_attention_bwd_ref`."""
+    device = _check_flash(q, k, v, out, g, lse)
+    if tuple(out.shape) != tuple(q.shape) or tuple(g.shape) != tuple(
+            q.shape) or tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"out and g must be {tuple(q.shape)} and lse "
+                         f"{tuple(q.shape[:3])}, got {tuple(out.shape)}, "
+                         f"{tuple(g.shape)} and {tuple(lse.shape)}")
+    scale = float(q.shape[-1] ** -0.5 if sm_scale is None else sm_scale)
+    if device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
+                                       sm_scale=scale)
+    q, k, v, out, g = (_rows(t) for t in (q, k, v, out, g))
+    lse = lse.contiguous()
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    dims = (b, h, sq, skv, d, scale, int(bool(causal)))
+    delta = lse.new_empty((b, h, sq))
+    dq = q.new_empty((b, h, sq, d))
+    dk = q.new_empty((b, h, skv, d))
+    dv = q.new_empty((b, h, skv, d))
+    _launch(FLASH_BWD_DQ, device, *_view(q), *_view(k), *_view(v),
+            *_view(out), *_view(g), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *dims)
+    _launch(FLASH_BWD_DKDV, device, *_view(q), *_view(k), *_view(v),
+            *_view(g), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *dims)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its own backward, as the TPU package's
+    ``jax.custom_vjp``: the forward saves (q, k, v, out, lse) and the
+    backward rebuilds p from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
+                                         causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    sm_scale: Optional[float] = None):
+    """Fused blockwise attention.  q: (batch, heads, sq, head_dim); k, v:
+    (batch, heads, skv, head_dim), ``skv`` may differ from ``sq``.
+    ``causal`` masks keys after the query, top-left aligned; the scale
+    defaults to head_dim ** -0.5.  Differentiable: the backward is a
+    kernel too on CUDA.  Returns (batch, heads, sq, head_dim)."""
+    _check_flash(q, k, v)
+    scale = float(q.shape[-1] ** -0.5 if sm_scale is None else sm_scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), scale)

@@ -10,17 +10,28 @@ one JSON line:
 
 1. device — the card, with its name and power limit from nvidia-smi;
 2. build  — every kernel under ``bigdl_tpu_torch/ops/csrc/`` built
-   from source with nvcc (into ``build/``);
+   from source with nvcc (into ``build/``), one nvcc per source at once;
 3. kernel — each kernel held against its plain PyTorch version at the
-   shapes the serving path gives it, and timed beside its bound, the
-   plain version and one PyTorch library call;
+   shapes its main path gives it (the flash kernels also at a ragged
+   shape), and timed beside its bound, the plain version and one
+   PyTorch library call;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
    requests through ``InferenceModel.generate``; the launch counts show
    the decode steps went through the kernels, and every generated token
    is checked against a full (uncached) forward of the same model;
 5. profile — the same requests again under torch.profiler: the device's
-   busy share of the wall time and its time by kernel.
+   busy share of the wall time and its time by kernel;
+6. gradcheck — one batch's gradients of every parameter of the same LM
+   with the flash kernels against plain attention (``use_flash=False``);
+7. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
+   through ``Optimizer.optimize()``: falling finite losses, step time,
+   tokens/s, peak memory, and launch counts showing every attention
+   layer's forward and backward went through the flash kernels;
+8. train_profile — two more steps under torch.profiler;
+9. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
+   the switch that sends the auto path to plain attention: the A/B of
+   the flash kernels end to end, and proof that the switch holds.
 
 Then the kernel table, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -28,6 +39,8 @@ script exits non-zero; without a CUDA card it exits non-zero and prints
 no result."""
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -40,7 +53,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
-# serving geometry of the main path
+# the model of both main paths (bench_lm.py's), and the serving geometry
 LM = dict(vocab_size=32768, hidden_size=768, num_heads=12, ffn_size=3072,
           num_layers=12)
 DECODE = dict(slots=16, page_size=16, pages_per_slot=64, prompt_chunk=64,
@@ -49,9 +62,22 @@ N_REQUESTS = 16
 PROMPT_LENS = (16, 512)
 SEED = 0
 
+# training geometry of the main path (bench_lm.py's model and batch)
+TRAIN = dict(batch=8, seq=1024, steps=10, lr=1e-4)
+
 # kernel check tolerance: f32 sums taken in another order over up to
 # 1024 keys
 RTOL, ATOL = 1e-4, 1e-5
+# the flash backward's gradients sum up to 1024 products of unit-scale
+# terms in another order than the plain version: same rtol, atol 1e-4
+BWD_ATOL = 1e-4
+# on-card gradient check: per parameter, ||g_flash - g_plain|| over
+# ||g_plain|| + 1e-4 ||g||.  The floor, relative to the whole gradient,
+# holds the attention key bias to rounding noise: its exact gradient is
+# 0 (softmax is shift-invariant over keys), so a relative error of its
+# noise means nothing.  1e-4: twelve layers of float32 sums in another
+# order stay far below it.
+GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-4
 
 
 def emit(obj) -> None:
@@ -66,9 +92,43 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel<64,1>`` (head_dim, causal) from the mangled
+    name of a kernel template instance; other names as they are."""
+    k = re.search(r"(\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if k is None:
+        return mangled
+    head = k.group(1)
+    # the last <length><name> component; digits may run into the one
+    # before it, so try every start
+    for n in re.finditer(r"(?=(\d+))", head):
+        end = n.start() + len(n.group(1))
+        if end + int(n.group(1)) == len(head):
+            head = head[end:]
+            break
+    return f"{head}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+
+
+def ptxas_report(logs) -> dict:
+    """Registers and spills of each kernel instance from nvcc's
+    ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = _kernel_name(m.group(1))
+            elif name and "spill" in ln:
+                out[name] = ln.strip()
+            elif name and "registers" in ln:
+                out[name] = (re.search(r"\d+ registers", ln).group(0)
+                             + ", " + out.get(name, ""))
+    return out
+
+
 def time_cold(fn, flush, reps=50) -> float:
     """Median device time of one call (ms), the L2 cache flushed before
-    each call, as a decode step finds it after the other layers ran."""
+    each call, as a step finds it after the other layers ran."""
     fn()
     torch.cuda.synchronize()
     events = []
@@ -82,6 +142,16 @@ def time_cold(fn, flush, reps=50) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the bytes over HBM's rate or
+    the float32 operations over the CUDA cores' peak, whichever is
+    larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def check_paged_decode(dev, flush):
@@ -136,14 +206,11 @@ def check_paged_decode(dev, flush):
     kv_bytes = 2 * keys * h * d * 4
     io_bytes = 2 * S * h * d * 4 + S * nb * 4 + S * 4
     flops = 4 * keys * h * d
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
     row = {"name": "paged_decode_attention", "route": "cuda",
            "source": "bigdl_tpu_torch/ops/csrc/paged_decode_attention.cu",
            "replaces": "bigdl_tpu/ops/flash_attention.py:365",
            "launches": None, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "plain_ms": plain_ms, **_bound(kv_bytes + io_bytes, flops),
            "library_ms": library_ms}
     emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                        "head_dim": d, "page": page,
@@ -151,6 +218,111 @@ def check_paged_decode(dev, flush):
           "keys": keys, "bytes": kv_bytes + io_bytes, "flops": flops,
           "rtol": RTOL, "atol": ATOL, **row})
     return row
+
+
+def _visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes for one (batch, head)."""
+    if not causal:
+        return sq * skv
+    return int(np.minimum(np.arange(1, sq + 1), skv).sum())
+
+
+def _assert_close(name, got, want, rtol, atol) -> float:
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs err {err}")
+    return err
+
+
+def check_flash(dev, flush):
+    """The flash forward and backward kernels against their plain
+    versions at the training shape (batch 8, 12 heads, 1024 tokens,
+    head_dim 64, causal) and at ragged shapes with sq != skv, then timed
+    at the training shape."""
+    from bigdl_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+
+    h, d = LM["num_heads"], LM["hidden_size"] // LM["num_heads"]
+    shapes = [(TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], True),
+              (2, 200, 333, False), (2, 333, 200, True)]
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for b, sq, skv, causal in shapes:
+        g = torch.Generator().manual_seed(SEED)
+        q = torch.randn(b, h, sq, d, generator=g).to(dev)
+        k = torch.randn(b, h, skv, d, generator=g).to(dev)
+        v = torch.randn(b, h, skv, d, generator=g).to(dev)
+        go = torch.randn(b, h, sq, d, generator=g).to(dev)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        grads = flash_attention_bwd(q, k, v, out, lse, go, causal=causal)
+        ro, rl = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                         sm_scale=d ** -0.5)
+        rgrads = flash_attention_bwd_ref(q, k, v, ro, rl, go, causal=causal,
+                                         sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        tag = f"({b}, {h}, {sq}, {skv}, causal={causal})"
+        errs["fwd"] = max(errs["fwd"],
+                          _assert_close(f"flash fwd out {tag}", out, ro,
+                                        RTOL, ATOL),
+                          _assert_close(f"flash fwd lse {tag}", lse, rl,
+                                        RTOL, ATOL))
+        for name, a, w in zip(("dq", "dk", "dv"), grads, rgrads):
+            errs["bwd"] = max(errs["bwd"], _assert_close(
+                f"flash bwd {name} {tag}", a, w, RTOL, BWD_ATOL))
+        del q, k, v, go, out, lse, grads, ro, rl, rgrads
+
+    # timing at the training shape
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    g = torch.Generator().manual_seed(SEED)
+    q, k, v, go = (torch.randn(b, h, s, d, generator=g).to(dev)
+                   for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(q, k, v, is_causal=True)
+    _assert_close("the SDPA yardstick", lib, out, RTOL, ATOL)
+    fwd_ms = time_cold(lambda: flash_attention_fwd(q, k, v, causal=True),
+                       flush)
+    fwd_plain = time_cold(lambda: flash_attention_fwd_ref(
+        q, k, v, causal=True, sm_scale=d ** -0.5), flush, reps=10)
+    fwd_lib = time_cold(lambda: sdpa(q, k, v, is_causal=True), flush)
+    bwd_ms = time_cold(lambda: flash_attention_bwd(
+        q, k, v, out, lse, go, causal=True), flush)
+    bwd_plain = time_cold(lambda: flash_attention_bwd_ref(
+        q, k, v, out, lse, go, causal=True, sm_scale=d ** -0.5), flush,
+        reps=10)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    fb_lib = time_cold(lambda: torch.autograd.grad(
+        sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), go), flush)
+
+    pairs = b * h * _visible_pairs(s, s, True)
+    elems = b * h * s * d
+    fwd_flops = 4 * d * pairs
+    fwd_bytes = 4 * (4 * elems + b * h * s)          # q k v out, lse
+    bwd_flops = 2.5 * fwd_flops
+    bwd_bytes = 4 * (8 * elems + b * h * s)  # q k v out g dq dk dv, lse
+    shape = {"batch": b, "heads": h, "seq": s, "head_dim": d,
+             "causal": True}
+    rows = [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+         "replaces": "bigdl_tpu/ops/flash_attention.py:109",
+         "launches": None, "max_abs_err": errs["fwd"], "ms": fwd_ms,
+         "plain_ms": fwd_plain, **_bound(fwd_bytes, fwd_flops),
+         "library_ms": fwd_lib},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+         "replaces": "bigdl_tpu/ops/flash_attention.py:141",
+         "launches": None, "max_abs_err": errs["bwd"], "ms": bwd_ms,
+         "plain_ms": bwd_plain, **_bound(bwd_bytes, bwd_flops),
+         "library_ms": fb_lib - fwd_lib}]
+    for row, flops, nbytes in ((rows[0], fwd_flops, fwd_bytes),
+                               (rows[1], bwd_flops, bwd_bytes)):
+        emit({"phase": "kernel", "shape": shape,
+              "checked": [list(x) for x in shapes], "bytes": nbytes,
+              "flops": flops, "rtol": RTOL,
+              "atol": ATOL if row is rows[0] else BWD_ATOL, **row})
+    return rows
 
 
 def serve(dev):
@@ -242,15 +414,20 @@ def serve(dev):
 
 
 def profile_serving(im, prompts) -> dict:
-    """The same requests once more under torch.profiler: device busy
-    share of the wall time and the device time by kernel.  The counts of
+    """The same requests once more under torch.profiler.  The counts of
     the main run were read before this."""
+    return _profile(lambda: im.generate(prompts))
+
+
+def _profile(fn) -> dict:
+    """``fn()`` under torch.profiler: the device's busy share of the wall
+    time and its time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        im.generate(prompts)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -263,6 +440,161 @@ def profile_serving(im, prompts) -> dict:
             "top": [{"kernel": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
                     for e in top]}
+
+
+def _train_data():
+    rs = np.random.RandomState(SEED)
+    shape = (TRAIN["batch"], TRAIN["seq"])
+    ids = rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+    tgt = rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+    return ids, tgt
+
+
+def grad_check(model, ids, tgt, dev) -> dict:
+    """One batch's gradients of every parameter with the flash kernels
+    (``use_flash=None``, auto on CUDA) against plain attention
+    (``use_flash=False``), on the same weights."""
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, MultiHeadAttention
+
+    mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    x = torch.from_numpy(ids).to(dev)
+    y = torch.from_numpy(tgt).to(dev)
+    model.to(dev).train(True)
+
+    def grads(use_flash):
+        for m in mhas:
+            m.use_flash = use_flash
+        model.zero_grad(set_to_none=True)
+        loss = CrossEntropyCriterion()(model(x), y)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+
+    try:
+        loss_f, g_f = grads(None)
+        loss_p, g_p = grads(False)
+    finally:
+        for m in mhas:
+            m.use_flash = None
+        model.zero_grad(set_to_none=True)
+        model.train(False)
+    total = torch.sqrt(sum(g.square().sum() for g in g_p.values())).item()
+    rel, floored = {}, {}
+    for n in g_p:
+        diff = (g_f[n] - g_p[n]).norm().item()
+        norm = g_p[n].norm().item()
+        rel[n] = diff / norm if norm > 0 else float("inf")
+        floored[n] = diff / (norm + GRAD_FLOOR * total)
+    worst = max(floored, key=floored.get)
+    others = {n: e for n, e in rel.items() if not n.endswith("attn.bk")}
+    worst_other = max(others, key=others.get)
+    out = {"loss_flash": loss_f, "loss_plain": loss_p,
+           "params": len(g_p), "grad_norm": total, "rtol": GRAD_RTOL,
+           "floor": GRAD_FLOOR, "worst_param": worst,
+           "worst_err": floored[worst],
+           "key_bias_max_rel_err": max(e for n, e in rel.items()
+                                       if n.endswith("attn.bk")),
+           "worst_other_param": worst_other,
+           "worst_other_rel_err": others[worst_other]}
+    emit({"phase": "gradcheck", **out})
+    if floored[worst] > GRAD_RTOL or abs(loss_f - loss_p) > 1e-5 * abs(
+            loss_p):
+        raise AssertionError(f"flash gradients disagree with plain "
+                             f"attention: {out}")
+    return out
+
+
+def train(dev):
+    """Drive the training main path once and check what comes out."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    ids, tgt = _train_data()
+    model = Transformer(**LM, dropout=0.0, seed=SEED)
+    grad_check(model, ids, tgt, dev)
+
+    events = {}
+
+    def step_clock(state):
+        # a CUDA event at each iteration edge the training loop reaches: step i
+        # is the device time between edges i-1 and i (no host sync)
+        it = state["iteration"]
+        if it not in events:
+            events[it] = torch.cuda.Event(enable_timing=True)
+            events[it].record()
+        return False
+
+    steps = TRAIN["steps"]
+    opt = (Optimizer(model, DataSet.array(ids, tgt), CrossEntropyCriterion(),
+                     batch_size=TRAIN["batch"], device=dev)
+           .set_optim_method(Adam(learning_rate=TRAIN["lr"]))
+           .set_end_when(Trigger.or_(Trigger(step_clock, "step clock"),
+                                     Trigger.max_iteration(steps))))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+
+    losses = opt.losses
+    step_ms = [events[i - 1].elapsed_time(events[i])
+               for i in range(1, steps + 1)]
+    med = float(np.median(step_ms[1:]))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    want = LM["num_layers"] * steps
+    out = {"phase": "train", "model": LM, "train": TRAIN,
+           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": tokens / med * 1e3, "wall_s": wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "launches": launches}
+    emit(out)
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv"):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} "
+                                 f"times over {steps} steps of "
+                                 f"{LM['num_layers']} layers")
+
+    def run(n, end=None):
+        return (Optimizer(model, DataSet.array(ids, tgt),
+                          CrossEntropyCriterion(),
+                          batch_size=TRAIN["batch"], device=dev)
+                .set_optim_method(Adam(learning_rate=TRAIN["lr"]))
+                .set_end_when(end or Trigger.max_iteration(n)).optimize())
+
+    emit({"phase": "train_profile", "steps": 2,
+          **_profile(lambda: run(2))})
+
+    # A/B: the same steps with BIGDL_TPU_FLASH=0, the kill switch that
+    # sends the auto path to plain attention; no flash kernel may launch
+    events.clear()
+    os.environ["BIGDL_TPU_FLASH"] = "0"
+    try:
+        reset_launches()
+        run(4, Trigger.or_(Trigger(step_clock, "step clock"),
+                           Trigger.max_iteration(4)))
+        torch.cuda.synchronize()
+        plain_launches = dict(LAUNCHES)
+    finally:
+        del os.environ["BIGDL_TPU_FLASH"]
+    plain_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, 5)]
+    emit({"phase": "train_plain_attention", "flash_env": "0",
+          "step_ms": plain_ms,
+          "median_step_ms": float(np.median(plain_ms[1:])),
+          "flash_median_step_ms": med, "launches": plain_launches})
+    if any(plain_launches.values()):
+        raise AssertionError(f"BIGDL_TPU_FLASH=0 still launched "
+                             f"{plain_launches}")
+    return launches
 
 
 def main() -> int:
@@ -285,21 +617,25 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for k, v in _build.BUILD_LOGS.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "sources": [s.name for s in _build.sources()],
-          "ptxas": ptxas})
+          "ptxas": ptxas_report(_build.BUILD_LOGS)})
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows = [check_paged_decode(dev, flush)]
+    decode_row = check_paged_decode(dev, flush)
+    fwd_row, bwd_row = check_flash(dev, flush)
     del flush
 
-    launches = serve(dev)
-    for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
-    emit({"kernels": rows})
+    decode_row["launches"] = serve(dev).get(decode_row["name"], 0)
+    torch.cuda.empty_cache()
+    launches = train(dev)
+    fwd_row["launches"] = launches.get("flash_attention_fwd", 0)
+    bwd_entries = {k: launches.get(k, 0) for k in (
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}
+    # one backward call launches both entry points
+    bwd_row["launches"] = min(bwd_entries.values())
+    bwd_row["launches_by_entry"] = bwd_entries
+    emit({"kernels": [decode_row, fwd_row, bwd_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -216,7 +216,9 @@ def test_missing_gpu_raises_unless_cpu_asked(lm, monkeypatch):
 
 def test_port_imports_no_jax():
     code = ("import sys, bigdl_tpu_torch.serving.decode_engine, "
-            "bigdl_tpu_torch.serving, bigdl_tpu_torch.utils;"
+            "bigdl_tpu_torch.serving, bigdl_tpu_torch.utils, "
+            "bigdl_tpu_torch.optim, bigdl_tpu_torch.data, "
+            "bigdl_tpu_torch.nn.criterion, bigdl_tpu_torch.ops;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'bigdl_tpu'));"
             "assert not bad, bad")
