@@ -8,10 +8,10 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.tensor.policy import cast_compute
+from bigdl_tpu_torch.utils import prng
 
 
 def xavier_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -59,13 +59,21 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout in training; the identity at inference."""
+    """Inverted dropout in training; the identity at inference.  ``p`` is
+    the drop probability.  The mask is ``prng.bernoulli(key, 1 - p,
+    x.shape)``, the JAX package's draw bit for bit, so the same key drops
+    the same elements."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = float(p)
 
-    def forward(self, x):
-        if self.training and self.p > 0.0:
-            return F.dropout(x, self.p, training=True)
-        return x
+    def forward(self, x, key=None):
+        if not self.training or self.p == 0.0:
+            return x
+        if key is None:
+            raise ValueError("Dropout in training mode requires a key "
+                             "(utils.prng)")
+        keep = 1.0 - self.p
+        mask = prng.bernoulli(key, keep, x.shape)
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)

@@ -1,26 +1,31 @@
-// Paged decode-step attention, float32 pages, for Hopper (sm_90a).
+// Paged decode-step attention, float32 or int8 pages, for Hopper (sm_90a).
 //
 // Replaces bigdl_tpu/ops/flash_attention.py: paged_decode_attention, whose
-// Pallas kernel is _decode_kernel (f32 pages; the int8-page variant is not
-// ported yet).  It computes, for every slot s and head h,
+// Pallas kernel is _decode_kernel, in both its forms: float32 pages, and
+// int8 pages with one float32 scale per pool page (quantized=True).  It
+// computes, for every slot s and head h,
 //
 //   out[s, h] = softmax(q[s, h] . K[s, h, :]^T * sm_scale) . V[s, h, :]
 //
 // over the key positions 0 .. lengths[s] (lengths is INCLUSIVE), where key
-// position j * page + t of slot s is read from pages[page_table[s, j], h, t, :].
-// The running (max, denominator, accumulator) of the online softmax stays in
-// float32, and a row whose denominator is 0 divides by 1.
+// position j * page + t of slot s is read from pages[page_table[s, j], h, t, :]
+// (times k_scales / v_scales[page_table[s, j]] for int8 pages).  The running
+// (max, denominator, accumulator) of the online softmax stays in float32, and
+// a row whose denominator is 0 divides by 1.
 //
 // What bounds it: device-memory bytes.  A call must read
-// sum_s (lengths[s] + 1) * heads * head_dim * 4 bytes of K and as many of V,
-// plus q and out, and does about 4 flops per 8 bytes read: far below the
-// H100's ridge point, so its floor is those bytes over 3.35 TB/s.
+// sum_s (lengths[s] + 1) * heads * head_dim bytes of K and as many of V
+// (times 4 for float32 pages), plus q and out, and does about 4 flops per 8
+// bytes read (per 2 bytes for int8): far below the H100's ridge point, so its
+// floor is those bytes over 3.35 TB/s.
 //
 // What the design does about it:
 //   - one thread block per (slot, head) walks only that slot's valid keys,
 //     never the whole page table, so the bytes read follow the true lengths;
-//   - a key's row of head_dim floats is one coalesced load by one warp (each
-//     lane takes head_dim / 32 neighbouring floats, a float2 at head_dim 64);
+//   - a key's row of head_dim values is one coalesced load by one warp (each
+//     lane takes head_dim / 32 neighbouring values, a float2 or a char2 at
+//     head_dim 64); int8 values are scaled right after the load, so an int8
+//     pool is read at 1 byte per value;
 //   - each of the 4 warps takes groups of kUnroll keys in turn and issues all
 //     of a group's K and V row loads before using any of them, so a group
 //     costs one memory round trip and 2 * kUnroll rows are in flight per warp;
@@ -35,45 +40,24 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "paged_attention_common.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kUnroll = 8;
 
-template <int E>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&r)[E]) {
-  if constexpr (E % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < E / 4; ++i) {
-      const float4 v = reinterpret_cast<const float4*>(p)[i];
-      r[4 * i] = v.x;
-      r[4 * i + 1] = v.y;
-      r[4 * i + 2] = v.z;
-      r[4 * i + 3] = v.w;
-    }
-  } else if constexpr (E % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < E / 2; ++i) {
-      const float2 v = reinterpret_cast<const float2*>(p)[i];
-      r[2 * i] = v.x;
-      r[2 * i + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < E; ++i) r[i] = p[i];
-  }
-}
-
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k_pages,
-                        const float* __restrict__ v_pages,
-                        const int* __restrict__ page_table, int pt_stride,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ out, int heads, int page,
-                        int n_blocks, float sm_scale) {
+paged_decode_kernel(const float* __restrict__ q,
+                    const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
+                    const int* __restrict__ page_table, int pt_stride,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ out, int heads, int page,
+                    int n_blocks, float sm_scale) {
   constexpr int E = D / 32;  // head-dim values held by each lane
   const int s = blockIdx.x;
   const int h = blockIdx.y;
@@ -108,10 +92,13 @@ paged_decode_f32_kernel(const float* __restrict__ q,
       ok[u] = t < n_keys;
       if (ok[u]) {
         const int blk = t / page;
-        const size_t off = (size_t)pt[blk] * page_elems + head_off +
+        const int pid = pt[blk];
+        const size_t off = (size_t)pid * page_elems + head_off +
                            (size_t)(t - blk * page) * D;
-        load_row<E>(k_pages + off, kr[u]);
-        load_row<E>(v_pages + off, vr[u]);
+        paged::load_row<E>(k_pages + off, paged::page_scale(k_scales, pid),
+                           kr[u]);
+        paged::load_row<E>(v_pages + off, paged::page_scale(v_scales, pid),
+                           vr[u]);
       }
     }
     float sc[kUnroll];
@@ -183,15 +170,46 @@ paged_decode_f32_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
-void launch(const float* q, const float* k_pages, const float* v_pages,
+template <int D, typename T>
+void launch(const float* q, const T* k_pages, const T* v_pages,
+            const float* k_scales, const float* v_scales,
             const int* page_table, int pt_stride, const int* lengths,
             float* out, int slots, int heads, int page, int n_blocks,
             float sm_scale, cudaStream_t stream) {
   const dim3 grid(slots, heads);
-  paged_decode_f32_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
-      q, k_pages, v_pages, page_table, pt_stride, lengths, out, heads, page,
-      n_blocks, sm_scale);
+  paged_decode_kernel<D, T><<<grid, kWarps * 32, 0, stream>>>(
+      q, k_pages, v_pages, k_scales, v_scales, page_table, pt_stride,
+      lengths, out, heads, page, n_blocks, sm_scale);
+}
+
+template <typename T>
+int dispatch(const float* q, const T* k_pages, const T* v_pages,
+             const float* k_scales, const float* v_scales,
+             const int* page_table, int pt_stride, const int* lengths,
+             float* out, int slots, int heads, int page, int n_blocks,
+             int head_dim, float sm_scale, void* stream) {
+  if (slots <= 0 || heads <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      launch<32, T>(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                    pt_stride, lengths, out, slots, heads, page, n_blocks,
+                    sm_scale, st);
+      break;
+    case 64:
+      launch<64, T>(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                    pt_stride, lengths, out, slots, heads, page, n_blocks,
+                    sm_scale, st);
+      break;
+    case 128:
+      launch<128, T>(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                     pt_stride, lengths, out, slots, heads, page, n_blocks,
+                     sm_scale, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,25 +224,21 @@ extern "C" int paged_decode_attention_f32(
     const int* page_table, int pt_stride, const int* lengths, float* out,
     int slots, int heads, int page, int n_blocks, int head_dim,
     float sm_scale, void* stream) {
-  if (slots <= 0 || heads <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      launch<32>(q, k_pages, v_pages, page_table, pt_stride, lengths, out,
-                 slots, heads, page, n_blocks, sm_scale, st);
-      break;
-    case 64:
-      launch<64>(q, k_pages, v_pages, page_table, pt_stride, lengths, out,
-                 slots, heads, page, n_blocks, sm_scale, st);
-      break;
-    case 128:
-      launch<128>(q, k_pages, v_pages, page_table, pt_stride, lengths, out,
-                  slots, heads, page, n_blocks, sm_scale, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dispatch<float>(q, k_pages, v_pages, nullptr, nullptr, page_table,
+                         pt_stride, lengths, out, slots, heads, page,
+                         n_blocks, head_dim, sm_scale, stream);
+}
+
+// The same over int8 pools: k_pages / v_pages are contiguous int8 and
+// k_scales / v_scales (pages,) float32, one scale per pool page.
+extern "C" int paged_decode_attention_i8(
+    const float* q, const int8_t* k_pages, const int8_t* v_pages,
+    const float* k_scales, const float* v_scales, const int* page_table,
+    int pt_stride, const int* lengths, float* out, int slots, int heads,
+    int page, int n_blocks, int head_dim, float sm_scale, void* stream) {
+  return dispatch<int8_t>(q, k_pages, v_pages, k_scales, v_scales,
+                          page_table, pt_stride, lengths, out, slots, heads,
+                          page, n_blocks, head_dim, sm_scale, stream);
 }
 
 extern "C" const char* paged_decode_attention_error(int code) {

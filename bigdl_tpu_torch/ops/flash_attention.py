@@ -1,28 +1,34 @@
 """Attention kernels — the port of ``bigdl_tpu.ops.flash_attention``.
 
-Two functions, each with a hand-written CUDA kernel (``csrc/``) beside a
+Three functions, each with hand-written CUDA kernels (``csrc/``) beside a
 plain PyTorch version of the same math:
 
 - :func:`flash_attention` — blockwise (flash) attention for training, a
   ``torch.autograd.Function`` whose forward (``flash_attention_fwd.cu``)
   and backward (``flash_attention_bwd.cu``) are both kernels;
 - :func:`paged_decode_attention` — single-query attention over a paged KV
-  cache, for serving (``paged_decode_attention.cu``).
+  cache, for serving, over float32 or int8 pages
+  (``paged_decode_attention.cu``);
+- :func:`paged_verify_attention` — the multi-query sibling that scores a
+  speculative chunk of k+1 queries per slot in one call, float32 or int8
+  pages (``paged_verify_attention.cu``).
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_ref``) only for tensors that lie on the CPU.  There is no
 fallback: a CUDA tensor either reaches the kernel or the call raises."""
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from bigdl_tpu_torch.ops import _build
-from bigdl_tpu_torch.ops.common import LAUNCHES
+from bigdl_tpu_torch.ops.common import launch
 
 KERNEL = "paged_decode_attention"
+KERNEL_INT8 = "paged_decode_attention_int8"
+VERIFY = "paged_verify_attention"
+VERIFY_INT8 = "paged_verify_attention_int8"
 FLASH_FWD = "flash_attention_fwd"
 FLASH_BWD_DQ = "flash_attention_bwd_dq"
 FLASH_BWD_DKDV = "flash_attention_bwd_dkdv"
@@ -33,12 +39,18 @@ _NEG_INF = -1e30
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
 _VIEW = [_P, _LL, _LL, _LL]  # pointer, batch / head / seq strides
-# batch, heads, sq, skv, head_dim, sm_scale, causal, stream
-_FLASH_DIMS = [_I] * 5 + [_F, _I, _P]
+# batch, heads, sq, skv, head_dim, sm_scale, causal
+_FLASH_DIMS = [_I] * 5 + [_F, _I]
 # kernel -> (library in csrc/, C symbol, argument types)
 _SIGNATURES = {
     KERNEL: (KERNEL, "paged_decode_attention_f32",
-             [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_F, _P]),
+             [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_F]),
+    KERNEL_INT8: (KERNEL, "paged_decode_attention_i8",
+                  [_P] * 6 + [_I] + [_P] * 2 + [_I] * 5 + [_F]),
+    VERIFY: (VERIFY, "paged_verify_attention_f32",
+             [_P] * 4 + [_I] + [_P] * 2 + [_I] * 6 + [_F]),
+    VERIFY_INT8: (VERIFY, "paged_verify_attention_i8",
+                  [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F]),
     FLASH_FWD: (FLASH_FWD, "flash_attention_fwd_f32",
                 _VIEW * 3 + [_P] * 2 + _FLASH_DIMS),
     FLASH_BWD_DQ: ("flash_attention_bwd", "flash_attention_bwd_dq_f32",
@@ -46,132 +58,205 @@ _SIGNATURES = {
     FLASH_BWD_DKDV: ("flash_attention_bwd", "flash_attention_bwd_dkdv_f32",
                      _VIEW * 4 + [_P] * 4 + _FLASH_DIMS),
 }
-_entries: Dict[str, tuple] = {}
-
-
-def _entry(kernel: str):
-    """(C function, error-string function) of ``kernel``, built and
-    loaded at first use."""
-    if kernel not in _entries:
-        lib_name, symbol, argtypes = _SIGNATURES[kernel]
-        lib = _build.load(lib_name)
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err_str = getattr(lib, f"{lib_name}_error")
-        err_str.argtypes = [ctypes.c_int]
-        err_str.restype = ctypes.c_char_p
-        _entries[kernel] = (fn, err_str)
-    return _entries[kernel]
 
 
 def _launch(kernel: str, device: torch.device, *args) -> None:
-    """Call ``kernel``'s C entry point on ``device``'s current stream,
-    raise on a nonzero CUDA error, and count the launch."""
-    fn, err_str = _entry(kernel)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel failed: CUDA error {err} "
-                           f"({err_str(err).decode()})")
-    LAUNCHES[kernel] += 1
+    launch(kernel, _SIGNATURES[kernel], device, *args)
 
 
-def _check(q, k_pages, v_pages, page_table, lengths):
-    if q.ndim != 3 or k_pages.ndim != 4:
-        raise ValueError(f"q must be (slots, heads, head_dim) and pages "
-                         f"(pages, heads, page, head_dim), got "
+def _check_paged(q, k_pages, v_pages, page_table, rows, k_scales,
+                 v_scales, rows_name):
+    """Shapes, scales and one device of a paged call; ``q`` is (slots,
+    heads, [chunk,] head_dim).  Returns the device."""
+    if q.ndim not in (3, 4) or k_pages.ndim != 4:
+        raise ValueError(f"q must be (slots, heads, [chunk,] head_dim) and "
+                         f"pages (pages, heads, page, head_dim), got "
                          f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
-    S, h, d = q.shape
-    if k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8:
-        raise ValueError("int8 KV pages are not ported yet; "
-                         "pass float32 pages")
+    S, h, d = q.shape[0], q.shape[1], q.shape[-1]
+    quantized = k_pages.dtype == torch.int8
+    if quantized != (v_pages.dtype == torch.int8):
+        raise ValueError(f"k_pages and v_pages must share a type, got "
+                         f"{k_pages.dtype} and {v_pages.dtype}")
+    if quantized and (k_scales is None or v_scales is None):
+        raise ValueError("int8 k_pages/v_pages need k_scales/v_scales "
+                         "(one float32 abs-max scale per pool page)")
+    if not quantized and (k_scales is not None or v_scales is not None):
+        raise ValueError(f"k_scales/v_scales only apply to int8 pages, got "
+                         f"{k_pages.dtype} pages")
     if tuple(v_pages.shape) != tuple(k_pages.shape) \
             or (k_pages.shape[1], k_pages.shape[3]) != (h, d):
         raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    if quantized and (tuple(k_scales.shape) != (k_pages.shape[0],)
+                      or tuple(v_scales.shape) != (k_pages.shape[0],)):
+        raise ValueError(f"k_scales/v_scales must be ({k_pages.shape[0]},), "
+                         f"got {tuple(k_scales.shape)} and "
+                         f"{tuple(v_scales.shape)}")
     if page_table.ndim != 2 or page_table.shape[0] != S \
-            or tuple(lengths.shape) != (S,):
+            or tuple(rows.shape) != (S,):
         raise ValueError(f"page_table must be (slots, n_blocks) and "
-                         f"lengths (slots,) for {S} slots, got "
+                         f"{rows_name} (slots,) for {S} slots, got "
                          f"{tuple(page_table.shape)} and "
-                         f"{tuple(lengths.shape)}")
-    devices = {t.device for t in (q, k_pages, v_pages, page_table,
-                                  lengths)}
+                         f"{tuple(rows.shape)}")
+    scales = (k_scales, v_scales) if quantized else ()
+    devices = {t.device for t in (q, k_pages, v_pages, page_table, rows,
+                                  *scales)}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
-    return devices.pop()
-
-
-def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
-                           sm_scale: Optional[float] = None):
-    """Single-query attention of each slot over only its own pages.
-
-    ``q``: (slots, heads, head_dim) float32.  ``k_pages``/``v_pages``:
-    (num_pages, heads, page_size, head_dim) float32 — one layer's page
-    pool.  ``page_table``: (slots, n_blocks) int32, each slot's ordered
-    page list (a row-strided slice of a wider table is accepted).
-    ``lengths``: (slots,) int32, the highest valid cache position per
-    slot, INCLUSIVE.  Returns (slots, heads, head_dim)."""
-    device = _check(q, k_pages, v_pages, page_table, lengths)
-    d = q.shape[2]
-    scale = float(d ** -0.5 if sm_scale is None else sm_scale)
+    device = devices.pop()
     if device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
-                                          lengths, sm_scale=scale)
+        return device
     if device.type != "cuda":
-        raise ValueError(f"paged_decode_attention runs on CUDA tensors "
-                         f"(kernel) or CPU tensors (plain version), got "
-                         f"{device}")
-    for name, t, dt in (("q", q, torch.float32),
-                        ("k_pages", k_pages, torch.float32),
-                        ("v_pages", v_pages, torch.float32),
+        raise ValueError(f"paged attention runs on CUDA tensors (kernel) or "
+                         f"CPU tensors (plain version), got {device}")
+    page_dt = torch.int8 if quantized else torch.float32
+    for name, t, dt in (("q", q, torch.float32), ("k_pages", k_pages, page_dt),
+                        ("v_pages", v_pages, page_dt),
                         ("page_table", page_table, torch.int32),
-                        ("lengths", lengths, torch.int32)):
+                        (rows_name, rows, torch.int32),
+                        *((("k_scales", k_scales, torch.float32),
+                           ("v_scales", v_scales, torch.float32))
+                          if quantized else ())):
         if t.dtype != dt:
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} is not supported by the kernel "
                          f"(one of {_HEAD_DIMS})")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("lengths", lengths)):
+                    (rows_name, rows), *((("k_scales", k_scales),
+                                          ("v_scales", v_scales))
+                                         if quantized else ())):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if page_table.shape[1] > 0 and page_table.stride(1) != 1:
         raise ValueError("page_table rows must be contiguous")
+    return device
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           k_scales=None, v_scales=None,
+                           sm_scale: Optional[float] = None):
+    """Single-query attention of each slot over only its own pages.
+
+    ``q``: (slots, heads, head_dim) float32.  ``k_pages``/``v_pages``:
+    (num_pages, heads, page_size, head_dim) — one layer's page pool,
+    float32, or int8 with ``k_scales``/``v_scales`` (num_pages,) float32,
+    one abs-max scale per pool page.  ``page_table``: (slots, n_blocks)
+    int32, each slot's ordered page list (a row-strided slice of a wider
+    table is accepted).  ``lengths``: (slots,) int32, the highest valid
+    cache position per slot, INCLUSIVE.  Returns (slots, heads,
+    head_dim)."""
+    device = _check_paged(q, k_pages, v_pages, page_table, lengths,
+                          k_scales, v_scales, "lengths")
+    if q.ndim != 3:
+        raise ValueError(f"q must be (slots, heads, head_dim), got "
+                         f"{tuple(q.shape)}")
+    d = q.shape[2]
+    scale = float(d ** -0.5 if sm_scale is None else sm_scale)
+    if device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                          lengths, k_scales=k_scales,
+                                          v_scales=v_scales, sm_scale=scale)
     S, h, _ = q.shape
     page = k_pages.shape[2]
     out = torch.empty_like(q)
-    _launch(KERNEL, device, q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), page_table.data_ptr(), page_table.stride(0),
-            lengths.data_ptr(), out.data_ptr(), S, h, page,
-            page_table.shape[1], d, scale)
+    scales = ()
+    if k_pages.dtype == torch.int8:
+        kernel, scales = KERNEL_INT8, (k_scales.data_ptr(),
+                                       v_scales.data_ptr())
+    else:
+        kernel = KERNEL
+    _launch(kernel, device, q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), *scales, page_table.data_ptr(),
+            page_table.stride(0), lengths.data_ptr(), out.data_ptr(), S, h,
+            page, page_table.shape[1], d, scale)
     return out
 
 
+def _gather_pages(pages, scales, pt):
+    """(P, h, page, d)[pt (S, nb)] -> (S, h, nb*page, d) float32, each
+    page times its scale for int8 pools."""
+    S, nb = pt.shape
+    P, h, page, d = pages.shape
+    g = pages[pt].float()
+    if scales is not None:
+        g = g * scales[pt][..., None, None, None]
+    return g.permute(0, 2, 1, 3, 4).reshape(S, h, nb * page, d)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
+                               k_scales=None, v_scales=None,
                                sm_scale: Optional[float] = None):
     """Plain PyTorch version of :func:`paged_decode_attention`: gather
-    each slot's pages into a contiguous cache, mask positions past
-    ``lengths``, softmax in float32 (a row with denominator 0 divides by
-    1, as the TPU kernel does)."""
-    S, h, d = q.shape
+    each slot's pages (dequantized for int8) into a contiguous cache,
+    mask positions past ``lengths``, softmax in float32 (a row with
+    denominator 0 divides by 1, as the TPU kernel does)."""
+    return paged_verify_attention_ref(q[:, :, None], k_pages, v_pages,
+                                      page_table, lengths, k_scales=k_scales,
+                                      v_scales=v_scales,
+                                      sm_scale=sm_scale)[:, :, 0]
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, positions, *,
+                           k_scales=None, v_scales=None,
+                           sm_scale: Optional[float] = None):
+    """Speculative-verify attention: ``q`` (slots, heads, chunk,
+    head_dim) float32 holds a chunk of queries per slot, query ``c`` of
+    slot ``s`` at cache position ``positions[s] + c``, attending keys at
+    positions ``<= positions[s] + c``; ``chunk`` is any value >= 1.  The
+    chunk's own K/V must already be in the pages.  Pages, scales and
+    ``page_table`` as :func:`paged_decode_attention`; ``positions``
+    (slots,) int32.  Returns (slots, heads, chunk, head_dim)."""
+    device = _check_paged(q, k_pages, v_pages, page_table, positions,
+                          k_scales, v_scales, "positions")
+    if q.ndim != 4:
+        raise ValueError(f"q must be (slots, heads, chunk, head_dim), got "
+                         f"{tuple(q.shape)}")
+    S, h, C, d = q.shape
+    scale = float(d ** -0.5 if sm_scale is None else sm_scale)
+    if device.type == "cpu":
+        return paged_verify_attention_ref(q, k_pages, v_pages, page_table,
+                                          positions, k_scales=k_scales,
+                                          v_scales=v_scales, sm_scale=scale)
+    page = k_pages.shape[2]
+    out = torch.empty_like(q)
+    scales = ()
+    if k_pages.dtype == torch.int8:
+        kernel, scales = VERIFY_INT8, (k_scales.data_ptr(),
+                                       v_scales.data_ptr())
+    else:
+        kernel = VERIFY
+    _launch(kernel, device, q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), *scales, page_table.data_ptr(),
+            page_table.stride(0), positions.data_ptr(), out.data_ptr(), S, h,
+            page, page_table.shape[1], C, d, scale)
+    return out
+
+
+def paged_verify_attention_ref(q, k_pages, v_pages, page_table, positions,
+                               *, k_scales=None, v_scales=None,
+                               sm_scale: Optional[float] = None):
+    """Plain PyTorch version of :func:`paged_verify_attention`: gather
+    (and dequantize) each slot's pages, mask key positions past
+    ``positions + c`` per query, softmax in float32; a row with
+    denominator 0 divides by 1."""
+    S, h, C, d = q.shape
     nb = page_table.shape[1]
     page = k_pages.shape[2]
     scale = d ** -0.5 if sm_scale is None else sm_scale
     pt = page_table.long()
-    k = k_pages[pt].float().permute(0, 2, 1, 3, 4).reshape(S, h, nb * page, d)
-    v = v_pages[pt].float().permute(0, 2, 1, 3, 4).reshape(S, h, nb * page, d)
-    sc = torch.einsum("shd,shkd->shk", q.float() * scale, k)
-    pos = torch.arange(nb * page, device=q.device)
-    valid = (pos[None, :] <= lengths[:, None].long())[:, None, :]
+    k = _gather_pages(k_pages, k_scales, pt)
+    v = _gather_pages(v_pages, v_scales, pt)
+    sc = torch.einsum("shcd,shkd->shck", q.float() * scale, k)
+    key = torch.arange(nb * page, device=q.device)
+    lim = positions.long()[:, None] + torch.arange(C, device=q.device)
+    valid = (key[None, None, :] <= lim[:, :, None])[:, None]
     sc = torch.where(valid, sc, torch.full_like(sc, float("-inf")))
     m = sc.amax(dim=-1, keepdim=True).clamp_min(torch.finfo(sc.dtype).min)
     p = torch.exp(sc - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("shk,shkd->shd", p, v)
+    o = torch.einsum("shck,shkd->shcd", p, v)
     return (o / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
 
 

@@ -6,9 +6,9 @@ The setters (``set_optim_method``, ``set_end_when``,
 ``optimize()``'s loop are the JAX ``Optimizer``'s: each epoch walks
 ``dataset.batches(batch_size, shuffle=True, seed=seed, epoch=epoch)``,
 so the same (dataset, batch size, seed) trains on the same batches in
-the same order, and the triggers read the same state dict
-(``epoch``, ``iteration``, ``epoch_batch``, ``epoch_finished``,
-``loss``).  Batches are copied to the device, never aliased.  Losses stay
+the same order with the same dropout masks (``TrainStep``'s keys), and
+the triggers read the same state dict (``epoch``, ``iteration``,
+``epoch_batch``, ``epoch_finished``, ``loss``).  Batches are copied to the device, never aliased.  Losses stay
 on the device until the run ends, so the host runs ahead of the card.
 
 Not ported: checkpoints, validation, summaries, retries, the cluster
@@ -128,7 +128,7 @@ class Optimizer:
         if self._initial_params is not None:
             load_jax_params(model, self._initial_params)
         step = TrainStep(model, self.criterion, self.optim_method,
-                         clip=self.clip)
+                         clip=self.clip, seed=self.seed)
         state: Dict[str, Any] = {
             "epoch": 1, "iteration": 0, "epoch_batch": 0,
             "epoch_finished": False, "loss": float("nan"),

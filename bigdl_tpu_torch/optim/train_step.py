@@ -6,14 +6,21 @@ backward, optional gradient clipping (constant, then global L2 norm, as
 the JAX step clips), and the optimizer's in-place update.  With one rank
 the JAX step's reduce-scatter / all-gather cycle is the identity, so
 nothing of it is here; gradient accumulation, EMA, rematerialisation,
-trainable masks and step bundles are not ported and not accepted."""
+trainable masks and step bundles are not ported and not accepted.
+
+Dropout is seeded as the JAX driver seeds it: the run's key is
+``PRNGKey(seed + 1)``, step ``i`` draws from ``fold_in(key, i)`` and the
+one data replica from ``fold_in(step_key, 0)`` — the key the JAX step
+hands to the forward of its replica 0."""
 
 from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.layers import Dropout
 from bigdl_tpu_torch.optim.optim_method import OptimMethod
+from bigdl_tpu_torch.utils import prng
 
 
 @dataclass
@@ -46,23 +53,38 @@ class TrainStep:
     """Trains ``model``'s parameters in place.  ``step(it, x, y)`` runs
     iteration ``it`` (0-based) on a batch already on the model's device
     and returns the loss as a 0-d tensor on that device (reading it
-    waits for the step)."""
+    waits for the step).  A model with active dropout gets the step's
+    key, derived from ``seed``, as ``model(x, key=key)``."""
 
     def __init__(self, model: torch.nn.Module, criterion,
                  optim_method: OptimMethod,
-                 clip: Optional[GradientClipping] = None):
+                 clip: Optional[GradientClipping] = None, seed: int = 42):
         self.model = model
         self.criterion = criterion
         self.optim_method = optim_method
         self.clip = clip
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.opt_state = optim_method.init_state(self.params)
+        self._base_key = None
+        if any(isinstance(m, Dropout) and m.p > 0.0
+               for m in model.modules()):
+            self._base_key = prng.PRNGKey(
+                seed + 1, device=next(model.parameters()).device)
+
+    def step_key(self, step: int) -> Optional[torch.Tensor]:
+        """Replica 0's dropout key of iteration ``step`` (None when the
+        model drops nothing)."""
+        if self._base_key is None:
+            return None
+        return prng.fold_in(prng.fold_in(self._base_key, step), 0)
 
     def __call__(self, step: int, x, y) -> torch.Tensor:
         self.model.train(True)
         for p in self.params:
             p.grad = None
-        loss = self.criterion(self.model(x), y)
+        key = self.step_key(step)
+        out = self.model(x) if key is None else self.model(x, key=key)
+        loss = self.criterion(out, y)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]

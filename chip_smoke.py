@@ -13,7 +13,9 @@ one JSON line:
    from source with nvcc (into ``build/``), one nvcc per source at once;
 3. kernel — each kernel held against its plain PyTorch version at the
    shapes its main path gives it (the flash kernels also at a ragged
-   shape), and timed beside its bound, the plain version and one
+   shape; the verify kernel over float32 and int8 pages; the
+   block-sparse product at the draft's decode and prefill shapes, its
+   dx too), and timed beside its bound, the plain version and one
    PyTorch library call;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
@@ -22,14 +24,24 @@ one JSON line:
    is checked against a full (uncached) forward of the same model;
 5. profile — the same requests again under torch.profiler: the device's
    busy share of the wall time and its time by kernel;
-6. gradcheck — one batch's gradients of every parameter of the same LM
+6. serve_spec — the same requests with ``speculative=SpecConfig(k=4,
+   sparsity=0.5)``: every token checked as in serve, every verify
+   through ``paged_verify_attention`` and every draft FFN through
+   ``block_sparse_matmul`` (launch counts), tokens/s beside serve's,
+   acceptance, agreement with serve's tokens; then spec_profile;
+7. serve_int8 — int8 KV pages and int8 weights, once without and once
+   with speculation (the scan verify on the int8 decode kernel): every
+   token within the int8 tolerance of a full forward of the dequantized
+   weights, launch counts of the int8 kernel, agreement and log-prob
+   drift against serve, page bytes;
+8. gradcheck — one batch's gradients of every parameter of the same LM
    with the flash kernels against plain attention (``use_flash=False``);
-7. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
+9. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
    through ``Optimizer.optimize()``: falling finite losses, step time,
    tokens/s, peak memory, and launch counts showing every attention
    layer's forward and backward went through the flash kernels;
-8. train_profile — two more steps under torch.profiler;
-9. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
+10. train_profile — two more steps under torch.profiler;
+11. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
    the switch that sends the auto path to plain attention: the A/B of
    the flash kernels end to end, and proof that the switch holds.
 
@@ -65,12 +77,23 @@ SEED = 0
 # training geometry of the main path (bench_lm.py's model and batch)
 TRAIN = dict(batch=8, seq=1024, steps=10, lr=1e-4)
 
+# speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
+# the draft's FFN blocks (8, 8)
+SPEC = dict(k=4, sparsity=0.5)
+SPARSE_BLOCK = (8, 8)
+VERIFY_CHUNK = SPEC["k"] + 1
+
 # kernel check tolerance: f32 sums taken in another order over up to
 # 1024 keys
 RTOL, ATOL = 1e-4, 1e-5
 # the flash backward's gradients sum up to 1024 products of unit-scale
 # terms in another order than the plain version: same rtol, atol 1e-4
 BWD_ATOL = 1e-4
+# the block-sparse product sums up to 1536 kept products of unit-normal
+# terms (K = 3072 at half density) in another order than cuBLAS: sums of
+# magnitude ~40, float32 rounding of ~1536 * 6e-8 * 40 / sqrt(1536)
+# apart; atol 1e-3
+BS_ATOL = 1e-3
 # on-card gradient check: per parameter, ||g_flash - g_plain|| over
 # ||g_plain|| + 1e-4 ||g||.  The floor, relative to the whole gradient,
 # holds the attention key bias to rounding noise: its exact gradient is
@@ -93,20 +116,26 @@ def nvidia_smi() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_kernel<64,1>`` (head_dim, causal) from the mangled
-    name of a kernel template instance; other names as they are."""
-    k = re.search(r"(\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
-    if k is None:
+    """``flash_fwd_kernel<64,1>`` (head_dim, causal) or
+    ``paged_decode_kernel<64,int8>`` from the mangled name of a kernel
+    (template instance or not, in a namespace or not); other names as
+    they are."""
+    # the last <length><name> component that names a kernel
+    name, end = None, 0
+    for m in re.finditer(r"(?=(\d+))", mangled):   # every digit run start
+        start, n = m.start() + len(m.group(1)), int(m.group(1))
+        cand = mangled[start:start + n]
+        if cand.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", cand):
+            name, end = cand, start + n
+    if name is None:
         return mangled
-    head = k.group(1)
-    # the last <length><name> component; digits may run into the one
-    # before it, so try every start
-    for n in re.finditer(r"(?=(\d+))", head):
-        end = n.start() + len(n.group(1))
-        if end + int(n.group(1)) == len(head):
-            head = head[end:]
-            break
-    return f"{head}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+    t = re.match(r"I((?:L[ib]\d+E|[fa])+)E", mangled[end:])
+    if t is None:
+        return name
+    args = [a if a.isdigit() else {"f": "f32", "a": "int8"}[a]
+            for a in re.findall(r"L[ib](\d+)E|([fa])", t.group(1))
+            for a in a if a]
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report(logs) -> dict:
@@ -161,20 +190,9 @@ def check_paged_decode(dev, flush):
     from bigdl_tpu_torch.ops.flash_attention import (
         paged_decode_attention, paged_decode_attention_ref)
 
-    S, h, d, page, nb = 16, 12, 64, 16, 64
-    P = S * nb
-    g = torch.Generator().manual_seed(SEED)
-    q = torch.randn(S, h, d, generator=g).to(dev)
-    kp = torch.randn(P, h, page, d, generator=g).to(dev)
-    vp = torch.randn(P, h, page, d, generator=g).to(dev)
-    rs = np.random.RandomState(SEED)
-    lengths = rs.randint(0, nb * page, S)
-    # empty-but-one, the last key of a page, the first of the next, full
-    lengths[:4] = [0, page - 1, page, nb * page - 1]
-    # the engine passes a row-strided slice of its wider table
-    wide = np.zeros((S, nb + 16), np.int32)
-    wide[:, :nb] = rs.permutation(P).reshape(S, nb)
-    pt = torch.from_numpy(wide).to(dev)[:, :nb]
+    q, kp, vp, pt, lengths, _ = _paged_inputs(dev, False)
+    S, h, d = q.shape
+    P, page, nb = kp.shape[0], kp.shape[2], pt.shape[1]
     ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
 
     out = paged_decode_attention(q, kp, vp, pt, ln)
@@ -218,6 +236,231 @@ def check_paged_decode(dev, flush):
           "keys": keys, "bytes": kv_bytes + io_bytes, "flops": flops,
           "rtol": RTOL, "atol": ATOL, **row})
     return row
+
+
+def _paged_inputs(dev, int8: bool):
+    """The serving shapes' query, pools and table: 16 slots, 12 heads,
+    head_dim 64, pages of 16, a 64-page row-strided table over 1024
+    pages.  int8 pools are the per-page quantization of the float32
+    ones."""
+    from bigdl_tpu_torch.ops.quantized import quantize_pages
+
+    S, h, d, page, nb = 16, 12, 64, 16, 64
+    P = S * nb
+    g = torch.Generator().manual_seed(SEED)
+    q = torch.randn(S, h, d, generator=g).to(dev)
+    kp = torch.randn(P, h, page, d, generator=g).to(dev)
+    vp = torch.randn(P, h, page, d, generator=g).to(dev)
+    rs = np.random.RandomState(SEED)
+    lengths = rs.randint(0, nb * page, S)
+    # empty-but-one, the last key of a page, the first of the next, full
+    lengths[:4] = [0, page - 1, page, nb * page - 1]
+    # the engine passes a row-strided slice of its wider table
+    wide = np.zeros((S, nb + 16), np.int32)
+    wide[:, :nb] = rs.permutation(P).reshape(S, nb)
+    pt = torch.from_numpy(wide).to(dev)[:, :nb]
+    sc = {}
+    if int8:
+        kp, ks = quantize_pages(kp)
+        vp, vs = quantize_pages(vp)
+        sc = dict(k_scales=ks, v_scales=vs)
+    return q, kp, vp, pt, lengths, sc
+
+
+def check_paged_decode_int8(dev, flush):
+    """Kernel 2b: the paged decode kernel over int8 pages and per-page
+    scales, at the serving shapes, against its plain version; the
+    yardstick is dequantize-and-gather plus SDPA."""
+    from bigdl_tpu_torch.ops.flash_attention import (
+        _gather_pages, paged_decode_attention, paged_decode_attention_ref)
+
+    q, kp, vp, pt, lengths, sc = _paged_inputs(dev, True)
+    S, h, d = q.shape
+    page, nb = kp.shape[2], pt.shape[1]
+    ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    out = paged_decode_attention(q, kp, vp, pt, ln, **sc)
+    ref = paged_decode_attention_ref(q, kp, vp, pt, ln, **sc)
+    torch.cuda.synchronize()
+    err = _assert_close("paged_decode_attention int8", out, ref, RTOL, ATOL)
+    ms = time_cold(lambda: paged_decode_attention(q, kp, vp, pt, ln, **sc),
+                   flush)
+    plain_ms = time_cold(lambda: paged_decode_attention_ref(
+        q, kp, vp, pt, ln, **sc), flush, reps=10)
+    ptl = pt.long()
+    mask = (torch.arange(nb * page, device=dev)[None, :]
+            <= ln[:, None].long())[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        kg = _gather_pages(kp, sc["k_scales"], ptl)
+        vg = _gather_pages(vp, sc["v_scales"], ptl)
+        return sdpa(q[:, :, None], kg, vg, attn_mask=mask)[:, :, 0]
+
+    _assert_close("the dequantize + SDPA yardstick", library(), ref, RTOL,
+                  ATOL)
+    library_ms = time_cold(library, flush)
+    keys = int(np.minimum(lengths + 1, nb * page).sum())
+    kv_bytes = 2 * keys * h * d                          # int8 K and V
+    io_bytes = 2 * S * h * d * 4 + S * nb * 4 + S * 4 + 2 * S * nb * 4
+    flops = 4 * keys * h * d
+    row = {"name": "paged_decode_attention_int8", "route": "cuda",
+           "source": "bigdl_tpu_torch/ops/csrc/paged_decode_attention.cu",
+           "replaces": "bigdl_tpu/ops/flash_attention.py:213",
+           "launches": None, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, **_bound(kv_bytes + io_bytes, flops),
+           "library_ms": library_ms}
+    emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
+                                       "head_dim": d, "page": page,
+                                       "n_blocks": nb, "pages": kp.shape[0],
+                                       "pages_dtype": "int8"},
+          "keys": keys, "bytes": kv_bytes + io_bytes, "flops": flops,
+          "rtol": RTOL, "atol": ATOL, **row})
+    return row
+
+
+def check_paged_verify(dev, flush):
+    """Kernel 3: the verify kernel at the serving shapes with a chunk of
+    k+1 = 5 queries per slot ending at check_paged_decode's lengths, over
+    float32 pages (the main path) and int8 pages; the yardstick is SDPA
+    over the gathered pages with the staircase mask."""
+    from bigdl_tpu_torch.ops.flash_attention import (
+        _gather_pages, paged_verify_attention, paged_verify_attention_ref)
+
+    C = VERIFY_CHUNK
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for int8 in (False, True):
+        q1, kp, vp, pt, lengths, sc = _paged_inputs(dev, int8)
+        S, h, d = q1.shape
+        page, nb = kp.shape[2], pt.shape[1]
+        g = torch.Generator().manual_seed(SEED + 1)
+        q = torch.randn(S, h, C, d, generator=g).to(dev)
+        pos_np = np.maximum(lengths - (C - 1), 0).astype(np.int32)
+        pos = torch.from_numpy(pos_np).to(dev)
+        out = paged_verify_attention(q, kp, vp, pt, pos, **sc)
+        ref = paged_verify_attention_ref(q, kp, vp, pt, pos, **sc)
+        torch.cuda.synchronize()
+        tag = "int8" if int8 else "f32"
+        err = _assert_close(f"paged_verify_attention {tag}", out, ref, RTOL,
+                            ATOL)
+        ms = time_cold(lambda: paged_verify_attention(q, kp, vp, pt, pos,
+                                                      **sc), flush)
+        plain_ms = time_cold(lambda: paged_verify_attention_ref(
+            q, kp, vp, pt, pos, **sc), flush, reps=10)
+        ptl = pt.long()
+        key = torch.arange(nb * page, device=dev)
+        lim = pos.long()[:, None] + torch.arange(C, device=dev)
+        mask = (key[None, None, :] <= lim[:, :, None])[:, None]
+
+        def library():
+            kg = _gather_pages(kp, sc.get("k_scales"), ptl)
+            vg = _gather_pages(vp, sc.get("v_scales"), ptl)
+            return sdpa(q, kg, vg, attn_mask=mask)
+
+        _assert_close("the SDPA yardstick", library(), ref, RTOL, ATOL)
+        library_ms = time_cold(library, flush)
+        visible = np.minimum(pos_np[:, None] + np.arange(1, C + 1),
+                             nb * page)                  # keys per query
+        keys = int(np.minimum(pos_np + C, nb * page).sum())
+        kv_bytes = 2 * keys * h * d * (1 if int8 else 4)
+        io_bytes = 2 * S * h * C * d * 4 + S * nb * 4 + S * 4
+        flops = 4 * int(visible.sum()) * h * d
+        rows[tag] = {"name": "paged_verify_attention", "route": "cuda",
+                     "source": "bigdl_tpu_torch/ops/csrc/"
+                               "paged_verify_attention.cu",
+                     "replaces": "bigdl_tpu/ops/flash_attention.py:514",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms,
+                     **_bound(kv_bytes + io_bytes, flops),
+                     "library_ms": library_ms}
+        emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
+                                           "chunk": C, "head_dim": d,
+                                           "page": page, "n_blocks": nb,
+                                           "pages_dtype": tag},
+              "keys": keys, "bytes": kv_bytes + io_bytes, "flops": flops,
+              "rtol": RTOL, "atol": ATOL, **rows[tag]})
+    row = dict(rows["f32"])
+    row["int8_pages"] = {k: rows["int8"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    return row
+
+
+def check_block_sparse(dev, flush):
+    """Kernel 5: the block-sparse product at the draft FFN's shapes —
+    M = 16 (a decode step of 16 slots) and 256 (a prefill call of 4 x 64
+    tokens), K/N = 768/3072 (l1) and 3072/768 (l2), blocks (8, 8) and
+    (64, 64), half of the blocks kept — and its dx at M = 256, against
+    the plain version; the yardstick is ``torch.matmul`` of the masked
+    weight.  The row reports the draft step's l1 at (8, 8)."""
+    from bigdl_tpu_torch.ops.block_sparse import (ColumnPlan, _bs_raw,
+                                                  block_sparse_matmul_ref)
+
+    d, f = LM["hidden_size"], LM["ffn_size"]
+    rs = np.random.RandomState(SEED)
+    rows, worst = [], 0.0
+    for blk in (SPARSE_BLOCK, (64, 64)):
+        for k, n in ((d, f), (f, d)):
+            nkb, nnb = -(-k // blk[0]), -(-n // blk[1])
+            mask = np.zeros(nkb * nnb, bool)
+            mask[rs.permutation(nkb * nnb)[: nkb * nnb // 2]] = True
+            mask = mask.reshape(nkb, nnb)
+            plan = ColumnPlan(mask, *blk)
+            g = torch.Generator().manual_seed(SEED)
+            w = torch.randn(k, n, generator=g).to(dev)
+            wm = torch.where(plan.on(w.device, k, n)[2], w, 0.0)
+            kept = int(mask.sum()) * blk[0] * blk[1]
+            for m in (16, 256):
+                x = torch.randn(m, k, generator=g).to(dev)
+                out = _bs_raw(x, w, plan)
+                ref = block_sparse_matmul_ref(x, w, plan)
+                torch.cuda.synchronize()
+                shape = {"m": m, "k": k, "n": n, "block": list(blk),
+                         "density": float(mask.mean())}
+                err = _assert_close(f"block_sparse_matmul {shape}", out,
+                                    ref, RTOL, BS_ATOL)
+                worst = max(worst, err)
+                r = {"shape": shape, "max_abs_err": err,
+                     "ms": time_cold(lambda: _bs_raw(x, w, plan), flush),
+                     "plain_ms": time_cold(
+                         lambda: block_sparse_matmul_ref(x, w, plan), flush),
+                     "library_ms": time_cold(lambda: torch.matmul(x, wm),
+                                             flush),
+                     **_bound(4 * (m * k + kept + m * n), 2 * m * kept)}
+                if m == 256:
+                    # dx = g @ (w masked)^T: the kernel on the transposed
+                    # plan
+                    go = torch.randn(m, n, generator=g).to(dev)
+                    wt, tplan = w.t().contiguous(), plan.transposed()
+                    dx = _bs_raw(go, wt, tplan)
+                    dref = block_sparse_matmul_ref(go, wt, tplan)
+                    torch.cuda.synchronize()
+                    derr = _assert_close(f"block_sparse_matmul dx {shape}",
+                                         dx, dref, RTOL, BS_ATOL)
+                    worst = max(worst, derr)
+                    wmt = wm.t()
+                    r["dx"] = {
+                        "max_abs_err": derr,
+                        "ms": time_cold(lambda: _bs_raw(go, wt, tplan),
+                                        flush),
+                        "plain_ms": time_cold(lambda: block_sparse_matmul_ref(
+                            go, wt, tplan), flush),
+                        "library_ms": time_cold(
+                            lambda: torch.matmul(go, wmt), flush),
+                        **_bound(4 * (m * n + kept + m * k), 2 * m * kept)}
+                emit({"phase": "kernel", "name": "block_sparse_matmul",
+                      "rtol": RTOL, "atol": BS_ATOL, **r})
+                rows.append(r)
+    main = rows[0]          # M = 16, l1 (768 -> 3072), blocks (8, 8)
+    return {"name": "block_sparse_matmul", "route": "cuda",
+            "source": "bigdl_tpu_torch/ops/csrc/block_sparse_matmul.cu",
+            "replaces": "bigdl_tpu/ops/block_sparse.py:148",
+            "launches": None, "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            "m256": {k: rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "dx")}}
 
 
 def _visible_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -369,21 +612,7 @@ def serve(dev):
         # every generated token against a full uncached forward of the
         # same model: finite logits, the token within 1e-3 of the top
         # logit, and the request's summed log-prob within 1e-3
-        worst_gap = worst_logp = 0.0
-        with torch.no_grad():
-            for p, r in zip(prompts, results):
-                ids = np.concatenate([p, r.tokens[:-1]])
-                logits = im.model(torch.from_numpy(ids)[None].to(dev))[0]
-                if not torch.isfinite(logits).all():
-                    raise AssertionError("NaN or inf logit")
-                rows = logits[len(p) - 1:]
-                tok = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
-                picked = rows.gather(1, tok[:, None])[:, 0]
-                gap = (rows.max(dim=1).values - picked).max().item()
-                lp = torch.log_softmax(rows, dim=1).gather(
-                    1, tok[:, None]).sum().item()
-                worst_gap = max(worst_gap, gap)
-                worst_logp = max(worst_logp, abs(lp - r.logp))
+        worst_gap, worst_logp = check_tokens(im, prompts, results, dev)
         if worst_gap > 1e-3 or worst_logp > 1e-3:
             raise AssertionError(f"served tokens disagree with the full "
                                  f"forward: logit gap {worst_gap}, logp "
@@ -404,13 +633,214 @@ def serve(dev):
               "launches": launches, "nan_logits": False,
               "max_logit_gap": worst_gap, "max_logp_err": worst_logp,
               "static_agree": f"{agree}/{len(results)}",
+              "kv_bytes_per_page": eng.kv_bytes_per_page(),
               "wall_s": wall, "tokens_per_s": n_tok / wall,
               "setup_s": setup_s,
               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30})
         emit({"phase": "profile", **profile_serving(im, prompts)})
+        return launches, prompts, results, n_tok / wall
+    finally:
+        im.stop()
+
+
+def check_tokens(im, prompts, results, dev, tol_fn=None):
+    """Every generated token against a full uncached forward of the
+    served model (its dequantized weights under ``weight_quant``).
+    Returns (worst gap of a token's logit below the top logit, worst
+    |summed log-prob - the forward's|).  With ``tol_fn(rows)`` — the
+    allowed gap of each row of logits — a token past its row's
+    allowance raises here."""
+    worst_gap = worst_logp = 0.0
+    with torch.no_grad(), im.weights():
+        for p, r in zip(prompts, results):
+            ids = np.concatenate([p, r.tokens[:-1]])
+            logits = im.model(torch.from_numpy(ids)[None].to(dev))[0]
+            if not torch.isfinite(logits).all():
+                raise AssertionError("NaN or inf logit")
+            rows = logits[len(p) - 1:]
+            tok = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
+            picked = rows.gather(1, tok[:, None])[:, 0]
+            gaps = rows.max(dim=1).values - picked
+            if tol_fn is not None and bool((gaps > tol_fn(rows)).any()):
+                raise AssertionError(
+                    f"a served token is {gaps.max().item()} below the top "
+                    f"logit, past its tolerance "
+                    f"{tol_fn(rows)[gaps.argmax()].item()}")
+            lp = torch.log_softmax(rows, dim=1).gather(
+                1, tok[:, None]).sum().item()
+            worst_gap = max(worst_gap, gaps.max().item())
+            worst_logp = max(worst_logp, abs(lp - r.logp))
+    return worst_gap, worst_logp
+
+
+def int8_gap_tolerance(rows):
+    """How far below the top logit an int8-KV token may sit, per row of
+    the reference logits, derived from the int8 step: a page's values
+    are stored to within half a step, amax/254, so every attention input
+    of a layer carries a relative error of at most 1/254 of its page's
+    largest value.  Counting that error once per layer, undamped, the
+    last hidden state's error is at most num_layers/254 of its scale,
+    and so is each logit's error relative to the row's largest |logit|.
+    The served token maximised the perturbed logits, so its reference
+    logit sits at most twice that error below the top one:
+    2 * num_layers / 254 * max|logit| of the row."""
+    return 2 * LM["num_layers"] / 254.0 * rows.abs().amax(dim=1)
+
+
+def _spec_launches_check(launches, steps, calls, k, name):
+    """Hard check of a speculative run: every draft FFN of every draft
+    step and draft prefill call went through the block-sparse kernel."""
+    L = LM["num_layers"]
+    want_bs = 2 * L * (k + 1) * steps + 2 * L * calls
+    if launches.get("block_sparse_matmul", 0) != want_bs:
+        raise AssertionError(f"{name}: block_sparse_matmul launched "
+                             f"{launches.get('block_sparse_matmul', 0)} "
+                             f"times, want {want_bs} (24 x {k + 1} x {steps} "
+                             f"iterations + 24 x {calls} prefill calls)")
+    return want_bs
+
+
+def _serve_run(im, prompts):
+    """One timed generate of ``prompts`` on ``im``: (results, wall s,
+    launches, engine stats delta)."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+
+    eng = im.decode_engine
+    before = dict(eng.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    results = im.generate(prompts, return_results=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    delta = {k: v - before.get(k, 0) for k, v in eng.stats.items()}
+    if len(results) != len(prompts) or any(
+            r.finish_reason not in ("eos", "length") or len(r.tokens) < 1
+            or not np.isfinite(r.logp) for r in results):
+        raise AssertionError(f"not every request was answered: "
+                             f"{[r.finish_reason for r in results]}")
+    return results, wall, launches, delta
+
+
+def serve_spec(dev, prompts, ref_results, ref_tps):
+    """Drive the speculative serving path once and check what comes
+    out; then profile it."""
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.serving import (DecodeConfig, InferenceModel,
+                                         SpecConfig)
+
+    t0 = time.perf_counter()
+    model = Transformer(**LM, dropout=0.0, seed=SEED)
+    im = InferenceModel(model, decode=DecodeConfig(
+        **DECODE, speculative=SpecConfig(**SPEC)), device=dev)
+    try:
+        im.warmup()
+        setup_s = time.perf_counter() - t0
+        results, wall, launches, d = _serve_run(im, prompts)
+        steps, calls = d["steps"], d["prefill_calls"]
+        L = LM["num_layers"]
+        if steps < 1 or launches.get("paged_verify_attention", 0) \
+                != L * steps:
+            raise AssertionError(f"paged_verify_attention launched "
+                                 f"{launches} times over {steps} speculative "
+                                 f"iterations of {L} layers")
+        _spec_launches_check(launches, steps, calls, SPEC["k"],
+                             "serve_spec")
+        gap, dlogp = check_tokens(im, prompts, results, dev)
+        if gap > 1e-3:
+            raise AssertionError(f"speculative tokens disagree with the full "
+                                 f"forward: logit gap {gap}")
+        n_tok = int(sum(len(r.tokens) for r in results))
+        agree = sum(a.tokens.tolist() == b.tokens.tolist()
+                    for a, b in zip(results, ref_results))
+        emit({"phase": "serve_spec", "spec": SPEC,
+              "sparse_block": list(SPARSE_BLOCK), "requests": len(results),
+              "answered": len(results), "generated_tokens": n_tok,
+              "spec_iterations": steps, "prefill_calls": calls,
+              "launches": launches, "max_logit_gap": gap,
+              "max_logp_err": dlogp,
+              "drafted": d["spec_drafted"], "accepted": d["spec_accepted"],
+              "rejected": d["spec_rejected"],
+              "accept_rate": d["spec_accepted"] / max(d["spec_drafted"], 1),
+              "tokens_per_iteration": n_tok / max(steps, 1),
+              "spec_off_agree": f"{agree}/{len(results)}",
+              "wall_s": wall, "tokens_per_s": n_tok / wall,
+              "spec_off_tokens_per_s": ref_tps, "setup_s": setup_s,
+              "kv_bytes_per_page": im.decode_engine.kv_bytes_per_page(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30})
+        emit({"phase": "spec_profile",
+              **_profile(lambda: im.generate(prompts))})
         return launches
     finally:
         im.stop()
+
+
+def serve_int8(dev, prompts, ref_results):
+    """Int8 KV pages and int8 weights, spec off then on."""
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.serving import (DecodeConfig, InferenceModel,
+                                         SpecConfig)
+
+    out = {}
+    L = LM["num_layers"]
+    for spec in (None, SpecConfig(**SPEC)):
+        # the float32 model is not kept: the engine serves its int8 copy
+        im = InferenceModel(Transformer(**LM, dropout=0.0, seed=SEED),
+                            decode=DecodeConfig(**DECODE, kv_dtype="int8",
+                                                speculative=spec),
+                            device=dev, weight_quant="int8")
+        try:
+            im.warmup()
+            results, wall, launches, d = _serve_run(im, prompts)
+            steps = d["steps"]
+            # spec off: one int8 decode launch per layer and step; spec on:
+            # the scan verify runs k+1 decode-step bodies per iteration
+            bodies = steps * (1 if spec is None else SPEC["k"] + 1)
+            if steps < 1 or launches.get("paged_decode_attention_int8", 0) \
+                    != L * bodies or launches.get("paged_decode_attention"):
+                raise AssertionError(f"int8 decode launched {launches} "
+                                     f"times over {bodies} decode bodies of "
+                                     f"{L} layers")
+            if spec is not None:
+                _spec_launches_check(launches, steps, d["prefill_calls"],
+                                     SPEC["k"], "serve_int8 spec")
+            gap, dlogp = check_tokens(im, prompts, results, dev,
+                                      int8_gap_tolerance)
+            n_tok = int(sum(len(r.tokens) for r in results))
+            agree = sum(a.tokens.tolist() == b.tokens.tolist()
+                        for a, b in zip(results, ref_results))
+            drift = [abs(a.logp - b.logp)
+                     for a, b in zip(results, ref_results)
+                     if a.tokens.tolist() == b.tokens.tolist()]
+            tag = "spec" if spec is not None else "plain"
+            w8 = im.decode_engine.adapter._w8
+            row = {"phase": "serve_int8", "speculative": spec is not None,
+                   "requests": len(results), "answered": len(results),
+                   "generated_tokens": n_tok, "iterations": steps,
+                   "launches": launches, "max_logit_gap": gap,
+                   "gap_tolerance": f"2 * {L} / 254 * max|logit| of the row",
+                   "max_logp_err_vs_forward": dlogp,
+                   "f32_agree": f"{agree}/{len(results)}",
+                   "logp_drift_max": max(drift) if drift else None,
+                   "logp_drift_mean": float(np.mean(drift)) if drift
+                   else None,
+                   "kv_bytes_per_page": im.decode_engine.kv_bytes_per_page(),
+                   "weight_bytes_at_rest": w8.nbytes(),
+                   "wall_s": wall, "tokens_per_s": n_tok / wall,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                   / 2**30}
+            if spec is not None:
+                row.update(drafted=d["spec_drafted"],
+                           accepted=d["spec_accepted"],
+                           accept_rate=d["spec_accepted"]
+                           / max(d["spec_drafted"], 1))
+            emit(row)
+            out[tag] = launches
+        finally:
+            im.stop()
+    return out
 
 
 def profile_serving(im, prompts) -> dict:
@@ -623,10 +1053,23 @@ def main() -> int:
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     decode_row = check_paged_decode(dev, flush)
+    int8_row = check_paged_decode_int8(dev, flush)
+    verify_row = check_paged_verify(dev, flush)
+    sparse_row = check_block_sparse(dev, flush)
     fwd_row, bwd_row = check_flash(dev, flush)
     del flush
+    torch.cuda.empty_cache()
 
-    decode_row["launches"] = serve(dev).get(decode_row["name"], 0)
+    launches, prompts, results, tps = serve(dev)
+    decode_row["launches"] = launches.get(decode_row["name"], 0)
+    torch.cuda.empty_cache()
+    launches = serve_spec(dev, prompts, results, tps)
+    verify_row["launches"] = launches.get(verify_row["name"], 0)
+    sparse_row["launches"] = launches.get(sparse_row["name"], 0)
+    torch.cuda.empty_cache()
+    launches = serve_int8(dev, prompts, results)
+    int8_row["launches"] = launches["plain"].get(int8_row["name"], 0)
+    int8_row["launches_spec"] = launches["spec"].get(int8_row["name"], 0)
     torch.cuda.empty_cache()
     launches = train(dev)
     fwd_row["launches"] = launches.get("flash_attention_fwd", 0)
@@ -635,7 +1078,8 @@ def main() -> int:
     # one backward call launches both entry points
     bwd_row["launches"] = min(bwd_entries.values())
     bwd_row["launches_by_entry"] = bwd_entries
-    emit({"kernels": [decode_row, fwd_row, bwd_row]})
+    emit({"kernels": [decode_row, int8_row, fwd_row, bwd_row, verify_row,
+                      sparse_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

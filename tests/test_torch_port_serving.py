@@ -182,7 +182,9 @@ def test_deadline_expires_request(lm):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(kv_dtype="int8"), "int8"),
+    # int8 pages are ported; another page type is still refused
+    (dict(kv_dtype="int4"), "int8"),
+    # speculation is ported; only a SpecConfig turns it on
     (dict(speculative=object()), "speculative"),
     (dict(prefix_cache_pages=4), "prefix cache"),
     (dict(slots=1), ">= 2"),
@@ -193,10 +195,15 @@ def test_config_refuses_unported(kw, match):
 
 
 def test_sampling_and_bad_prompts_refused(lm):
+    """Sampling is served now (its parity with JAX is in
+    test_torch_port_prng.py); bad prompts are still refused."""
     im = _port(lm)
     try:
-        with pytest.raises(ValueError, match="temperature"):
-            im.generate(_prompts()[:1], temperature=0.8)
+        got = im.generate(_prompts()[:2], temperature=0.8, top_k=5,
+                          seeds=[3, 4])
+        again = im.generate(_prompts()[:2], temperature=0.8, top_k=5,
+                            seeds=[3, 4])
+        assert [g.tolist() for g in got] == [a.tolist() for a in again]
         with pytest.raises(ValueError, match="empty prompt"):
             im.generate([np.zeros((0,), np.int32)])
         with pytest.raises(ValueError, match="cap"):
