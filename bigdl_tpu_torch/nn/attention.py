@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear, xavier_
+from bigdl_tpu_torch.nn import init
+from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.tensor.policy import cast_compute
 from bigdl_tpu_torch.utils import prng
@@ -102,7 +103,7 @@ class MultiHeadAttention(nn.Module):
         for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"),
                      ("wo", "bo")):
             setattr(self, w, nn.Parameter(
-                xavier_(torch.empty(d, d), d, d, generator)))
+                init.xavier(generator, (d, d), d, d)))
             setattr(self, b, nn.Parameter(torch.zeros(d)))
 
     def _split(self, x):

@@ -1,0 +1,157 @@
+"""Module base and containers — the port of ``bigdl_tpu.nn.module``.
+
+The JAX package's modules are stateless descriptions with an explicit
+``{"params", "state"}`` tree; here they are ``torch.nn.Module``s that
+own their parameters (and BatchNorm's running statistics as buffers).
+A container registers its ``i``-th child under the JAX key
+``f"{i}_{child.name}"``, so ``named_parameters()`` and
+``named_buffers()`` spell the JAX ``params`` and ``state`` trees and
+``utils.convert`` copies variables across one to one.  The JAX
+``training=`` argument is the module's ``train()`` / ``eval()`` mode."""
+
+from typing import Callable, Optional, Sequence
+
+import torch
+from torch import nn
+
+
+class Module(nn.Module):
+    """Base of the port's layers: a ``name`` (default: the class name),
+    which a container uses in its child's key."""
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__()
+        self.name = name or type(self).__name__
+
+
+class Container(Module):
+    """Module with sub-modules, keyed ``f"{i}_{name}"``."""
+
+    def __init__(self, layers: Sequence[nn.Module] = (),
+                 name: Optional[str] = None):
+        super().__init__(name)
+        for layer in layers:
+            self.add(layer)
+
+    def add(self, layer: nn.Module) -> "Container":
+        name = getattr(layer, "name", type(layer).__name__)
+        self.add_module(f"{len(self._modules)}_{name}", layer)
+        return self
+
+    @property
+    def layers(self):
+        return list(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return self.layers[i]
+
+
+def _as_tuple(y):
+    return y if isinstance(y, tuple) else (y,)
+
+
+class Sequential(Container):
+    """Feed-forward chain; a child that returns a tuple feeds its
+    elements to the next child as separate inputs."""
+
+    def forward(self, *xs):
+        for layer in self._modules.values():
+            xs = _as_tuple(layer(*xs))
+        return xs[0] if len(xs) == 1 else xs
+
+
+class Concat(Container):
+    """Runs every child on the same input and concatenates the outputs
+    along ``dim`` (default -1, the NHWC channel axis)."""
+
+    def __init__(self, layers=(), dim: int = -1, name=None):
+        super().__init__(layers, name)
+        self.dim = dim
+
+    def forward(self, *xs):
+        return torch.cat([m(*xs) for m in self._modules.values()],
+                         dim=self.dim)
+
+
+class ConcatTable(Container):
+    """Runs every child on the same input; returns the tuple of
+    outputs."""
+
+    def forward(self, *xs):
+        return tuple(m(*xs) for m in self._modules.values())
+
+
+def _table(xs):
+    """Varargs, or one tuple/list, as a tuple."""
+    if len(xs) == 1 and isinstance(xs[0], (tuple, list)):
+        return tuple(xs[0])
+    return xs
+
+
+class ParallelTable(Container):
+    """The i-th child consumes the i-th input."""
+
+    def forward(self, *xs):
+        xs = _table(xs)
+        return tuple(m(x) for m, x in zip(self._modules.values(), xs))
+
+
+class Identity(Module):
+    def forward(self, x):
+        return x
+
+
+class Lambda(Module):
+    """A pure function of the inputs as a module."""
+
+    def __init__(self, fn: Callable, name=None):
+        super().__init__(name or getattr(fn, "__name__", "Lambda"))
+        self.fn = fn
+
+    def forward(self, *xs):
+        return self.fn(*xs)
+
+
+class CAddTable(Module):
+    """Elementwise sum of a table input."""
+
+    def forward(self, *xs):
+        xs = _table(xs)
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+
+class CMulTable(Module):
+    """Elementwise product of a table input."""
+
+    def forward(self, *xs):
+        xs = _table(xs)
+        out = xs[0]
+        for x in xs[1:]:
+            out = out * x
+        return out
+
+
+class JoinTable(Module):
+    """Concatenates a table input along ``dim``."""
+
+    def __init__(self, dim: int = -1, name=None):
+        super().__init__(name)
+        self.dim = dim
+
+    def forward(self, *xs):
+        return torch.cat(list(_table(xs)), dim=self.dim)
+
+
+class SelectTable(Module):
+    def __init__(self, index: int, name=None):
+        super().__init__(name)
+        self.index = index
+
+    def forward(self, *xs):
+        return _table(xs)[self.index]

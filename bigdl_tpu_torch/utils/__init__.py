@@ -1,3 +1,6 @@
-from bigdl_tpu_torch.utils.convert import export_params, load_jax_params
+from bigdl_tpu_torch.utils.convert import (export_params, export_variables,
+                                           load_jax_params,
+                                           load_jax_variables)
 
-__all__ = ["export_params", "load_jax_params"]
+__all__ = ["export_params", "export_variables", "load_jax_params",
+           "load_jax_variables"]

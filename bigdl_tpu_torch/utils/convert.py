@@ -1,16 +1,24 @@
-"""Weight bridge between the JAX package's params trees and the port's
+"""Weight bridge between the JAX package's variables trees and the port's
 modules.
 
-A JAX params tree is nested dicts of arrays whose keys are the port's
-attribute names, except ``dec{i}``, which is ``decoder[i]``::
+A JAX params (or state) tree is nested dicts of arrays whose keys are the
+port's attribute names, except ``dec{i}``, which is ``decoder[i]`` of the
+Transformer::
 
     {"embedding", "dec0": {"ln1": {"weight", "bias"}, "ln2": ...,
      "attn": {"wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"},
      "ffn": {"l1": {"weight", "bias"}, "l2": ...}}, ..., "ln_out": ...}
 
-Both packages store Linear weights (in, out), so values copy as they
-are.  The same walk applies to any sub-module (a ``TransformerLayer``
-with its own ``{"attn", "ln1", ...}`` tree)."""
+A container's child is the key ``f"{i}_{name}"`` in both packages, and
+BatchNorm's running statistics are the ``state`` tree's leaves and the
+port's buffers::
+
+    params {"0_Conv2D": {"weight"}, "1__BN": {"weight", "bias"},
+            "4_Bottleneck": {"body": {"0_Conv2D": ...}, "proj": ...}}
+    state  {"1__BN": {"running_mean", "running_var"}, ...}
+
+Both packages store Linear weights (in, out) and conv kernels HWIO, so
+values copy as they are.  The same walk applies to any sub-module."""
 
 import re
 from typing import Any, Dict
@@ -33,14 +41,18 @@ def _child(module: nn.Module, key: str):
 
 def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
     """Copy ``params`` (nested dicts of numpy or JAX arrays) into
-    ``model``'s parameters in place; every leaf must match a parameter
-    of the same shape.  Returns ``model``."""
+    ``model``'s parameters (or, for a state tree, its buffers) in place;
+    every leaf must match a tensor of the same shape.  Returns
+    ``model``."""
     with torch.no_grad():
         for key, val in params.items():
             target = _child(model, key)
             if isinstance(val, dict):
                 load_jax_params(target, val)
                 continue
+            if not isinstance(target, torch.Tensor):
+                raise KeyError(f"{key}: the port's {type(target).__name__} "
+                               f"is not a tensor")
             arr = np.array(val, dtype=np.float32)   # a writable copy
             if tuple(target.shape) != arr.shape:
                 raise ValueError(f"{key}: shape {arr.shape} does not match "
@@ -49,16 +61,39 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
     return model
 
 
-def export_params(model: nn.Module) -> Dict[str, Any]:
-    """The params tree of ``model`` as nested dicts of float32 numpy
-    arrays, keyed as the JAX package keys it."""
+def load_jax_variables(model: nn.Module,
+                       variables: Dict[str, Any]) -> nn.Module:
+    """Copy a JAX ``{"params", "state"}`` tree into ``model``: params into
+    its parameters, state into its buffers.  Returns ``model``."""
+    load_jax_params(model, variables.get("params", {}))
+    load_jax_params(model, variables.get("state", {}))
+    return model
+
+
+def _tree(named) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
+    for name, t in named:
         parts = name.split(".")
         if parts[0] == "decoder":
             parts = [f"dec{parts[1]}"] + parts[2:]
         node = tree
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = p.detach().cpu().numpy().astype(np.float32)
+        node[parts[-1]] = t.detach().cpu().numpy().astype(np.float32)
     return tree
+
+
+def export_params(model: nn.Module) -> Dict[str, Any]:
+    """The params tree of ``model`` as nested dicts of float32 numpy
+    arrays, keyed as the JAX package keys it."""
+    return _tree(model.named_parameters())
+
+
+def export_variables(model: nn.Module) -> Dict[str, Any]:
+    """``{"params": ..., "state": ...}`` of ``model`` as the JAX package
+    keys them: the parameters, and the persistent buffers (BatchNorm's
+    running statistics)."""
+    persistent = set(model.state_dict().keys())
+    return {"params": export_params(model),
+            "state": _tree((n, b) for n, b in model.named_buffers()
+                           if n in persistent)}

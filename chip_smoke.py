@@ -15,8 +15,10 @@ one JSON line:
    shapes its main path gives it (the flash kernels also at a ragged
    shape; the verify kernel over float32 and int8 pages; the
    block-sparse product at the draft's decode and prefill shapes, its
-   dx too), and timed beside its bound, the plain version and one
-   PyTorch library call;
+   dx too; the int8 matmul exactly at every shape of a ResNet-50
+   forward at bucket 16, at LeNet-5's ragged shapes and at M = 1), and
+   timed beside its bound, the plain version and one PyTorch library
+   call;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
    requests through ``InferenceModel.generate``; the launch counts show
@@ -34,14 +36,21 @@ one JSON line:
    token within the int8 tolerance of a full forward of the dequantized
    weights, launch counts of the int8 kernel, agreement and log-prob
    drift against serve, page bytes;
-8. gradcheck — one batch's gradients of every parameter of the same LM
+8. serve_resnet — ResNet-50 (random weights from seed 0, every BN
+   redrawn) served through ``InferenceModel.predict`` in float32 and
+   with ``weight_quant="int8"``: requests of 1, 3, 16 and 50 NHWC
+   224x224 images (buckets 1, 4, 16, 64), then 20 of 64; float32 held
+   to a direct forward, int8 to float32 (top-1 agreement, log-prob
+   drift), 54 int8-kernel launches a bucket call, images/s, peak
+   memory, weight bytes; then resnet_profile;
+9. gradcheck — one batch's gradients of every parameter of the same LM
    with the flash kernels against plain attention (``use_flash=False``);
-9. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
+10. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
    through ``Optimizer.optimize()``: falling finite losses, step time,
    tokens/s, peak memory, and launch counts showing every attention
    layer's forward and backward went through the flash kernels;
-10. train_profile — two more steps under torch.profiler;
-11. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
+11. train_profile — two more steps under torch.profiler;
+12. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
    the switch that sends the auto path to plain attention: the A/B of
    the flash kernels end to end, and proof that the switch holds.
 
@@ -61,9 +70,10 @@ import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores
+# the tensor cores, int8 tensor-core OP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+INT8_OPS = 1.979e15
 
 # the model of both main paths (bench_lm.py's), and the serving geometry
 LM = dict(vocab_size=32768, hidden_size=768, num_heads=12, ffn_size=3072,
@@ -101,6 +111,32 @@ BS_ATOL = 1e-3
 # noise means nothing.  1e-4: twelve layers of float32 sums in another
 # order stay far below it.
 GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-4
+
+# the vision serving phase: ResNet-50 (stem "conv", 1000 classes), NHWC
+# 224x224x3 images; requests of 1, 3, 16 and 50 images hit buckets 1, 4,
+# 16 and 64, then 20 requests of 64 measure throughput.  The largest
+# bucket is 64: at 256 the stem's im2col patches alone are 1.9 GB.
+IMAGE = (224, 224, 3)
+RESNET_BUCKETS = (1, 4, 16, 64)
+RESNET_REQUESTS = (1, 3, 16, 50)
+RESNET_THROUGHPUT = (20, 64)
+# ResNet-50's int8 products a forward: the stem, 16 blocks x 3 convs, 4
+# projections, the head
+RESNET_INT8_CALLS = 54
+# float32 predict against a direct forward of the same rows: another
+# batch size can take another cuDNN algorithm, float32 sums in another
+# order, 1e-5 of the largest |log-prob|
+RESNET_F32_RTOL = 1e-5
+# int8 against float32, max |log-prob difference| over max |log-prob|.
+# Derived before the first run: each quantized layer rounds its
+# activations to half a step of its row's abs-max / 127 and its weights
+# to half a step of the column's; as independent uniform errors of
+# variance step^2 / 12 they add a relative RMS error of sqrt(2/12) *
+# (abs-max / RMS) / 127 = 0.013 for an abs-max/RMS ratio of 4.  Over 54
+# layers that add in quadrature, with no damping and no credit for the
+# average pool: 0.013 * sqrt(54) = 0.095 of the logits' spread, which
+# max |log-prob| (>= the spread of the logits) bounds.  Budget 0.1.
+INT8_LOGP_RTOL = 0.1
 
 
 def emit(obj) -> None:
@@ -1027,6 +1063,313 @@ def train(dev):
     return launches
 
 
+def resnet_model():
+    """ResNet-50 (stem "conv", 1000 classes) on the CPU, random weights
+    from ``torch.Generator`` seed 0, every BatchNorm redrawn from it
+    (weight U(0.5, 1.5), bias N(0, 0.1), running mean N(0, 0.1), running
+    variance U(0.5, 1.5)): at init the last BN of every block is 0
+    (``gamma_zero``), which would make every residual body output 0 and
+    let a check pass without its convs."""
+    from bigdl_tpu_torch.models import resnet50
+    from bigdl_tpu_torch.nn import BatchNorm
+
+    g = torch.Generator().manual_seed(SEED)
+    model = resnet50(classes=1000, stem="conv", generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    return model.eval()
+
+
+def int8_shapes(model, batch, dev):
+    """(M, K, N) of each int8 product of one forward of ``model`` at
+    ``batch`` images, in order, from hooks on its float Conv2D / Linear
+    leaves (one float forward on the card)."""
+    from bigdl_tpu_torch.nn import Conv2D, Linear
+
+    shapes = []
+
+    def hook(m, inp, out):
+        rows = out.numel() // out.shape[-1]
+        if isinstance(m, Linear):
+            shapes.append((rows, m.in_features, m.out_features))
+        else:
+            kh, kw = m.kernel_size
+            shapes.append((rows, kh * kw * m.in_channels // m.groups,
+                           m.out_channels))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv2D, Linear))]
+    try:
+        with torch.no_grad():
+            model.to(dev)(torch.zeros(batch, *IMAGE, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def _int8_bound(m, k, n):
+    t_ops = 2 * m * k * n / INT8_OPS * 1e3
+    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    return t_ops, t_bytes
+
+
+def check_int8_matmul(dev, flush, resnet_shapes):
+    """Kernel 4: the int8 matmul against its plain version, EXACTLY, at
+    every distinct (M, K, N) of one ResNet-50 forward at bucket 16, at
+    LeNet-5's ragged shapes (batch 16) and at M = 1; each timed beside
+    its bound, its plain version and ``torch._int_mm`` (which needs
+    M > 16 and K, N multiples of 8: its operands are zero-padded to
+    that, and its result checked too).  The row is the sum over the 54
+    calls of the bucket-16 forward."""
+    from collections import Counter
+
+    from bigdl_tpu_torch.ops.common import round_up
+    from bigdl_tpu_torch.ops.quantized import int8_matmul, int8_matmul_plain
+
+    counts = Counter(resnet_shapes)
+    lenet = [(16 * 28 * 28, 25, 6), (16 * 10 * 10, 150, 12), (16, 300, 100),
+             (16, 100, 10)]
+    single = [(1, 147, 64), (1, 2048, 1000)]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    per_shape = {}
+    for m, k, n in list(counts) + lenet + single:
+        x = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                          dtype=torch.int16).to(torch.int8)
+        w = torch.randint(-127, 128, (k, n), device=dev, generator=g,
+                          dtype=torch.int16).to(torch.int8)
+        out = int8_matmul(x, w)
+        ref = int8_matmul_plain(x, w)
+        mp, kp, np_ = max(m, 17), round_up(k, 8), round_up(n, 8)
+        xp = torch.zeros((mp, kp), dtype=torch.int8, device=dev)
+        wp = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
+        xp[:m, :k] = x
+        wp[:k, :n] = w
+        lib = torch._int_mm(xp, wp)[:m, :n]
+        torch.cuda.synchronize()
+        wrong = int((out != ref).sum().item())
+        if wrong or out.dtype != torch.int32:
+            raise AssertionError(f"int8_matmul ({m}, {k}, {n}) disagrees with "
+                                 f"its plain version in {wrong} of {m * n} "
+                                 f"outputs")
+        if not torch.equal(lib, ref):
+            raise AssertionError(f"torch._int_mm ({m}, {k}, {n}) disagrees "
+                                 f"with the plain version")
+        t_ops, t_bytes = _int8_bound(m, k, n)
+        r = {"shape": [m, k, n], "calls": counts.get((m, k, n), 0),
+             "max_abs_err": (out - ref).abs().max().item(),
+             "ms": time_cold(lambda: int8_matmul(x, w), flush),
+             "plain_ms": time_cold(lambda: int8_matmul_plain(x, w), flush,
+                                   reps=10),
+             "library_ms": time_cold(lambda: torch._int_mm(xp, wp), flush),
+             "library_padded_to": [mp, kp, np_],
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        r["tops"] = 2 * m * k * n / r["ms"] / 1e9
+        per_shape[(m, k, n)] = r
+        emit({"phase": "kernel", "name": "int8_matmul", "exact": True, **r})
+        del x, w, out, ref, xp, wp, lib
+
+    def total(key, shapes):
+        return sum(per_shape[s][key] * c for s, c in shapes.items())
+
+    by = Counter()
+    for s, c in counts.items():
+        by[per_shape[s]["bound_by"]] += per_shape[s]["bound_ms"] * c
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "bigdl_tpu_torch/ops/csrc/int8_matmul.cu",
+            "replaces": "bigdl_tpu/ops/quantized.py:156",
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
+            "ms": total("ms", counts), "plain_ms": total("plain_ms", counts),
+            "bound_ms": total("bound_ms", counts),
+            "bound_by": by.most_common(1)[0][0],
+            "library_ms": total("library_ms", counts),
+            "work": f"the {sum(counts.values())} int8 products of one "
+                    f"ResNet-50 forward at bucket 16 "
+                    f"({len(counts)} distinct shapes), summed",
+            "checked_shapes": len(per_shape)}
+
+
+def _profile_groups(fn) -> dict:
+    """``_profile`` of ``fn`` with the device time split into the int8
+    kernel, the port's profiler ranges ``int8_im2col`` (patch gather) and
+    ``int8_quantize_activations`` (abs-max, divide, round, clamp, cast),
+    and the rest (the output rescale, BN, ReLU, adds, cuDNN convs,
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = ("int8_im2col", "int8_quantize_activations")
+    events = prof.key_averages()
+    # a range also shows as a device-side annotation spanning its
+    # kernels: not a kernel
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in names]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the host-side range: the device time of the kernels launched in it
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.key in names}
+    groups = {"int8_matmul": sum(e.self_device_time_total for e in kernels
+                                 if "int8_matmul_kernel" in e.key) / 1e3,
+              "im2col": ranges.get("int8_im2col", 0.0),
+              "quantize_activations": ranges.get(
+                  "int8_quantize_activations", 0.0)}
+    groups["rest"] = busy_ms - sum(groups.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_s": wall, "device_busy_s": busy_ms / 1e3,
+            "device_busy_share": busy_ms / 1e3 / wall,
+            "device_ms_by_group": groups,
+            "top": [{"kernel": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in top]}
+
+
+def serve_resnet(dev, model):
+    """Serve ResNet-50 through ``InferenceModel.predict``, float32 and
+    int8: requests of 1, 3, 16 and 50 images (buckets 1, 4, 16, 64), then
+    20 requests of 64.  Float32 answers are held to a direct forward of
+    the same rows, int8 answers to the float32 ones; every int8 bucket
+    call goes through 54 launches of the int8 kernel and the plain
+    version never runs.  Then a profile of each."""
+    from bigdl_tpu_torch.nn import Conv2D, Linear
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.ops import quantized as q8
+    from bigdl_tpu_torch.serving import InferenceModel
+
+    t0 = time.perf_counter()
+    ims = {"float32": InferenceModel(model, device=dev,
+                                     batch_buckets=RESNET_BUCKETS),
+           "int8": InferenceModel(model, device=dev, weight_quant="int8",
+                                  batch_buckets=RESNET_BUCKETS)}
+    rs = np.random.RandomState(SEED)
+    sample = rs.randn(1, *IMAGE).astype(np.float32)
+    for im in ims.values():
+        im.warmup(sample)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    requests = [rs.randn(n, *IMAGE).astype(np.float32)
+                for n in RESNET_REQUESTS]
+    n_tp, b_tp = RESNET_THROUGHPUT
+    burst = rs.randn(b_tp, *IMAGE).astype(np.float32)
+    want_calls = [1, 4, 16, 64] + [b_tp] * n_tp
+    weights_f32 = sum(m.weight.numel() * 4 for m in model.modules()
+                      if isinstance(m, (Conv2D, Linear)))
+    results, rows = {}, {}
+    for tag, im in ims.items():
+        calls, plain = [], [0]
+        hook = im.model.register_forward_pre_hook(
+            lambda m, a: calls.append(a[0].shape[0]))
+        plain_fn = q8.int8_matmul_plain
+
+        def counted(*a):
+            plain[0] += 1
+            return plain_fn(*a)
+
+        q8.int8_matmul_plain = counted
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            t1 = time.perf_counter()
+            outs = [im.predict(x) for x in requests]
+            torch.cuda.synchronize()
+            req_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            for _ in range(n_tp):
+                last = im.predict(burst)
+            torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t1
+            launches = dict(LAUNCHES)
+        finally:
+            q8.int8_matmul_plain = plain_fn
+            hook.remove()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        outs.append(last)
+        for x, y in zip(requests + [burst], outs):
+            if y.shape != (x.shape[0], 1000) or not np.isfinite(y).all():
+                raise AssertionError(f"serve_resnet {tag}: output "
+                                     f"{y.shape}, finite "
+                                     f"{np.isfinite(y).all()}")
+        if calls != want_calls:
+            raise AssertionError(f"serve_resnet {tag}: bucket calls {calls}, "
+                                 f"want {want_calls}")
+        want_launches = RESNET_INT8_CALLS * len(calls) if tag == "int8" else 0
+        if launches.get("int8_matmul", 0) != want_launches or plain[0]:
+            raise AssertionError(f"serve_resnet {tag}: int8_matmul launched "
+                                 f"{launches} times over {len(calls)} bucket "
+                                 f"calls (want {want_launches}), the plain "
+                                 f"version ran {plain[0]} times")
+        results[tag] = outs
+        if tag == "int8":
+            wq = sum(b.numel() * b.element_size()
+                     for n, b in im.model.named_buffers()
+                     if n.rsplit(".", 1)[-1] in ("weight_q", "scales"))
+        else:
+            wq = weights_f32
+        rows[tag] = {"phase": "serve_resnet", "precision": tag,
+                     "requests": [int(x.shape[0]) for x in requests],
+                     "answered": len(requests), "bucket_calls": calls,
+                     "launches": launches, "plain_calls": plain[0],
+                     "requests_wall_s": req_s,
+                     "throughput": {"requests": n_tp, "images": b_tp},
+                     "throughput_wall_s": tp_s,
+                     "images_per_s": n_tp * b_tp / tp_s,
+                     "matmul_weight_bytes_at_rest": wq,
+                     "peak_mem_gb": peak}
+
+    # float32 predict against a direct forward of the same rows
+    f32 = ims["float32"]
+    worst_f32 = 0.0
+    with torch.no_grad():
+        for x, y in zip(requests, results["float32"]):
+            direct = f32.model(torch.from_numpy(x).to(dev)).cpu().numpy()
+            worst_f32 = max(worst_f32, float(np.abs(y - direct).max()
+                                             / np.abs(direct).max()))
+    # int8 against float32: top-1 agreement and log-prob drift
+    agree = total = 0
+    worst = 0.0
+    for a, b in zip(results["int8"], results["float32"]):
+        agree += int((a.argmax(1) == b.argmax(1)).sum())
+        total += a.shape[0]
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    rows["float32"].update(max_rel_err_vs_direct=worst_f32,
+                           rtol=RESNET_F32_RTOL)
+    rows["int8"].update(top1_agree=f"{agree}/{total}",
+                        max_logp_rel_err_vs_f32=worst,
+                        rtol=INT8_LOGP_RTOL,
+                        f32_matmul_weight_bytes=weights_f32)
+    for tag in ims:
+        rows[tag]["setup_s"] = setup_s
+        emit(rows[tag])
+    if worst_f32 > RESNET_F32_RTOL:
+        raise AssertionError(f"float32 predict disagrees with a direct "
+                             f"forward: {worst_f32}")
+    if worst > INT8_LOGP_RTOL:
+        raise AssertionError(f"int8 log-probs drift {worst} of max "
+                             f"|log-prob| from float32's, past "
+                             f"{INT8_LOGP_RTOL}")
+    for tag, im in ims.items():
+        emit({"phase": "resnet_profile", "precision": tag,
+              "requests": 3, "images": b_tp,
+              **_profile_groups(lambda: [im.predict(burst)
+                                         for _ in range(3)])})
+    return rows["int8"]["launches"]
+
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -1057,6 +1400,8 @@ def main() -> int:
     verify_row = check_paged_verify(dev, flush)
     sparse_row = check_block_sparse(dev, flush)
     fwd_row, bwd_row = check_flash(dev, flush)
+    resnet = resnet_model()
+    int8mm_row = check_int8_matmul(dev, flush, int8_shapes(resnet, 16, dev))
     del flush
     torch.cuda.empty_cache()
 
@@ -1071,6 +1416,10 @@ def main() -> int:
     int8_row["launches"] = launches["plain"].get(int8_row["name"], 0)
     int8_row["launches_spec"] = launches["spec"].get(int8_row["name"], 0)
     torch.cuda.empty_cache()
+    launches = serve_resnet(dev, resnet)
+    int8mm_row["launches"] = launches.get(int8mm_row["name"], 0)
+    del resnet
+    torch.cuda.empty_cache()
     launches = train(dev)
     fwd_row["launches"] = launches.get("flash_attention_fwd", 0)
     bwd_entries = {k: launches.get(k, 0) for k in (
@@ -1079,7 +1428,7 @@ def main() -> int:
     bwd_row["launches"] = min(bwd_entries.values())
     bwd_row["launches_by_entry"] = bwd_entries
     emit({"kernels": [decode_row, int8_row, fwd_row, bwd_row, verify_row,
-                      sparse_row]})
+                      int8mm_row, sparse_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

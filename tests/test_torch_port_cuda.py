@@ -170,3 +170,93 @@ def test_block_sparse_kernel_matches_plain(card, m, k, n, blk):
     _close(dx, wdx)
     _close(dw, wdw)
     assert LAUNCHES["block_sparse_matmul"] == before + 2   # forward, dx
+
+
+# the int8 matmul: ragged M / K / N (LeNet's K = 25, 150 and N = 6, 12, the
+# stem's K = 147, the head's N = 1000, M = 1), both load paths (K and N
+# multiples of 16 take 16-byte loads), K past float32's 2^24 sums
+@pytest.mark.parametrize("m,k,n", [(1, 147, 64), (3, 25, 6), (100, 150, 12),
+                                   (1, 2048, 1000), (130, 576, 64),
+                                   (65, 4608, 512), (777, 64, 256),
+                                   (64, 128, 1000), (5, 1000, 48)])
+def test_int8_matmul_kernel_equals_plain(card, m, k, n):
+    from bigdl_tpu_torch.ops.quantized import int8_matmul, int8_matmul_plain
+
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g).to(torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g).to(torch.int8)
+    if k == 4608:
+        x[0] = w[:, 0] = 127       # 127 * 127 * 4608 = 7.4e7 > 2^24
+    x, w = x.to(card), w.to(card)
+    before = LAUNCHES["int8_matmul"]
+    out = int8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul"] == before + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, int8_matmul_plain(x, w))
+    # a row start off 16-byte alignment takes the byte loads
+    buf = torch.empty(m * k + 1, dtype=torch.int8, device=card)
+    xs = buf[1:].view(m, k)
+    xs.copy_(x)
+    assert torch.equal(int8_matmul(xs, w), int8_matmul_plain(x, w))
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(card):
+    from bigdl_tpu_torch.ops.quantized import int8_matmul
+
+    x = torch.zeros(32, 64, dtype=torch.int8, device=card)
+    w = torch.zeros(64, 16, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(x, torch.zeros(16, 64, dtype=torch.int8,
+                                   device=card).t())
+    with pytest.raises(ValueError, match="int8 operands"):
+        int8_matmul(x.float(), w)
+    with pytest.raises(ValueError, match="device"):
+        int8_matmul(x, w.cpu())
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_quantized_conv2d_on_the_card_matches_the_cpu(card, groups):
+    """The same int8 payloads on both devices (exact im2col, IEEE
+    division), so outputs agree to the rescale's float32 rounding; the
+    card launches one kernel per group."""
+    from bigdl_tpu_torch.nn import Conv2D
+    from bigdl_tpu_torch.nn.quantized import QuantizedConv2D
+
+    torch.manual_seed(0)
+    conv = Conv2D(16, 32, 3, 2, "SAME", groups=groups)
+    q = QuantizedConv2D.from_conv(conv)
+    x = torch.randn(2, 15, 16, 16)
+    want = q(x)
+    before = LAUNCHES["int8_matmul"]
+    got = q.to(card)(x.to(card))
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul"] == before + groups
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_predict_int8_on_the_card(card):
+    """predict with int8 weights on the card: a layered model through the
+    int8 kernel (one launch per Linear a bucket call), and the LM's int8
+    view (head_dim 32: the flash kernels on the card, plain attention on
+    the CPU), both equal to the CPU's answers to float32 rounding."""
+    from bigdl_tpu_torch.nn import Linear, ReLU, Sequential, Transformer
+    from bigdl_tpu_torch.serving import InferenceModel
+
+    g = torch.Generator().manual_seed(0)
+    x = np.random.RandomState(0).randn(3, 32).astype(np.float32)
+    for make, inp in ((lambda: Sequential([Linear(32, 64, generator=g),
+                                           ReLU(),
+                                           Linear(64, 10, generator=g)]), x),
+                      (lambda: Transformer(64, 64, 2, num_layers=1,
+                                           dropout=0.0),
+                       np.arange(12, dtype=np.int32).reshape(2, 6))):
+        model = make()
+        want = InferenceModel(model, device="cpu",
+                              weight_quant="int8").predict(inp)
+        before = LAUNCHES["int8_matmul"]
+        got = InferenceModel(model, device=card,
+                             weight_quant="int8").predict(inp)
+        layered = isinstance(model, Sequential)
+        assert LAUNCHES["int8_matmul"] - before == (2 if layered else 0)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
