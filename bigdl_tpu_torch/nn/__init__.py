@@ -14,6 +14,9 @@ from bigdl_tpu_torch.nn.layers import (
     SpatialBatchNormalization, SpatialConvolution, SpatialMaxPooling,
     Squeeze, Swish, Tanh, TemporalConvolution, Transpose, Unsqueeze, View,
     ZeroPadding2D)
+from bigdl_tpu_torch.nn.layers_extra import (CAdd, CAveTable, CMaxTable,
+                                             CosineDistance, DotProduct,
+                                             Select)
 from bigdl_tpu_torch.nn.module import (CAddTable, CMulTable, Concat,
                                        ConcatTable, Container, Identity,
                                        JoinTable, Lambda, Module,
@@ -24,19 +27,19 @@ from bigdl_tpu_torch.nn.quantized import (QuantizedConv2D, QuantizedLinear,
                                           calibrate, quantize)
 
 __all__ = [
-    "AvgPool2D", "BatchNorm", "BatchNormalization", "CAddTable",
-    "CMulTable", "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
-    "Conv1D", "Conv2D", "Criterion", "CrossEntropyCriterion", "Dense",
-    "Dropout", "ELU", "Embedding", "Flatten", "GELU", "GlobalAvgPool2D",
-    "HardSigmoid", "HardSwish", "HardTanh", "Identity", "JoinTable",
-    "Lambda", "LayerNorm", "LeakyReLU", "Linear", "LogSoftMax",
-    "LookupTable", "MaxPool2D", "Module", "MultiHeadAttention",
-    "ParallelTable", "PositionwiseFFN", "QuantizedConv2D",
-    "QuantizedLinear", "RMSNorm", "ReLU", "ReLU6", "Reshape", "SelectTable",
-    "Sequential", "SiLU", "Sigmoid", "SoftMax", "SoftPlus", "SoftSign",
-    "SpatialAveragePooling", "SpatialBatchNormalization",
-    "SpatialConvolution", "SpatialMaxPooling", "Squeeze", "Swish", "Tanh",
-    "TemporalConvolution", "Transformer", "TransformerLayer", "Transpose",
-    "Unsqueeze", "View", "WeightOnlyConv2D", "WeightOnlyLinear",
-    "ZeroPadding2D", "calibrate", "init", "positional_encoding",
-    "quantize"]
+    "AvgPool2D", "BatchNorm", "BatchNormalization", "CAdd", "CAddTable",
+    "CAveTable", "CMaxTable", "CMulTable", "ClassNLLCriterion", "Concat",
+    "ConcatTable", "Container", "Conv1D", "Conv2D", "CosineDistance",
+    "Criterion", "CrossEntropyCriterion", "Dense", "DotProduct", "Dropout",
+    "ELU", "Embedding", "Flatten", "GELU", "GlobalAvgPool2D", "HardSigmoid",
+    "HardSwish", "HardTanh", "Identity", "JoinTable", "Lambda", "LayerNorm",
+    "LeakyReLU", "Linear", "LogSoftMax", "LookupTable", "MaxPool2D", "Module",
+    "MultiHeadAttention", "ParallelTable", "PositionwiseFFN",
+    "QuantizedConv2D", "QuantizedLinear", "RMSNorm", "ReLU", "ReLU6",
+    "Reshape", "Select", "SelectTable", "Sequential", "SiLU", "Sigmoid",
+    "SoftMax", "SoftPlus", "SoftSign", "SpatialAveragePooling",
+    "SpatialBatchNormalization", "SpatialConvolution", "SpatialMaxPooling",
+    "Squeeze", "Swish", "Tanh", "TemporalConvolution", "Transformer",
+    "TransformerLayer", "Transpose", "Unsqueeze", "View", "WeightOnlyConv2D",
+    "WeightOnlyLinear", "ZeroPadding2D", "calibrate", "init",
+    "positional_encoding", "quantize"]

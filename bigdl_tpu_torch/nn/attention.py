@@ -8,7 +8,9 @@ or block-sparse with ``ffn_sparsity > 0``), the pre-LN block and
 ``Transformer(mode="lm")`` with its sqrt(d)-scaled embedding,
 sinusoidal positions and weight-tied output projection.  Parameter names
 and layouts follow the JAX params tree so
-``bigdl_tpu_torch.utils.convert`` copies weights one to one.
+``bigdl_tpu_torch.utils.convert`` copies weights one to one.  Each
+block is a port ``Module``, with a ``name``, so it can be a node of a
+keras graph (``MultiHeadAttention(d, heads)(node)``).
 
 Dropout draws from a key (``utils.prng``) that each forward splits as
 the JAX modules split their rng: ``Transformer`` into one key for the
@@ -26,6 +28,7 @@ from torch import nn
 
 from bigdl_tpu_torch.nn import init
 from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.tensor.policy import cast_compute
 from bigdl_tpu_torch.utils import prng
@@ -74,7 +77,7 @@ def _attn_project(attn, x, w, b):
     return (y.float() + getattr(attn, b)).to(x.dtype)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Module):
     """Multi-head self-attention with q/k/v/out projections; weights
     (in, out) named ``wq wk wv wo`` with biases ``bq bk bv bo``.
 
@@ -88,8 +91,8 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  attn_dropout: float = 0.0, causal: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 use_flash: Optional[bool] = None):
-        super().__init__()
+                 use_flash: Optional[bool] = None, name=None):
+        super().__init__(name)
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
@@ -140,7 +143,7 @@ class MultiHeadAttention(nn.Module):
                                      training=self.training)
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(Module):
     """The transformer FFN: Linear, GELU, Linear.  GELU is the tanh
     approximation, as ``jax.nn.gelu`` defaults to.  ``ffn_sparsity > 0``
     makes both Linears :class:`~bigdl_tpu_torch.ops.block_sparse.BlockSparseLinear`
@@ -149,8 +152,9 @@ class PositionwiseFFN(nn.Module):
 
     def __init__(self, hidden_size: int, ffn_size: int, dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 ffn_sparsity: float = 0.0, sparse_block=(64, 64)):
-        super().__init__()
+                 ffn_sparsity: float = 0.0, sparse_block=(64, 64),
+                 name=None):
+        super().__init__(name)
         self.ffn_sparsity = float(ffn_sparsity)
         if ffn_sparsity > 0.0:
             # imported here: ops.block_sparse imports nn.layers
@@ -176,7 +180,7 @@ class PositionwiseFFN(nn.Module):
         return self.l2(h)
 
 
-class TransformerLayer(nn.Module):
+class TransformerLayer(Module):
     """Pre-LN transformer block: x + attn(ln1(x)), then + ffn(ln2(x)).
     ``key`` splits into four: attention weights, attention residual,
     FFN, FFN residual."""
@@ -184,8 +188,9 @@ class TransformerLayer(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int = 0,
                  dropout: float = 0.1, causal: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 ffn_sparsity: float = 0.0, sparse_block=(64, 64)):
-        super().__init__()
+                 ffn_sparsity: float = 0.0, sparse_block=(64, 64),
+                 name=None):
+        super().__init__(name)
         self.attn = MultiHeadAttention(hidden_size, num_heads,
                                        attn_dropout=dropout, causal=causal,
                                        generator=generator)
@@ -211,7 +216,7 @@ class TransformerLayer(nn.Module):
         return x + f
 
 
-class Transformer(nn.Module):
+class Transformer(Module):
     """Causal language model (``mode="lm"``): token embedding scaled by
     sqrt(d) plus sinusoidal positions, ``num_layers`` causal pre-LN
     blocks, ``ln_out``, and the output projection tied to the embedding.
@@ -225,8 +230,9 @@ class Transformer(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int, num_heads: int,
                  ffn_size: int = 0, num_layers: int = 2,
                  dropout: float = 0.1, mode: str = "lm", seed: int = 0,
-                 ffn_sparsity: float = 0.0, sparse_block=(64, 64)):
-        super().__init__()
+                 ffn_sparsity: float = 0.0, sparse_block=(64, 64),
+                 name=None):
+        super().__init__(name)
         if mode != "lm":
             raise ValueError(f"mode {mode!r}: only 'lm' is ported yet "
                              "(translation comes with its own slice)")

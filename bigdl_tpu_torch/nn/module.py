@@ -15,13 +15,34 @@ import torch
 from torch import nn
 
 
+def _is_node(v) -> bool:
+    # the sentinel of keras.engine.Node: nn never imports the keras package
+    return getattr(v, "_graph_node", False)
+
+
 class Module(nn.Module):
     """Base of the port's layers: a ``name`` (default: the class name),
-    which a container uses in its child's key."""
+    which a container uses in its child's key.
+
+    Called on a keras graph ``Node`` (or a list of nodes), a layer
+    returns a new ``Node`` with this layer and those parents, as
+    ``layer(node)`` builds a functional model in the JAX package;
+    called on tensors it runs ``forward``."""
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
         self.name = name or type(self).__name__
+
+    def __call__(self, *args, **kwargs):
+        if args and (_is_node(args[0]) or (
+                isinstance(args[0], (list, tuple)) and args[0]
+                and all(_is_node(v) for v in args[0]))):
+            from bigdl_tpu_torch.keras.engine import Node
+
+            parents = ([args[0]] if _is_node(args[0]) else list(args[0]))
+            parents += [a for a in args[1:] if _is_node(a)]
+            return Node(self, parents)
+        return super().__call__(*args, **kwargs)
 
 
 class Container(Module):

@@ -362,6 +362,18 @@ def _twin(leaf, calib, weight_only):
     return None
 
 
+def refuse_keras_quantization(model, what: str) -> None:
+    """Raise ``ValueError`` for a keras ``Model``: the JAX package
+    quantizes one by swapping its nodes' layers, which the port does not
+    do yet (ROADMAP item 7.1, the keras surface)."""
+    from bigdl_tpu_torch.keras.engine import Model
+
+    if isinstance(model, Model):
+        raise ValueError(f"{what} of a keras Model is not ported yet "
+                         f"(ROADMAP item 7.1); quantize a Container or "
+                         f"the Transformer LM")
+
+
 def quantize(module: torch.nn.Module,
              calib: Optional[Dict[int, Any]] = None,
              weight_only: bool = False) -> torch.nn.Module:
@@ -375,8 +387,8 @@ def quantize(module: torch.nn.Module,
     ``weight_only=True``: int8 weights, float activations."""
     if not isinstance(module, torch.nn.Module):
         raise ValueError(f"quantize takes a module of the port, got "
-                         f"{type(module).__name__} (the keras models of "
-                         f"the JAX package are not ported yet)")
+                         f"{type(module).__name__}")
+    refuse_keras_quantization(module, "quantize()")
     calib = calib or {}
     memo = {}
     for leaf in module.modules():
@@ -403,6 +415,7 @@ def calibrate(module: torch.nn.Module, batches: Iterable,
     scalar a leaf) or ``"channel"`` (one scale per input channel, folded
     into the weight rows by :func:`quantize`).  Returns ``{id(leaf):
     scale}`` for :func:`quantize`'s ``calib``."""
+    refuse_keras_quantization(module, "calibrate()")
     if method not in ("minmax", "percentile"):
         raise ValueError("method: minmax | percentile")
     if granularity not in ("tensor", "channel"):

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.module import Container
-from bigdl_tpu_torch.nn.quantized import Int8Weights, quantize
+from bigdl_tpu_torch.nn.quantized import (Int8Weights, quantize,
+                                          refuse_keras_quantization)
 from bigdl_tpu_torch.ops.common import resolve_device
 from bigdl_tpu_torch.serving.decode_engine import (DecodeConfig,
                                                    DecodeEngine,
@@ -40,6 +41,9 @@ class InferenceModel:
     larger than the largest bucket, so the model only ever sees the
     bucket shapes.
 
+    A keras ``Model`` (e.g. the ``"fused"`` rebuild of
+    ``utils.intermediate``) is served by :meth:`predict` as any model.
+
     ``weight_quant="int8"`` serves int8 weights.  A layered model (a
     ``Container``: Sequential, LeNet, ResNet) is replaced by
     :func:`~bigdl_tpu_torch.nn.quantized.quantize`'s copy, whose
@@ -49,7 +53,8 @@ class InferenceModel:
     matmul weights are int8 at rest with per-out-column scales
     (``Int8Weights``): each call works on a dequantized view, and
     :meth:`weights` lends one to other callers; the caller's model keeps
-    its weights.
+    its weights.  A keras ``Model`` is refused: the JAX package swaps its
+    nodes' layers, which is not ported yet (ROADMAP item 7.1).
 
     A ``decode`` config serves an LM-mode Transformer's ``generate``
     through a :class:`DecodeEngine`; with ``speculative=SpecConfig(...)``
@@ -69,6 +74,8 @@ class InferenceModel:
         self.buckets = tuple(sorted(int(b) for b in batch_buckets))
         self._w8 = None
         self.decode_engine = None
+        if weight_quant is not None:
+            refuse_keras_quantization(model, "weight_quant='int8'")
         layered = isinstance(model, Container)
         if weight_quant is not None and layered:
             model = quantize(model)

@@ -18,7 +18,10 @@ port's buffers::
     state  {"1__BN": {"running_mean", "running_var"}, ...}
 
 Both packages store Linear weights (in, out) and conv kernels HWIO, so
-values copy as they are.  The same walk applies to any sub-module."""
+values copy as they are.  The same walk applies to any sub-module.  A
+keras graph's variables are keyed by node names, which differ between
+the packages: :func:`load_jax_keras_variables` pairs the nodes by their
+place in the two graphs instead."""
 
 import re
 from typing import Any, Dict
@@ -97,3 +100,65 @@ def export_variables(model: nn.Module) -> Dict[str, Any]:
     return {"params": export_params(model),
             "state": _tree((n, b) for n, b in model.named_buffers()
                            if n in persistent)}
+
+
+def _leaves(tree, prefix=()):
+    for key, val in sorted(tree.items()):
+        if isinstance(val, dict):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def _same_tree(a, b) -> bool:
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return (len(la) == len(lb)
+            and all(ka == kb and np.array_equal(va, vb)
+                    for (ka, va), (kb, vb) in zip(la, lb)))
+
+
+def load_jax_keras_variables(model: nn.Module, jax_model,
+                             variables: Dict[str, Any]) -> nn.Module:
+    """Copy the ``{"params", "state"}`` of a JAX keras ``Model`` (or keras
+    ``Sequential``) into the port's keras ``model`` of the same graph.
+
+    The JAX package keys a node's variables by its name, which comes from
+    a global counter, so the names differ between the packages.  The two
+    graphs' topological orders are walked together instead: each pair of
+    nodes must hold the same layer type and read the same positions, and
+    the JAX node's variables go into the port node's layer.  A layer used
+    at two nodes has one set of weights here, so the JAX variables of
+    its nodes must be equal.  Returns ``model``."""
+    jorder, porder = list(jax_model.order), list(model.order)
+    if len(jorder) != len(porder):
+        raise ValueError(f"the JAX graph has {len(jorder)} nodes, the "
+                         f"port's {len(porder)}")
+    jpos = {n.id: i for i, n in enumerate(jorder)}
+    ppos = {n.id: i for i, n in enumerate(porder)}
+    params = variables.get("params", {}) or {}
+    state = variables.get("state", {}) or {}
+    loaded: Dict[int, Dict[str, Any]] = {}
+    for i, (jn, pn) in enumerate(zip(jorder, porder)):
+        jt = "Input" if jn.layer is None else type(jn.layer).__name__
+        pt = "Input" if pn.layer is None else type(pn.layer).__name__
+        if jt != pt:
+            raise ValueError(f"node {i}: the JAX graph has {jt}, the "
+                             f"port's {pt}")
+        if ([jpos[p.id] for p in jn.parents]
+                != [ppos[p.id] for p in pn.parents]):
+            raise ValueError(f"node {i} ({pt}) reads other nodes in the "
+                             f"two graphs")
+        if pn.layer is None:
+            continue
+        tree = {"params": params.get(jn.name, {}),
+                "state": state.get(jn.name, {})}
+        seen = loaded.get(id(pn.layer))
+        if seen is not None:
+            if not _same_tree(seen, tree):
+                raise ValueError(f"node {i}: the port's {pt} is shared "
+                                 f"with an earlier node, whose JAX "
+                                 f"variables differ from this one's")
+            continue
+        load_jax_variables(pn.layer, tree)
+        loaded[id(pn.layer)] = tree
+    return model

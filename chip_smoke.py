@@ -16,7 +16,10 @@ one JSON line:
    shape; the verify kernel over float32 and int8 pages; the
    block-sparse product at the draft's decode and prefill shapes, its
    dx too; the int8 matmul exactly at every shape of a ResNet-50
-   forward at bucket 16, at LeNet-5's ragged shapes and at M = 1), and
+   forward at bucket 16, at LeNet-5's ragged shapes and at M = 1; the
+   flash forward's non-causal instance at the encoder's shape; the fused
+   LayerNorm at the encoder's shape, ragged shapes and a misaligned row
+   start, its backward once), and
    timed beside its bound, the plain version and one PyTorch library
    call;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
@@ -42,15 +45,28 @@ one JSON line:
    224x224 images (buckets 1, 4, 16, 64), then 20 of 64; float32 held
    to a direct forward, int8 to float32 (top-1 agreement, log-prob
    drift), 54 int8-kernel launches a bucket call, images/s, peak
-   memory, weight bytes; then resnet_profile;
-9. gradcheck — one batch's gradients of every parameter of the same LM
+   memory, weight bytes; then resnet_profile; then resnet_fused: the
+   same model through ``IRGraph.from_model(...).to_model("fused")`` (the
+   stem's BatchNorm folded into its conv) held to the unfused model at
+   bucket 16;
+9. serve_bert_fused — BERT-base's encoder (12 post-LN layers, d 768, 12
+   heads, FFN 3072, vocab 30522, 128 tokens, a 2-label [CLS] head; random
+   weights from seed 0, every LayerNorm and the position table redrawn)
+   written with the port's keras API, fused by the IR rewrite (25
+   LayerNorm nodes on the fused LayerNorm kernel) and served through
+   ``InferenceModel.predict``: requests of 1, 3, 16 and 50 sequences,
+   then 20 of 64; every answer held to the unfused model's direct
+   forward with plain attention, 25 LayerNorm-kernel and 12 non-causal
+   flash launches a bucket call, the plain LayerNorm never run; then
+   bert_profile;
+10. gradcheck — one batch's gradients of every parameter of the same LM
    with the flash kernels against plain attention (``use_flash=False``);
-10. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
+11. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
    through ``Optimizer.optimize()``: falling finite losses, step time,
    tokens/s, peak memory, and launch counts showing every attention
    layer's forward and backward went through the flash kernels;
-11. train_profile — two more steps under torch.profiler;
-12. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
+12. train_profile — two more steps under torch.profiler;
+13. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
    the switch that sends the auto path to plain attention: the A/B of
    the flash kernels end to end, and proof that the switch holds.
 
@@ -137,6 +153,41 @@ RESNET_F32_RTOL = 1e-5
 # average pool: 0.013 * sqrt(54) = 0.095 of the logits' spread, which
 # max |log-prob| (>= the spread of the logits) bounds.  Budget 0.1.
 INT8_LOGP_RTOL = 0.1
+
+# the encoder phase: BERT-base at its published widths
+# (google-research/bert uncased_L-12_H-768_A-12: 12 post-LN layers, d 768,
+# 12 heads, FFN 3072, vocab 30522, LayerNorm eps 1e-12) written with the
+# port's keras API, at run_classifier.py's max_seq_length 128 with a pooled
+# [CLS] head of 2 labels (SST-2's); random weights from seed 0.  Requests
+# of 1, 3, 16 and 50 sequences hit buckets 1, 4, 16 and 64, then 20
+# requests of 64 measure throughput.
+BERT = dict(vocab=30522, length=128, d=768, heads=12, ffn=3072, layers=12,
+            labels=2, eps=1e-12)
+BERT_BUCKETS = (1, 4, 16, 64)
+BERT_REQUESTS = (1, 3, 16, 50)
+BERT_THROUGHPUT = (20, 64)
+# fused predict against a direct forward of the unfused model with plain
+# attention and plain LayerNorm, max |log-prob difference| over max
+# |log-prob|.  Derived before the first run: each of a layer's ~6 summing
+# stages (the q/k/v/out projections, the attention sums, the two FFN
+# products) sums up to 3072 float32 terms in another order, a relative
+# error of ~sqrt(3072 / 2) * 6e-8 = 2.4e-6; post-LN renormalizes the
+# hidden state, so the 12 x 6 stages add in quadrature: sqrt(72) * 2.4e-6
+# = 2.0e-5 of the logits' scale, and a 2-label log-softmax moves by at
+# most twice the logits' error.  With logits of order 1 and max |log-prob|
+# >= log 2, that is <= 6e-5 of max |log-prob|.  Budget 1e-4.
+BERT_LOGP_RTOL = 1e-4
+# the fused LayerNorm kernel against its plain version: rows of up to 1000
+# float32 values summed in another order (warp shuffles), rsqrtf within 2
+# ulp; rtol and atol 1e-5.  Its backward (plain torch) against autograd of
+# the plain version: dgamma and dbeta sum 128 rows in another order, atol
+# 1e-4
+LN_RTOL = LN_ATOL = 1e-5
+LN_BWD_ATOL = 1e-4
+# the fold of a BatchNorm into the conv before it rounds the folded weights
+# to float32 once: fused ResNet-50 predict within 1e-4 of max |log-prob|
+# of the unfused model's
+FOLD_LOGP_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -885,9 +936,10 @@ def profile_serving(im, prompts) -> dict:
     return _profile(lambda: im.generate(prompts))
 
 
-def _profile(fn) -> dict:
+def _profile(fn, named=()) -> dict:
     """``fn()`` under torch.profiler: the device's busy share of the wall
-    time and its time by kernel."""
+    time and its time by kernel; for each substring in ``named``, the
+    device time and share of the kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -900,12 +952,19 @@ def _profile(fn) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "device_kernels": len(kernels),
-            "top": [{"kernel": e.key[:80], "calls": e.count,
-                     "device_ms": e.self_device_time_total / 1e3}
-                    for e in top]}
+    out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / wall,
+           "device_kernels": len(kernels),
+           "top": [{"kernel": e.key[:80], "calls": e.count,
+                    "device_ms": e.self_device_time_total / 1e3}
+                   for e in top]}
+    for sub in named:
+        us = sum(e.self_device_time_total for e in kernels if sub in e.key)
+        out.setdefault("named", {})[sub] = {
+            "device_ms": us / 1e3, "calls": sum(e.count for e in kernels
+                                                if sub in e.key),
+            "share_of_device_time": us / busy_us if busy_us else 0.0}
+    return out
 
 
 def _train_data():
@@ -1370,6 +1429,336 @@ def serve_resnet(dev, model):
 
 
 
+def check_fused_layernorm(dev, flush):
+    """Kernel 6: the fused LayerNorm against its plain version at the
+    encoder's (bucket 64 x 128 tokens, 768) with eps 1e-12, at one
+    sequence's (128, 768), at ragged (37, 1000) and (5, 16), and at a row
+    start off 16-byte alignment; gamma and beta drawn from the seed.  The
+    backward once against autograd of the plain version.  Timed at the
+    main shape beside its bound, the plain version and
+    ``F.layer_norm``."""
+    from bigdl_tpu_torch.ops.fused import (fused_layernorm,
+                                           fused_layernorm_plain)
+
+    rows, d = BERT_THROUGHPUT[1] * BERT["length"], BERT["d"]
+    g = torch.Generator().manual_seed(SEED)
+
+    def inputs(r, c):
+        x = (torch.randn(r, c, generator=g) * 2 + 0.5).to(dev)
+        gamma = torch.empty(c).uniform_(0.5, 1.5, generator=g).to(dev)
+        beta = (0.1 * torch.randn(c, generator=g)).to(dev)
+        return x, gamma, beta
+
+    checked, err = [], 0.0
+    for r, c, eps, misaligned in ((rows, d, BERT["eps"], False),
+                                  (BERT["length"], d, BERT["eps"], False),
+                                  (37, 1000, BERT["eps"], False),
+                                  (5, 16, 1e-5, False),
+                                  (rows, d, BERT["eps"], True)):
+        x, gamma, beta = inputs(r, c)
+        if misaligned:
+            buf = torch.empty(r * c + 1, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            x = buf[1:].view(r, c)
+        got = fused_layernorm(x, gamma, beta, eps=eps)
+        want = fused_layernorm_plain(x, gamma, beta, eps)
+        torch.cuda.synchronize()
+        tag = f"({r}, {c}), eps {eps}{', misaligned' if misaligned else ''}"
+        err = max(err, _assert_close(f"fused_layernorm {tag}", got, want,
+                                     LN_RTOL, LN_ATOL))
+        checked.append([r, c, eps, misaligned])
+        del x, gamma, beta, got, want
+
+    # the backward (plain torch, as in the JAX package) once
+    x, gamma, beta = inputs(BERT["length"], d)
+    up = torch.randn(BERT["length"], d, generator=g).to(dev)
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    grads = torch.autograd.grad(fused_layernorm(*leaves, eps=BERT["eps"]),
+                                leaves, up)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    want = torch.autograd.grad(
+        fused_layernorm_plain(*ref_leaves, BERT["eps"]), ref_leaves, up)
+    bwd_err = max(_assert_close(f"fused_layernorm backward {name}", a, b,
+                                LN_RTOL, LN_BWD_ATOL)
+                  for name, a, b in zip(("dx", "dgamma", "dbeta"), grads,
+                                        want))
+
+    x, gamma, beta = inputs(rows, d)
+    eps = BERT["eps"]
+    lib = torch.nn.functional.layer_norm(x, (d,), gamma, beta, eps)
+    _assert_close("the F.layer_norm yardstick", lib,
+                  fused_layernorm_plain(x, gamma, beta, eps), LN_RTOL,
+                  LN_ATOL)
+    nbytes = 4 * (2 * rows * d + 2 * d)
+    flops = 8 * rows * d
+    row = {"name": "fused_layernorm", "route": "cuda",
+           "source": "bigdl_tpu_torch/ops/csrc/fused_layernorm.cu",
+           "replaces": "bigdl_tpu/ops/fused.py:73",
+           "launches": None, "max_abs_err": err,
+           "ms": time_cold(lambda: fused_layernorm(x, gamma, beta, eps=eps),
+                           flush),
+           "plain_ms": time_cold(lambda: fused_layernorm_plain(
+               x, gamma, beta, eps), flush, reps=10),
+           **_bound(nbytes, flops),
+           "library_ms": time_cold(lambda: torch.nn.functional.layer_norm(
+               x, (d,), gamma, beta, eps), flush)}
+    emit({"phase": "kernel", "shape": [rows, d], "eps": eps,
+          "checked": checked, "bytes": nbytes, "flops": flops,
+          "rtol": LN_RTOL, "atol": LN_ATOL, "backward_max_abs_err": bwd_err,
+          "backward_atol": LN_BWD_ATOL, **row})
+    return row
+
+
+def check_flash_noncausal(dev, flush):
+    """Kernel 1's non-causal instance, which the encoder's attention
+    takes, at its shape (bucket 64, 12 heads, 128 tokens, head_dim 64)
+    against its plain version, timed beside SDPA without ``is_causal``."""
+    from bigdl_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+
+    b, h, s = BERT_THROUGHPUT[1], BERT["heads"], BERT["length"]
+    d = BERT["d"] // h
+    g = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn(b, h, s, d, generator=g).to(dev)
+               for _ in range(3))
+    out, lse = flash_attention_fwd(q, k, v, causal=False)
+    ro, rl = flash_attention_fwd_ref(q, k, v, causal=False,
+                                     sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    err = max(_assert_close("flash fwd out (non-causal)", out, ro, RTOL,
+                            ATOL),
+              _assert_close("flash fwd lse (non-causal)", lse, rl, RTOL,
+                            ATOL))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    _assert_close("the SDPA yardstick (non-causal)", sdpa(q, k, v), out,
+                  RTOL, ATOL)
+    elems = b * h * s * d
+    flops = 4 * d * b * h * _visible_pairs(s, s, False)
+    nbytes = 4 * (4 * elems + b * h * s)
+    row = {"name": "flash_attention_fwd", "instance": "non-causal",
+           "route": "cuda",
+           "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+           "replaces": "bigdl_tpu/ops/flash_attention.py:109",
+           "launches": None, "max_abs_err": err,
+           "ms": time_cold(lambda: flash_attention_fwd(q, k, v, causal=False),
+                           flush),
+           "plain_ms": time_cold(lambda: flash_attention_fwd_ref(
+               q, k, v, causal=False, sm_scale=d ** -0.5), flush, reps=10),
+           **_bound(nbytes, flops),
+           "library_ms": time_cold(lambda: sdpa(q, k, v), flush)}
+    emit({"phase": "kernel", "shape": {"batch": b, "heads": h, "seq": s,
+                                       "head_dim": d, "causal": False},
+          "bytes": nbytes, "flops": flops, "rtol": RTOL, "atol": ATOL,
+          **row})
+    return row
+
+
+def bert_model(cfg=BERT, seed=SEED):
+    """BERT's encoder written with the port's keras API on the CPU, weights
+    drawn from ``torch.Generator`` seed ``seed``, every LayerNorm's gamma
+    (U(0.5, 1.5)) and beta (N(0, 0.1)) and the position table (N(0, 0.5))
+    redrawn from it: with gamma 1, beta 0 and zero positions a kernel that
+    dropped its affine step, or a path that skipped the positions, would
+    pass unchecked.  Two divergences from google-research/bert: GELU is the
+    tanh approximation (``jax.nn.gelu``'s and the port's), and the position
+    table (with the segment-0 row folded in) is a ``CAdd`` fixed to the
+    length."""
+    from bigdl_tpu_torch import keras as K
+    from bigdl_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(seed)
+    L, d, eps = cfg["length"], cfg["d"], cfg["eps"]
+    tok = K.Input((L,), dtype=np.int32)
+    x = K.Embedding(cfg["vocab"], d, generator=g)(tok)
+    x = nn.CAdd((L, d))(x)
+    x = K.Dropout(0.1)(K.LayerNorm(d, eps=eps)(x))
+    for _ in range(cfg["layers"]):           # post-LN, as BERT
+        a = K.Dropout(0.1)(K.MultiHeadAttention(d, cfg["heads"],
+                                                generator=g)(x))
+        x = K.LayerNorm(d, eps=eps)(K.Merge("sum")([x, a]))
+        f = K.Dense(cfg["ffn"], d, generator=g)(
+            K.GELU()(K.Dense(d, cfg["ffn"], generator=g)(x)))
+        x = K.LayerNorm(d, eps=eps)(K.Merge("sum")([x, K.Dropout(0.1)(f)]))
+    p = K.Activation("tanh")(K.Dense(d, d, generator=g)(nn.Select(1, 0)(x)))
+    out = K.LogSoftMax()(K.Dense(d, cfg["labels"], generator=g)(
+        K.Dropout(0.1)(p)))
+    model = K.Model(tok, out)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.LayerNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+            elif isinstance(m, nn.CAdd):
+                m.bias.normal_(0.0, 0.5, generator=g)
+    return model.eval()
+
+
+def serve_bert_fused(dev, model, cfg=BERT, buckets=BERT_BUCKETS,
+                     sizes=BERT_REQUESTS, throughput=BERT_THROUGHPUT):
+    """Fuse the encoder with ``IRGraph.from_model(model).to_model("fused")``
+    and serve it through ``InferenceModel.predict``: requests of 1, 3, 16
+    and 50 sequences (buckets 1, 4, 16, 64), then 20 requests of 64.  Every
+    bucket call launches the LayerNorm kernel once per LayerNorm node and
+    the flash forward once per attention, and the plain LayerNorm never
+    runs; every answer is held to a direct forward of the unfused model
+    with plain attention (no kernel of the port).  Then bert_profile."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.ops import fused as fused_mod
+    from bigdl_tpu_torch.serving import InferenceModel
+    from bigdl_tpu_torch.utils.intermediate import FusedLayerNorm, IRGraph
+
+    t0 = time.perf_counter()
+    fused = IRGraph.from_model(model).to_model("fused")
+    kinds = [type(n.layer).__name__ for n in fused.order]
+    n_ln = 1 + 2 * cfg["layers"]
+    if (kinds.count(FusedLayerNorm.__name__) != n_ln or "LayerNorm" in kinds
+            or "Dropout" in kinds):
+        raise AssertionError(f"the fused graph has "
+                             f"{kinds.count('FusedLayerNorm')} FusedLayerNorm "
+                             f"nodes (want {n_ln}), LayerNorm "
+                             f"{'LayerNorm' in kinds}, Dropout "
+                             f"{'Dropout' in kinds}")
+    im = InferenceModel(fused, device=dev, batch_buckets=buckets)
+    rs = np.random.RandomState(SEED)
+
+    def tokens(n):
+        return rs.randint(0, cfg["vocab"], (n, cfg["length"])).astype(
+            np.int32)
+
+    im.warmup(tokens(1))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    requests = [tokens(n) for n in sizes]
+    n_tp, b_tp = throughput
+    burst = tokens(b_tp)
+    want_calls = [min(b for b in buckets if b >= n) for n in sizes]
+    want_calls += [b_tp] * n_tp
+    calls, plain = [], [0]
+    hook = im.model.register_forward_pre_hook(
+        lambda m, a: calls.append(a[0].shape[0]))
+    plain_fn = fused_mod.fused_layernorm_plain
+
+    def counted(*a):
+        plain[0] += 1
+        return plain_fn(*a)
+
+    fused_mod.fused_layernorm_plain = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t1 = time.perf_counter()
+        outs = [im.predict(x) for x in requests]
+        torch.cuda.synchronize()
+        req_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for _ in range(n_tp):
+            last = im.predict(burst)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+    finally:
+        fused_mod.fused_layernorm_plain = plain_fn
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    outs.append(last)
+    for x, y in zip(requests + [burst], outs):
+        if y.shape != (x.shape[0], cfg["labels"]) or not np.isfinite(y).all():
+            raise AssertionError(f"serve_bert_fused: output {y.shape}, "
+                                 f"finite {np.isfinite(y).all()}")
+    if calls != want_calls:
+        raise AssertionError(f"serve_bert_fused: bucket calls {calls}, want "
+                             f"{want_calls}")
+    want_ln = n_ln * len(calls)
+    want_flash = cfg["layers"] * len(calls)
+    if (launches.get("fused_layernorm", 0) != want_ln
+            or launches.get("flash_attention_fwd", 0) != want_flash
+            or plain[0]):
+        raise AssertionError(f"serve_bert_fused: launches {launches} over "
+                             f"{len(calls)} bucket calls (want "
+                             f"fused_layernorm {want_ln}, "
+                             f"flash_attention_fwd {want_flash}); the plain "
+                             f"LayerNorm ran {plain[0]} times")
+
+    # every answer against the unfused model with plain attention and
+    # plain LayerNorm: no kernel of the port in the reference
+    for m in model.modules():
+        if isinstance(m, nn.MultiHeadAttention):
+            m.use_flash = False
+    ref_model = model.to(dev)
+    worst, agree, total = 0.0, 0, 0
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        for x, y in zip(requests + [burst], outs):
+            ref = ref_model(torch.from_numpy(x).to(dev)).cpu().numpy()
+            worst = max(worst, float(np.abs(y - ref).max()
+                                     / np.abs(ref).max()))
+            agree += int((y.argmax(1) == ref.argmax(1)).sum())
+            total += y.shape[0]
+    if dict(LAUNCHES) != before:
+        raise AssertionError("the reference forward launched a kernel of "
+                             "the port")
+    n_seq = n_tp * b_tp
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in im.model.parameters())
+    emit({"phase": "serve_bert_fused", "model": cfg,
+          "requests": [int(x.shape[0]) for x in requests],
+          "answered": len(requests), "bucket_calls": calls,
+          "launches": launches, "plain_layernorm_calls": plain[0],
+          "fused_layernorm_nodes": n_ln,
+          "max_logp_rel_err_vs_unfused_plain": worst,
+          "rtol": BERT_LOGP_RTOL, "top1_agree": f"{agree}/{total}",
+          "requests_wall_s": req_s,
+          "throughput": {"requests": n_tp, "sequences": b_tp},
+          "throughput_wall_s": tp_s, "sequences_per_s": n_seq / tp_s,
+          "tokens_per_s": n_seq * cfg["length"] / tp_s,
+          "weight_bytes": weight_bytes, "peak_mem_gb": peak,
+          "setup_s": setup_s})
+    if worst > BERT_LOGP_RTOL:
+        raise AssertionError(f"fused predict disagrees with the unfused "
+                             f"plain forward: {worst} of max |log-prob|, "
+                             f"past {BERT_LOGP_RTOL}")
+    emit({"phase": "bert_profile", "requests": 3, "sequences": b_tp,
+          **_profile(lambda: [im.predict(burst) for _ in range(3)],
+                     named=("fused_layernorm_kernel", "flash_fwd_kernel"))})
+    return launches
+
+
+def resnet_fused(dev, model):
+    """ResNet-50 through the same rewrite: ``from_model`` lifts the top
+    Sequential with the bottleneck blocks as whole nodes and folds the
+    stem's BatchNorm into its conv, which gains a bias; ``predict`` at
+    bucket 16 against the unfused model's."""
+    from bigdl_tpu_torch.nn import BatchNorm, Conv2D
+    from bigdl_tpu_torch.serving import InferenceModel
+    from bigdl_tpu_torch.utils.intermediate import IRGraph
+
+    fused = IRGraph.from_model(model).to_model("fused")
+    n_bn = [sum(isinstance(m, BatchNorm) for m in mod.modules())
+            for mod in (model, fused)]
+    stem = fused.order[1].layer
+    if n_bn[1] != n_bn[0] - 1 or not (isinstance(stem, Conv2D)
+                                      and stem.with_bias
+                                      and stem.bias is not None):
+        raise AssertionError(f"fused ResNet-50: BatchNorms {n_bn}, stem "
+                             f"{type(stem).__name__} with bias "
+                             f"{getattr(stem, 'bias', None) is not None}")
+    x = np.random.RandomState(SEED + 1).randn(16, *IMAGE).astype(np.float32)
+    got = InferenceModel(fused, device=dev,
+                         batch_buckets=RESNET_BUCKETS).predict(x)
+    want = InferenceModel(model, device=dev,
+                          batch_buckets=RESNET_BUCKETS).predict(x)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    emit({"phase": "resnet_fused", "batchnorms": n_bn,
+          "stem_bias": True, "images": 16, "max_logp_rel_err": err,
+          "rtol": FOLD_LOGP_RTOL,
+          "top1_agree": f"{int((got.argmax(1) == want.argmax(1)).sum())}/16"})
+    if not np.isfinite(got).all() or err > FOLD_LOGP_RTOL:
+        raise AssertionError(f"fused ResNet-50 disagrees with the unfused "
+                             f"model: {err} of max |log-prob|")
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -1400,6 +1789,8 @@ def main() -> int:
     verify_row = check_paged_verify(dev, flush)
     sparse_row = check_block_sparse(dev, flush)
     fwd_row, bwd_row = check_flash(dev, flush)
+    fwd_nc_row = check_flash_noncausal(dev, flush)
+    ln_row = check_fused_layernorm(dev, flush)
     resnet = resnet_model()
     int8mm_row = check_int8_matmul(dev, flush, int8_shapes(resnet, 16, dev))
     del flush
@@ -1418,7 +1809,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = serve_resnet(dev, resnet)
     int8mm_row["launches"] = launches.get(int8mm_row["name"], 0)
+    resnet_fused(dev, resnet)
     del resnet
+    torch.cuda.empty_cache()
+    launches = serve_bert_fused(dev, bert_model())
+    ln_row["launches"] = launches.get(ln_row["name"], 0)
+    fwd_nc_row["launches"] = launches.get(fwd_nc_row["name"], 0)
     torch.cuda.empty_cache()
     launches = train(dev)
     fwd_row["launches"] = launches.get("flash_attention_fwd", 0)
@@ -1427,8 +1823,8 @@ def main() -> int:
     # one backward call launches both entry points
     bwd_row["launches"] = min(bwd_entries.values())
     bwd_row["launches_by_entry"] = bwd_entries
-    emit({"kernels": [decode_row, int8_row, fwd_row, bwd_row, verify_row,
-                      int8mm_row, sparse_row]})
+    emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
+                      verify_row, int8mm_row, sparse_row, ln_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -260,3 +260,107 @@ def test_predict_int8_on_the_card(card):
         layered = isinstance(model, Sequential)
         assert LAUNCHES["int8_matmul"] - before == (2 if layered else 0)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# the fused LayerNorm: odd and ragged d (both kernel paths, and rows past
+# 1024 floats), rows that are not a multiple of a block's 8 warps, eps
+# 1e-12 (below float32's resolution next to a variance of ~1)
+@pytest.mark.parametrize("rows,d", [(5, 16), (37, 1000), (130, 768),
+                                    (7, 37), (9, 1030), (3, 4096), (1, 1)])
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+def test_fused_layernorm_kernel_matches_plain(card, rows, d, eps):
+    from bigdl_tpu_torch.ops.fused import (fused_layernorm,
+                                           fused_layernorm_plain)
+
+    g = torch.Generator().manual_seed(rows * d)
+    x = (torch.randn(rows, d, generator=g) * 2 + 0.5).to(card)
+    gamma = (1 + 0.3 * torch.randn(d, generator=g)).to(card)
+    beta = (0.2 * torch.randn(d, generator=g)).to(card)
+    before = LAUNCHES["fused_layernorm"]
+    got = fused_layernorm(x, gamma, beta, eps=eps)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_layernorm"] == before + 1
+    want = fused_layernorm_plain(x, gamma, beta, eps)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # a row start off 16-byte alignment takes the scalar loads
+    buf = torch.empty(rows * d + 1, device=card)
+    xs = buf[1:].view(rows, d)
+    xs.copy_(x)
+    torch.testing.assert_close(fused_layernorm(xs, gamma, beta, eps=eps),
+                               want, rtol=1e-5, atol=1e-5)
+    # a 3-D input and a transposed view are read as what they are
+    x3 = x.reshape(1, rows, d)
+    torch.testing.assert_close(fused_layernorm(x3, gamma, beta, eps=eps),
+                               want.reshape(1, rows, d), rtol=1e-5,
+                               atol=1e-5)
+    xt = x.t().contiguous().t()
+    torch.testing.assert_close(fused_layernorm(xt, gamma, beta, eps=eps),
+                               want, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_layernorm_backward_and_refusals_on_the_card(card):
+    from bigdl_tpu_torch.ops.fused import fused_layernorm
+
+    g = torch.Generator().manual_seed(0)
+    x, up = torch.randn(6, 48, generator=g), torch.randn(6, 48, generator=g)
+    gamma, beta = 1 + torch.randn(48, generator=g), torch.randn(48,
+                                                                generator=g)
+    grads = []
+    for dev in ("cpu", card):
+        leaves = [t.to(dev, copy=True).requires_grad_()
+                  for t in (x, gamma, beta)]
+        (fused_layernorm(*leaves) * up.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    xd = x.to(card)
+    with pytest.raises(ValueError, match="float32"):
+        fused_layernorm(xd.double(), gamma.to(card), beta.to(card))
+    with pytest.raises(ValueError, match="different devices"):
+        fused_layernorm(xd, gamma, beta)
+
+
+def test_flash_forward_non_causal_at_the_encoder_shape(card):
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 3, 128, 64, generator=g).to(card)
+               for _ in range(3))
+    before = LAUNCHES["flash_attention_fwd"]
+    out, lse = flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == before + 1
+    ro, rl = flash_attention_fwd_ref(q, k, v, causal=False,
+                                     sm_scale=64 ** -0.5)
+    _close(out, ro)
+    _close(lse, rl)
+
+
+def test_fused_keras_encoder_on_the_card(card):
+    """A 2-layer post-LN keras encoder through the "fused" rewrite,
+    served by predict on the card: every LayerNorm on the kernel (5 a
+    call), every attention on the flash forward (2 a call), the answers
+    equal to the CPU's to float32 rounding."""
+    from bigdl_tpu_torch import keras as K
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.serving import InferenceModel
+    from bigdl_tpu_torch.utils.intermediate import IRGraph
+
+    torch.manual_seed(0)
+    tok = K.Input((16,), dtype=np.int32)
+    x = nn.CAdd((16, 64))(K.Embedding(50, 64)(tok))
+    x = K.LayerNorm(64, eps=1e-12)(x)
+    for _ in range(2):
+        a = K.MultiHeadAttention(64, 2)(x)
+        x = K.LayerNorm(64, eps=1e-12)(K.Merge("sum")([x, a]))
+        f = K.Dense(128, 64)(K.GELU()(K.Dense(64, 128)(x)))
+        x = K.LayerNorm(64, eps=1e-12)(K.Merge("sum")([x, f]))
+    out = K.LogSoftMax()(K.Dense(64, 2)(nn.Select(1, 0)(x)))
+    fused = IRGraph.from_model(K.Model(tok, out).eval()).to_model("fused")
+    ids = np.random.RandomState(0).randint(0, 50, (3, 16)).astype(np.int32)
+    want = InferenceModel(fused, device="cpu").predict(ids)
+    before = dict(LAUNCHES)
+    got = InferenceModel(fused, device=card).predict(ids)
+    assert LAUNCHES["fused_layernorm"] - before.get("fused_layernorm",
+                                                    0) == 5
+    assert LAUNCHES["flash_attention_fwd"] - before.get(
+        "flash_attention_fwd", 0) == 2
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
