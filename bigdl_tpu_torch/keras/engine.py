@@ -104,15 +104,19 @@ class Model(Module):
             if nid not in outs:
                 self._drop_after[i].append(nid)
 
-    def forward(self, *inputs):
+    def forward(self, *inputs, key=None):
+        """The nodes in topological order; with a ``key``, node ``i`` of
+        that order gets ``prng.fold_in(key, i)``, as in the JAX
+        package."""
         if len(inputs) != len(self.inputs):
             raise ValueError(f"{self.name} takes {len(self.inputs)} inputs, "
                              f"got {len(inputs)}")
         values = {node.id: x for node, x in zip(self.inputs, inputs)}
-        for node, drop in zip(self.order, self._drop_after):
+        for i, (node, drop) in enumerate(zip(self.order, self._drop_after)):
             if node.layer is not None:
-                values[node.id] = node.layer(
-                    *[values[p.id] for p in node.parents])
+                values[node.id] = self.call_child(
+                    node.layer, i, *[values[p.id] for p in node.parents],
+                    key=key)
             for nid in drop:
                 del values[nid]
         outs = [values[o.id] for o in self.outputs]

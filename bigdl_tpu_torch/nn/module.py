@@ -7,12 +7,30 @@ A container registers its ``i``-th child under the JAX key
 ``f"{i}_{child.name}"``, so ``named_parameters()`` and
 ``named_buffers()`` spell the JAX ``params`` and ``state`` trees and
 ``utils.convert`` copies variables across one to one.  The JAX
-``training=`` argument is the module's ``train()`` / ``eval()`` mode."""
+``training=`` argument is the module's ``train()`` / ``eval()`` mode, and
+its ``rng=`` the optional ``key`` of a forward: a container hands child
+``i`` ``prng.fold_in(key, i)``, as the JAX containers fold theirs."""
 
-from typing import Callable, Optional, Sequence
+import inspect
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+
+from bigdl_tpu_torch.utils import prng
+
+
+_TAKES_KEY: Dict[type, bool] = {}
+
+
+def _takes_key(layer: nn.Module) -> bool:
+    """Whether ``layer``'s forward accepts a ``key`` keyword."""
+    cls = type(layer)
+    if cls not in _TAKES_KEY:
+        params = inspect.signature(cls.forward).parameters.values()
+        _TAKES_KEY[cls] = any(p.name == "key" or p.kind is p.VAR_KEYWORD
+                              for p in params)
+    return _TAKES_KEY[cls]
 
 
 def _is_node(v) -> bool:
@@ -43,6 +61,15 @@ class Module(nn.Module):
             parents += [a for a in args[1:] if _is_node(a)]
             return Node(self, parents)
         return super().__call__(*args, **kwargs)
+
+    @staticmethod
+    def call_child(layer: nn.Module, i: int, *xs, key=None):
+        """``layer(*xs)``, handing it ``prng.fold_in(key, i)`` when a key
+        is given and its forward takes one (the JAX ``_fold(rng, i)``);
+        a child whose forward takes no key gets none."""
+        if key is None or not _takes_key(layer):
+            return layer(*xs)
+        return layer(*xs, key=prng.fold_in(key, i))
 
 
 class Container(Module):
@@ -78,9 +105,9 @@ class Sequential(Container):
     """Feed-forward chain; a child that returns a tuple feeds its
     elements to the next child as separate inputs."""
 
-    def forward(self, *xs):
-        for layer in self._modules.values():
-            xs = _as_tuple(layer(*xs))
+    def forward(self, *xs, key=None):
+        for i, layer in enumerate(self._modules.values()):
+            xs = _as_tuple(self.call_child(layer, i, *xs, key=key))
         return xs[0] if len(xs) == 1 else xs
 
 
@@ -92,8 +119,9 @@ class Concat(Container):
         super().__init__(layers, name)
         self.dim = dim
 
-    def forward(self, *xs):
-        return torch.cat([m(*xs) for m in self._modules.values()],
+    def forward(self, *xs, key=None):
+        return torch.cat([self.call_child(m, i, *xs, key=key)
+                          for i, m in enumerate(self._modules.values())],
                          dim=self.dim)
 
 
@@ -101,8 +129,9 @@ class ConcatTable(Container):
     """Runs every child on the same input; returns the tuple of
     outputs."""
 
-    def forward(self, *xs):
-        return tuple(m(*xs) for m in self._modules.values())
+    def forward(self, *xs, key=None):
+        return tuple(self.call_child(m, i, *xs, key=key)
+                     for i, m in enumerate(self._modules.values()))
 
 
 def _table(xs):
@@ -115,9 +144,11 @@ def _table(xs):
 class ParallelTable(Container):
     """The i-th child consumes the i-th input."""
 
-    def forward(self, *xs):
+    def forward(self, *xs, key=None):
         xs = _table(xs)
-        return tuple(m(x) for m, x in zip(self._modules.values(), xs))
+        return tuple(self.call_child(m, i, x, key=key)
+                     for i, (m, x) in enumerate(zip(self._modules.values(),
+                                                    xs)))
 
 
 class Identity(Module):

@@ -15,237 +15,482 @@
 // reaches device memory.
 //
 // Two entry points, launched in this order on one stream:
-//   flash_attention_bwd_dq_f32    one block per (b*h, q tile): D for its rows
-//                                 (written out for the second kernel), then dq
-//                                 over the k tiles its rows can see;
-//   flash_attention_bwd_dkdv_f32  one block per (b*h, k tile): dk and dv over
-//                                 the q tiles that can see it (from the
-//                                 diagonal down when causal).
-// Each output element is summed by exactly one thread, in a fixed order: no
-// atomics, and the result is the same from run to run.
+//   flash_attention_bwd_dq_f32    one block per (b*h, 64-query tile): D for
+//                                 its rows (written out for the second
+//                                 kernel), then dq over the key tiles its
+//                                 rows can see;
+//   flash_attention_bwd_dkdv_f32  one block per (b*h, 64-key tile): dk and dv
+//                                 over the query tiles that can see it (from
+//                                 the diagonal down when causal).
+// Each output element is summed by one thread in a fixed order: no float
+// atomics, and two launches on the same inputs give the same bits.
 //
-// What bounds it: operations.  The least work is 2.5 times the forward's
-// (five 64 x 64 x D products per visible tile pair against two): 3.2e10 flops
-// at the training shape (B 8, H 12, S 1024, D 64, causal), against about
-// 200 MB of q, k, v, out, g, lse, dq, dk, dv; far past the float32 ridge
-// point, so the floor is the flops over 67 TFLOP/s.
+// What bounds it: operations.  The least work is five 64 x 64 x D products
+// per visible tile pair (2.5 times the forward's): 3.2e10 flops at the
+// training shape (B 8, H 12, S 1024, D 64, causal) against about 200 MB of
+// q, k, v, out, g, lse, dq, dk, dv.  On CUDA cores that is 0.48 ms at 67
+// TFLOP/s; on the tensor cores in 3xTF32 (three TF32 products each) 0.195
+// ms at 495 TFLOP/s, still far past the bytes' 0.06 ms.
 //
-// What the design does about it: the tiles of both kernels are staged in
-// shared memory and every product is a 4 x 4 (or 4 x D/16) register block
-// per thread fed from it, as in the forward.  Splitting the work into a
-// q-side and a k-side kernel recomputes p and dp once more (seven products
-// per tile pair instead of five) in exchange for no atomics and no
-// cross-block reduction; one fused kernel with a dq reduction is a later
-// change, as are tensor cores and TMA.
+// What the design does about it:
+// - Tensor cores.  Every product (q k^T, g v^T, p^T g, ds^T q, ds k) is
+//   mma.sync.m16n8k8 in TF32 with the 3xTF32 split (tf32x3.cuh): float32
+//   accuracy, float32 accumulators.  A warp owns 16 rows of the block's
+//   64-row tile and walks the other side 32 rows at a time.  The scores
+//   come out of one product in the accumulator layout (row g, columns 2t,
+//   2t + 1) and go into the next as its A operand; the next product's k
+//   index is permuted to match (virtual k t is column 2t, t + 4 is 2t + 1)
+//   and its B operand read from shared memory at the same permuted rows, so
+//   p, ds and their transposes never leave registers: a transposed operand
+//   is only a choice of addresses.  wgmma would need K-major copies of p^T
+//   and ds^T (no transpose for 32-bit types) and is not used.  Each 32-row
+//   half's tensor-core sums are added into float32 totals (head_dim <= 64;
+//   at 128 the registers do not fit), so the tensor core's truncating adds
+//   never see a long sum.
+// - Shared memory, copied asynchronously.  The block's own tiles (q and g
+//   for dq; k and v for dk/dv) are staged once; the other side comes in
+//   32-row halves through a ring of two slots filled by cp.async, so the
+//   next half loads while this one multiplies.  That is 70 KB at head_dim
+//   64: three blocks (12 warps) an SM.  Rows are padded by 4 floats (pitch
+//   D + 4), which keeps every fragment read, direct or permuted, free of
+//   bank conflicts; rows past the sequence are zero-filled by cp.async
+//   without a read.
+// - The split into a q-side and a k-side kernel recomputes p and dp once
+//   more (seven products per tile pair instead of five) in exchange for no
+//   atomics and no cross-block reduction; on the tensor cores the extra two
+//   products are cheap.  Causal halves wholly masked for a warp are
+//   skipped.
 
 #include "flash_attention_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using flash::kPPitch;
-using flash::kThreads;
-using flash::kTile;
 using flash::View;
+using namespace tf32x3;
+
+constexpr int kRows = 64;      // the block's own tile: 16 rows a warp
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kHalf = 32;      // the other side, walked 32 rows at a time
 
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return (4 * flash::tile_floats<D>() + flash::score_floats() + 2 * kTile) *
-         sizeof(float);
+__host__ __device__ constexpr int pitch() {
+  return D + 4;
 }
 
 template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return (4 * flash::tile_floats<D>() + 2 * flash::score_floats() +
-          2 * kTile) *
-         sizeof(float);
+__host__ __device__ constexpr int tile_floats() {
+  return kRows * pitch<D>();
 }
 
-// Row statistics of q rows [q0, q0 + 64) into shared memory: lse as given,
-// and D = rowsum(g * out) from the staged g tile, one warp per row; D is also
-// written to `delta` for the dk/dv kernel.
+// one ring slot: a 32-row half of each of the other side's two operands
 template <int D>
-__device__ __forceinline__ void delta_rows(float* lse_s, float* delta_s,
-                                           const float* gs, const View& o,
-                                           const float* __restrict__ lse,
-                                           float* __restrict__ delta, int b,
-                                           int h, int bh, int q0, int sq) {
-  constexpr int P = flash::pitch<D>();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const bool ok = q0 + r < sq;
-    float acc = 0.f;
-    if (ok) {
-      const float* orow = o.row(b, h, q0 + r);
-      for (int d = lane; d < D; d += 32) acc = fmaf(gs[r * P + d], orow[d], acc);
-    }
+__host__ __device__ constexpr int slot_floats() {
+  return 2 * kHalf * pitch<D>();
+}
+
+// Both kernels: the block's two own tiles, a ring of two slots, and two
+// slots of two per-row vectors (dk/dv: lse and D of the query half; dq:
+// lse and D of its own 64 rows use the first 128 floats)
+template <int D>
+constexpr size_t smem_bytes() {
+  return (2 * (size_t)tile_floats<D>() + 2 * (size_t)slot_floats<D>() +
+          2 * kRows) * sizeof(float);
+}
+
+// blocks an SM should hold: three at head_dim <= 64 (70 KB of shared
+// memory, at most 168 registers a thread), one at 128
+template <int D>
+__host__ __device__ constexpr int min_blocks() {
+  return D <= 64 ? 3 : 1;
+}
+
+// Rows [row0, row0 + ROWS) of slice (b, h) of `v` into the padded tile `t`
+// by cp.async, 16 bytes a copy; rows at or past `n` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_tile(float* t, const View& v, int b,
+                                           int h, int row0, int n) {
+  constexpr int P = pitch<D>(), V4 = D / 4;
+  for (int i = threadIdx.x; i < ROWS * V4; i += kThreads) {
+    const int r = i / V4;
+    const int c = (i - r * V4) * 4;
+    const bool ok = row0 + r < n;
+    cp_async16(t + r * P + c, ok ? v.row(b, h, row0 + r) + c : v.p, ok);
+  }
+}
+
+// ROWS per-row floats src[row0 ..) into s by cp.async; rows at or past n
+// are 0
+template <int ROWS>
+__device__ __forceinline__ void stage_vec(float* s, const float* src,
+                                          int row0, int n) {
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
+    const bool ok = row0 + r < n;
+    cp_async4(s + r, ok ? src + row0 + r : src, ok);
+  }
+}
+
+// A 16 x 8 A fragment of the padded tile t at rows r0.., columns c0..
+template <int D>
+__device__ __forceinline__ FragA tile_a(const float* t, int r0, int c0) {
+  constexpr int P = pitch<D>();
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const float* p = t + (r0 + g) * P + c0 + tt;
+  return frag_a(p[0], p[8 * P], p[4], p[8 * P + 4]);
+}
+
+// The B fragment of (tile rows n0.. as columns)^T: element (k, n) =
+// t[n0 + n][c0 + k], for products against a tile's transpose (q k^T)
+template <int D>
+__device__ __forceinline__ FragB tile_bt(const float* t, int n0, int c0) {
+  constexpr int P = pitch<D>();
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const float* p = t + (n0 + g) * P + c0 + tt;
+  return frag_b(p[0], p[4]);
+}
+
+// The B fragment of tile rows r0.. (8 of them, in the permuted k order of
+// acc_a) and columns c0..: element (k, n) = t[r0 + perm(k)][c0 + n]
+template <int D>
+__device__ __forceinline__ FragB tile_b_perm(const float* t, int r0, int c0) {
+  constexpr int P = pitch<D>();
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const float* p = t + (r0 + 2 * tt) * P + c0 + g;
+  return frag_b(p[0], p[P]);
+}
+
+// An accumulator tile (16 x 8, rows g / g + 8, columns 2t / 2t + 1) as the
+// A fragment of the next product, its 8 columns in the permuted k order:
+// virtual k t is column 2t, t + 4 is column 2t + 1.
+__device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
+  return frag_a(c[0], c[2], c[1], c[3]);
+}
+
+// Accumulators e0 .. e0 + 3 of an (E, 4) array, as one (4, 4) array.
+template <int E>
+__device__ __forceinline__ float (&four(float (&acc)[E][4], int e0))[4][4] {
+  return *reinterpret_cast<float(*)[4][4]>(&acc[e0]);
+}
+
+// Whether a kernel keeps its tensor-core sums per 32-row half and adds
+// each half into a float32 total (the tensor core's truncating adds then
+// never see a long sum); at head_dim 128 the second set of registers does
+// not fit.
+template <int D>
+__host__ __device__ constexpr bool split_sums() {
+  return D <= 64;
+}
+
+template <int E, bool SPLIT>
+__device__ __forceinline__ void fold(float (&sums)[E][4],
+                                     float (&total)[SPLIT ? E : 1][4]) {
+  if constexpr (SPLIT) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      lse_s[r] = ok ? lse[(size_t)bh * sq + q0 + r] : 0.f;
-      if (ok) delta[(size_t)bh * sq + q0 + r] = acc;
+    for (int e = 0; e < E; ++e) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        total[e][i] += sums[e][i];
+        sums[e][i] = 0.f;
+      }
     }
   }
 }
 
+template <int E>
+__device__ __forceinline__ void zero(float (&a)[E][4]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[e][i] = 0.f;
+  }
+}
+
+// Row g (r = 0) or g + 8 (r = 1) of a warp's 16 x 8E accumulators to a
+// contiguous output row: columns 8e + 2t, 8e + 2t + 1
+template <int E>
+__device__ __forceinline__ void store_row(float* out, const float (&acc)[E][4],
+                                          int r) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    *reinterpret_cast<float2*>(out + 8 * e + 2 * tq) =
+        make_float2(acc[e][2 * r], acc[e][2 * r + 1]);
+}
+
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<D>())
 flash_bwd_dq_kernel(View q, View k, View v, View o, View g,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     float* __restrict__ dq, int heads, int sq, int skv,
                     float sm_scale) {
-  constexpr int E = D / 16;
-  extern __shared__ float smem[];
+  constexpr int E = D / 8;   // 8-wide column tiles of a head
+  constexpr int P = pitch<D>();
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Gs = Qs + flash::tile_floats<D>();
-  float* Ks = Gs + flash::tile_floats<D>();
-  float* Vs = Ks + flash::tile_floats<D>();
-  float* dSs = Vs + flash::tile_floats<D>();
-  float* lse_s = dSs + flash::score_floats();
-  float* delta_s = lse_s + kTile;
+  float* Gs = Qs + tile_floats<D>();
+  float* ring = Gs + tile_floats<D>();   // two slots of (k, v) halves
+  float* lse_s = ring + 2 * slot_floats<D>();
+  float* dl_s = lse_s + kRows;
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kTile;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int q0 = qt * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wrow = 16 * warp;                 // the warp's rows in the tile
 
-  flash::load_tile<D>(Qs, q, b, h, q0, sq, 1.f);
-  flash::load_tile<D>(Gs, g, b, h, q0, sq, 1.f);
+  // key halves 0 .. n_hk: causal, the tile's last query q0 + 63 sees up to
+  // half (q0 + 63) / 32
+  const int n_hk = CAUSAL ? min(flash::cdiv(skv, kHalf), (q0 + kRows) / kHalf)
+                          : flash::cdiv(skv, kHalf);
+  auto stage_half = [&](int hk, int slot) {
+    float* kd = ring + slot * slot_floats<D>();
+    stage_tile<D, kHalf>(kd, k, b, h, hk * kHalf, skv);
+    stage_tile<D, kHalf>(kd + kHalf * P, v, b, h, hk * kHalf, skv);
+  };
+
+  stage_tile<D, kRows>(Qs, q, b, h, q0, sq);
+  stage_tile<D, kRows>(Gs, g, b, h, q0, sq);
+  stage_vec<kRows>(lse_s, lse + (size_t)bh * sq, q0, sq);
+  if (n_hk > 0) stage_half(0, 0);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
-  delta_rows<D>(lse_s, delta_s, Gs, o, lse, delta, b, h, bh, q0, sq);
 
-  float acc[4][E];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
-  }
-
-  const int n_kt_all = flash::cdiv(skv, kTile);
-  const int n_kt = CAUSAL ? min(qt + 1, n_kt_all) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's readers are done (row stats are in)
-    flash::load_tile<D>(Ks, k, b, h, k0, skv, 1.f);
-    flash::load_tile<D>(Vs, v, b, h, k0, skv, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    flash::tile_abt<D>(Qs, Ks, s);
-    flash::tile_abt<D>(Gs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = flash::visible<CAUSAL>(q0 + r, k0 + c, skv)
-                            ? expf(s[i][j] * sm_scale - lse_s[r])
-                            : 0.f;
-        dSs[r * kPPitch + c] = p * (dp[i][j] - delta_s[r]) * sm_scale;
-      }
+  // D = rowsum(g * out) of the warp's 16 rows, lanes over the head dim;
+  // written out for the dk/dv kernel
+  for (int i = 0; i < 16; ++i) {
+    const int r = wrow + i;
+    const bool ok = q0 + r < sq;
+    float acc = 0.f;
+    if (ok) {
+      const float* orow = o.row(b, h, q0 + r);
+      for (int d = lane; d < D; d += 32)
+        acc = fmaf(Gs[r * P + d], orow[d], acc);
     }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      dl_s[r] = acc;
+      if (ok) delta[(size_t)bh * sq + q0 + r] = acc;
+    }
+  }
+  __syncwarp();
+  // this thread's two rows (g and g + 8 of the warp's 16)
+  const float lse_r[2] = {lse_s[wrow + gq], lse_s[wrow + gq + 8]};
+  const float dl_r[2] = {dl_s[wrow + gq], dl_s[wrow + gq + 8]};
+  const int qrow[2] = {q0 + wrow + gq, q0 + wrow + gq + 8};
+
+  constexpr bool SPLIT = split_sums<D>();
+  // sums: this key half's tensor-core sums (all of them without SPLIT)
+  float sums[E][4], total[SPLIT ? E : 1][4];
+  zero(sums);
+  zero(total);
+
+  for (int hk = 0; hk < n_hk; ++hk) {
+    const int slot = hk & 1;
+    if (hk + 1 < n_hk) stage_half(hk + 1, slot ^ 1);   // its readers passed
+    cp_commit();                                       // the last barrier
+    cp_wait<1>();
     __syncthreads();
-    flash::tile_sb<D>(dSs, Ks, acc);
+    const float* Kt = ring + slot * slot_floats<D>();
+    const float* Vt = Kt + kHalf * P;
+    const int kb = hk * kHalf;                // keys kb .. kb + 31
+
+    // causal: skip a half wholly after the warp's last query
+    if (!CAUSAL || kb <= q0 + wrow + 15) {
+      float s[4][4], dp[4][4];
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        const FragA aq = tile_a<D>(Qs, wrow, 8 * ks);
+        const FragA ag = tile_a<D>(Gs, wrow, 8 * ks);
+        FragB bk[4], bv[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          bk[n] = tile_bt<D>(Kt, 8 * n, 8 * ks);
+          bv[n] = tile_bt<D>(Vt, 8 * n, 8 * ks);
+        }
+        mma3(s, aq, bk);
+        mma3(dp, ag, bv);
+      }
+      // ds = p (dp - D) sm_scale, in place of s
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = kb + 8 * n + 2 * tq + (i & 1);
+          const int r = i >> 1;
+          const float p = flash::visible<CAUSAL>(qrow[r], key, skv)
+                              ? expf(s[n][i] * sm_scale - lse_r[r])
+                              : 0.f;
+          s[n][i] = p * (dp[n][i] - dl_r[r]) * sm_scale;
+        }
+      }
+      // dq += ds k: the 32 keys are the k index, in four permuted steps
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const FragA a = acc_a(s[n]);
+#pragma unroll
+        for (int e0 = 0; e0 < E; e0 += 4) {
+          FragB bk[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            bk[e] = tile_b_perm<D>(Kt, 8 * n, 8 * (e0 + e));
+          mma3(four(sums, e0), a, bk);
+        }
+      }
+      fold<E, SPLIT>(sums, total);
+    }
+    __syncthreads();   // slot `slot` is free for half hk + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= sq) continue;
-    float* out = dq + ((size_t)bh * sq + r) * D;
-#pragma unroll
-    for (int e = 0; e < E; ++e) out[tx + 16 * e] = acc[i][e];
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] >= sq) continue;
+    float* out = dq + ((size_t)bh * sq + qrow[r]) * D;
+    if constexpr (SPLIT)
+      store_row<E>(out, total, r);
+    else
+      store_row<E>(out, sums, r);
   }
 }
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks<D>())
 flash_bwd_dkdv_kernel(View q, View k, View v, View g,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv,
                       int heads, int sq, int skv, float sm_scale) {
-  constexpr int E = D / 16;
-  extern __shared__ float smem[];
+  constexpr int E = D / 8;
+  constexpr int P = pitch<D>();
+  extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + flash::tile_floats<D>();
-  float* Qs = Vs + flash::tile_floats<D>();
-  float* Gs = Qs + flash::tile_floats<D>();
-  float* Pt = Gs + flash::tile_floats<D>();
-  float* dSt = Pt + flash::score_floats();
-  float* lse_s = dSt + flash::score_floats();
-  float* delta_s = lse_s + kTile;
+  float* Vs = Ks + tile_floats<D>();
+  float* ring = Vs + tile_floats<D>();      // two slots of (q, g) halves
+  float* lse_s = ring + 2 * slot_floats<D>();  // two slots of 32
+  float* dl_s = lse_s + 2 * kHalf;             // two slots of 32
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int kt = blockIdx.y;  // causal: low k tiles see the most q tiles
-  const int k0 = kt * kTile;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int kt = blockIdx.y;  // causal: low key tiles see the most queries
+  const int k0 = kt * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wrow = 16 * warp;
+  const int key[2] = {k0 + wrow + gq, k0 + wrow + gq + 8};
 
-  flash::load_tile<D>(Ks, k, b, h, k0, skv, 1.f);
-  flash::load_tile<D>(Vs, v, b, h, k0, skv, 1.f);
+  // query halves hq0 .. n_hq: causal, queries before k0 see no key here
+  const int n_hq = flash::cdiv(sq, kHalf);
+  const int hq0 = CAUSAL ? min(k0 / kHalf, n_hq) : 0;
+  auto stage_half = [&](int hq, int slot) {
+    const int q0 = hq * kHalf;
+    float* qd = ring + slot * slot_floats<D>();
+    stage_tile<D, kHalf>(qd, q, b, h, q0, sq);
+    stage_tile<D, kHalf>(qd + kHalf * P, g, b, h, q0, sq);
+    stage_vec<kHalf>(lse_s + slot * kHalf, lse + (size_t)bh * sq, q0, sq);
+    stage_vec<kHalf>(dl_s + slot * kHalf, delta + (size_t)bh * sq, q0, sq);
+  };
 
-  float dk_acc[4][E], dv_acc[4][E];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-  }
+  stage_tile<D, kRows>(Ks, k, b, h, k0, skv);
+  stage_tile<D, kRows>(Vs, v, b, h, k0, skv);
+  if (hq0 < n_hq) stage_half(hq0, 0);
+  cp_commit();
 
-  const int n_qt = flash::cdiv(sq, kTile);
-  // causal: q tile qt holds queries up to qt*64 + 63, so it sees this k
-  // tile only from qt = kt on
-  for (int qt = CAUSAL ? kt : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the last tile's readers are done (and Ks, Vs are in)
-    flash::load_tile<D>(Qs, q, b, h, q0, sq, 1.f);
-    flash::load_tile<D>(Gs, g, b, h, q0, sq, 1.f);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool ok = q0 + r < sq;
-      lse_s[r] = ok ? lse[(size_t)bh * sq + q0 + r] : 0.f;
-      delta_s[r] = ok ? delta[(size_t)bh * sq + q0 + r] : 0.f;
-    }
+  constexpr bool SPLIT = split_sums<D>();
+  // this half's tensor-core sums (all of them without SPLIT), and the
+  // float32 totals
+  float dk_acc[E][4], dv_acc[E][4];
+  float dk_tot[SPLIT ? E : 1][4], dv_tot[SPLIT ? E : 1][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  zero(dk_tot);
+  zero(dv_tot);
+
+  for (int hq = hq0; hq < n_hq; ++hq) {
+    const int slot = (hq - hq0) & 1;
+    if (hq + 1 < n_hq) stage_half(hq + 1, slot ^ 1);   // its readers passed
+    cp_commit();                                       // the last barrier
+    cp_wait<1>();
     __syncthreads();
+    const float* Qt = ring + slot * slot_floats<D>();
+    const float* Gt = Qt + kHalf * P;
+    const float* lse_t = lse_s + slot * kHalf;
+    const float* dl_t = dl_s + slot * kHalf;
+    const int qb = hq * kHalf;                // queries qb .. qb + 31
 
-    // transposed tiles: row = key (ty*4+i), column = query (tx+16j)
-    float st[4][4], dpt[4][4];
-    flash::tile_abt<D>(Ks, Qs, st);
-    flash::tile_abt<D>(Vs, Gs, dpt);
+    // causal: skip a half wholly before the warp's first key
+    if (!CAUSAL || qb + kHalf - 1 >= k0 + wrow) {
+      // transposed scores: row = key (the warp's 16), column = query
+      float st[4][4], dpt[4][4];
+      zero(st);
+      zero(dpt);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+      for (int ks = 0; ks < D / 8; ++ks) {
+        const FragA ak = tile_a<D>(Ks, wrow, 8 * ks);
+        const FragA av = tile_a<D>(Vs, wrow, 8 * ks);
+        FragB bq[4], bg[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok =
-            q0 + c < sq && flash::visible<CAUSAL>(q0 + c, k0 + r, skv);
-        const float p = ok ? expf(st[i][j] * sm_scale - lse_s[c]) : 0.f;
-        Pt[r * kPPitch + c] = p;
-        dSt[r * kPPitch + c] = p * (dpt[i][j] - delta_s[c]) * sm_scale;
+        for (int n = 0; n < 4; ++n) {
+          bq[n] = tile_bt<D>(Qt, 8 * n, 8 * ks);
+          bg[n] = tile_bt<D>(Gt, 8 * n, 8 * ks);
+        }
+        mma3(st, ak, bq);
+        mma3(dpt, av, bg);
       }
+      // p^T in st, ds^T in dpt
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ql = 8 * n + 2 * tq + (i & 1);   // row in the half
+          const int qp = qb + ql;
+          const bool ok = qp < sq && flash::visible<CAUSAL>(qp, key[i >> 1],
+                                                            skv);
+          const float p = ok ? expf(st[n][i] * sm_scale - lse_t[ql]) : 0.f;
+          st[n][i] = p;
+          dpt[n][i] = p * (dpt[n][i] - dl_t[ql]) * sm_scale;
+        }
+      }
+      // dv += p^T g and dk += ds^T q: the 32 queries are the k index
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const FragA ap = acc_a(st[n]);
+        const FragA ads = acc_a(dpt[n]);
+#pragma unroll
+        for (int e0 = 0; e0 < E; e0 += 4) {
+          FragB bg[4], bq[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bg[e] = tile_b_perm<D>(Gt, 8 * n, 8 * (e0 + e));
+            bq[e] = tile_b_perm<D>(Qt, 8 * n, 8 * (e0 + e));
+          }
+          mma3(four(dv_acc, e0), ap, bg);
+          mma3(four(dk_acc, e0), ads, bq);
+        }
+      }
+      fold<E, SPLIT>(dk_acc, dk_tot);
+      fold<E, SPLIT>(dv_acc, dv_tot);
     }
-    __syncthreads();
-    flash::tile_sb<D>(Pt, Gs, dv_acc);
-    flash::tile_sb<D>(dSt, Qs, dk_acc);
+    __syncthreads();   // slot `slot` is free for half hq + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty * 4 + i;
-    if (r >= skv) continue;
-    const size_t off = ((size_t)bh * skv + r) * D;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      dk[off + tx + 16 * e] = dk_acc[i][e];
-      dv[off + tx + 16 * e] = dv_acc[i][e];
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= skv) continue;
+    const size_t off = ((size_t)bh * skv + key[r]) * D;
+    if constexpr (SPLIT) {
+      store_row<E>(dk + off, dk_tot, r);
+      store_row<E>(dv + off, dv_tot, r);
+    } else {
+      store_row<E>(dk + off, dk_acc, r);
+      store_row<E>(dv + off, dv_acc, r);
     }
   }
 }
@@ -255,12 +500,12 @@ cudaError_t launch_dq(View q, View k, View v, View o, View g,
                       const float* lse, float* delta, float* dq, int batch,
                       int heads, int sq, int skv, float sm_scale,
                       cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(batch * heads, flash::cdiv(sq, kTile));
+  const dim3 grid(batch * heads, flash::cdiv(sq, kRows));
   flash_bwd_dq_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, g, lse, delta, dq, heads, sq, skv, sm_scale);
   return cudaGetLastError();
@@ -271,12 +516,12 @@ cudaError_t launch_dkdv(View q, View k, View v, View g, const float* lse,
                         const float* delta, float* dk, float* dv, int batch,
                         int heads, int sq, int skv, float sm_scale,
                         cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<D, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(batch * heads, flash::cdiv(skv, kTile));
+  const dim3 grid(batch * heads, flash::cdiv(skv, kRows));
   flash_bwd_dkdv_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       q, k, v, g, lse, delta, dk, dv, heads, sq, skv, sm_scale);
   return cudaGetLastError();

@@ -1,8 +1,11 @@
 // Shared pieces of the blockwise (flash) attention kernels, forward
 // (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu), float32,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a).  Both take their operands as strided Views, mask
+// with `visible` and launch through the FLASH_VIEW macros; the tile layout
+// and helpers below are the forward's (the backward runs on the tensor
+// cores, tf32x3.cuh).
 //
-// Every kernel works on 64-row tiles of one (batch, head) slice.  A block has
+// The forward works on 64-row tiles of one (batch, head) slice.  A block has
 // 256 threads seen as a 16 x 16 grid: thread (ty, tx) = (tid / 16, tid % 16)
 // owns rows ty*4 .. ty*4+3 of a 64 x 64 score tile and its columns
 // tx, tx+16, tx+32, tx+48.  The 16 threads that share a row sit in one half

@@ -21,7 +21,10 @@ one JSON line:
    LayerNorm at the encoder's shape, ragged shapes and a misaligned row
    start, its backward once), and
    timed beside its bound, the plain version and one PyTorch library
-   call;
+   call; the two kernels that run 3xTF32 on the tensor cores (the flash
+   backward, the block-sparse product) are also launched twice for the
+   same bits, and bounded by the tensor cores with the CUDA-core bound
+   beside it;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
    requests through ``InferenceModel.generate``; the launch counts show
@@ -86,9 +89,10 @@ import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores, int8 tensor-core OP/s
+# the tensor cores, TF32 and int8 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 INT8_OPS = 1.979e15
 
 # the model of both main paths (bench_lm.py's), and the serving geometry
@@ -268,6 +272,33 @@ def _bound(nbytes: float, flops: float) -> dict:
     t_ops = flops / F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _bound_3xtf32(nbytes: float, flops: float) -> dict:
+    """The bound of a kernel whose float32 products run on the tensor
+    cores in 3xTF32 (three TF32 products each): the bytes over HBM's rate
+    or 3 x flops over the TF32 peak, whichever is larger.  The CUDA-core
+    bound of the same work stands beside it, named; ``bound_ms`` and the
+    share are read against the tensor-core one."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    tc = {"bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {**tc, "bounds": {"tensor_core_3xtf32": tc,
+                             "cuda_core_f32": _bound(nbytes, flops)}}
+
+
+def _share(row: dict) -> dict:
+    """The row with its roofline share: bound_ms over ms."""
+    return {**row, "share": row["bound_ms"] / row["ms"]}
+
+
+def _assert_bit_equal(name, first, second) -> None:
+    """Two launches on the same inputs must give the same bits."""
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 f"differ, max {(a - b).abs().max().item()}")
 
 
 def check_paged_decode(dev, flush):
@@ -478,8 +509,10 @@ def check_block_sparse(dev, flush):
     M = 16 (a decode step of 16 slots) and 256 (a prefill call of 4 x 64
     tokens), K/N = 768/3072 (l1) and 3072/768 (l2), blocks (8, 8) and
     (64, 64), half of the blocks kept — and its dx at M = 256, against
-    the plain version; the yardstick is ``torch.matmul`` of the masked
-    weight.  The row reports the draft step's l1 at (8, 8)."""
+    the plain version, and twice on the same inputs for the same bits; the
+    yardstick is ``torch.matmul`` of the masked weight.  Bounds by the
+    tensor cores in 3xTF32 and by the CUDA cores.  The row reports the
+    draft step's l1 at (8, 8)."""
     from bigdl_tpu_torch.ops.block_sparse import (ColumnPlan, _bs_raw,
                                                   block_sparse_matmul_ref)
 
@@ -500,41 +533,50 @@ def check_block_sparse(dev, flush):
             for m in (16, 256):
                 x = torch.randn(m, k, generator=g).to(dev)
                 out = _bs_raw(x, w, plan)
+                again = _bs_raw(x, w, plan)
                 ref = block_sparse_matmul_ref(x, w, plan)
                 torch.cuda.synchronize()
                 shape = {"m": m, "k": k, "n": n, "block": list(blk),
                          "density": float(mask.mean())}
+                _assert_bit_equal(f"block_sparse_matmul {shape}", [out],
+                                  [again])
                 err = _assert_close(f"block_sparse_matmul {shape}", out,
                                     ref, RTOL, BS_ATOL)
                 worst = max(worst, err)
-                r = {"shape": shape, "max_abs_err": err,
-                     "ms": time_cold(lambda: _bs_raw(x, w, plan), flush),
-                     "plain_ms": time_cold(
-                         lambda: block_sparse_matmul_ref(x, w, plan), flush),
-                     "library_ms": time_cold(lambda: torch.matmul(x, wm),
-                                             flush),
-                     **_bound(4 * (m * k + kept + m * n), 2 * m * kept)}
+                r = _share({
+                    "shape": shape, "max_abs_err": err, "bit_equal": True,
+                    "ms": time_cold(lambda: _bs_raw(x, w, plan), flush),
+                    "plain_ms": time_cold(
+                        lambda: block_sparse_matmul_ref(x, w, plan), flush),
+                    "library_ms": time_cold(lambda: torch.matmul(x, wm),
+                                            flush),
+                    **_bound_3xtf32(4 * (m * k + kept + m * n),
+                                    2 * m * kept)})
                 if m == 256:
                     # dx = g @ (w masked)^T: the kernel on the transposed
                     # plan
                     go = torch.randn(m, n, generator=g).to(dev)
                     wt, tplan = w.t().contiguous(), plan.transposed()
                     dx = _bs_raw(go, wt, tplan)
+                    dx_again = _bs_raw(go, wt, tplan)
                     dref = block_sparse_matmul_ref(go, wt, tplan)
                     torch.cuda.synchronize()
+                    _assert_bit_equal(f"block_sparse_matmul dx {shape}",
+                                      [dx], [dx_again])
                     derr = _assert_close(f"block_sparse_matmul dx {shape}",
                                          dx, dref, RTOL, BS_ATOL)
                     worst = max(worst, derr)
                     wmt = wm.t()
-                    r["dx"] = {
-                        "max_abs_err": derr,
+                    r["dx"] = _share({
+                        "max_abs_err": derr, "bit_equal": True,
                         "ms": time_cold(lambda: _bs_raw(go, wt, tplan),
                                         flush),
                         "plain_ms": time_cold(lambda: block_sparse_matmul_ref(
                             go, wt, tplan), flush),
                         "library_ms": time_cold(
                             lambda: torch.matmul(go, wmt), flush),
-                        **_bound(4 * (m * n + kept + m * k), 2 * m * kept)}
+                        **_bound_3xtf32(4 * (m * n + kept + m * k),
+                                        2 * m * kept)})
                 emit({"phase": "kernel", "name": "block_sparse_matmul",
                       "rtol": RTOL, "atol": BS_ATOL, **r})
                 rows.append(r)
@@ -545,9 +587,11 @@ def check_block_sparse(dev, flush):
             "launches": None, "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "bounds": main["bounds"], "share": main["share"],
             "shape": main["shape"],
             "m256": {k: rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms", "dx")}}
+                                             "bound_by", "bounds", "share",
+                                             "library_ms", "dx")}}
 
 
 def _visible_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -568,8 +612,10 @@ def _assert_close(name, got, want, rtol, atol) -> float:
 def check_flash(dev, flush):
     """The flash forward and backward kernels against their plain
     versions at the training shape (batch 8, 12 heads, 1024 tokens,
-    head_dim 64, causal) and at ragged shapes with sq != skv, then timed
-    at the training shape."""
+    head_dim 64, causal) and at ragged shapes with sq != skv, each launched
+    twice for the same bits, then timed at the training shape.  The
+    backward's bound is by the tensor cores in 3xTF32, the CUDA-core one
+    beside it."""
     from bigdl_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
@@ -586,12 +632,15 @@ def check_flash(dev, flush):
         go = torch.randn(b, h, sq, d, generator=g).to(dev)
         out, lse = flash_attention_fwd(q, k, v, causal=causal)
         grads = flash_attention_bwd(q, k, v, out, lse, go, causal=causal)
+        again = (*flash_attention_fwd(q, k, v, causal=causal),
+                 *flash_attention_bwd(q, k, v, out, lse, go, causal=causal))
         ro, rl = flash_attention_fwd_ref(q, k, v, causal=causal,
                                          sm_scale=d ** -0.5)
         rgrads = flash_attention_bwd_ref(q, k, v, ro, rl, go, causal=causal,
                                          sm_scale=d ** -0.5)
         torch.cuda.synchronize()
         tag = f"({b}, {h}, {sq}, {skv}, causal={causal})"
+        _assert_bit_equal(f"flash {tag}", (out, lse, *grads), again)
         errs["fwd"] = max(errs["fwd"],
                           _assert_close(f"flash fwd out {tag}", out, ro,
                                         RTOL, ATOL),
@@ -600,7 +649,7 @@ def check_flash(dev, flush):
         for name, a, w in zip(("dq", "dk", "dv"), grads, rgrads):
             errs["bwd"] = max(errs["bwd"], _assert_close(
                 f"flash bwd {name} {tag}", a, w, RTOL, BWD_ATOL))
-        del q, k, v, go, out, lse, grads, ro, rl, rgrads
+        del q, k, v, go, out, lse, grads, again, ro, rl, rgrads
 
     # timing at the training shape
     b, s = TRAIN["batch"], TRAIN["seq"]
@@ -640,12 +689,13 @@ def check_flash(dev, flush):
          "launches": None, "max_abs_err": errs["fwd"], "ms": fwd_ms,
          "plain_ms": fwd_plain, **_bound(fwd_bytes, fwd_flops),
          "library_ms": fwd_lib},
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-         "replaces": "bigdl_tpu/ops/flash_attention.py:141",
-         "launches": None, "max_abs_err": errs["bwd"], "ms": bwd_ms,
-         "plain_ms": bwd_plain, **_bound(bwd_bytes, bwd_flops),
-         "library_ms": fb_lib - fwd_lib}]
+        _share({"name": "flash_attention_bwd", "route": "cuda",
+                "source": "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "replaces": "bigdl_tpu/ops/flash_attention.py:141",
+                "launches": None, "max_abs_err": errs["bwd"],
+                "bit_equal": True, "ms": bwd_ms, "plain_ms": bwd_plain,
+                **_bound_3xtf32(bwd_bytes, bwd_flops),
+                "library_ms": fb_lib - fwd_lib})]
     for row, flops, nbytes in ((rows[0], fwd_flops, fwd_bytes),
                                (rows[1], bwd_flops, bwd_bytes)):
         emit({"phase": "kernel", "shape": shape,

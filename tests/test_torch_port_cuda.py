@@ -150,9 +150,17 @@ def test_paged_verify_kernel_matches_plain(card, int8, d, chunk):
         _close(out[:, :, 1], one)
 
 
+# the draft's shapes, (64, 64) blocks at the decode step's M = 16, (8, 8)
+# at M = 256 with K not a multiple of 8, block dimensions that are not
+# multiples of 8 (the ragged last blocks, 4-byte copies), and a block
+# taller than the kernel's 64-row chunk
 @pytest.mark.parametrize("m,k,n,blk", [(16, 768, 3072, (8, 8)),
                                        (37, 100, 70, (8, 16)),
-                                       (256, 3072, 768, (64, 64))])
+                                       (256, 3072, 768, (64, 64)),
+                                       (16, 768, 3072, (64, 64)),
+                                       (256, 770, 384, (8, 8)),
+                                       (45, 130, 93, (12, 6)),
+                                       (20, 300, 40, (100, 8))])
 def test_block_sparse_kernel_matches_plain(card, m, k, n, blk):
     rs = np.random.RandomState(1)
     mask = rs.rand(-(-k // blk[0]), -(-n // blk[1])) < 0.5
@@ -170,6 +178,30 @@ def test_block_sparse_kernel_matches_plain(card, m, k, n, blk):
     _close(dx, wdx)
     _close(dw, wdw)
     assert LAUNCHES["block_sparse_matmul"] == before + 2   # forward, dx
+
+
+def test_block_sparse_and_flash_backward_repeat_their_bits(card):
+    """Two launches on the same inputs give the same bits: the tensor-core
+    kernels add their partial sums in a fixed order, with no atomics."""
+    rs = np.random.RandomState(2)
+    for m, k, n, blk in ((16, 768, 3072, (8, 8)), (256, 3072, 768, (8, 8)),
+                         (45, 130, 93, (12, 6))):
+        plan = ColumnPlan(rs.rand(-(-k // blk[0]), -(-n // blk[1])) < 0.5,
+                          *blk)
+        x = torch.randn(m, k, device=card)
+        w = torch.randn(k, n, device=card)
+        first = block_sparse_matmul(x, w, plan=plan)
+        assert torch.equal(first, block_sparse_matmul(x, w, plan=plan))
+    g = torch.Generator().manual_seed(6)
+    for causal, sq, skv, d in ((True, 300, 300, 64), (False, 70, 133, 32),
+                               (True, 65, 200, 128)):
+        q, k, v, go = (torch.randn(2, 3, n, d, generator=g).to(card)
+                       for n in (sq, skv, skv, sq))
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        first = flash_attention_bwd(q, k, v, out, lse, go, causal=causal)
+        again = flash_attention_bwd(q, k, v, out, lse, go, causal=causal)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 # the int8 matmul: ragged M / K / N (LeNet's K = 25, 150 and N = 6, 12, the
