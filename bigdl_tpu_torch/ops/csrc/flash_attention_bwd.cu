@@ -62,21 +62,11 @@
 //   skipped.
 
 #include "flash_attention_common.cuh"
-#include "tf32x3.cuh"
 
 namespace {
 
-using flash::View;
+using namespace flash;
 using namespace tf32x3;
-
-constexpr int kRows = 64;      // the block's own tile: 16 rows a warp
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kHalf = 32;      // the other side, walked 32 rows at a time
-
-template <int D>
-__host__ __device__ constexpr int pitch() {
-  return D + 4;
-}
 
 template <int D>
 __host__ __device__ constexpr int tile_floats() {
@@ -105,73 +95,6 @@ __host__ __device__ constexpr int min_blocks() {
   return D <= 64 ? 3 : 1;
 }
 
-// Rows [row0, row0 + ROWS) of slice (b, h) of `v` into the padded tile `t`
-// by cp.async, 16 bytes a copy; rows at or past `n` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_tile(float* t, const View& v, int b,
-                                           int h, int row0, int n) {
-  constexpr int P = pitch<D>(), V4 = D / 4;
-  for (int i = threadIdx.x; i < ROWS * V4; i += kThreads) {
-    const int r = i / V4;
-    const int c = (i - r * V4) * 4;
-    const bool ok = row0 + r < n;
-    cp_async16(t + r * P + c, ok ? v.row(b, h, row0 + r) + c : v.p, ok);
-  }
-}
-
-// ROWS per-row floats src[row0 ..) into s by cp.async; rows at or past n
-// are 0
-template <int ROWS>
-__device__ __forceinline__ void stage_vec(float* s, const float* src,
-                                          int row0, int n) {
-  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
-    const bool ok = row0 + r < n;
-    cp_async4(s + r, ok ? src + row0 + r : src, ok);
-  }
-}
-
-// A 16 x 8 A fragment of the padded tile t at rows r0.., columns c0..
-template <int D>
-__device__ __forceinline__ FragA tile_a(const float* t, int r0, int c0) {
-  constexpr int P = pitch<D>();
-  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
-  const float* p = t + (r0 + g) * P + c0 + tt;
-  return frag_a(p[0], p[8 * P], p[4], p[8 * P + 4]);
-}
-
-// The B fragment of (tile rows n0.. as columns)^T: element (k, n) =
-// t[n0 + n][c0 + k], for products against a tile's transpose (q k^T)
-template <int D>
-__device__ __forceinline__ FragB tile_bt(const float* t, int n0, int c0) {
-  constexpr int P = pitch<D>();
-  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
-  const float* p = t + (n0 + g) * P + c0 + tt;
-  return frag_b(p[0], p[4]);
-}
-
-// The B fragment of tile rows r0.. (8 of them, in the permuted k order of
-// acc_a) and columns c0..: element (k, n) = t[r0 + perm(k)][c0 + n]
-template <int D>
-__device__ __forceinline__ FragB tile_b_perm(const float* t, int r0, int c0) {
-  constexpr int P = pitch<D>();
-  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
-  const float* p = t + (r0 + 2 * tt) * P + c0 + g;
-  return frag_b(p[0], p[P]);
-}
-
-// An accumulator tile (16 x 8, rows g / g + 8, columns 2t / 2t + 1) as the
-// A fragment of the next product, its 8 columns in the permuted k order:
-// virtual k t is column 2t, t + 4 is column 2t + 1.
-__device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
-  return frag_a(c[0], c[2], c[1], c[3]);
-}
-
-// Accumulators e0 .. e0 + 3 of an (E, 4) array, as one (4, 4) array.
-template <int E>
-__device__ __forceinline__ float (&four(float (&acc)[E][4], int e0))[4][4] {
-  return *reinterpret_cast<float(*)[4][4]>(&acc[e0]);
-}
-
 // Whether a kernel keeps its tensor-core sums per 32-row half and adds
 // each half into a float32 total (the tensor core's truncating adds then
 // never see a long sum); at head_dim 128 the second set of registers does
@@ -194,27 +117,6 @@ __device__ __forceinline__ void fold(float (&sums)[E][4],
       }
     }
   }
-}
-
-template <int E>
-__device__ __forceinline__ void zero(float (&a)[E][4]) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[e][i] = 0.f;
-  }
-}
-
-// Row g (r = 0) or g + 8 (r = 1) of a warp's 16 x 8E accumulators to a
-// contiguous output row: columns 8e + 2t, 8e + 2t + 1
-template <int E>
-__device__ __forceinline__ void store_row(float* out, const float (&acc)[E][4],
-                                          int r) {
-  const int tq = threadIdx.x & 3;
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    *reinterpret_cast<float2*>(out + 8 * e + 2 * tq) =
-        make_float2(acc[e][2 * r], acc[e][2 * r + 1]);
 }
 
 template <int D, bool CAUSAL>

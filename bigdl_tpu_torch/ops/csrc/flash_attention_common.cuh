@@ -1,19 +1,25 @@
 // Shared pieces of the blockwise (flash) attention kernels, forward
 // (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu), float32,
 // for Hopper (sm_90a).  Both take their operands as strided Views, mask
-// with `visible` and launch through the FLASH_VIEW macros; the tile layout
-// and helpers below are the forward's (the backward runs on the tensor
-// cores, tf32x3.cuh).
+// with `visible`, launch through the FLASH_VIEW macros, and run every
+// product on the tensor cores in 3xTF32 (tf32x3.cuh) with the tile layout
+// below.
 //
-// The forward works on 64-row tiles of one (batch, head) slice.  A block has
-// 256 threads seen as a 16 x 16 grid: thread (ty, tx) = (tid / 16, tid % 16)
-// owns rows ty*4 .. ty*4+3 of a 64 x 64 score tile and its columns
-// tx, tx+16, tx+32, tx+48.  The 16 threads that share a row sit in one half
-// of a warp, so a row's max and sum are four xor-shuffles.
+// A block has 4 warps and owns a 64-row tile of one (batch, head) slice:
+// each warp owns 16 of its rows.  The other side is walked 32 rows at a
+// time through a ring of two shared-memory slots filled by cp.async.
+// Tiles are padded to head_dim + 4 floats a row, which keeps every
+// mma.sync fragment read, direct or in the permuted order below, free of
+// bank conflicts; rows past the sequence are zero-filled by cp.async
+// without a read.
 //
-// Tiles live in shared memory with rows padded to head_dim + 1 floats: a
-// column walk (16 threads reading 16 rows at the same offset) then hits 16
-// different banks, and a row walk stays contiguous.
+// A product's scores come out of mma.sync in the accumulator layout (row
+// g or g + 8, columns 2t and 2t + 1, with g = lane / 4, t = lane % 4) and
+// go into the next product as its A operand with the k index permuted to
+// match (virtual k t is column 2t, t + 4 is 2t + 1); the B operand is then
+// read from shared memory at the same permuted rows (tile_b_perm), so
+// scores never leave registers and a transposed operand is only a choice
+// of addresses.
 
 #pragma once
 
@@ -21,11 +27,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace flash {
 
-constexpr int kTile = 64;      // rows of a q tile and of a k tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kPPitch = kTile + 1;  // padded row of a 64 x 64 score tile
+constexpr int kRows = 64;      // the block's own tile: 16 rows a warp
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kHalf = 32;      // the other side, walked 32 rows at a time
 // the TPU kernel's _NEG_INF: a finite start for the running max, so that
 // exp(m_old - m_new) is 0 or 1 and never NaN
 constexpr float kNegInf = -1e30f;
@@ -40,111 +48,11 @@ struct View {
   }
 };
 
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 template <int D>
 __host__ __device__ constexpr int pitch() {
-  return D + 1;
-}
-
-template <int D>
-__host__ __device__ constexpr size_t tile_floats() {
-  return (size_t)kTile * pitch<D>();
-}
-
-__host__ __device__ constexpr size_t score_floats() {
-  return (size_t)kTile * kPPitch;
-}
-
-// Rows [row0, row0 + 64) of slice (b, h) of `v` into the padded tile `t`,
-// times `scale`; rows at or past `n` are zero.  Global reads are float4 and
-// coalesced along head_dim (the wrapper guarantees 16-byte aligned rows).
-template <int D>
-__device__ __forceinline__ void load_tile(float* t, const View& v, int b,
-                                          int h, int row0, int n,
-                                          float scale) {
-  constexpr int P = pitch<D>();
-  constexpr int V4 = D / 4;
-  for (int i = threadIdx.x; i < kTile * V4; i += kThreads) {
-    const int r = i / V4;
-    const int c = (i - r * V4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      x = *reinterpret_cast<const float4*>(v.row(b, h, row0 + r) + c);
-    }
-    float* d = t + r * P + c;
-    d[0] = x.x * scale;
-    d[1] = x.y * scale;
-    d[2] = x.z * scale;
-    d[3] = x.w * scale;
-  }
-}
-
-// acc[i][j] = sum_d A[ty*4+i][d] * B[tx+16j][d]: a 64 x 64 tile of A B^T,
-// A and B padded 64 x D tiles.
-template <int D>
-__device__ __forceinline__ void tile_abt(const float* A, const float* B,
-                                         float (&acc)[4][4]) {
-  constexpr int P = pitch<D>();
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const float* a0 = A + (ty * 4) * P;
-  const float* b0 = B + tx * P;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = a0[i * P + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = b0[j * 16 * P + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-  }
-}
-
-// acc[i][jj] += sum_k S[ty*4+i][k] * B[k][tx+16jj]: rows of a 64 x 64 score
-// tile S (pitch kPPitch) times a padded 64 x D tile B.
-template <int D>
-__device__ __forceinline__ void tile_sb(const float* S, const float* B,
-                                        float (&acc)[4][D / 16]) {
-  constexpr int P = pitch<D>();
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const float* s0 = S + (ty * 4) * kPPitch;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float s[4], bb[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i] = s0[i * kPPitch + k];
-#pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj) bb[jj] = B[k * P + tx + 16 * jj];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj)
-        acc[i][jj] = fmaf(s[i], bb[jj], acc[i][jj]);
-    }
-  }
-}
-
-// Max and sum over the 16 threads that share a row (one half-warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  return D + 4;
 }
 
 // Whether key `kp` is visible to query `qp`: inside the key length and, when
@@ -154,7 +62,97 @@ __device__ __forceinline__ bool visible(int qp, int kp, int skv) {
   return kp < skv && (!CAUSAL || kp <= qp);
 }
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// Rows [row0, row0 + ROWS) of slice (b, h) of `v` into the padded tile `t`
+// by cp.async, 16 bytes a copy; rows at or past `n` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_tile(float* t, const View& v, int b,
+                                           int h, int row0, int n) {
+  constexpr int P = pitch<D>(), V4 = D / 4;
+  for (int i = threadIdx.x; i < ROWS * V4; i += kThreads) {
+    const int r = i / V4;
+    const int c = (i - r * V4) * 4;
+    const bool ok = row0 + r < n;
+    tf32x3::cp_async16(t + r * P + c, ok ? v.row(b, h, row0 + r) + c : v.p,
+                       ok);
+  }
+}
+
+// ROWS per-row floats src[row0 ..) into s by cp.async; rows at or past n
+// are 0
+template <int ROWS>
+__device__ __forceinline__ void stage_vec(float* s, const float* src,
+                                          int row0, int n) {
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
+    const bool ok = row0 + r < n;
+    tf32x3::cp_async4(s + r, ok ? src + row0 + r : src, ok);
+  }
+}
+
+// A 16 x 8 A fragment of the padded tile t at rows r0.., columns c0..
+template <int D>
+__device__ __forceinline__ tf32x3::FragA tile_a(const float* t, int r0,
+                                                int c0) {
+  constexpr int P = pitch<D>();
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const float* p = t + (r0 + g) * P + c0 + tt;
+  return tf32x3::frag_a(p[0], p[8 * P], p[4], p[8 * P + 4]);
+}
+
+// The B fragment of (tile rows n0.. as columns)^T: element (k, n) =
+// t[n0 + n][c0 + k], for products against a tile's transpose (q k^T)
+template <int D>
+__device__ __forceinline__ tf32x3::FragB tile_bt(const float* t, int n0,
+                                                 int c0) {
+  constexpr int P = pitch<D>();
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const float* p = t + (n0 + g) * P + c0 + tt;
+  return tf32x3::frag_b(p[0], p[4]);
+}
+
+// The B fragment of tile rows r0.. (8 of them, in the permuted k order of
+// acc_a) and columns c0..: element (k, n) = t[r0 + perm(k)][c0 + n]
+template <int D>
+__device__ __forceinline__ tf32x3::FragB tile_b_perm(const float* t, int r0,
+                                                     int c0) {
+  constexpr int P = pitch<D>();
+  const int g = (threadIdx.x & 31) >> 2, tt = threadIdx.x & 3;
+  const float* p = t + (r0 + 2 * tt) * P + c0 + g;
+  return tf32x3::frag_b(p[0], p[P]);
+}
+
+// An accumulator tile (16 x 8, rows g / g + 8, columns 2t / 2t + 1) as the
+// A fragment of the next product, its 8 columns in the permuted k order:
+// virtual k t is column 2t, t + 4 is column 2t + 1.
+__device__ __forceinline__ tf32x3::FragA acc_a(const float (&c)[4]) {
+  return tf32x3::frag_a(c[0], c[2], c[1], c[3]);
+}
+
+// Accumulators e0 .. e0 + 3 of an (E, 4) array, as one (4, 4) array.
+template <int E>
+__device__ __forceinline__ float (&four(float (&acc)[E][4], int e0))[4][4] {
+  return *reinterpret_cast<float(*)[4][4]>(&acc[e0]);
+}
+
+template <int E>
+__device__ __forceinline__ void zero(float (&a)[E][4]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[e][i] = 0.f;
+  }
+}
+
+// Row g (r = 0) or g + 8 (r = 1) of a warp's 16 x 8E accumulators to a
+// contiguous output row, each times `scale`: columns 8e + 2t, 8e + 2t + 1
+template <int E>
+__device__ __forceinline__ void store_row(float* out, const float (&acc)[E][4],
+                                          int r, float scale = 1.f) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    *reinterpret_cast<float2*>(out + 8 * e + 2 * tq) =
+        make_float2(acc[e][2 * r] * scale, acc[e][2 * r + 1] * scale);
+}
 
 }  // namespace flash
 

@@ -17,24 +17,40 @@
 // sum_s (lengths[s] + 1) * heads * head_dim bytes of K and as many of V
 // (times 4 for float32 pages), plus q and out, and does about 4 flops per 8
 // bytes read (per 2 bytes for int8): far below the H100's ridge point, so its
-// floor is those bytes over 3.35 TB/s.
+// floor is those bytes over 3.35 TB/s.  At the serving shape (16 slots, 12
+// heads, head_dim 64) that is 11.5 MB of int8 pages, a few microseconds:
+// what a call costs is how many SMs its walk keeps busy, and its launches.
 //
-// What the design does about it:
-//   - one thread block per (slot, head) walks only that slot's valid keys,
-//     never the whole page table, so the bytes read follow the true lengths;
-//   - a key's row of head_dim values is one coalesced load by one warp (each
-//     lane takes head_dim / 32 neighbouring values, a float2 or a char2 at
-//     head_dim 64); int8 values are scaled right after the load, so an int8
-//     pool is read at 1 byte per value;
-//   - each of the 4 warps takes groups of kUnroll keys in turn and issues all
-//     of a group's K and V row loads before using any of them, so a group
-//     costs one memory round trip and 2 * kUnroll rows are in flight per warp;
-//   - each warp keeps its own online softmax in registers; the warps merge
-//     their (max, denominator, accumulator) once, through shared memory.
-// The TPU kernel's sequential page grid is not carried over: blocks run in
-// parallel and nothing is carried from one block to the next.  Splitting one
-// slot's walk across blocks (flash-decoding) and cp.async / TMA staging are
-// left for a later change.
+// What the design does about it (flash-decoding):
+// - A split walk.  Each slot's keys are cut into chunks of `chunk_pages`
+//   whole pages, and one block of 4 warps takes one (chunk, head, slot).
+//   The wrapper chooses and passes the split (128 keys at pages of 16:
+//   faster on the card than 64 or 256 for both page types), and the entry
+//   checks it against the table and the workspace.  The grid is sized
+//   from the table's width (n_blocks pages), never from `lengths`: a block
+//   whose chunk starts past its slot's inclusive length writes an empty
+//   partial (l = 0) and exits.  No host read of `lengths`, no synchronise,
+//   and a launch shape fixed by the table, so a CUDA graph can capture the
+//   call.  The longest slot no longer walks alone on one SM while the
+//   others idle.
+// - Whole rows in 16-byte loads.  A lane holds 16 neighbouring values of a
+//   row (one int4 of int8 values, or four float4), head_dim / 16 lanes a
+//   row, and two rows in flight: a round of a warp reads 2 x 32 x 16 bytes
+//   of K and as many of V (times 4 for float32), whole pages in contiguous
+//   runs, every load issued before the first is used.  (Four int8 rows in
+//   flight measured no faster.)  A chunk's page-table entries are read once, beside the
+//   slot's length, into shared memory; an int8 page's scale multiplies the
+//   score and p once per key, not every value.
+// - A merge in fixed order.  Each block merges its warps' (max,
+//   denominator, accumulator) in shared memory and writes one partial
+//   (m, l, acc[head_dim]) to a float32 workspace the wrapper allocates; a
+//   second kernel, launched by the same entry point, merges a (slot, head)'s
+//   partials in chunk order, every partial's loads issued at once.  No
+//   atomics: two launches give the same bits.
+// - What is left: a block's chain of two dependent device-memory reads
+//   (length and table, then K and V) times the waves of blocks, and the
+//   second launch; one launch per step of a CUDA graph would hide the
+//   rest.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,188 +61,300 @@
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kUnroll = 8;
+constexpr int kVals = 16;          // values of a row held by a lane
+constexpr int kJ = 2;              // rows a lane loads in a round
+constexpr int kMaxChunkPages = kWarps * 32;   // one table entry a thread
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const float* __restrict__ q,
-                    const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
-                    const float* __restrict__ k_scales,
-                    const float* __restrict__ v_scales,
-                    const int* __restrict__ page_table, int pt_stride,
-                    const int* __restrict__ lengths,
-                    float* __restrict__ out, int heads, int page,
-                    int n_blocks, float sm_scale) {
-  constexpr int E = D / 32;  // head-dim values held by each lane
-  const int s = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  // inclusive length; the table's width caps the walk as the TPU grid did
+paged_decode_split_kernel(const float* __restrict__ q,
+                          const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages,
+                          const float* __restrict__ k_scales,
+                          const float* __restrict__ v_scales,
+                          const int* __restrict__ page_table, int pt_stride,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ ws, int heads, int page,
+                          int n_blocks, int chunk_pages, float sm_scale) {
+  constexpr int LPR = D / kVals;   // lanes a row
+  constexpr int RPP = 32 / LPR;    // rows a warp reads at once
+  constexpr int KR = kJ * RPP;     // keys a warp takes in a round
+  const int c = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = lane / LPR, cg = lane % LPR;
+  const int ck = chunk_pages * page;   // keys a chunk
+  const int c0 = c * ck;
+  __shared__ int s_pid[kMaxChunkPages];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  __shared__ float s_acc[kWarps][D];
+  // the slot's length, the chunk's table entries and q are read at once:
+  // none waits on another (a chunk inside the table's width is a valid
+  // read whatever the length)
+  const int first = c * chunk_pages;
+  const int* pt = page_table + (size_t)s * pt_stride + first;
+  if (threadIdx.x < min(chunk_pages, n_blocks - first))
+    s_pid[threadIdx.x] = pt[threadIdx.x];
+  float qv[kVals];
+  const float* qs = q + ((size_t)s * heads + h) * D + cg * kVals;
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) qv[i] = qs[i];
+  // inclusive length; the table's width caps the walk as the TPU grid did.
+  // A chunk past it has no keys: its warps take no round, and it writes an
+  // empty partial (l = 0)
   const int n_keys = min(lengths[s] + 1, n_blocks * page);
-  const int* pt = page_table + (size_t)s * pt_stride;
+  const int n_here = max(0, min(ck, n_keys - c0));   // keys of this chunk
+  __syncthreads();
+
   const size_t page_elems = (size_t)heads * page * D;
-  const size_t head_off = (size_t)h * page * D + (size_t)lane * E;
-
-  float qr[E];
-  const float* qs = q + ((size_t)s * heads + h) * D + (size_t)lane * E;
+  const size_t head_off = (size_t)h * page * D + (size_t)cg * kVals;
+  float m = -INFINITY;   // the same in every lane of the warp
+  float l = 0.f;         // this lane's rows' share of the denominator
+  float acc[kVals];      // this lane's rows' share of its 16 columns
 #pragma unroll
-  for (int e = 0; e < E; ++e) qr[e] = qs[e] * sm_scale;
+  for (int i = 0; i < kVals; ++i) acc[i] = 0.f;
 
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[E];
+  for (int u0 = warp * KR; u0 < n_here; u0 += kWarps * KR) {
+    paged::Row16<T> kr[kJ], vr[kJ];
+    bool ok[kJ];
+    float ksc[kJ], vsc[kJ];   // the rows' page scales (1 for float32)
+    // every row of the round is requested before any is used
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-
-  for (int t0 = warp * kUnroll; t0 < n_keys; t0 += kWarps * kUnroll) {
-    float kr[kUnroll][E];
-    float vr[kUnroll][E];
-    bool ok[kUnroll];  // the same in every lane of the warp
-    // all of the group's K and V rows are requested before any is used:
-    // one memory round trip per group, not two
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      ok[u] = t < n_keys;
-      if (ok[u]) {
-        const int blk = t / page;
-        const int pid = pt[blk];
+    for (int j = 0; j < kJ; ++j) {
+      const int u = u0 + row + RPP * j;
+      ok[j] = u < n_here;
+      ksc[j] = vsc[j] = 1.f;
+      if (ok[j]) {
+        const int pi = u / page;
+        const int pid = s_pid[pi];
         const size_t off = (size_t)pid * page_elems + head_off +
-                           (size_t)(t - blk * page) * D;
-        paged::load_row<E>(k_pages + off, paged::page_scale(k_scales, pid),
-                           kr[u]);
-        paged::load_row<E>(v_pages + off, paged::page_scale(v_scales, pid),
-                           vr[u]);
+                           (size_t)(u - pi * page) * D;
+        kr[j].load(k_pages + off);
+        vr[j].load(v_pages + off);
+        if constexpr (sizeof(T) == 1) {
+          ksc[j] = k_scales[pid];
+          vsc[j] = v_scales[pid];
+        }
       }
     }
-    float sc[kUnroll];
+    float sc[kJ];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int j = 0; j < kJ; ++j) {
       float dot = 0.f;
-      if (ok[u]) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) dot = fmaf(qr[e], kr[u][e], dot);
-      }
-      sc[u] = dot;
+      for (int i = 0; i < kVals; ++i) dot = fmaf(qv[i], kr[j][i], dot);
+      sc[j] = dot;
+    }
+    // a row's LPR lanes hold its partial dots
+#pragma unroll
+    for (int o = 1; o < LPR; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], o);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      sc[j] *= sm_scale * ksc[j];
+      if (ok[j]) mx = fmaxf(mx, sc[j]);
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o);
-    }
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (ok[u]) m_new = fmaxf(m_new, sc[u]);
-    }
-    // key t0 is always valid, so m_new is finite; exp(-inf) is 0
+    for (int o = LPR; o < 32; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    // key u0 is always valid, so m_new is finite; exp(-inf) is 0
+    const float m_new = fmaxf(m, mx);
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] *= alpha;
+    for (int i = 0; i < kVals; ++i) acc[i] *= alpha;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (ok[u]) {
-        const float p = expf(sc[u] - m_new);
+    for (int j = 0; j < kJ; ++j) {
+      if (ok[j]) {
+        const float p = expf(sc[j] - m_new);
         l += p;
+        const float pv = p * vsc[j];
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vr[u][e], acc[e]);
+        for (int i = 0; i < kVals; ++i) acc[i] = fmaf(pv, vr[j][i], acc[i]);
       }
     }
     m = m_new;
   }
 
-  __shared__ float s_m[kWarps];
-  __shared__ float s_l[kWarps];
-  __shared__ float s_acc[kWarps][D];
+  // the warp's sums over its row groups (the LPR lanes of a row agree)
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int i = 0; i < kVals; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+  }
   if (lane == 0) {
     s_m[warp] = m;
     s_l[warp] = l;
   }
+  if (lane < LPR) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) s_acc[warp][lane * E + e] = acc[e];
+    for (int i = 0; i < kVals; ++i) s_acc[warp][lane * kVals + i] = acc[i];
+  }
   __syncthreads();
 
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float mx = -INFINITY;
+  // the block's partial: its warps merged in order
+  float* part = ws + (((size_t)s * heads + h) * gridDim.x + c) * (D + 2);
+  float mb = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (s_l[w] > 0.f) mb = fmaxf(mb, s_m[w]);
+  }
+  for (int d = threadIdx.x; d < D; d += kWarps * 32) {
+    float den = 0.f, num = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      if (s_l[w] > 0.f) mx = fmaxf(mx, s_m[w]);
-    }
-    float den = 0.f;
-    float num = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (s_l[w] > 0.f) {  // a warp that saw no key adds nothing
-        const float c = expf(s_m[w] - mx);
-        den = fmaf(s_l[w], c, den);
-        num = fmaf(s_acc[w][d], c, num);
+      if (s_l[w] > 0.f) {   // a warp that saw no key adds nothing
+        const float e = expf(s_m[w] - mb);
+        den = fmaf(s_l[w], e, den);
+        num = fmaf(s_acc[w][d], e, num);
       }
     }
-    out[((size_t)s * heads + h) * D + d] = num / (den == 0.f ? 1.f : den);
+    part[d] = num;
+    if (d == 0) {
+      part[D] = mb;
+      part[D + 1] = den;
+    }
   }
 }
 
+// out[s, h] from the n_chunks partials of (s, h), merged in chunk order;
+// one thread a column.  The non-empty partials are chunks 0 .. n_used - 1
+// (a chunk has keys when it starts inside the slot's length).  Their
+// weights are computed a tile of D chunks at a time, one thread a chunk,
+// so every load of a pass is independent of the others.
+template <int D>
+__global__ void __launch_bounds__(D)
+paged_decode_merge_kernel(const float* __restrict__ ws,
+                          float* __restrict__ out, int heads, int n_chunks) {
+  __shared__ float s_w[D], s_lw[D];
+  __shared__ float s_mx[D / 32];
+  __shared__ int s_n[D / 32];
+  const int h = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
+  const float* parts = ws + ((size_t)s * heads + h) * n_chunks * (D + 2);
+  float mx = -INFINITY;
+  int n_used = 0;
+  for (int c = t; c < n_chunks; c += D) {
+    const float* pc = parts + (size_t)c * (D + 2);
+    if (pc[D + 1] > 0.f) {
+      mx = fmaxf(mx, pc[D]);
+      n_used = c + 1;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    n_used = max(n_used, __shfl_xor_sync(0xffffffffu, n_used, o));
+  }
+  if ((t & 31) == 0) {
+    s_mx[t >> 5] = mx;
+    s_n[t >> 5] = n_used;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < D / 32; ++w) {
+    mx = fmaxf(mx, s_mx[w]);
+    n_used = max(n_used, s_n[w]);
+  }
+  float den = 0.f, num = 0.f;
+  for (int c0 = 0; c0 < n_used; c0 += D) {
+    const int n = min(D, n_used - c0);
+    if (t < n) {
+      const float* pc = parts + (size_t)(c0 + t) * (D + 2);
+      const float e = expf(pc[D] - mx);
+      s_w[t] = e;
+      s_lw[t] = pc[D + 1] * e;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) {
+      num = fmaf(parts[(size_t)(c0 + i) * (D + 2) + t], s_w[i], num);
+      den += s_lw[i];
+    }
+    __syncthreads();   // the tile's weights are read before the next
+  }
+  out[((size_t)s * heads + h) * D + t] = num / (den == 0.f ? 1.f : den);
+}
+
 template <int D, typename T>
-void launch(const float* q, const T* k_pages, const T* v_pages,
-            const float* k_scales, const float* v_scales,
-            const int* page_table, int pt_stride, const int* lengths,
-            float* out, int slots, int heads, int page, int n_blocks,
-            float sm_scale, cudaStream_t stream) {
-  const dim3 grid(slots, heads);
-  paged_decode_kernel<D, T><<<grid, kWarps * 32, 0, stream>>>(
-      q, k_pages, v_pages, k_scales, v_scales, page_table, pt_stride,
-      lengths, out, heads, page, n_blocks, sm_scale);
+cudaError_t launch(const float* q, const T* k_pages, const T* v_pages,
+                   const float* k_scales, const float* v_scales,
+                   const int* page_table, int pt_stride, const int* lengths,
+                   float* ws, long long ws_floats, float* out, int slots,
+                   int heads, int page, int n_blocks, int chunk_pages,
+                   int n_chunks, float sm_scale, cudaStream_t stream) {
+  // the caller's split must cover the table, and its workspace hold every
+  // (slot, head, chunk) partial
+  if ((long long)n_chunks * chunk_pages < n_blocks ||
+      ws_floats < (long long)slots * heads * n_chunks * (D + 2))
+    return cudaErrorInvalidValue;
+  if (n_chunks > 0) {
+    paged_decode_split_kernel<D, T>
+        <<<dim3(n_chunks, heads, slots), kWarps * 32, 0, stream>>>(
+            q, k_pages, v_pages, k_scales, v_scales, page_table, pt_stride,
+            lengths, ws, heads, page, n_blocks, chunk_pages, sm_scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  paged_decode_merge_kernel<D><<<dim3(heads, slots), D, 0, stream>>>(
+      ws, out, heads, n_chunks);
+  return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const float* q, const T* k_pages, const T* v_pages,
              const float* k_scales, const float* v_scales,
              const int* page_table, int pt_stride, const int* lengths,
-             float* out, int slots, int heads, int page, int n_blocks,
+             float* ws, long long ws_floats, float* out, int slots, int heads,
+             int page, int n_blocks, int chunk_pages, int n_chunks,
              int head_dim, float sm_scale, void* stream) {
   if (slots <= 0 || heads <= 0) return 0;
+  if (page <= 0 || n_blocks < 0 || chunk_pages <= 0 ||
+      chunk_pages > kMaxChunkPages || n_chunks < 0 || n_chunks > 65535 ||
+      slots > 65535 || heads > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PAGED_DECODE(D_)                                                     \
+  return (int)launch<D_, T>(q, k_pages, v_pages, k_scales, v_scales,         \
+                            page_table, pt_stride, lengths, ws, ws_floats,   \
+                            out, slots, heads, page, n_blocks, chunk_pages,  \
+                            n_chunks, sm_scale, st)
   switch (head_dim) {
-    case 32:
-      launch<32, T>(q, k_pages, v_pages, k_scales, v_scales, page_table,
-                    pt_stride, lengths, out, slots, heads, page, n_blocks,
-                    sm_scale, st);
-      break;
-    case 64:
-      launch<64, T>(q, k_pages, v_pages, k_scales, v_scales, page_table,
-                    pt_stride, lengths, out, slots, heads, page, n_blocks,
-                    sm_scale, st);
-      break;
-    case 128:
-      launch<128, T>(q, k_pages, v_pages, k_scales, v_scales, page_table,
-                     pt_stride, lengths, out, slots, heads, page, n_blocks,
-                     sm_scale, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: PAGED_DECODE(32);
+    case 64: PAGED_DECODE(64);
+    case 128: PAGED_DECODE(128);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef PAGED_DECODE
 }
 
 }  // namespace
 
 // q (slots, heads, head_dim), k_pages / v_pages (pages, heads, page,
-// head_dim) and out (slots, heads, head_dim) are contiguous float32;
-// page_table is int32 with rows pt_stride apart; lengths is int32 (slots,).
-// Launches on `stream`, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() after the launch.
+// head_dim) and out (slots, heads, head_dim) are contiguous float32, the
+// pages 16-byte aligned; page_table is int32 with rows pt_stride apart;
+// lengths is int32 (slots,).  The caller chooses the split: n_chunks
+// chunks of chunk_pages pages (1 .. 128) that cover the n_blocks table
+// entries, and ws, float32 scratch of ws_floats floats, at least slots *
+// heads * n_chunks * (head_dim + 2); a split or a workspace that falls
+// short returns cudaErrorInvalidValue before any launch.  Launches the
+// split walk and the merge on `stream`, does not synchronise, allocates
+// nothing, reads nothing on the host, and returns cudaGetLastError()
+// after the launches.
 extern "C" int paged_decode_attention_f32(
     const float* q, const float* k_pages, const float* v_pages,
-    const int* page_table, int pt_stride, const int* lengths, float* out,
-    int slots, int heads, int page, int n_blocks, int head_dim,
+    const int* page_table, int pt_stride, const int* lengths, float* ws,
+    long long ws_floats, float* out, int slots, int heads, int page,
+    int n_blocks, int chunk_pages, int n_chunks, int head_dim,
     float sm_scale, void* stream) {
   return dispatch<float>(q, k_pages, v_pages, nullptr, nullptr, page_table,
-                         pt_stride, lengths, out, slots, heads, page,
-                         n_blocks, head_dim, sm_scale, stream);
+                         pt_stride, lengths, ws, ws_floats, out, slots,
+                         heads, page, n_blocks, chunk_pages, n_chunks,
+                         head_dim, sm_scale, stream);
 }
 
 // The same over int8 pools: k_pages / v_pages are contiguous int8 and
@@ -234,11 +362,14 @@ extern "C" int paged_decode_attention_f32(
 extern "C" int paged_decode_attention_i8(
     const float* q, const int8_t* k_pages, const int8_t* v_pages,
     const float* k_scales, const float* v_scales, const int* page_table,
-    int pt_stride, const int* lengths, float* out, int slots, int heads,
-    int page, int n_blocks, int head_dim, float sm_scale, void* stream) {
+    int pt_stride, const int* lengths, float* ws, long long ws_floats,
+    float* out, int slots, int heads, int page, int n_blocks,
+    int chunk_pages, int n_chunks, int head_dim, float sm_scale,
+    void* stream) {
   return dispatch<int8_t>(q, k_pages, v_pages, k_scales, v_scales,
-                          page_table, pt_stride, lengths, out, slots, heads,
-                          page, n_blocks, head_dim, sm_scale, stream);
+                          page_table, pt_stride, lengths, ws, ws_floats, out,
+                          slots, heads, page, n_blocks, chunk_pages,
+                          n_chunks, head_dim, sm_scale, stream);
 }
 
 extern "C" const char* paged_decode_attention_error(int code) {

@@ -8,7 +8,8 @@ plain PyTorch version of the same math:
   and backward (``flash_attention_bwd.cu``) are both kernels;
 - :func:`paged_decode_attention` — single-query attention over a paged KV
   cache, for serving, over float32 or int8 pages
-  (``paged_decode_attention.cu``);
+  (``paged_decode_attention.cu``: each slot's walk split into chunks of
+  whole pages across blocks, then merged in a fixed order);
 - :func:`paged_verify_attention` — the multi-query sibling that scores a
   speculative chunk of k+1 queries per slot in one call, float32 or int8
   pages (``paged_verify_attention.cu``).
@@ -23,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from bigdl_tpu_torch.ops.common import launch
+from bigdl_tpu_torch.ops.common import cdiv, launch
 
 KERNEL = "paged_decode_attention"
 KERNEL_INT8 = "paged_decode_attention_int8"
@@ -35,6 +36,8 @@ FLASH_BWD_DKDV = "flash_attention_bwd_dkdv"
 _HEAD_DIMS = (32, 64, 128)
 # the TPU kernel's _NEG_INF: masked scores, and the running max's start
 _NEG_INF = -1e30
+# keys a block of the decode kernel's split walk takes (whole pages)
+DECODE_CHUNK_KEYS = 128
 
 _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
@@ -44,9 +47,9 @@ _FLASH_DIMS = [_I] * 5 + [_F, _I]
 # kernel -> (library in csrc/, C symbol, argument types)
 _SIGNATURES = {
     KERNEL: (KERNEL, "paged_decode_attention_f32",
-             [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_F]),
+             [_P] * 4 + [_I] + [_P] * 2 + [_LL, _P] + [_I] * 7 + [_F]),
     KERNEL_INT8: (KERNEL, "paged_decode_attention_i8",
-                  [_P] * 6 + [_I] + [_P] * 2 + [_I] * 5 + [_F]),
+                  [_P] * 6 + [_I] + [_P] * 2 + [_LL, _P] + [_I] * 7 + [_F]),
     VERIFY: (VERIFY, "paged_verify_attention_f32",
              [_P] * 4 + [_I] + [_P] * 2 + [_I] * 6 + [_F]),
     VERIFY_INT8: (VERIFY, "paged_verify_attention_i8",
@@ -158,9 +161,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           lengths, k_scales=k_scales,
                                           v_scales=v_scales, sm_scale=scale)
+    if (k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        raise ValueError("k_pages and v_pages must start 16-byte aligned: "
+                         "the kernel reads pages in 16-byte pieces")
     S, h, _ = q.shape
-    page = k_pages.shape[2]
+    page, nb = k_pages.shape[2], page_table.shape[1]
+    chunk_pages, n_chunks = decode_chunks(page, nb)
     out = torch.empty_like(q)
+    # the split walk's partials (m, l, acc[head_dim]) per (slot, head,
+    # chunk), merged by the same call; the entry checks the split and size
+    ws_floats = S * h * n_chunks * (d + 2)
+    ws = q.new_empty(ws_floats)
     scales = ()
     if k_pages.dtype == torch.int8:
         kernel, scales = KERNEL_INT8, (k_scales.data_ptr(),
@@ -169,9 +180,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         kernel = KERNEL
     _launch(kernel, device, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), *scales, page_table.data_ptr(),
-            page_table.stride(0), lengths.data_ptr(), out.data_ptr(), S, h,
-            page, page_table.shape[1], d, scale)
+            page_table.stride(0), lengths.data_ptr(), ws.data_ptr(),
+            ws_floats, out.data_ptr(), S, h, page, nb, chunk_pages,
+            n_chunks, d, scale)
     return out
+
+
+def decode_chunks(page: int, n_blocks: int) -> Tuple[int, int]:
+    """The decode kernel's split of a slot's walk: (pages a chunk, chunks
+    a slot), from the page size and the table's width alone."""
+    chunk_pages = max(1, DECODE_CHUNK_KEYS // page)
+    return chunk_pages, cdiv(n_blocks, chunk_pages)
 
 
 def _gather_pages(pages, scales, pt):

@@ -21,10 +21,12 @@ one JSON line:
    LayerNorm at the encoder's shape, ragged shapes and a misaligned row
    start, its backward once), and
    timed beside its bound, the plain version and one PyTorch library
-   call; the two kernels that run 3xTF32 on the tensor cores (the flash
-   backward, the block-sparse product) are also launched twice for the
-   same bits, and bounded by the tensor cores with the CUDA-core bound
-   beside it;
+   call; the kernels that run 3xTF32 on the tensor cores (the flash
+   forward and backward, the block-sparse product) are bounded by the
+   tensor cores with the CUDA-core bound beside it; these and the paged
+   decode kernel (a split walk merged in a fixed order) are also launched
+   twice for the same bits, and their rows carry their share of the
+   bound;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
    requests through ``InferenceModel.generate``; the launch counts show
@@ -314,8 +316,10 @@ def check_paged_decode(dev, flush):
     ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
 
     out = paged_decode_attention(q, kp, vp, pt, ln)
+    again = paged_decode_attention(q, kp, vp, pt, ln)
     ref = paged_decode_attention_ref(q, kp, vp, pt, ln)
     torch.cuda.synchronize()
+    _assert_bit_equal("paged_decode_attention", [out], [again])
     err = (out - ref).abs().max().item()
     if not torch.allclose(out, ref, rtol=RTOL, atol=ATOL):
         raise AssertionError(f"paged_decode_attention disagrees with its "
@@ -342,12 +346,14 @@ def check_paged_decode(dev, flush):
     kv_bytes = 2 * keys * h * d * 4
     io_bytes = 2 * S * h * d * 4 + S * nb * 4 + S * 4
     flops = 4 * keys * h * d
-    row = {"name": "paged_decode_attention", "route": "cuda",
-           "source": "bigdl_tpu_torch/ops/csrc/paged_decode_attention.cu",
-           "replaces": "bigdl_tpu/ops/flash_attention.py:365",
-           "launches": None, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, **_bound(kv_bytes + io_bytes, flops),
-           "library_ms": library_ms}
+    row = _share({"name": "paged_decode_attention", "route": "cuda",
+                  "source": "bigdl_tpu_torch/ops/csrc/"
+                            "paged_decode_attention.cu",
+                  "replaces": "bigdl_tpu/ops/flash_attention.py:365",
+                  "launches": None, "max_abs_err": err, "bit_equal": True,
+                  "ms": ms, "plain_ms": plain_ms,
+                  **_bound(kv_bytes + io_bytes, flops),
+                  "library_ms": library_ms})
     emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                        "head_dim": d, "page": page,
                                        "n_blocks": nb, "pages": P},
@@ -397,8 +403,10 @@ def check_paged_decode_int8(dev, flush):
     page, nb = kp.shape[2], pt.shape[1]
     ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     out = paged_decode_attention(q, kp, vp, pt, ln, **sc)
+    again = paged_decode_attention(q, kp, vp, pt, ln, **sc)
     ref = paged_decode_attention_ref(q, kp, vp, pt, ln, **sc)
     torch.cuda.synchronize()
+    _assert_bit_equal("paged_decode_attention int8", [out], [again])
     err = _assert_close("paged_decode_attention int8", out, ref, RTOL, ATOL)
     ms = time_cold(lambda: paged_decode_attention(q, kp, vp, pt, ln, **sc),
                    flush)
@@ -421,12 +429,14 @@ def check_paged_decode_int8(dev, flush):
     kv_bytes = 2 * keys * h * d                          # int8 K and V
     io_bytes = 2 * S * h * d * 4 + S * nb * 4 + S * 4 + 2 * S * nb * 4
     flops = 4 * keys * h * d
-    row = {"name": "paged_decode_attention_int8", "route": "cuda",
-           "source": "bigdl_tpu_torch/ops/csrc/paged_decode_attention.cu",
-           "replaces": "bigdl_tpu/ops/flash_attention.py:213",
-           "launches": None, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, **_bound(kv_bytes + io_bytes, flops),
-           "library_ms": library_ms}
+    row = _share({"name": "paged_decode_attention_int8", "route": "cuda",
+                  "source": "bigdl_tpu_torch/ops/csrc/"
+                            "paged_decode_attention.cu",
+                  "replaces": "bigdl_tpu/ops/flash_attention.py:213",
+                  "launches": None, "max_abs_err": err, "bit_equal": True,
+                  "ms": ms, "plain_ms": plain_ms,
+                  **_bound(kv_bytes + io_bytes, flops),
+                  "library_ms": library_ms})
     emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                        "head_dim": d, "page": page,
                                        "n_blocks": nb, "pages": kp.shape[0],
@@ -613,9 +623,9 @@ def check_flash(dev, flush):
     """The flash forward and backward kernels against their plain
     versions at the training shape (batch 8, 12 heads, 1024 tokens,
     head_dim 64, causal) and at ragged shapes with sq != skv, each launched
-    twice for the same bits, then timed at the training shape.  The
-    backward's bound is by the tensor cores in 3xTF32, the CUDA-core one
-    beside it."""
+    twice for the same bits, then timed at the training shape.  Both
+    bounds are by the tensor cores in 3xTF32, the CUDA-core one beside
+    it."""
     from bigdl_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
@@ -683,12 +693,13 @@ def check_flash(dev, flush):
     shape = {"batch": b, "heads": h, "seq": s, "head_dim": d,
              "causal": True}
     rows = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-         "replaces": "bigdl_tpu/ops/flash_attention.py:109",
-         "launches": None, "max_abs_err": errs["fwd"], "ms": fwd_ms,
-         "plain_ms": fwd_plain, **_bound(fwd_bytes, fwd_flops),
-         "library_ms": fwd_lib},
+        _share({"name": "flash_attention_fwd", "route": "cuda",
+                "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+                "replaces": "bigdl_tpu/ops/flash_attention.py:109",
+                "launches": None, "max_abs_err": errs["fwd"],
+                "bit_equal": True, "ms": fwd_ms, "plain_ms": fwd_plain,
+                **_bound_3xtf32(fwd_bytes, fwd_flops),
+                "library_ms": fwd_lib}),
         _share({"name": "flash_attention_bwd", "route": "cuda",
                 "source": "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": "bigdl_tpu/ops/flash_attention.py:141",
@@ -1572,9 +1583,11 @@ def check_flash_noncausal(dev, flush):
     q, k, v = (torch.randn(b, h, s, d, generator=g).to(dev)
                for _ in range(3))
     out, lse = flash_attention_fwd(q, k, v, causal=False)
+    again = flash_attention_fwd(q, k, v, causal=False)
     ro, rl = flash_attention_fwd_ref(q, k, v, causal=False,
                                      sm_scale=d ** -0.5)
     torch.cuda.synchronize()
+    _assert_bit_equal("flash fwd (non-causal)", (out, lse), again)
     err = max(_assert_close("flash fwd out (non-causal)", out, ro, RTOL,
                             ATOL),
               _assert_close("flash fwd lse (non-causal)", lse, rl, RTOL,
@@ -1585,17 +1598,18 @@ def check_flash_noncausal(dev, flush):
     elems = b * h * s * d
     flops = 4 * d * b * h * _visible_pairs(s, s, False)
     nbytes = 4 * (4 * elems + b * h * s)
-    row = {"name": "flash_attention_fwd", "instance": "non-causal",
-           "route": "cuda",
-           "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-           "replaces": "bigdl_tpu/ops/flash_attention.py:109",
-           "launches": None, "max_abs_err": err,
-           "ms": time_cold(lambda: flash_attention_fwd(q, k, v, causal=False),
-                           flush),
-           "plain_ms": time_cold(lambda: flash_attention_fwd_ref(
-               q, k, v, causal=False, sm_scale=d ** -0.5), flush, reps=10),
-           **_bound(nbytes, flops),
-           "library_ms": time_cold(lambda: sdpa(q, k, v), flush)}
+    row = _share({
+        "name": "flash_attention_fwd", "instance": "non-causal",
+        "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "replaces": "bigdl_tpu/ops/flash_attention.py:109",
+        "launches": None, "max_abs_err": err, "bit_equal": True,
+        "ms": time_cold(lambda: flash_attention_fwd(q, k, v, causal=False),
+                        flush),
+        "plain_ms": time_cold(lambda: flash_attention_fwd_ref(
+            q, k, v, causal=False, sm_scale=d ** -0.5), flush, reps=10),
+        **_bound_3xtf32(nbytes, flops),
+        "library_ms": time_cold(lambda: sdpa(q, k, v), flush)})
     emit({"phase": "kernel", "shape": {"batch": b, "heads": h, "seq": s,
                                        "head_dim": d, "causal": False},
           "bytes": nbytes, "flops": flops, "rtol": RTOL, "atol": ATOL,

@@ -19,8 +19,9 @@ from bigdl_tpu_torch.ops.block_sparse import (ColumnPlan,
                                               block_sparse_matmul,
                                               block_sparse_matmul_ref)
 from bigdl_tpu_torch.ops.flash_attention import (
-    paged_decode_attention, paged_decode_attention_ref,
-    paged_verify_attention, paged_verify_attention_ref)
+    KERNEL, _launch, decode_chunks, paged_decode_attention,
+    paged_decode_attention_ref, paged_verify_attention,
+    paged_verify_attention_ref)
 from bigdl_tpu_torch.ops.quantized import quantize_pages
 from bigdl_tpu_torch.tensor.policy import apply_precision_policy
 
@@ -396,3 +397,99 @@ def test_fused_keras_encoder_on_the_card(card):
     assert LAUNCHES["flash_attention_fwd"] - before.get(
         "flash_attention_fwd", 0) == 2
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# the decode kernel's split walk (chunks of 128 keys: 8 pages of 16, 4 of
+# 32): lengths on both sides of page and chunk edges, length 0, the full
+# table, and a 10-page table that is not a whole number of chunks
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("page", [16, 32])
+def test_paged_decode_split_walk_edges(card, int8, d, page):
+    S, h, nb = 10, 3, 10
+    kp, vp, pt, sc = _paged_case(card, S, h, d, page, nb, int8, seed=7)
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(S, h, d, generator=g).to(card)
+    full = nb * page - 1
+    lengths = torch.tensor([0, page - 1, page, 63, 64, 65, 127, 128,
+                            full - 1, full], dtype=torch.int32, device=card)
+    name = "paged_decode_attention_int8" if int8 else \
+        "paged_decode_attention"
+    before = LAUNCHES[name]
+    out = paged_decode_attention(q, kp, vp, pt, lengths, **sc)
+    want = paged_decode_attention_ref(q, kp, vp, pt, lengths, **sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    assert LAUNCHES[name] == before + 1
+
+
+def test_paged_decode_repeats_its_bits_and_refuses_misaligned_pages(card):
+    """The split walk's partials merge in a fixed order: two launches on
+    the same inputs give the same bits, for both page types."""
+    S, h, d, page, nb = 16, 12, 64, 16, 64
+    lengths = torch.from_numpy(np.random.RandomState(3).randint(
+        0, nb * page, S).astype(np.int32)).to(card)
+    for int8 in (False, True):
+        kp, vp, pt, sc = _paged_case(card, S, h, d, page, nb, int8, seed=9)
+        q = torch.randn(S, h, d, device=card)
+        first = paged_decode_attention(q, kp, vp, pt, lengths, **sc)
+        again = paged_decode_attention(q, kp, vp, pt, lengths, **sc)
+        assert torch.equal(first, again)
+    kp, vp, pt, _ = _paged_case(card, 2, 2, 32, 16, 2, False)
+    off = torch.empty(kp.numel() + 1, device=card)[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(torch.randn(2, 2, 32, device=card), off, vp,
+                               pt, torch.zeros(2, dtype=torch.int32,
+                                               device=card))
+
+
+def test_paged_decode_entry_refuses_a_short_split_or_workspace(card):
+    """The wrapper owns the split; the C entry refuses, before any
+    launch, a split that does not cover the table or a workspace too
+    small for its partials, so neither can be overrun."""
+    S, h, d, page, nb = 3, 2, 32, 16, 20
+    kp, vp, pt, _ = _paged_case(card, S, h, d, page, nb, False)
+    q = torch.randn(S, h, d, device=card)
+    lengths = torch.full((S,), nb * page - 1, dtype=torch.int32,
+                         device=card)
+    chunk_pages, n_chunks = decode_chunks(page, nb)
+    need = S * h * n_chunks * (d + 2)
+    ws, out = torch.empty(need, device=card), torch.empty_like(q)
+
+    def call(ws_floats, n):
+        _launch(KERNEL, card, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                pt.data_ptr(), pt.stride(0), lengths.data_ptr(),
+                ws.data_ptr(), ws_floats, out.data_ptr(), S, h, page, nb,
+                chunk_pages, n, d, d ** -0.5)
+
+    before = LAUNCHES[KERNEL]
+    for ws_floats, n in ((need - 1, n_chunks), (need, n_chunks - 1)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call(ws_floats, n)
+    assert LAUNCHES[KERNEL] == before
+    call(need, n_chunks)
+    torch.testing.assert_close(
+        out, paged_decode_attention_ref(q, kp, vp, pt, lengths),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,sq,skv", [(32, 100, 257), (32, 257, 100),
+                                      (128, 100, 257), (128, 257, 100)])
+def test_flash_forward_head_dims_on_the_tensor_cores(card, causal, d, sq,
+                                                     skv):
+    """The forward at head_dim 32 and 128 with sq != skv, within
+    chip_smoke.py's tolerances (rtol 1e-4, atol 1e-5), out and lse, and
+    the same bits over two launches."""
+    g = torch.Generator().manual_seed(10)
+    q = torch.randn(2, 3, sq, d, generator=g).to(card)
+    k, v = (torch.randn(2, 3, skv, d, generator=g).to(card)
+            for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    again = flash_attention_fwd(q, k, v, causal=causal)
+    ro, rl = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                     sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ro, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])

@@ -1,6 +1,6 @@
 """The 3xTF32 arithmetic of the redesigned tensor-core kernels
-(``block_sparse_matmul.cu``, ``flash_attention_bwd.cu``), argued on the
-CPU before any card run.
+(``block_sparse_matmul.cu``, ``flash_attention_bwd.cu``,
+``flash_attention_fwd.cu``), argued on the CPU before any card run.
 
 A TF32 tensor-core product reads 10 explicit mantissa bits of each
 float32 operand.  One TF32 rounding is emulated as ``cvt.rna.tf32.f32``
@@ -11,13 +11,17 @@ reads the top 11 bits (truncated here, the worse case).  Products of two such va
 float32 matmul of the rounded operands is the tensor core's product up to
 the order of its float32 sums.  At the block-sparse shapes of
 ``chip_smoke.py`` (M = 16 and 256; K/N = 768/3072 and 3072/768; (8, 8)
-blocks, half kept) and at a small causal flash backward, against the
+blocks, half kept), at a small causal flash backward, and at a small
+causal and non-causal flash forward with sq != skv (the kernel's 32-key
+halves, base-2 online softmax and per-half float32 totals), against the
 float64 product of the same float32 inputs:
 
 - one TF32 rounding misses ``chip_smoke.py``'s tolerances (RTOL with
-  BS_ATOL for the product, RTOL with BWD_ATOL for the gradients);
+  BS_ATOL for the product, RTOL with BWD_ATOL for the gradients, RTOL
+  with ATOL for the forward's out and lse);
 - the 3xTF32 split, ``a_lo b_hi + a_hi b_lo + a_hi b_hi``, meets them,
-  also against the float32 plain version that the card compares with.
+  also against the float32 plain version that the card compares with
+  (and, for the forward, the JAX kernel in interpret mode).
 
 The emulation lives in this test, not in the package."""
 
@@ -156,3 +160,64 @@ def test_flash_backward_tolerance_needs_three_products():
         assert not _close(o, e, BWD_ATOL), name
         assert _close(t, e, BWD_ATOL), name
         assert _close(t, pl, BWD_ATOL), name
+
+
+def _flash_fwd(q, k, v, scale, causal, mm, half=32):
+    """The redesigned forward's arithmetic (flash_attention_fwd.cu): q
+    scaled by sm_scale * log2(e) in float32, keys walked 32 at a time with
+    an online softmax in base 2 (running max from -1e30), each half's
+    p v through ``mm`` into its own sums and then into float32 totals
+    times the rescale; lse back in base e.  Returns (out, lse)."""
+    sq, skv = q.shape[2], k.shape[2]
+    qs = q * (scale * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    m = torch.full(q.shape[:3], -1e30, dtype=torch.float32)
+    l = torch.zeros(q.shape[:3], dtype=torch.float32)
+    o = torch.zeros(q.shape, dtype=torch.float32)
+    rows = torch.arange(sq)[:, None]
+    for kb in range(0, skv, half):
+        kt, vt = k[:, :, kb:kb + half], v[:, :, kb:kb + half]
+        s = mm(qs, kt.transpose(-1, -2)).float()
+        keys = kb + torch.arange(kt.shape[2])[None, :]
+        vis = keys <= rows if causal else torch.ones_like(keys <= rows)
+        s = torch.where(vis, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(vis, torch.exp2(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + mm(p, vt).float()
+        m = m_new
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return o / l_safe[..., None], m * 0.6931471805599453 + torch.log(l_safe)
+
+
+@pytest.mark.parametrize("causal,sq,skv", [(True, 96, 160),
+                                           (False, 160, 96)])
+def test_flash_forward_tolerance_needs_three_products(causal, sq, skv):
+    """The forward's q k^T and p v in 3xTF32 meet chip_smoke.py's RTOL /
+    ATOL against the JAX kernel (interpret mode) and the plain version,
+    out and lse both; with one TF32 rounding they do not."""
+    import jax.numpy as jnp
+    from bigdl_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
+
+    rs = np.random.RandomState(2)
+    b, h, d = 1, 2, 64
+    q = rs.randn(b, h, sq, d).astype(np.float32)
+    k = rs.randn(b, h, skv, d).astype(np.float32)
+    v = rs.randn(b, h, skv, d).astype(np.float32)
+    scale = d ** -0.5
+    jo, jl = jax_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           scale, causal, 32, 32, True)
+    jax_out = (torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jl)))
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    plain = flash_attention_fwd_ref(qt, kt, vt, causal=causal,
+                                    sm_scale=scale)
+    exact = flash_attention_fwd_ref(qt.double(), kt.double(), vt.double(),
+                                    causal=causal, sm_scale=scale)
+    one = _flash_fwd(qt, kt, vt, scale, causal, mm_tf32)
+    three = _flash_fwd(qt, kt, vt, scale, causal, mm_3xtf32)
+    atol = smoke.ATOL
+    assert not all(_close(o, e, atol) for o, e in zip(one, exact))
+    for want in (exact, jax_out, plain):
+        for name, got, w in zip(("out", "lse"), three, want):
+            assert _close(got, w, atol), (
+                name, (got.double() - w.double()).abs().max())
