@@ -163,17 +163,28 @@ def _detached(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.detach().float().clone()
 
 
+def _k_major(w_q: torch.Tensor) -> torch.Tensor:
+    """An int8 weight (..., K, N) with the same values and bytes, held
+    K-major: a transposed view of a contiguous (..., N, K), the layout the
+    int8 kernel reads its weight in.  Copies only a weight not yet held
+    that way; ``.to()``, ``deepcopy`` and ``load_state_dict`` keep the
+    layout."""
+    return w_q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 class QuantizedLinear(Module):
     """Int8 twin of ``Linear``: an (in, out) int8 weight with per-out-column
     scales, activations quantized per row (dynamic) or by a calibrated
-    ``act_scale``, the product on :func:`ops.quantized.int8_matmul`."""
+    ``act_scale``, the product and its rescale on the int8 kernel
+    (:func:`ops.quantized.quantized_linear`).  ``weight_q`` reads (in,
+    out), as the JAX twin's, but is held K-major (see :func:`_k_major`)."""
 
     def __init__(self, weight_q, scales, bias=None, act_scale=None,
                  name=None):
         super().__init__(name)
         self.out_features = weight_q.shape[1]
         self.with_bias = bias is not None
-        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("weight_q", _k_major(weight_q))
         self.register_buffer("scales", scales)
         self.register_buffer("act_scale", act_scale)
         self.register_buffer("bias", bias)
@@ -217,13 +228,14 @@ class QuantizedConv2D(_ConvConfig):
     channel-major ``(C, kh, kw)``, the order of the JAX
     ``conv_general_dilated_patches``, and the weight's rows are stored in
     that order.  ``groups > 1`` multiplies each group on its own
-    kernel launch."""
+    kernel launch.  ``weight_q`` reads as the JAX twin's but is held
+    K-major (see :func:`_k_major`)."""
 
     def __init__(self, conv: Conv2D, weight_q, scales, bias=None,
                  act_scale=None, name=None):
         super().__init__(conv, bias, name)
         # (rows, out), or (g, rows, out / g) with groups
-        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("weight_q", _k_major(weight_q))
         self.register_buffer("scales", scales)
         self.register_buffer("act_scale", act_scale)
 

@@ -222,64 +222,6 @@ paged_decode_split_kernel(const float* __restrict__ q,
   }
 }
 
-// out[s, h] from the n_chunks partials of (s, h), merged in chunk order;
-// one thread a column.  The non-empty partials are chunks 0 .. n_used - 1
-// (a chunk has keys when it starts inside the slot's length).  Their
-// weights are computed a tile of D chunks at a time, one thread a chunk,
-// so every load of a pass is independent of the others.
-template <int D>
-__global__ void __launch_bounds__(D)
-paged_decode_merge_kernel(const float* __restrict__ ws,
-                          float* __restrict__ out, int heads, int n_chunks) {
-  __shared__ float s_w[D], s_lw[D];
-  __shared__ float s_mx[D / 32];
-  __shared__ int s_n[D / 32];
-  const int h = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
-  const float* parts = ws + ((size_t)s * heads + h) * n_chunks * (D + 2);
-  float mx = -INFINITY;
-  int n_used = 0;
-  for (int c = t; c < n_chunks; c += D) {
-    const float* pc = parts + (size_t)c * (D + 2);
-    if (pc[D + 1] > 0.f) {
-      mx = fmaxf(mx, pc[D]);
-      n_used = c + 1;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    n_used = max(n_used, __shfl_xor_sync(0xffffffffu, n_used, o));
-  }
-  if ((t & 31) == 0) {
-    s_mx[t >> 5] = mx;
-    s_n[t >> 5] = n_used;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < D / 32; ++w) {
-    mx = fmaxf(mx, s_mx[w]);
-    n_used = max(n_used, s_n[w]);
-  }
-  float den = 0.f, num = 0.f;
-  for (int c0 = 0; c0 < n_used; c0 += D) {
-    const int n = min(D, n_used - c0);
-    if (t < n) {
-      const float* pc = parts + (size_t)(c0 + t) * (D + 2);
-      const float e = expf(pc[D] - mx);
-      s_w[t] = e;
-      s_lw[t] = pc[D + 1] * e;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) {
-      num = fmaf(parts[(size_t)(c0 + i) * (D + 2) + t], s_w[i], num);
-      den += s_lw[i];
-    }
-    __syncthreads();   // the tile's weights are read before the next
-  }
-  out[((size_t)s * heads + h) * D + t] = num / (den == 0.f ? 1.f : den);
-}
-
 template <int D, typename T>
 cudaError_t launch(const float* q, const T* k_pages, const T* v_pages,
                    const float* k_scales, const float* v_scales,
@@ -300,8 +242,8 @@ cudaError_t launch(const float* q, const T* k_pages, const T* v_pages,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  paged_decode_merge_kernel<D><<<dim3(heads, slots), D, 0, stream>>>(
-      ws, out, heads, n_chunks);
+  paged::merge_kernel<D><<<dim3(heads, slots), D, 0, stream>>>(ws, out,
+                                                               n_chunks);
   return cudaGetLastError();
 }
 

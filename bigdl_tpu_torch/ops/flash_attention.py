@@ -12,7 +12,8 @@ plain PyTorch version of the same math:
   whole pages across blocks, then merged in a fixed order);
 - :func:`paged_verify_attention` — the multi-query sibling that scores a
   speculative chunk of k+1 queries per slot in one call, float32 or int8
-  pages (``paged_verify_attention.cu``).
+  pages (``paged_verify_attention.cu``: the same split walk, each loaded
+  row scored against every query of the slot).
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version (``*_ref``) only for tensors that lie on the CPU.  There is no
@@ -51,9 +52,9 @@ _SIGNATURES = {
     KERNEL_INT8: (KERNEL, "paged_decode_attention_i8",
                   [_P] * 6 + [_I] + [_P] * 2 + [_LL, _P] + [_I] * 7 + [_F]),
     VERIFY: (VERIFY, "paged_verify_attention_f32",
-             [_P] * 4 + [_I] + [_P] * 2 + [_I] * 6 + [_F]),
+             [_P] * 4 + [_I] + [_P] * 2 + [_LL, _P] + [_I] * 8 + [_F]),
     VERIFY_INT8: (VERIFY, "paged_verify_attention_i8",
-                  [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F]),
+                  [_P] * 6 + [_I] + [_P] * 2 + [_LL, _P] + [_I] * 8 + [_F]),
     FLASH_FWD: (FLASH_FWD, "flash_attention_fwd_f32",
                 _VIEW * 3 + [_P] * 2 + _FLASH_DIMS),
     FLASH_BWD_DQ: ("flash_attention_bwd", "flash_attention_bwd_dq_f32",
@@ -187,8 +188,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 
 def decode_chunks(page: int, n_blocks: int) -> Tuple[int, int]:
-    """The decode kernel's split of a slot's walk: (pages a chunk, chunks
-    a slot), from the page size and the table's width alone."""
+    """The split of a slot's walk that the decode and verify kernels
+    take: (pages a chunk, chunks a slot), from the page size and the
+    table's width alone."""
     chunk_pages = max(1, DECODE_CHUNK_KEYS // page)
     return chunk_pages, cdiv(n_blocks, chunk_pages)
 
@@ -223,10 +225,12 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, positions, *,
     """Speculative-verify attention: ``q`` (slots, heads, chunk,
     head_dim) float32 holds a chunk of queries per slot, query ``c`` of
     slot ``s`` at cache position ``positions[s] + c``, attending keys at
-    positions ``<= positions[s] + c``; ``chunk`` is any value >= 1.  The
-    chunk's own K/V must already be in the pages.  Pages, scales and
-    ``page_table`` as :func:`paged_decode_attention`; ``positions``
-    (slots,) int32.  Returns (slots, heads, chunk, head_dim)."""
+    positions ``<= positions[s] + c``; ``chunk`` is any value >= 1 whose
+    per-query state fits a block's shared memory on CUDA (up to 78 at
+    head_dim 128, 136 at 64).  The chunk's own K/V must already be in the
+    pages.  Pages, scales and ``page_table`` as
+    :func:`paged_decode_attention`; ``positions`` (slots,) int32.
+    Returns (slots, heads, chunk, head_dim)."""
     device = _check_paged(q, k_pages, v_pages, page_table, positions,
                           k_scales, v_scales, "positions")
     if q.ndim != 4:
@@ -238,8 +242,17 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, positions, *,
         return paged_verify_attention_ref(q, k_pages, v_pages, page_table,
                                           positions, k_scales=k_scales,
                                           v_scales=v_scales, sm_scale=scale)
-    page = k_pages.shape[2]
+    if (q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        raise ValueError("q, k_pages and v_pages must start 16-byte "
+                         "aligned: the kernel reads them in 16-byte pieces")
+    page, nb = k_pages.shape[2], page_table.shape[1]
+    chunk_pages, n_chunks = decode_chunks(page, nb)
     out = torch.empty_like(q)
+    # the split walk's partials (m, l, acc[head_dim]) per (slot, head,
+    # query, chunk), merged by the same call; the entry checks the split
+    # and the size
+    ws_floats = S * h * C * n_chunks * (d + 2)
+    ws = q.new_empty(ws_floats)
     scales = ()
     if k_pages.dtype == torch.int8:
         kernel, scales = VERIFY_INT8, (k_scales.data_ptr(),
@@ -248,8 +261,9 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, positions, *,
         kernel = VERIFY
     _launch(kernel, device, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), *scales, page_table.data_ptr(),
-            page_table.stride(0), positions.data_ptr(), out.data_ptr(), S, h,
-            page, page_table.shape[1], C, d, scale)
+            page_table.stride(0), positions.data_ptr(), ws.data_ptr(),
+            ws_floats, out.data_ptr(), S, h, page, nb, chunk_pages,
+            n_chunks, C, d, scale)
     return out
 
 

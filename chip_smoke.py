@@ -16,17 +16,19 @@ one JSON line:
    shape; the verify kernel over float32 and int8 pages; the
    block-sparse product at the draft's decode and prefill shapes, its
    dx too; the int8 matmul exactly at every shape of a ResNet-50
-   forward at bucket 16, at LeNet-5's ragged shapes and at M = 1; the
-   flash forward's non-causal instance at the encoder's shape; the fused
-   LayerNorm at the encoder's shape, ragged shapes and a misaligned row
-   start, its backward once), and
-   timed beside its bound, the plain version and one PyTorch library
-   call; the kernels that run 3xTF32 on the tensor cores (the flash
-   forward and backward, the block-sparse product) are bounded by the
-   tensor cores with the CUDA-core bound beside it; these and the paged
-   decode kernel (a split walk merged in a fixed order) are also launched
-   twice for the same bits, and their rows carry their share of the
-   bound;
+   forward at bucket 16, at the split-K shapes of buckets 1, 4 and 64,
+   at LeNet-5's ragged shapes and at M = 1, its fused rescale bit-equal
+   to the plain tail in the three activation modes; the flash forward's
+   non-causal instance at the encoder's shape; the fused LayerNorm at
+   the encoder's shape, ragged shapes and a misaligned row start, its
+   backward once), and timed beside its bound, the plain version and
+   one PyTorch library call; the kernels that run 3xTF32 on the tensor
+   cores (the flash forward and backward, the block-sparse product) are
+   bounded by the tensor cores with the CUDA-core bound beside it; these,
+   the paged decode and verify kernels (split walks merged in a fixed
+   order) and the int8 matmul are also launched twice for the same bits,
+   and the rows carry their share of the bound; first, timing_floor:
+   what the yardstick reads for a 4-byte memset;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
    requests through ``InferenceModel.generate``; the launch counts show
@@ -145,6 +147,9 @@ RESNET_THROUGHPUT = (20, 64)
 # ResNet-50's int8 products a forward: the stem, 16 blocks x 3 convs, 4
 # projections, the head
 RESNET_INT8_CALLS = 54
+# LeNet-5's int8 products (M, K, N) at batch 16: ragged K and N
+LENET_INT8_SHAPES = ((16 * 28 * 28, 25, 6), (16 * 10 * 10, 150, 12),
+                     (16, 300, 100), (16, 100, 10))
 # float32 predict against a direct forward of the same rows: another
 # batch size can take another cuDNN algorithm, float32 sums in another
 # order, 1e-5 of the largest |log-prob|
@@ -466,9 +471,11 @@ def check_paged_verify(dev, flush):
         pos_np = np.maximum(lengths - (C - 1), 0).astype(np.int32)
         pos = torch.from_numpy(pos_np).to(dev)
         out = paged_verify_attention(q, kp, vp, pt, pos, **sc)
+        again = paged_verify_attention(q, kp, vp, pt, pos, **sc)
         ref = paged_verify_attention_ref(q, kp, vp, pt, pos, **sc)
         torch.cuda.synchronize()
         tag = "int8" if int8 else "f32"
+        _assert_bit_equal(f"paged_verify_attention {tag}", [out], [again])
         err = _assert_close(f"paged_verify_attention {tag}", out, ref, RTOL,
                             ATOL)
         ms = time_cold(lambda: paged_verify_attention(q, kp, vp, pt, pos,
@@ -493,14 +500,13 @@ def check_paged_verify(dev, flush):
         kv_bytes = 2 * keys * h * d * (1 if int8 else 4)
         io_bytes = 2 * S * h * C * d * 4 + S * nb * 4 + S * 4
         flops = 4 * int(visible.sum()) * h * d
-        rows[tag] = {"name": "paged_verify_attention", "route": "cuda",
-                     "source": "bigdl_tpu_torch/ops/csrc/"
-                               "paged_verify_attention.cu",
-                     "replaces": "bigdl_tpu/ops/flash_attention.py:514",
-                     "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms,
-                     **_bound(kv_bytes + io_bytes, flops),
-                     "library_ms": library_ms}
+        rows[tag] = _share({
+            "name": "paged_verify_attention", "route": "cuda",
+            "source": "bigdl_tpu_torch/ops/csrc/paged_verify_attention.cu",
+            "replaces": "bigdl_tpu/ops/flash_attention.py:514",
+            "launches": None, "max_abs_err": err, "bit_equal": True,
+            "ms": ms, "plain_ms": plain_ms,
+            **_bound(kv_bytes + io_bytes, flops), "library_ms": library_ms})
         emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                            "chunk": C, "head_dim": d,
                                            "page": page, "n_blocks": nb,
@@ -510,7 +516,7 @@ def check_paged_verify(dev, flush):
     row = dict(rows["f32"])
     row["int8_pages"] = {k: rows["int8"][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}
+        "library_ms", "share")}
     return row
 
 
@@ -1233,67 +1239,136 @@ def int8_shapes(model, batch, dev):
     return shapes
 
 
-def _int8_bound(m, k, n):
+def _int8_bound(m, k, n, scale_bytes=0):
+    """(operations, bytes) bounds in ms of an (M, K) x (K, N) int8
+    product: each operand read once, the 4-byte output written once,
+    plus the epilogue's scale vectors."""
     t_ops = 2 * m * k * n / INT8_OPS * 1e3
-    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    t_bytes = (m * k + k * n + 4 * m * n + scale_bytes) \
+        / HBM_BYTES_PER_S * 1e3
     return t_ops, t_bytes
+
+
+def _int8_operands(dev, g, m, k, n):
+    """Random int8 x (M, K) in rows padded to 16 bytes, as
+    ``quantize_activations`` hands them to the kernel, and a K-major
+    weight (N, K), with the fused epilogue's per-row sx, sw and bias."""
+    from bigdl_tpu_torch.ops.common import round_up
+
+    def rand_i8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int16).to(torch.int8)
+
+    x = rand_i8(m, round_up(k, 16))[:, :k]
+    w_nk = rand_i8(n, k)
+    sx = torch.rand(m, device=dev, generator=g) * 0.05 + 1e-3
+    sw = torch.rand(n, device=dev, generator=g) * 0.01 + 1e-4
+    bias = torch.randn(n, device=dev, generator=g) * 0.1
+    return x, w_nk, sx, sw, bias
+
+
+def _check_int8_epilogue(name, x, w_nk, acc, sx, sw, bias):
+    """The fused epilogue bit-equal to the plain tail on the same
+    payloads, in the three activation modes (per row, scalar, none) and
+    with and without bias; ``acc`` is the plain int32 product."""
+    from bigdl_tpu_torch.ops.quantized import int8_matmul_nk, rescale_plain
+
+    for sxm in (sx[:, None], sx[:1].reshape(()), None):
+        for b in (bias, None):
+            got = int8_matmul_nk(x, w_nk, sw, sxm, b)
+            want = rescale_plain(acc, sxm, sw, b)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name}: the fused epilogue differs from the plain "
+                    f"tail (sx {None if sxm is None else tuple(sxm.shape)}, "
+                    f"bias {b is not None}): max "
+                    f"{(got - want).abs().max().item()}")
 
 
 def check_int8_matmul(dev, flush, resnet_shapes):
     """Kernel 4: the int8 matmul against its plain version, EXACTLY, at
     every distinct (M, K, N) of one ResNet-50 forward at bucket 16, at
-    LeNet-5's ragged shapes (batch 16) and at M = 1; each timed beside
-    its bound, its plain version and ``torch._int_mm`` (which needs
-    M > 16 and K, N multiples of 8: its operands are zero-padded to
-    that, and its result checked too).  The row is the sum over the 54
-    calls of the bucket-16 forward."""
+    the split-K shapes of buckets 1, 4 and 64, at LeNet-5's ragged shapes
+    (batch 16) and at M = 1; at each, the fused epilogue bit-equal to the
+    plain tail in its three activation modes, and the same bits twice.
+    The main path's launch (K-major weight, x in 16-byte rows, the fused
+    rescale with per-row sx, no bias) is timed at the bucket-16 shapes
+    beside its bound, its plain version (float64 GEMM and the plain tail)
+    and ``torch._int_mm`` (the int32 product alone; it needs M > 16 and
+    K, N multiples of 8: its operands are zero-padded to that, and its
+    result checked too); the int32 entry's time stands beside it.  The
+    row is the sum over the 54 calls of the bucket-16 forward."""
     from collections import Counter
 
     from bigdl_tpu_torch.ops.common import round_up
-    from bigdl_tpu_torch.ops.quantized import int8_matmul, int8_matmul_plain
+    from bigdl_tpu_torch.ops.quantized import (int8_matmul, int8_matmul_nk,
+                                               int8_matmul_plain, int8_plan,
+                                               rescale_plain)
 
     counts = Counter(resnet_shapes)
-    lenet = [(16 * 28 * 28, 25, 6), (16 * 10 * 10, 150, 12), (16, 300, 100),
-             (16, 100, 10)]
+    # the products of buckets 1, 4 and 64 whose plan splits K (M scales
+    # with the bucket)
+    split = sorted({(m * b // 16, k, n) for m, k, n in counts
+                    for b in (1, 4, 64)
+                    if int8_plan(m * b // 16, k, n)[2] > 1} - set(counts))
+    lenet = list(LENET_INT8_SHAPES)
     single = [(1, 147, 64), (1, 2048, 1000)]
     g = torch.Generator(device=dev).manual_seed(SEED)
     per_shape = {}
-    for m, k, n in list(counts) + lenet + single:
-        x = torch.randint(-127, 128, (m, k), device=dev, generator=g,
-                          dtype=torch.int16).to(torch.int8)
-        w = torch.randint(-127, 128, (k, n), device=dev, generator=g,
-                          dtype=torch.int16).to(torch.int8)
-        out = int8_matmul(x, w)
-        ref = int8_matmul_plain(x, w)
-        mp, kp, np_ = max(m, 17), round_up(k, 8), round_up(n, 8)
-        xp = torch.zeros((mp, kp), dtype=torch.int8, device=dev)
-        wp = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
-        xp[:m, :k] = x
-        wp[:k, :n] = w
-        lib = torch._int_mm(xp, wp)[:m, :n]
+    for m, k, n in dict.fromkeys(list(counts) + split + lenet + single):
+        x, w_nk, sx, sw, bias = _int8_operands(dev, g, m, k, n)
+        xc, w = x.contiguous(), w_nk.t().contiguous()   # (K, N) row-major
+        out = int8_matmul_nk(x, w_nk)
+        again = int8_matmul_nk(x, w_nk)
+        public = int8_matmul(xc, w)
+        ref = int8_matmul_plain(xc, w)
         torch.cuda.synchronize()
         wrong = int((out != ref).sum().item())
-        if wrong or out.dtype != torch.int32:
+        if wrong or out.dtype != torch.int32 or not torch.equal(public, ref):
             raise AssertionError(f"int8_matmul ({m}, {k}, {n}) disagrees with "
                                  f"its plain version in {wrong} of {m * n} "
-                                 f"outputs")
-        if not torch.equal(lib, ref):
-            raise AssertionError(f"torch._int_mm ({m}, {k}, {n}) disagrees "
-                                 f"with the plain version")
-        t_ops, t_bytes = _int8_bound(m, k, n)
+                                 f"outputs (public entry equal: "
+                                 f"{torch.equal(public, ref)})")
+        _assert_bit_equal(f"int8_matmul ({m}, {k}, {n})", [out], [again])
+        _check_int8_epilogue(f"int8_matmul ({m}, {k}, {n})", x, w_nk, ref,
+                             sx, sw, bias)
         r = {"shape": [m, k, n], "calls": counts.get((m, k, n), 0),
+             "plan": list(int8_plan(m, k, n)),
              "max_abs_err": (out - ref).abs().max().item(),
-             "ms": time_cold(lambda: int8_matmul(x, w), flush),
-             "plain_ms": time_cold(lambda: int8_matmul_plain(x, w), flush,
-                                   reps=10),
-             "library_ms": time_cold(lambda: torch._int_mm(xp, wp), flush),
-             "library_padded_to": [mp, kp, np_],
-             "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        r["tops"] = 2 * m * k * n / r["ms"] / 1e9
+             "fused_bit_equal": True}
+        if (m, k, n) in counts:
+            sxm = sx[:, None]
+            mp, kp, np_ = max(m, 17), round_up(k, 8), round_up(n, 8)
+            xp = torch.zeros((mp, kp), dtype=torch.int8, device=dev)
+            wp = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
+            xp[:m, :k] = xc
+            wp[:k, :n] = w
+            lib = torch._int_mm(xp, wp)[:m, :n]
+            torch.cuda.synchronize()
+            if not torch.equal(lib, ref):
+                raise AssertionError(f"torch._int_mm ({m}, {k}, {n}) "
+                                     f"disagrees with the plain version")
+            t_ops, t_bytes = _int8_bound(m, k, n, 4 * (m + n))
+            s_ops, s_bytes = _int8_bound(m, k, n)
+            r.update({
+                "ms": time_cold(lambda: int8_matmul_nk(x, w_nk, sw, sxm),
+                                flush),
+                "plain_ms": time_cold(lambda: rescale_plain(
+                    int8_matmul_plain(xc, w), sxm, sw), flush, reps=10),
+                "library_ms": time_cold(lambda: torch._int_mm(xp, wp),
+                                        flush),
+                "library_padded_to": [mp, kp, np_],
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "s32_ms": time_cold(lambda: int8_matmul_nk(x, w_nk), flush),
+                "s32_plain_ms": time_cold(lambda: int8_matmul_plain(xc, w),
+                                          flush, reps=10),
+                "s32_bound_ms": max(s_ops, s_bytes)})
+            r["tops"] = 2 * m * k * n / r["ms"] / 1e9
+            del xp, wp, lib
         per_shape[(m, k, n)] = r
         emit({"phase": "kernel", "name": "int8_matmul", "exact": True, **r})
-        del x, w, out, ref, xp, wp, lib
+        del x, w_nk, xc, w, out, again, public, ref
 
     def total(key, shapes):
         return sum(per_shape[s][key] * c for s, c in shapes.items())
@@ -1301,27 +1376,34 @@ def check_int8_matmul(dev, flush, resnet_shapes):
     by = Counter()
     for s, c in counts.items():
         by[per_shape[s]["bound_by"]] += per_shape[s]["bound_ms"] * c
-    return {"name": "int8_matmul", "route": "cuda",
+    return _share({
+            "name": "int8_matmul", "route": "cuda",
             "source": "bigdl_tpu_torch/ops/csrc/int8_matmul.cu",
             "replaces": "bigdl_tpu/ops/quantized.py:156",
             "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
+            "bit_equal": True,
             "ms": total("ms", counts), "plain_ms": total("plain_ms", counts),
             "bound_ms": total("bound_ms", counts),
             "bound_by": by.most_common(1)[0][0],
             "library_ms": total("library_ms", counts),
+            "library": "torch._int_mm, the int32 product alone",
+            "s32": {"ms": total("s32_ms", counts),
+                    "plain_ms": total("s32_plain_ms", counts),
+                    "bound_ms": total("s32_bound_ms", counts)},
             "work": f"the {sum(counts.values())} int8 products of one "
                     f"ResNet-50 forward at bucket 16 "
-                    f"({len(counts)} distinct shapes), summed",
-            "checked_shapes": len(per_shape)}
+                    f"({len(counts)} distinct shapes) as the main path "
+                    f"launches them (K-major weight, fused rescale), summed",
+            "checked_shapes": len(per_shape)})
 
 
 def _profile_groups(fn) -> dict:
     """``_profile`` of ``fn`` with the device time split into the int8
-    kernel, the port's profiler ranges ``int8_im2col`` (patch gather) and
+    kernel (its tiles and its split-K sums, the output rescale fused in),
+    the port's profiler ranges ``int8_im2col`` (patch gather) and
     ``int8_quantize_activations`` (abs-max, divide, round, clamp, cast),
-    and the rest (the output rescale, BN, ReLU, adds, cuDNN convs,
-    copies)."""
+    and the rest (BN, ReLU, adds, cuDNN convs, copies)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1343,7 +1425,9 @@ def _profile_groups(fn) -> dict:
               if e.device_type == torch.autograd.DeviceType.CPU
               and e.key in names}
     groups = {"int8_matmul": sum(e.self_device_time_total for e in kernels
-                                 if "int8_matmul_kernel" in e.key) / 1e3,
+                                 if "int8_matmul_kernel" in e.key
+                                 or "int8_splitk_reduce_kernel" in e.key)
+              / 1e3,
               "im2col": ranges.get("int8_im2col", 0.0),
               "quantize_activations": ranges.get(
                   "int8_quantize_activations", 0.0)}
@@ -1848,6 +1932,10 @@ def main() -> int:
           "ptxas": ptxas_report(_build.BUILD_LOGS)})
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # what the yardstick reads for a launch that does next to nothing
+    tiny = torch.zeros(1, device=dev)
+    emit({"phase": "timing_floor", "what": "a 4-byte memset under time_cold",
+          "ms": time_cold(tiny.zero_, flush)})
     decode_row = check_paged_decode(dev, flush)
     int8_row = check_paged_decode_int8(dev, flush)
     verify_row = check_paged_verify(dev, flush)

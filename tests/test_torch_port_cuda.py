@@ -493,3 +493,158 @@ def test_flash_forward_head_dims_on_the_tensor_cores(card, causal, d, sq,
     torch.testing.assert_close(out, ro, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-5)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# the int8 kernel's fused epilogue: y = acc * sx * w_scales (+ bias) in
+# the plain tail's order, bit-equal to it on the same payloads, in the
+# three activation modes; at a split head, an unsplit 128 x 64 tile
+# shape, the stem's K = 147 with padded rows, and N = 1000
+@pytest.mark.parametrize("mode", ["dynamic", "static", "channel"])
+@pytest.mark.parametrize("m,k,n", [(16, 2048, 1000), (777, 576, 64),
+                                   (300, 147, 64), (130, 256, 1000)])
+def test_int8_fused_epilogue_is_bit_equal_to_the_plain_tail(card, mode, m,
+                                                            k, n):
+    from bigdl_tpu_torch.ops.quantized import (int8_matmul_nk,
+                                               int8_matmul_plain,
+                                               quantize_activations,
+                                               quantize_int8, rescale_plain)
+
+    g = torch.Generator().manual_seed(m + k)
+    x = (torch.randn(m, k, generator=g) * 2).to(card)
+    w = (torch.randn(k, n, generator=g) * 0.1).to(card)
+    b = (torch.randn(n, generator=g) * 0.01).to(card)
+    act = {"dynamic": None, "static": 0.03,
+           "channel": torch.rand(k, generator=g).to(card) * 0.04 + 0.01
+           }[mode]
+    wf = w * act[:, None] if mode == "channel" else w
+    w_q, sw = quantize_int8(wf, axis=0)
+    x_q, sx, per_channel = quantize_activations(x, act, row_align=16)
+    sx = None if per_channel else sx
+    w_nk = w_q.t().contiguous()
+    want = rescale_plain(int8_matmul_plain(x_q, w_q), sx, sw, b)
+    before = LAUNCHES["int8_matmul"]
+    for bias in (b, None):
+        got = int8_matmul_nk(x_q, w_nk, sw, sx, bias)
+        again = int8_matmul_nk(x_q, w_nk, sw, sx, bias)
+        torch.cuda.synchronize()
+        ref = want if bias is not None else rescale_plain(
+            int8_matmul_plain(x_q, w_q), sx, sw)
+        assert got.dtype == torch.float32 and torch.equal(got, ref)
+        assert torch.equal(got, again)
+    assert LAUNCHES["int8_matmul"] == before + 4
+    # the CPU's plain tail on the same payloads gives the same bits
+    cpu = rescale_plain(int8_matmul_plain(x_q.cpu(), w_q.cpu()),
+                        None if sx is None else sx.cpu(), sw.cpu(), b.cpu())
+    assert torch.equal(want.cpu(), cpu)
+
+
+# split-K: the head's K = 2048 and the last stage's K = 4608 at the M of
+# buckets 1, 4, 16 and 64 (4608's at 1 and 4 images), exact, the same bits
+# twice
+@pytest.mark.parametrize("m", [1, 16, 49, 196])
+@pytest.mark.parametrize("k,n", [(2048, 1000), (4608, 512)])
+def test_int8_split_k_shapes_are_exact(card, m, k, n):
+    from bigdl_tpu_torch.ops.quantized import (int8_matmul_nk,
+                                               int8_matmul_plain, int8_plan)
+
+    assert int8_plan(m, k, n)[2] > 1
+    g = torch.Generator().manual_seed(m * 7 + k)
+    x = torch.randint(-127, 128, (m, k), generator=g).to(torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g).to(torch.int8)
+    x[0] = w[0] = 127          # 127 * 127 * K in one output
+    x, w = x.to(card), w.to(card)
+    got = int8_matmul_nk(x, w)
+    again = int8_matmul_nk(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, int8_matmul_plain(x, w.t()))
+    assert torch.equal(got, again)
+    assert got[0, 0].item() == 127 * 127 * k
+
+
+def test_int8_stem_takes_padded_rows(card):
+    """The stem's K = 147: activations in rows padded to 160 bytes (the
+    16-byte staging), the (64, 147) weight through the shifted loads;
+    exact against the plain version, and the stem conv on the card equal
+    to the CPU's to float32 rounding (the two devices' abs-max scales,
+    divided by 127, may round apart)."""
+    from bigdl_tpu_torch.nn import Conv2D
+    from bigdl_tpu_torch.nn.quantized import QuantizedConv2D
+    from bigdl_tpu_torch.ops.quantized import (int8_matmul_nk,
+                                               int8_matmul_plain,
+                                               quantize_activations)
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(1000, 147, generator=g).to(card)
+    x_q, _, _ = quantize_activations(x, row_align=16)
+    assert x_q.stride() == (160, 1)
+    w = torch.randint(-127, 128, (64, 147), generator=g).to(torch.int8)
+    w = w.to(card)
+    assert torch.equal(int8_matmul_nk(x_q, w),
+                       int8_matmul_plain(x_q.contiguous(), w.t()))
+    torch.manual_seed(0)
+    conv = Conv2D(3, 64, 7, 2, "SAME")
+    q = QuantizedConv2D.from_conv(conv)
+    img = torch.randn(2, 40, 40, 3)
+    want = q(img)
+    got = q.to(card)(img.to(card))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+# the verify kernel's split walk: C = 1, 5 and 9 with the first query at
+# 0, page - 1, page, on both sides of a chunk edge, with later chunks
+# empty, and running off a 10-page table that is not a whole number of
+# chunks; the same bits twice
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("chunk", [1, 5, 9])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_verify_split_walk_edges(card, int8, chunk, d):
+    S, h, page, nb = 9, 3, 16, 10
+    kp, vp, pt, sc = _paged_case(card, S, h, d, page, nb, int8, seed=12)
+    g = torch.Generator().manual_seed(13)
+    q = torch.randn(S, h, chunk, d, generator=g).to(card)
+    ck, full = 8 * page, nb * page
+    pos = torch.tensor([max(p, 0) for p in (
+        0, page - 1, page, ck - chunk, ck - 1, ck, ck // 2, full - chunk,
+        full - 1)], dtype=torch.int32, device=card)
+    name = "paged_verify_attention_int8" if int8 else \
+        "paged_verify_attention"
+    before = LAUNCHES[name]
+    out = paged_verify_attention(q, kp, vp, pt, pos, **sc)
+    again = paged_verify_attention(q, kp, vp, pt, pos, **sc)
+    want = paged_verify_attention_ref(q, kp, vp, pt, pos, **sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out, again)
+    assert LAUNCHES[name] == before + 2
+
+
+def test_paged_verify_entry_refuses_a_short_split_or_workspace(card):
+    """As the decode entry: a split that does not cover the table or a
+    workspace too small for its partials is refused before any launch."""
+    from bigdl_tpu_torch.ops.flash_attention import VERIFY
+
+    S, h, d, page, nb, C = 3, 2, 32, 16, 20, 5
+    kp, vp, pt, _ = _paged_case(card, S, h, d, page, nb, False)
+    q = torch.randn(S, h, C, d, device=card)
+    pos = torch.full((S,), nb * page - C, dtype=torch.int32, device=card)
+    chunk_pages, n_chunks = decode_chunks(page, nb)
+    need = S * h * C * n_chunks * (d + 2)
+    ws, out = torch.empty(need, device=card), torch.empty_like(q)
+
+    def call(ws_floats, n):
+        _launch(VERIFY, card, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                pt.data_ptr(), pt.stride(0), pos.data_ptr(), ws.data_ptr(),
+                ws_floats, out.data_ptr(), S, h, page, nb, chunk_pages, n,
+                C, d, d ** -0.5)
+
+    before = LAUNCHES[VERIFY]
+    for ws_floats, n in ((need - 1, n_chunks), (need, n_chunks - 1)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call(ws_floats, n)
+    assert LAUNCHES[VERIFY] == before
+    call(need, n_chunks)
+    torch.testing.assert_close(
+        out, paged_verify_attention_ref(q, kp, vp, pt, pos),
+        rtol=1e-4, atol=1e-5)
