@@ -9,7 +9,6 @@ Every module keeps the JAX params/state keys (``body``, ``proj``,
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.nn import init as init_mod
@@ -105,7 +104,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         sc = x if self.proj is None else self.proj(x)
-        return F.relu(self.body(x) + sc)
+        # max(., 0) as the JAX block takes it: its gradient at exactly 0
+        # is 1/2 (F.relu's is 0), which counts at init, where a
+        # gamma-zero body adds 0 to the shortcut's exact zeros
+        return torch.maximum(self.body(x) + sc, x.new_zeros(()))
 
 
 class Bottleneck(nn.Module):

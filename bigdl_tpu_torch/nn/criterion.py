@@ -1,5 +1,4 @@
-"""Loss functions — the port of the part of ``bigdl_tpu.nn.criterion``
-that classification and LM training use.
+"""Loss functions — the port of ``bigdl_tpu.nn.criterion``.
 
 A criterion is a scalar function of (input, target); PyTorch's autograd
 gives its gradient.  ``size_average`` (the default) takes the mean over
@@ -77,3 +76,132 @@ class CrossEntropyCriterion(Criterion):
         else:
             per_row = _picked(logp, target)
         return -_reduce(per_row, self.size_average)
+
+
+class MSECriterion(Criterion):
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        return _reduce((input - target) ** 2, self.size_average)
+
+
+class AbsCriterion(Criterion):
+    """L1."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        return _reduce((input - target).abs(), self.size_average)
+
+
+class SmoothL1Criterion(Criterion):
+    """Huber with delta 1."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        d = (input - target).abs()
+        return _reduce(torch.where(d < 1.0, 0.5 * d * d, d - 0.5),
+                       self.size_average)
+
+
+class BCECriterion(Criterion):
+    """Binary cross-entropy over probabilities, clipped to
+    [eps, 1 - eps]."""
+
+    def __init__(self, size_average: bool = True, eps: float = 1e-12):
+        self.size_average = size_average
+        self.eps = eps
+
+    def forward(self, input, target):
+        p = input.clamp(self.eps, 1.0 - self.eps)
+        loss = -(target * torch.log(p) + (1.0 - target) * torch.log1p(-p))
+        return _reduce(loss, self.size_average)
+
+
+class BCEWithLogitsCriterion(Criterion):
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        loss = (input.clamp(min=0) - input * target
+                + torch.log1p(torch.exp(-input.abs())))
+        return _reduce(loss, self.size_average)
+
+
+class KLDivCriterion(Criterion):
+    """KL divergence of ``target`` from the log-probabilities ``input``;
+    entries with target 0 add 0."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        safe = torch.where(
+            target > 0,
+            target * (torch.log(target.clamp(min=1e-30)) - input),
+            torch.zeros_like(input))
+        return _reduce(safe, self.size_average)
+
+
+class CosineEmbeddingCriterion(Criterion):
+    """Input (x1, x2), target +1 (similar) or -1 (dissimilar)."""
+
+    def __init__(self, margin: float = 0.0, size_average: bool = True):
+        self.margin = margin
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        x1, x2 = input
+        cos = (x1 * x2).sum(-1) / (
+            torch.linalg.vector_norm(x1, dim=-1)
+            * torch.linalg.vector_norm(x2, dim=-1) + 1e-12)
+        loss = torch.where(target > 0, 1.0 - cos,
+                           (cos - self.margin).clamp(min=0.0))
+        return _reduce(loss, self.size_average)
+
+
+class MarginRankingCriterion(Criterion):
+    """Input (x1, x2), target +1 when x1 should rank higher."""
+
+    def __init__(self, margin: float = 1.0, size_average: bool = True):
+        self.margin = margin
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        x1, x2 = input
+        return _reduce((-target * (x1 - x2) + self.margin).clamp(min=0.0),
+                       self.size_average)
+
+
+class ParallelCriterion(Criterion):
+    """Weighted sum of ``(criterion, weight)`` pairs over tuple inputs
+    and targets."""
+
+    def __init__(self, *pairs):
+        self.pairs = [(c, w) for c, w in pairs]
+
+    def forward(self, input, target):
+        total = 0.0
+        for i, (c, w) in enumerate(self.pairs):
+            total = total + w * c(input[i], target[i])
+        return total
+
+
+class TimeDistributedCriterion(Criterion):
+    """A criterion over (batch, time, ...) inputs; with
+    ``size_average=False`` the wrapped mean is scaled by the number of
+    time steps."""
+
+    def __init__(self, criterion: Criterion, size_average: bool = True):
+        self.criterion = criterion
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        loss = self.criterion(input, target)
+        if not self.size_average:
+            loss = loss * input.shape[1]
+        return loss

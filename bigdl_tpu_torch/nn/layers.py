@@ -16,15 +16,18 @@ Layouts and numerics follow the JAX package:
   updates them in place in training mode (the JAX package returns them
   as new state), with the JAX single-pass shifted statistics.
 
-Layers need their input widths at construction (the JAX package can
-infer them from a sample input), and draw their weights from an
-explicit ``torch.Generator`` (``nn.init``)."""
+Layers draw their weights from an explicit ``torch.Generator``
+(``nn.init``) and need their input widths at construction, except
+``Linear(out)``, ``BatchNorm()`` and ``PReLU()``: as the JAX ``build``
+does, these take their width from their first input (:class:`_LazyWidth`;
+``Optimizer`` runs one sample row through a model that has any)."""
 
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from bigdl_tpu_torch.nn import init as init_mod
 from bigdl_tpu_torch.nn.module import Module
@@ -47,23 +50,74 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 
 
-class Linear(Module):
-    """Fully-connected layer, weight (in, out), forward ``x @ W + b``."""
+class _LazyWidth:
+    """Mixin of a layer whose width may come from its first input: its
+    tensors start as torch's uninitialized parameters and buffers, and
+    a forward pre-hook calls ``_build(width, device)`` once, with the
+    last dim of that input, then removes itself."""
 
-    def __init__(self, in_features: int, out_features: int,
-                 with_bias: bool = True, weight_init=init_mod.xavier,
-                 bias_init=init_mod.zeros,
+    def _defer(self) -> None:
+        self._lazy_hook = self.register_forward_pre_hook(
+            _LazyWidth._first_call)
+
+    @staticmethod
+    def _first_call(module, args):
+        x = args[0]
+        with torch.no_grad():
+            module._build(x.shape[-1], x.device)
+        module._lazy_hook.remove()
+        del module._lazy_hook
+
+
+def _materialize(t, value: torch.Tensor, device) -> None:
+    t.materialize(tuple(value.shape), device=device, dtype=torch.float32)
+    t.copy_(value)
+
+
+def has_lazy(module: nn.Module) -> bool:
+    """Whether any tensor of ``module`` waits for its first input."""
+    return any(isinstance(t, (UninitializedParameter, UninitializedBuffer))
+               for t in list(module.parameters()) + list(module.buffers()))
+
+
+class Linear(_LazyWidth, Module):
+    """Fully-connected layer, weight (in, out), forward ``x @ W + b``.
+    ``Linear(out)`` takes ``in`` from its first input."""
+
+    def __init__(self, in_features: Optional[int] = None,
+                 out_features: int = 0, with_bias: bool = True,
+                 weight_init=init_mod.xavier, bias_init=init_mod.zeros,
                  generator: Optional[torch.Generator] = None, name=None):
         super().__init__(name)
+        if out_features == 0 and in_features is not None:
+            in_features, out_features = None, in_features
         self.in_features = in_features
         self.out_features = out_features
         self.with_bias = with_bias
-        self.weight = _param(weight_init(generator,
-                                         (in_features, out_features),
-                                         in_features, out_features))
-        self.bias = (_param(bias_init(generator, (out_features,),
-                                      in_features, out_features))
-                     if with_bias else None)
+        init = (weight_init, bias_init, generator)
+        if in_features is None:
+            self.weight = UninitializedParameter()
+            self.bias = UninitializedParameter() if with_bias else None
+            self._lazy_init = init      # dropped once built
+            self._defer()
+        else:
+            w, b = self._draw(in_features, *init)
+            self.weight = _param(w)
+            self.bias = _param(b) if with_bias else None
+
+    def _draw(self, fan_in: int, weight_init, bias_init, g):
+        out = self.out_features
+        w = weight_init(g, (fan_in, out), fan_in, out)
+        b = bias_init(g, (out,), fan_in, out) if self.with_bias else None
+        return w, b
+
+    def _build(self, width: int, device) -> None:
+        self.in_features = width
+        w, b = self._draw(width, *self._lazy_init)
+        del self._lazy_init
+        _materialize(self.weight, w, device)
+        if self.bias is not None:
+            _materialize(self.bias, b, device)
 
     def forward(self, x):
         xc, wc = cast_compute(x, self.weight)
@@ -279,21 +333,32 @@ SpatialAveragePooling = AvgPool2D
 # ---------------------------------------------------------------------------
 
 
-class BatchNorm(Module):
+class BatchNorm(_LazyWidth, Module):
     """Batch normalization over every axis but the last (NHWC images, or
     (N, C)).  eps 1e-5, momentum 0.1.  In training mode the statistics
     are the batch's, taken in one pass shifted by the running mean as
     the JAX layer takes them, and the running buffers move towards them
     (with the biased variance); in eval mode the running buffers are
-    used."""
+    used.  ``BatchNorm()`` takes its width from its first input."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1, affine: bool = True, name=None):
+    def __init__(self, num_features: Optional[int] = None,
+                 eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, name=None):
         super().__init__(name)
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
         self.affine = affine
+        if num_features is None:
+            if affine:
+                self.weight = UninitializedParameter()
+                self.bias = UninitializedParameter()
+            else:
+                self.weight = self.bias = None
+            self.register_buffer("running_mean", UninitializedBuffer())
+            self.register_buffer("running_var", UninitializedBuffer())
+            self._defer()
+            return
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -302,20 +367,36 @@ class BatchNorm(Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _build(self, width: int, device) -> None:
+        self.num_features = width
+        if self.affine:
+            _materialize(self.weight, torch.ones(width), device)
+            _materialize(self.bias, torch.zeros(width), device)
+        _materialize(self.running_mean, torch.zeros(width), device)
+        _materialize(self.running_var, torch.ones(width), device)
+
+    # set by the train step's remat while it recomputes this layer: the
+    # running mean the first run shifted by; the recompute takes it and
+    # leaves the running buffers alone
+    replay_shift: Optional[torch.Tensor] = None
+
     def forward(self, x):
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            shift = self.running_mean.float()
+            replay = self.replay_shift
+            shift = (self.running_mean if replay is None else replay).float()
             d = x.float() - shift
             dmean = d.mean(dim=axes)
             var = torch.clamp(d.square().mean(dim=axes) - dmean.square(),
                               min=0.0)
             mean = dmean + shift
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * var)
+            if replay is None:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_((1 - m) * self.running_mean
+                                            + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var
+                                           + m * var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)
@@ -538,6 +619,29 @@ class ELU(Module):
 
     def forward(self, x):
         return F.elu(x, self.alpha)
+
+
+class PReLU(_LazyWidth, Module):
+    """x where x >= 0, else alpha * x, with one learned ``alpha`` per
+    channel (the last axis), initialised to ``init_alpha``; the width
+    comes from the first input unless ``num_features`` is given."""
+
+    def __init__(self, init_alpha: float = 0.25,
+                 num_features: Optional[int] = None, name=None):
+        super().__init__(name)
+        self.init_alpha = init_alpha
+        if num_features is None:
+            self.alpha = UninitializedParameter()
+            self._defer()
+        else:
+            self.alpha = _param(torch.full((num_features,), init_alpha))
+
+    def _build(self, width: int, device) -> None:
+        _materialize(self.alpha, torch.full((width,), self.init_alpha),
+                     device)
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha * x)
 
 
 class HardTanh(Module):

@@ -18,13 +18,16 @@ port's buffers::
     state  {"1__BN": {"running_mean", "running_var"}, ...}
 
 Both packages store Linear weights (in, out) and conv kernels HWIO, so
-values copy as they are.  The same walk applies to any sub-module.  A
+values copy as they are.  A checkpoint's ``flat`` vector is the params
+tree raveled as ``jax.flatten_util.ravel_pytree`` ravels it
+(:func:`flat_order`, :func:`ravel`, :func:`unravel_into`).  The same walk
+applies to any sub-module.  A
 keras graph's variables are keyed by node names, which differ between
 the packages: :func:`load_jax_keras_variables` pairs the nodes by their
 place in the two graphs instead."""
 
 import re
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,17 +76,59 @@ def load_jax_variables(model: nn.Module,
     return model
 
 
-def _tree(named) -> Dict[str, Any]:
+def jax_path(name: str) -> Tuple[str, ...]:
+    """The JAX tree path of the port's dotted parameter or buffer
+    name."""
+    parts = name.split(".")
+    if parts[0] == "decoder":
+        parts = [f"dec{parts[1]}"] + parts[2:]
+    return tuple(parts)
+
+
+def nest(named, leaf: Callable = lambda v: v) -> Dict[str, Any]:
+    """Nested dicts keyed as the JAX package keys them, from (dotted
+    name, value) pairs, each value passed through ``leaf``."""
     tree: Dict[str, Any] = {}
-    for name, t in named:
-        parts = name.split(".")
-        if parts[0] == "decoder":
-            parts = [f"dec{parts[1]}"] + parts[2:]
+    for name, v in named:
+        parts = jax_path(name)
         node = tree
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = t.detach().cpu().numpy().astype(np.float32)
+        node[parts[-1]] = leaf(v)
     return tree
+
+
+def _tree(named) -> Dict[str, Any]:
+    return nest(named, lambda t: t.detach().cpu().numpy().astype(np.float32))
+
+
+def flat_order(names: Sequence[str]) -> List[int]:
+    """Indices of ``names`` in the order of ``jax.flatten_util.
+    ravel_pytree`` over the JAX tree: its leaves under sorted keys, i.e.
+    the JAX paths in lexicographic order ("10_..." before "2_...")."""
+    return sorted(range(len(names)), key=lambda i: jax_path(names[i]))
+
+
+def ravel(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One float32 vector of ``tensors``, each flattened, in order."""
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+@torch.no_grad()
+def unravel_into(flat, tensors: Sequence[torch.Tensor]) -> None:
+    """Copy consecutive slices of the vector ``flat`` into ``tensors``;
+    ``flat`` may be longer (a JAX vector padded to the mesh), never
+    shorter."""
+    flat = torch.as_tensor(np.asarray(flat, np.float32))
+    need = sum(t.numel() for t in tensors)
+    if flat.numel() < need:
+        raise ValueError(f"a flat vector of {flat.numel()} elements for "
+                         f"{need} parameters")
+    off = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[off:off + n].reshape(t.shape))
+        off += n
 
 
 def export_params(model: nn.Module) -> Dict[str, Any]:

@@ -75,7 +75,27 @@ one JSON line:
 12. train_profile — two more steps under torch.profiler;
 13. train_plain_attention — four more steps with ``BIGDL_TPU_FLASH=0``,
    the switch that sends the auto path to plain attention: the A/B of
-   the flash kernels end to end, and proof that the switch holds.
+   the flash kernels end to end, and proof that the switch holds;
+14. evaluate_lm — ``TrainedModel.evaluate`` of the trained LM on 2
+   held-out batches of 8 x 1024 tokens with ``Loss``: 12 flash-forward
+   launches a batch and nothing else, the mean loss within 1e-4 of
+   plain attention's;
+15. train_lenet — LeNet-5 trained 3 epochs on a learnable synthetic
+   28x28 set (Adam 1e-3, batch 128, 2 microbatches a step, EMA 0.99,
+   validation every epoch): the last validation's top-1 and the EMA
+   weights' above 0.9, step time;
+16. train_resnet — ResNet-50 (NHWC 224^2, batch 64, random images and
+   labels) on the CIFAR recipe scaled to batch 64 (SGD 0.025, Nesterov,
+   weight decay 5e-4, warmup then MultiStep): 6 steps checkpointed every
+   3, a fresh Optimizer resuming from ckpt-6 to step 10 with validation
+   (top-1, top-5, loss), and its steps 7-10 held to an uninterrupted
+   10-step run's; step time, images/s, the device's busy share and its
+   time by group (two steps under torch.profiler), peak memory, the
+   checkpoint's bytes and its write, async write and resume times;
+17. train_resnet_remat — 6 steps with ``remat`` against 6 without: peak
+   memory, step time, the BatchNorm buffers equal.
+   The ResNet phases pin cuDNN to deterministic algorithms; train_resnet
+   also times 6 steps with cuDNN's default choice.
 
 Then the kernel table, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -110,6 +130,41 @@ SEED = 0
 
 # training geometry of the main path (bench_lm.py's model and batch)
 TRAIN = dict(batch=8, seq=1024, steps=10, lr=1e-4)
+
+# evaluate_lm: TrainedModel.evaluate of the trained LM on held-out
+# batches of the same shape (numpy seed 1), flash forward against plain
+# attention: the mean loss sums 8 x 1024 x 32768 log-probs in float32,
+# and 12 layers of flash against plain differ by float32 rounding; 1e-4
+EVAL_LM_BATCHES = 2
+EVAL_LM_ATOL = 1e-4
+
+# train_lenet: LeNet-5 on a learnable synthetic 28x28 set (10 class
+# templates U(0, 1) plus N(0, 0.3^2) noise, 4096 train and 1024
+# validation images from numpy seed 0), the recipe of
+# examples/lenet_mnist.py (Adam 1e-3, validation every epoch), batch 128,
+# 3 epochs, 2 microbatches a step and a weight EMA of decay 0.99
+LENET_TRAIN = dict(train=4096, val=1024, noise=0.3, batch=128, epochs=3,
+                   lr=1e-3, accum=2, ema=0.99, min_top1=0.9)
+# train_resnet: ResNet-50 (stem "conv", 1000 classes), NHWC 224^2, batch
+# 64, on random images and labels from seed 0 (640 train, 128 validation):
+# the recipe of examples/resnet_cifar10.py (SGD, Nesterov momentum 0.9,
+# weight decay 5e-4, a warmup then MultiStep) with the base lr scaled to
+# batch 64 by the linear rule, 0.1 x 64 / 256.  Run 1 trains 6 steps and
+# checkpoints every 3, run 2 resumes from ckpt-6 to step 10 with
+# validation every 5, run 3 trains 10 steps uninterrupted.
+RESNET_TRAIN = dict(train=640, val=128, batch=64, lr=0.025, warmup=4,
+                    milestone=8, ckpt_every=3, first=6, steps=10,
+                    val_every=5, remat_steps=6, default_steps=6)
+# ResNet-50 training's operations a step: 4.1 G multiply-adds an image
+# forward, the backward twice the forward: 3 x 2 x 4.1e9 x 64
+RESNET_TRAIN_FLOPS = 3 * 2 * 4.1e9 * 64
+# resumed steps 7-10 against the uninterrupted run's: the training phases
+# pin cuDNN to deterministic algorithms, so the runs differ only where a
+# library kernel sums with float atomics in another order; 1e-4 relative
+RESUME_RTOL = 1e-4
+# remat against no remat: the recompute replays each BatchNorm's shift
+# and leaves its buffers alone, the deterministic convs give the same bits
+REMAT_BN_ATOL = 1e-6
 
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
@@ -1108,34 +1163,23 @@ def train(dev):
     grad_check(model, ids, tgt, dev)
 
     events = {}
-
-    def step_clock(state):
-        # a CUDA event at each iteration edge the training loop reaches: step i
-        # is the device time between edges i-1 and i (no host sync)
-        it = state["iteration"]
-        if it not in events:
-            events[it] = torch.cuda.Event(enable_timing=True)
-            events[it].record()
-        return False
-
     steps = TRAIN["steps"]
     opt = (Optimizer(model, DataSet.array(ids, tgt), CrossEntropyCriterion(),
                      batch_size=TRAIN["batch"], device=dev)
            .set_optim_method(Adam(learning_rate=TRAIN["lr"]))
-           .set_end_when(Trigger.or_(Trigger(step_clock, "step clock"),
+           .set_end_when(Trigger.or_(_step_clock(events),
                                      Trigger.max_iteration(steps))))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
-    opt.optimize()
+    trained = opt.optimize()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
 
     losses = opt.losses
-    step_ms = [events[i - 1].elapsed_time(events[i])
-               for i in range(1, steps + 1)]
+    step_ms = _step_ms(events, 0, steps)
     med = float(np.median(step_ms[1:]))
     tokens = TRAIN["batch"] * TRAIN["seq"]
     want = LM["num_layers"] * steps
@@ -1172,13 +1216,12 @@ def train(dev):
     os.environ["BIGDL_TPU_FLASH"] = "0"
     try:
         reset_launches()
-        run(4, Trigger.or_(Trigger(step_clock, "step clock"),
-                           Trigger.max_iteration(4)))
+        run(4, Trigger.or_(_step_clock(events), Trigger.max_iteration(4)))
         torch.cuda.synchronize()
         plain_launches = dict(LAUNCHES)
     finally:
         del os.environ["BIGDL_TPU_FLASH"]
-    plain_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, 5)]
+    plain_ms = _step_ms(events, 0, 4)
     emit({"phase": "train_plain_attention", "flash_env": "0",
           "step_ms": plain_ms,
           "median_step_ms": float(np.median(plain_ms[1:])),
@@ -1186,7 +1229,395 @@ def train(dev):
     if any(plain_launches.values()):
         raise AssertionError(f"BIGDL_TPU_FLASH=0 still launched "
                              f"{plain_launches}")
+    return launches, trained
+
+
+def evaluate_lm(dev, trained):
+    """``TrainedModel.evaluate`` of the trained LM on held-out batches,
+    with the flash forward and with plain attention."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, MultiHeadAttention
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.optim import Loss
+
+    rs = np.random.RandomState(SEED + 1)
+    shape = (EVAL_LM_BATCHES * TRAIN["batch"], TRAIN["seq"])
+    ids = rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+    tgt = rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+    held_out = DataSet.array(ids, tgt)
+    mhas = [m for m in trained.model.modules()
+            if isinstance(m, MultiHeadAttention)]
+
+    def run(use_flash):
+        for m in mhas:
+            m.use_flash = use_flash
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        (res,) = trained.evaluate(held_out, [Loss(CrossEntropyCriterion())],
+                                  batch_size=TRAIN["batch"])
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, dict(LAUNCHES)
+
+    try:
+        flash, flash_ms, launches = run(None)
+        plain, plain_ms, plain_launches = run(False)
+    finally:
+        for m in mhas:
+            m.use_flash = None
+    want = LM["num_layers"] * EVAL_LM_BATCHES
+    out = {"phase": "evaluate_lm", "batches": EVAL_LM_BATCHES,
+           "rows": flash.count, "loss_flash": flash.result,
+           "loss_plain": plain.result,
+           "abs_err": abs(flash.result - plain.result), "atol": EVAL_LM_ATOL,
+           "flash_ms": flash_ms, "plain_ms": plain_ms,
+           "launches": launches, "plain_launches": plain_launches}
+    emit(out)
+    if launches.get("flash_attention_fwd", 0) != want or any(
+            v for k, v in launches.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"evaluate launched {launches}, want "
+                             f"{want} flash forwards and nothing else")
+    if any(plain_launches.values()):
+        raise AssertionError(f"plain evaluate launched {plain_launches}")
+    if (flash.count != EVAL_LM_BATCHES * TRAIN["batch"]
+            or not np.isfinite(flash.result)
+            or abs(flash.result - plain.result) > EVAL_LM_ATOL):
+        raise AssertionError(f"evaluate with the flash forward disagrees "
+                             f"with plain attention: {out}")
     return launches
+
+
+def _step_clock(events):
+    """An end-when trigger that records a CUDA event at each iteration
+    edge the training loop reaches: step i is the device time between
+    edges i-1 and i (no host sync); validation and checkpoints run
+    before the edge of their iteration, outside the next step."""
+    from bigdl_tpu_torch.optim import Trigger
+
+    def tick(state):
+        it = state["iteration"]
+        if it not in events:
+            events[it] = torch.cuda.Event(enable_timing=True)
+            events[it].record()
+        return False
+
+    return Trigger(tick, "step clock")
+
+
+def _step_ms(events, first, last):
+    """Device ms of steps first+1 .. last from ``_step_clock``'s events."""
+    return [events[i - 1].elapsed_time(events[i])
+            for i in range(first + 1, last + 1)]
+
+
+def lenet_data():
+    rs = np.random.RandomState(SEED)
+    c = LENET_TRAIN
+    templates = rs.rand(10, 28, 28, 1).astype(np.float32)
+
+    def draw(n):
+        y = rs.randint(0, 10, n).astype(np.int32)
+        noise = rs.randn(n, 28, 28, 1).astype(np.float32) * c["noise"]
+        return templates[y] + noise, y
+
+    return draw(c["train"]), draw(c["val"])
+
+
+def train_lenet(dev):
+    """LeNet-5 through ``Optimizer.optimize()`` with validation, EMA and
+    gradient accumulation; the last validation and the EMA weights must
+    both classify the held-out set."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (Adam, Loss, Optimizer, Top1Accuracy,
+                                       Trigger)
+
+    c = LENET_TRAIN
+    (x, y), (xv, yv) = lenet_data()
+    val = DataSet.array(xv, yv)
+    events = {}
+    opt = (Optimizer(LeNet5(10, generator=torch.Generator().manual_seed(
+        SEED)), DataSet.array(x, y), CrossEntropyCriterion(),
+        batch_size=c["batch"], device=dev)
+        .set_optim_method(Adam(learning_rate=c["lr"]))
+        .set_end_when(Trigger.or_(_step_clock(events),
+                                  Trigger.max_epoch(c["epochs"])))
+        .set_validation(Trigger.every_epoch(), val,
+                        [Top1Accuracy(), Loss()]))
+    opt.accum_steps = c["accum"]
+    opt.ema_decay = c["ema"]
+    t0 = time.perf_counter()
+    trained = opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = opt.final_state["iteration"]
+    step_ms = _step_ms(events, 0, steps)
+    vals = [{"iteration": it, **{r.name: r.result for r in res}}
+            for it, res in opt.validations]
+    trained.set_variables(trained.ema_variables)
+    (ema_top1,) = trained.evaluate(val, [Top1Accuracy()])
+    out = {"phase": "train_lenet", "config": c, "steps": steps,
+           "wall_s": wall, "median_step_ms": float(np.median(step_ms[2:])),
+           "images_per_s": c["batch"] / float(np.median(step_ms[2:])) * 1e3,
+           "first_loss": opt.losses[0], "last_loss": opt.losses[-1],
+           "validations": vals, "ema_top1": ema_top1.result}
+    emit(out)
+    if len(vals) != c["epochs"] or not np.all(np.isfinite(opt.losses)):
+        raise AssertionError(f"LeNet-5 training went wrong: {out}")
+    if vals[-1]["Top1Accuracy"] <= c["min_top1"] or \
+            ema_top1.result <= c["min_top1"]:
+        raise AssertionError(f"LeNet-5 top-1 at or below {c['min_top1']}: "
+                             f"{out}")
+    return out
+
+
+def resnet_train_data():
+    """Random NHWC images and labels from seed 0 (train, then
+    validation), drawn in float32."""
+    c = RESNET_TRAIN
+    rng = np.random.default_rng(SEED)
+    n = c["train"] + c["val"]
+    x = rng.standard_normal((n,) + IMAGE, dtype=np.float32)
+    y = rng.integers(0, 1000, n).astype(np.int32)
+    return (x[:c["train"]], y[:c["train"]]), (x[c["train"]:], y[c["train"]:])
+
+
+def _resnet_recipe():
+    from bigdl_tpu_torch.optim import SGD, MultiStep, SequentialSchedule, \
+        Warmup
+
+    c = RESNET_TRAIN
+    schedule = (SequentialSchedule()
+                .add(Warmup(c["lr"] / c["warmup"]), c["warmup"])
+                .add(MultiStep([c["milestone"]], 0.1), 10 ** 9))
+    return SGD(learning_rate=c["lr"], momentum=0.9, weight_decay=5e-4,
+               nesterov=True, learning_rate_schedule=schedule)
+
+
+def _resnet_optimizer(dev, data, end, **attrs):
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.models import resnet50
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Optimizer
+
+    model = resnet50(classes=1000, stem="conv",
+                     generator=torch.Generator().manual_seed(SEED))
+    opt = (Optimizer(model, DataSet.array(*data), CrossEntropyCriterion(),
+                     batch_size=RESNET_TRAIN["batch"], device=dev)
+           .set_optim_method(_resnet_recipe()).set_end_when(end))
+    for k, v in attrs.items():
+        setattr(opt, k, v)
+    return opt
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _profile_train(fn) -> dict:
+    """``fn()`` under torch.profiler: the device's busy share, and its
+    time split into cuDNN / cuBLAS convolutions and products, the
+    optimizer update (the ``train_step/update`` range: clipping, SGD,
+    EMA), and the rest (BatchNorm, ReLU, adds, pools, the loss,
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != "train_step/update"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    conv_words = ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
+                  "implicit", "cutlass", "sm90")
+    conv_ms = sum(e.self_device_time_total for e in kernels
+                  if any(w in e.key.lower() for w in conv_words)) / 1e3
+    update_ms = sum(e.device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.key == "train_step/update") / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"wall_s": wall, "device_busy_s": busy_ms / 1e3,
+            "device_busy_share": busy_ms / 1e3 / wall,
+            "device_ms_by_group": {
+                "conv_and_matmul": conv_ms, "optimizer_update": update_ms,
+                "rest": busy_ms - conv_ms - update_ms},
+            "top": [{"kernel": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in top]}
+
+
+def train_resnet(dev, data):
+    """ResNet-50 through ``Optimizer.optimize()``: checkpoints, a resume
+    that continues the epoch, validation, and the resumed steps held to
+    an uninterrupted run's."""
+    import tempfile
+
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.optim import (Loss, Top1Accuracy, Top5Accuracy,
+                                       TrainStep, Trigger, checkpoint)
+
+    c = RESNET_TRAIN
+    (x, y), (xv, yv) = data
+    tmp = tempfile.mkdtemp(prefix="resnet_ckpt_")
+    every = Trigger.several_iteration(c["ckpt_every"])
+    try:
+        # run 1: 6 steps, checkpoints at 3 and 6
+        first = _resnet_optimizer(dev, (x, y),
+                                  Trigger.max_iteration(c["first"]))
+        first.set_checkpoint(tmp, every)
+        trained1 = first.optimize()
+        latest = checkpoint.latest_checkpoint(tmp)
+        ckpt_bytes = _dir_bytes(latest)
+        # the checkpoint's costs, on run 1's model with SGD's slots
+        step = TrainStep(trained1.model, None, _resnet_recipe())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = step.checkpoint_arrays()
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(os.path.join(tmp, "sync"), 0, **arrays)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        writer = checkpoint.AsyncCheckpointer()
+        t0 = time.perf_counter()
+        writer.submit(os.path.join(tmp, "async"), 0, **arrays)
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        writer.wait()
+        async_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_checkpoint(latest)
+        step.restore(*loaded[:3], loaded[4])
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        del step, arrays, loaded, trained1, first
+        # run 2: a fresh Optimizer on the same directory resumes at 6
+        second = _resnet_optimizer(dev, (x, y),
+                                   Trigger.max_iteration(c["steps"]))
+        second.set_checkpoint(tmp, every)
+        second.set_validation(Trigger.several_iteration(c["val_every"]),
+                              DataSet.array(xv, yv),
+                              [Top1Accuracy(), Top5Accuracy(), Loss()])
+        t0 = time.perf_counter()
+        second.optimize()
+        resumed_wall = time.perf_counter() - t0
+        resumed = second.losses
+        vals = [{"iteration": it, **{r.name: r.result for r in res}}
+                for it, res in second.validations]
+        del second
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    # run 3: the same 10 steps uninterrupted, timed
+    torch.cuda.empty_cache()
+    events = {}
+    third = _resnet_optimizer(dev, (x, y), Trigger.or_(
+        _step_clock(events), Trigger.max_iteration(c["steps"])))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    third.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    full = third.losses
+    step_ms = _step_ms(events, 0, c["steps"])
+    med = float(np.median(step_ms[2:]))
+    # the same steps with cuDNN's default algorithm choice (the checks
+    # above pin it to deterministic algorithms)
+    events_default = {}
+    torch.backends.cudnn.deterministic = False
+    try:
+        _resnet_optimizer(dev, (x, y), Trigger.or_(
+            _step_clock(events_default),
+            Trigger.max_iteration(c["default_steps"]))).optimize()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = True
+    med_default = float(np.median(
+        _step_ms(events_default, 0, c["default_steps"])[2:]))
+    # two steps of an Optimizer built beforehand under the profiler; the busy
+    # share of a step is their kernel time a step over run 3's median step
+    profiled = _resnet_optimizer(dev, (x, y), Trigger.max_iteration(2))
+    prof = _profile_train(profiled.optimize)
+    del profiled
+    busy = prof["device_busy_s"] * 1e3 / 2 / med
+    tail = full[c["first"]:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, tail))
+    bound_ms = RESNET_TRAIN_FLOPS / F32_FLOPS * 1e3
+    out = {"phase": "train_resnet", "config": c,
+           "cudnn_deterministic": torch.backends.cudnn.deterministic,
+           "losses": full, "resumed_losses": resumed,
+           "resume_max_rel_err": rel, "resume_rtol": RESUME_RTOL,
+           "step_ms": step_ms, "median_step_ms": med,
+           "images_per_s": c["batch"] / med * 1e3,
+           "median_step_ms_cudnn_default": med_default,
+           "images_per_s_cudnn_default": c["batch"] / med_default * 1e3,
+           "bound_ms": bound_ms, "bound_by": "operations",
+           "share_of_bound": bound_ms / med, "busy_share": busy,
+           "wall_s": wall,
+           "resumed_wall_s": resumed_wall,
+           "peak_mem_gb": peak / 2**30,
+           "checkpoint_bytes": ckpt_bytes, "snapshot_ms": snapshot_ms,
+           "write_ms_sync": sync_ms, "async_submit_ms": submit_ms,
+           "async_write_ms": async_ms, "resume_ms": resume_ms,
+           "validations": vals, "profile_2_steps": prof}
+    emit(out)
+    if len(full) != c["steps"] or not np.all(np.isfinite(full)) or \
+            len(resumed) != c["steps"] - c["first"] or \
+            not np.all(np.isfinite(resumed)):
+        raise AssertionError(f"ResNet-50 losses: {full} / {resumed}")
+    if rel > RESUME_RTOL:
+        raise AssertionError(f"resumed steps differ from the uninterrupted "
+                             f"run by {rel} relative: {resumed} / {tail}")
+    if [v["iteration"] for v in vals] != [c["steps"]] or not all(
+            np.isfinite(v[k]) for v in vals for k in v):
+        raise AssertionError(f"ResNet-50 validation: {vals}")
+    return out
+
+
+def train_resnet_remat(dev, data):
+    """Six ResNet-50 steps with remat against six without: peak memory,
+    step time (the median after the first two), and the BatchNorm
+    running buffers after the steps."""
+    from bigdl_tpu_torch.optim import Trigger
+
+    c = RESNET_TRAIN
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        events = {}
+        opt = _resnet_optimizer(dev, data[0], Trigger.or_(
+            _step_clock(events), Trigger.max_iteration(c["remat_steps"])),
+            remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trained = opt.optimize()
+        torch.cuda.synchronize()
+        step_ms = _step_ms(events, 0, c["remat_steps"])
+        runs[remat] = {
+            "losses": opt.losses, "step_ms": step_ms,
+            "median_step_ms": float(np.median(step_ms[2:])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "buffers": {n: b.detach().clone() for n, b in
+                        trained.model.named_buffers()}}
+    err = max((runs[True]["buffers"][n] - b).abs().max().item()
+              for n, b in runs[False]["buffers"].items())
+    out = {"phase": "train_resnet_remat", "steps": c["remat_steps"],
+           "bn_buffers": len(runs[False]["buffers"]),
+           "bn_max_abs_err": err, "atol": REMAT_BN_ATOL,
+           **{("remat" if k else "plain"): {
+               n: v for n, v in r.items() if n != "buffers"}
+              for k, r in runs.items()}}
+    emit(out)
+    if err > REMAT_BN_ATOL or not np.all(np.isfinite(runs[True]["losses"])):
+        raise AssertionError(f"remat moved the BatchNorm buffers: {out}")
+    return out
 
 
 def resnet_model():
@@ -1968,13 +2399,30 @@ def main() -> int:
     ln_row["launches"] = launches.get(ln_row["name"], 0)
     fwd_nc_row["launches"] = launches.get(fwd_nc_row["name"], 0)
     torch.cuda.empty_cache()
-    launches = train(dev)
+    launches, trained = train(dev)
     fwd_row["launches"] = launches.get("flash_attention_fwd", 0)
     bwd_entries = {k: launches.get(k, 0) for k in (
         "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}
     # one backward call launches both entry points
     bwd_row["launches"] = min(bwd_entries.values())
     bwd_row["launches_by_entry"] = bwd_entries
+    eval_launches = evaluate_lm(dev, trained)
+    fwd_row["launches_evaluate_lm"] = eval_launches.get(
+        "flash_attention_fwd", 0)
+    del trained
+    torch.cuda.empty_cache()
+    train_lenet(dev)
+    # the training phases pin cuDNN to deterministic algorithms, so that a
+    # resume can be held to the uninterrupted run
+    torch.backends.cudnn.deterministic = True
+    try:
+        data = resnet_train_data()
+        train_resnet(dev, data)
+        torch.cuda.empty_cache()
+        train_resnet_remat(dev, data)
+        del data
+    finally:
+        torch.backends.cudnn.deterministic = False
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
                       verify_row, int8mm_row, sparse_row, ln_row]})
     print(smi, flush=True)

@@ -648,3 +648,130 @@ def test_paged_verify_entry_refuses_a_short_split_or_workspace(card):
     torch.testing.assert_close(
         out, paged_verify_attention_ref(q, kp, vp, pt, pos),
         rtol=1e-4, atol=1e-5)
+
+
+# ---- training on the card ---------------------------------------------------
+
+def _lenet_sets(*sizes):
+    """Sets of 10 class templates plus noise, one set a size, all from
+    the same templates."""
+    rs = np.random.RandomState(0)
+    templates = rs.rand(10, 28, 28, 1).astype(np.float32)
+    out = []
+    for n in sizes:
+        y = rs.randint(0, 10, n).astype(np.int32)
+        out.append((templates[y]
+                    + 0.3 * rs.randn(n, 28, 28, 1).astype(np.float32), y))
+    return out
+
+
+def _lenet_opt(card, x, y, n_iter, **attrs):
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    opt = (Optimizer(LeNet5(10, generator=torch.Generator().manual_seed(0)),
+                     DataSet.array(x, y), CrossEntropyCriterion(),
+                     batch_size=64, seed=3, device=card)
+           .set_optim_method(Adam(learning_rate=1e-3))
+           .set_end_when(Trigger.max_iteration(n_iter)))
+    for k, v in attrs.items():
+        setattr(opt, k, v)
+    return opt
+
+
+def test_lenet_trains_validates_and_resumes_on_the_card(card, tmp_path):
+    """LeNet-5 through the Optimizer on the card: validation every epoch, EMA,
+    checkpoints every 4 steps; a fresh Optimizer resumes from ckpt-12 in
+    the middle of the first epoch, validates at its end (step 16), and
+    its steps 13-24 follow the uninterrupted run's (cuDNN pinned to
+    deterministic algorithms: 1e-4 relative)."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.optim import Top1Accuracy, Trigger, checkpoint
+
+    (x, y), (xv, yv) = _lenet_sets(1024, 256)
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = _lenet_opt(card, x, y, 12, ema_decay=0.9)
+        first.set_checkpoint(str(tmp_path), Trigger.several_iteration(4))
+        first.optimize()
+        assert checkpoint.latest_checkpoint(str(tmp_path)).endswith(
+            "ckpt-12")
+        second = _lenet_opt(card, x, y, 24, ema_decay=0.9)
+        second.set_checkpoint(str(tmp_path), Trigger.several_iteration(4))
+        second.set_validation(Trigger.every_epoch(), DataSet.array(xv, yv),
+                              [Top1Accuracy()])
+        trained = second.optimize()
+        full = _lenet_opt(card, x, y, 24, ema_decay=0.9)
+        full.optimize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert second.final_state["iteration"] == 24
+    assert [it for it, _ in second.validations] == [16]
+    np.testing.assert_allclose(second.losses, full.losses[12:], rtol=1e-4)
+    assert trained.ema_variables is not None
+    assert next(trained.model.parameters()).is_cuda
+    (res,) = trained.evaluate(DataSet.array(xv, yv), [Top1Accuracy()])
+    assert res.count == 256 and res.result > 0.5
+
+
+def test_ema_and_async_checkpoint_on_the_card(card, tmp_path):
+    """The EMA lives on the card beside the parameters; an async write
+    snapshots them at its trigger and ``wait`` returns once the files
+    are complete (and raises the writer's error)."""
+    from bigdl_tpu_torch.optim import Trigger, checkpoint
+
+    ((x, y),) = _lenet_sets(256)
+    opt = _lenet_opt(card, x, y, 6, ema_decay=0.5)
+    opt.set_checkpoint(str(tmp_path), Trigger.several_iteration(3),
+                       async_write=True)
+    trained = opt.optimize()
+    ema = trained.ema_variables["params"]
+    live = trained.variables["params"]
+    assert not np.array_equal(ema["9_Linear"]["weight"],
+                              live["9_Linear"]["weight"])
+    flat, _, _, saved, ema_flat = checkpoint.load_checkpoint(
+        str(tmp_path / "ckpt-6"))
+    assert saved["iteration"] == 6 and ema_flat.shape == flat.shape
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    writer = checkpoint.AsyncCheckpointer()
+    writer.submit(str(blocker), 1, flat_params=flat, opt_state={},
+                  model_state={})
+    with pytest.raises(OSError):
+        writer.wait()
+
+
+def test_remat_keeps_bn_buffers_on_the_card(card):
+    """A CIFAR ResNet with remat (both policies) against none: the same
+    BatchNorm buffers after 3 steps."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.models import resnet_cifar
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(32, 16, 16, 3).astype(np.float32)
+    y = rs.randint(0, 10, 32).astype(np.int32)
+
+    def run(remat, policy=None):
+        opt = (Optimizer(resnet_cifar(8, generator=torch.Generator()
+                                      .manual_seed(0)),
+                         DataSet.array(x, y), CrossEntropyCriterion(),
+                         batch_size=8, device=card)
+               .set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+               .set_end_when(Trigger.max_iteration(3)))
+        opt.remat, opt.remat_policy = remat, policy
+        trained = opt.optimize()
+        return {n: b.cpu() for n, b in trained.model.named_buffers()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = run(False)
+        for policy in (None, "dots"):
+            got = run(True, policy)
+            for n, b in base.items():
+                torch.testing.assert_close(got[n], b, rtol=0, atol=1e-6)
+    finally:
+        torch.backends.cudnn.deterministic = False
