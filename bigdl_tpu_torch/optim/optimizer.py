@@ -2,17 +2,37 @@
 ``bigdl_tpu.optim.optimizer``.
 
 The setters and ``optimize()``'s loop are the JAX ``Optimizer``'s: each
-epoch walks ``dataset.batches(batch_size, shuffle=True, seed=seed,
-epoch=epoch)``, so the same (dataset, batch size, seed) trains on the
-same batches in the same order with the same dropout masks
-(``TrainStep``'s keys), and the triggers read the same state dict
-(``epoch``, ``iteration``, ``epoch_batch``, ``epoch_finished``, ``loss``,
-``score``, ``n_validations``).  After every step the validation and
-checkpoint triggers are asked, and once more at each epoch's end, each
-firing at most once an iteration.  Batches are copied to the device,
-never aliased.  Losses stay on the device until the run ends, so the
-host runs ahead of the card; a validation or a checkpoint reads the
-device at its own iteration only.
+epoch walks the batch plan of ``(seed, epoch)``, so the same (dataset,
+batch size, seed) trains on the same batches in the same order with the
+same dropout masks (``TrainStep``'s keys), and the triggers read the same
+state dict (``epoch``, ``iteration``, ``epoch_batch``, ``epoch_finished``,
+``loss``, ``score``, ``n_validations``).  After every step the
+validation, checkpoint and parameter-summary triggers are asked, and once
+more at each epoch's end, each firing at most once an iteration.
+
+The input side is the JAX driver's (``_epoch_batch_iter``): a dataset
+with ``stream_batches`` (``RecordDataSet``, ``AugmentedRecordImages``)
+runs its stage-parallel pipeline when ``streaming`` and ``host_prefetch >
+0``; any other dataset's ``batches()`` runs ``host_prefetch`` batches
+ahead on a thread (``host_prefetch=0``: inline).  Both go through
+``data.pipeline.dispatch_to_device``, ``prefetch`` batches deep: on the
+card each batch is copied on a side stream (straight from a page-locked
+ring slot when it comes from the pipeline) and the step's stream waits
+on the copy's event; batches are copied, never aliased.  Every wait for
+the next batch is recorded in ``metrics`` as ``train.data_wait_s`` (and
+the ``data_time`` timer, in the ``train/data`` profiler range): a wait
+there means the run is bound by its input, not by the card.
+
+Losses stay on the device until the run ends, so the host runs ahead of
+the card; a validation or a checkpoint reads the device at its own
+iteration only.  With a train summary (``set_train_summary``) each step's
+``loss``, ``lr`` and ``throughput`` (records/s between the host's reads of
+two consecutive losses) are written one step late, so the card always
+has the next step queued behind the one the host waits for; a
+validation summary takes each validation method's result, and
+``set_summary_trigger("Parameters", trigger)`` a histogram of every
+parameter when the trigger fires.  The files are the JAX package's
+(jsonl and TensorBoard events) with the same tags.
 
 ``set_checkpoint`` writes the single-writer format of
 ``optim.checkpoint``; ``optimize()`` first resumes from the newest
@@ -24,21 +44,26 @@ with the epoch's batch order from ``epoch_batch``.  The step's knobs
 lazy widths (``Linear(out)``, ``BatchNorm()``, ``PReLU()``) is built
 from one sample row before its parameters are collected.
 
-Not ported: summaries, the retry loop, the cluster hooks, preemption,
-profiling and step bundles (``steps_per_call``); the multi-device ZeRO-1
-step and sharded checkpoints."""
+Not ported: the retry loop, the cluster hooks, preemption, profiling
+and step bundles (``steps_per_call``); the multi-device ZeRO-1 step,
+sharded checkpoints and the elastic re-sharded resume."""
 
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from bigdl_tpu_torch.data.dataset import DataSet
+from bigdl_tpu_torch.data.pipeline import dispatch_to_device
+from bigdl_tpu_torch.data.prefetch import thread_prefetch
 from bigdl_tpu_torch.nn.freeze import has_frozen, trainable_mask_for
 from bigdl_tpu_torch.nn.layers import has_lazy
 from bigdl_tpu_torch.ops.common import resolve_device
 from bigdl_tpu_torch.optim import checkpoint as ckpt
+from bigdl_tpu_torch.optim.metrics import Metrics, SummaryWriter, Timer
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.train_step import (GradientClipping, TrainStep,
                                               evaluate, to_device)
@@ -46,7 +71,8 @@ from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
 from bigdl_tpu_torch.tensor.policy import apply_precision_policy
-from bigdl_tpu_torch.utils.convert import export_variables, load_jax_variables
+from bigdl_tpu_torch.utils.convert import (export_variables, jax_path,
+                                           load_jax_variables)
 
 
 class TrainedModel:
@@ -118,6 +144,19 @@ class Optimizer:
         self.remat_policy: Optional[str] = None   # None|'nothing'|'dots'
         self.ema_decay = 0.0      # weight EMA (0 = off)
         self.trainable_mask = None  # JAX-keyed bool tree over params
+        # the input side (the JAX Optimizer's attributes and defaults)
+        self.prefetch = 2         # device-copy lookahead (1 = no overlap)
+        self.host_prefetch = 2    # batches the host producer runs ahead
+        #                           (0 = inline production)
+        self.streaming = True     # stage-parallel pipeline when the
+        #                           dataset has stream_batches
+        self.metrics = Metrics()  # train.data_wait_s, data.* and the feed
+        self._train_summary: Optional[SummaryWriter] = None
+        self._val_summary: Optional[SummaryWriter] = None
+        self._summary_triggers: Dict[str, Trigger] = {}
+        self._last_hist_iter = -1
+        self._unlogged: List[Tuple[int, torch.Tensor]] = []
+        self._log_t = 0.0
         self._initial_variables: Optional[Dict[str, Any]] = None
         self._ckpt_path: Optional[str] = None
         self._ckpt_trigger: Optional[Trigger] = None
@@ -192,6 +231,25 @@ class Optimizer:
         self.clip.constant_max = max_v
         return self
 
+    def set_train_summary(self, log_dir: str) -> "Optimizer":
+        self._train_summary = SummaryWriter(log_dir, "train")
+        return self
+
+    def set_val_summary(self, log_dir: str) -> "Optimizer":
+        self._val_summary = SummaryWriter(log_dir, "validation")
+        return self
+
+    def set_summary_trigger(self, tag: str, trigger: Trigger
+                            ) -> "Optimizer":
+        """Opt-in heavy summary streams; the one tag is ``"Parameters"``
+        (a histogram of every parameter, a device-to-host copy of the
+        model whenever ``trigger`` fires)."""
+        if tag != "Parameters":
+            raise ValueError(f"unknown summary tag {tag!r} "
+                             "(supported: 'Parameters')")
+        self._summary_triggers[tag] = trigger
+        return self
+
     @property
     def final_state(self) -> Optional[Dict[str, Any]]:
         """The loop's state at the end of the last ``optimize()``."""
@@ -247,37 +305,114 @@ class Optimizer:
         return TrainedModel(model, self.device, step)
 
     def _loop(self, step: TrainStep, state, losses) -> None:
+        self._unlogged = []
+        self._log_t = time.perf_counter()
         while not self.end_when(state):
             state["epoch_finished"] = False
             skip = int(state.pop("_resume_skip", 0) or 0)
             state["epoch_batch"] = skip
             ran_any = False
-            batches = self.dataset.batches(
-                self.batch_size, shuffle=True, seed=self.seed,
-                epoch=state["epoch"])
-            for mb in itertools.islice(batches, skip, None):
-                ran_any = True
-                loss = step(state["iteration"],
-                            to_device(mb["input"], self.device),
-                            to_device(mb["target"], self.device))
-                losses.append(loss)
-                state["loss"] = loss
-                state["iteration"] += 1
-                state["epoch_batch"] += 1
-                self._fire_triggers(step, state)
-                if self.end_when(state):
-                    break
-            else:
-                if not ran_any and skip == 0:
-                    raise ValueError(
-                        f"the dataset's {self.dataset.size()} rows "
-                        f"give no batch of {self.batch_size}")
-                # a resume whose skip used up the epoch already fired
-                # this boundary's triggers before it was written
-                if ran_any or skip == 0:
-                    state["epoch_finished"] = True
+            batches = self._traced_data(
+                self._epoch_batch_iter(state["epoch"], skip))
+            try:
+                for x, y in batches:
+                    ran_any = True
+                    loss = step(state["iteration"], x, y)
+                    losses.append(loss)
+                    state["loss"] = loss
+                    state["iteration"] += 1
+                    state["epoch_batch"] += 1
+                    self._log_step(state["iteration"], loss)
+                    t_trig = time.perf_counter()
                     self._fire_triggers(step, state)
-                state["epoch"] += 1
+                    # trigger work is not step time
+                    self._log_t += time.perf_counter() - t_trig
+                    if self.end_when(state):
+                        break
+                else:
+                    if not ran_any and skip == 0:
+                        raise ValueError(
+                            f"the dataset's {self.dataset.size()} rows "
+                            f"give no batch of {self.batch_size}")
+                    # a resume whose skip used up the epoch already fired
+                    # this boundary's triggers before it was written
+                    if ran_any or skip == 0:
+                        state["epoch_finished"] = True
+                        self._fire_triggers(step, state)
+                    state["epoch"] += 1
+            finally:
+                batches.close()
+        while self._unlogged:
+            self._write_step(*self._unlogged.pop(0))
+
+    def _epoch_batch_iter(self, epoch: int, skip: int):
+        """One epoch's device batches, ``(input, target)``: the streaming
+        pipeline when the dataset has one (and ``streaming`` and
+        ``host_prefetch > 0``), else ``batches()`` behind
+        ``thread_prefetch``, both through the device feed.  A resumed
+        epoch skips its first ``skip`` batches."""
+        kw = dict(shuffle=True, seed=self.seed, epoch=epoch)
+        stream = (self.streaming and self.host_prefetch > 0
+                  and hasattr(self.dataset, "stream_batches"))
+        if stream:
+            # the pipeline's own threads are the host lookahead, and
+            # autotune_workers sizes its decode pool
+            batch_iter = self.dataset.stream_batches(
+                self.batch_size, metrics=self.metrics, **kw)
+        else:
+            batch_iter = self.dataset.batches(self.batch_size, **kw)
+        if skip:
+            batch_iter = _skip_closing(batch_iter, skip)
+        if self.host_prefetch and not stream:
+            # never stacked on the streaming path: a queue of RingBatches
+            # would let their slots be refilled under the consumer
+            batch_iter = thread_prefetch(batch_iter,
+                                         depth=self.host_prefetch)
+        return dispatch_to_device(
+            batch_iter, lambda mb: (mb["input"], mb["target"]),
+            size=self.prefetch, metrics=self.metrics, device=self.device)
+
+    def _traced_data(self, batch_iter):
+        """The data phase under a profiler range and a timer: each wait
+        for the next device batch is time the card may spend idle, and
+        lands in the ``train.data_wait_s`` histogram.  Closing this
+        generator closes the feed (and the pipeline's threads)."""
+        it = iter(batch_iter)
+        try:
+            while True:
+                with record_function("train/data"), \
+                        Timer(self.metrics, "data_time"):
+                    t0 = time.perf_counter()
+                    try:
+                        mb = next(it)
+                    except StopIteration:
+                        return
+                    self.metrics.observe("train.data_wait_s",
+                                         time.perf_counter() - t0)
+                yield mb
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _log_step(self, it: int, loss: torch.Tensor) -> None:
+        """Queue step ``it``'s train-summary scalars and write the
+        previous step's: its loss is read while this step runs."""
+        if self._train_summary is None:
+            return
+        self._unlogged.append((it, loss))
+        while len(self._unlogged) > 1:
+            self._write_step(*self._unlogged.pop(0))
+
+    def _write_step(self, it: int, loss: torch.Tensor) -> None:
+        value = float(loss)  # waits for step `it`
+        now = time.perf_counter()
+        dt, self._log_t = now - self._log_t, now
+        lr = float(np.asarray(self.optim_method.get_learning_rate(it - 1)))
+        self._train_summary.add_scalar("loss", value, it)
+        self._train_summary.add_scalar("lr", lr, it)
+        self._train_summary.add_scalar(
+            "throughput", self.batch_size / max(dt, 1e-9), it)
 
     def _fire_triggers(self, step: TrainStep, state) -> None:
         it = state["iteration"]
@@ -289,6 +424,16 @@ class Optimizer:
                 and self._last_ckpt_iter != it):
             self._last_ckpt_iter = it
             self._save_checkpoint(step, state)
+        hist_trigger = self._summary_triggers.get("Parameters")
+        if (hist_trigger is not None and self._train_summary is not None
+                and hist_trigger(state) and self._last_hist_iter != it):
+            self._last_hist_iter = it
+            # the JAX tree's leaf order: paths in sorted order
+            for name, p in sorted(step.model.named_parameters(),
+                                  key=lambda kv: jax_path(kv[0])):
+                self._train_summary.add_histogram(
+                    "Parameters/" + "/".join(jax_path(name)),
+                    p.detach().cpu().numpy(), it)
 
     def _run_validation(self, step: TrainStep, state) -> None:
         results = evaluate(step.model, self._val_methods,
@@ -296,6 +441,10 @@ class Optimizer:
                                self._val_batch, shuffle=False,
                                drop_last=False), self.device)
         self.validations.append((state["iteration"], results))
+        if self._val_summary is not None:
+            for r in results:
+                self._val_summary.add_scalar(r.name, r.result,
+                                             state["iteration"])
         if not results:
             return
         state["score"] = results[0].result
@@ -348,3 +497,15 @@ class Optimizer:
         self._last_val_iter = min(self._last_val_iter, it)
         state["epoch_batch"] = int(saved.get("epoch_batch", 0) or 0)
         state["_resume_skip"] = state["epoch_batch"]
+
+
+def _skip_closing(inner, n):
+    """``inner`` past its first ``n`` items; closing this generator
+    closes ``inner`` (a bare islice has no close(), and an abandoned
+    resumed epoch must still shut its pipeline's threads down)."""
+    try:
+        yield from itertools.islice(inner, n, None)
+    finally:
+        close = getattr(inner, "close", None)
+        if close is not None:
+            close()

@@ -93,12 +93,41 @@ one JSON line:
    time by group (two steps under torch.profiler), peak memory, the
    checkpoint's bytes and its write, async write and resume times;
 17. train_resnet_remat — 6 steps with ``remat`` against 6 without: peak
-   memory, step time, the BatchNorm buffers equal.
+   memory, step time, the BatchNorm buffers equal;
+18. the record-file input pipeline: record_file writes 1,280 seeded
+   uint8 images of 300x300x3 and their labels with ``write_records``
+   (345.6 MB) and opens them as ``AugmentedRecordImages`` (resize 256^2,
+   random 224^2 crop, random flip, ImageNet normalization, in the native
+   library); pipeline_alone streams two epochs of batch 64 into
+   ``dispatch_to_device`` with no training (images/s, stage rates, the
+   workers chosen, the host's cores, whether the native library and
+   libjpeg built, overlapped copies > 0); feed_check holds epoch 0's
+   first 6 batches through the feed over a depth-2 ring to the serial
+   batches to the bit, with 1 worker and the tuned count;
+   train_resnet_records trains ResNet-50 20 steps through
+   ``Optimizer.optimize()`` from the record dataset with the JAX defaults
+   (streaming, host_prefetch 2, prefetch 2): step time beside
+   train_resnet's, images/s, busy share, the p50 and p99 of
+   ``train.data_wait_s``, peak memory, its first 6 losses equal to the
+   serial feed's to the bit, and a train summary with a loss and a
+   throughput a step;
+19. stream_jpeg — 256 seeded images JPEG-encoded by the native library
+   and streamed through ``stream_jpeg_batches`` into the feed, 1 worker
+   against the tuned count (the same bits); where the library has no
+   libjpeg the line says why.
    The ResNet phases pin cuDNN to deterministic algorithms; train_resnet
    also times 6 steps with cuDNN's default choice.
 
 Then the kernel table, the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Any failed phase raises and the
+``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --feed-ab`` runs only ``feed_ab``: where the
+record path's ResNet-50 step time goes (in memory against records with
+the tuned decode pool, one decode worker, and a train summary,
+alternating in one call; the host's time to dispatch a step onto an
+idle card).
+
+Any failed phase raises and the
 script exits non-zero; without a CUDA card it exits non-zero and prints
 no result."""
 
@@ -107,6 +136,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -165,6 +195,22 @@ RESUME_RTOL = 1e-4
 # remat against no remat: the recompute replays each BatchNorm's shift
 # and leaves its buffers alone, the deterministic convs give the same bits
 REMAT_BN_ATOL = 1e-6
+# train_resnet_records: ResNet-50 trained from a record file through the
+# stage-parallel input pipeline.  1,280 uint8 images of 300x300x3 and
+# int32 labels in [0, 1000) from seed 0, written with write_records
+# (345.6 MB), read as AugmentedRecordImages with bench_loader.py's
+# recipe: resize to 256^2, a random 224^2 crop, a random flip, the
+# ImageNet mean and std on the 0-255 scale.  (a) two epochs through the
+# feed alone; (b) epoch 0's first 6 batches through the feed over a
+# depth-2 ring, held to the serial batches to the bit (1 worker and the
+# tuned count); (c) 20 training steps, the first 6 losses held to the
+# serial feed's to the bit.  Then 256 seeded images encoded as JPEG
+# through stream_jpeg_batches where the native library has libjpeg.
+RECORDS = dict(n=1280, src=300, resize=256, batch=64, pipeline_epochs=2,
+               feed_batches=6, feed_ring=2, steps=20, bit_steps=6,
+               jpeg_images=256, jpeg_quality=90)
+IMAGENET_MEAN = tuple(v * 255 for v in (0.485, 0.456, 0.406))
+IMAGENET_STD = tuple(v * 255 for v in (0.229, 0.224, 0.225))
 
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
@@ -1620,6 +1666,376 @@ def train_resnet_remat(dev, data):
     return out
 
 
+def _xy(mb):
+    return mb["input"], mb["target"]
+
+
+def write_record_images(d):
+    """RECORDS' images and labels from seed 0 as a record file in ``d``."""
+    from bigdl_tpu_torch.data import write_records
+
+    c = RECORDS
+    rng = np.random.default_rng(SEED)
+    path = os.path.join(d, "train.btrec")
+    t0 = time.perf_counter()
+    write_records(path, {
+        "image": rng.integers(0, 256, (c["n"], c["src"], c["src"], 3),
+                              dtype=np.uint8),
+        "label": rng.integers(0, 1000, c["n"]).astype(np.int32)})
+    return path, time.perf_counter() - t0
+
+
+def record_images(path):
+    from bigdl_tpu_torch.data import AugmentedRecordImages
+
+    c = RECORDS
+    return AugmentedRecordImages(path, IMAGE[:2], IMAGENET_MEAN,
+                                 IMAGENET_STD, resize_hw=(c["resize"],) * 2,
+                                 random_crop=True, random_flip=True)
+
+
+def pipeline_alone(dev, path):
+    """(a) Two epochs through stream_batches into the device feed, no
+    training: the rate the host can feed the card at, with the stage
+    rates that say which stage sets it."""
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.data import dispatch_to_device
+    from bigdl_tpu_torch.data.pipeline import host_core_count
+    from bigdl_tpu_torch.optim.metrics import Metrics
+
+    c = RECORDS
+    ds = record_images(path)
+    m = Metrics()
+    epochs = []
+    for epoch in range(c["pipeline_epochs"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream = ds.stream_batches(c["batch"], seed=SEED, epoch=epoch,
+                                   metrics=m)
+        n = 0
+        for x, _ in dispatch_to_device(stream, _xy, metrics=m, device=dev):
+            n += x.shape[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epochs.append({"epoch": epoch, "images": n, "wall_s": wall,
+                       "images_per_s": n / wall, "workers": stream.workers,
+                       "stage_rates": stream.stage_rates()})
+    ds.close()
+    out = {"phase": "pipeline_alone", "epochs": epochs,
+           "host_cores": host_core_count(),
+           "native_built": native.available(),
+           "libjpeg_built": native.jpeg_available(),
+           "libjpeg_reason": native.jpeg_unavailable_reason(),
+           "dispatch_overlapped_total":
+               m.counter("data.dispatch_overlapped_total"),
+           "decoded_images": m.counter("data.decoded_images")}
+    emit(out)
+    want = c["n"] // c["batch"] * c["batch"]
+    if [e["images"] for e in epochs] != [want] * c["pipeline_epochs"]:
+        raise AssertionError(f"the pipeline lost images: {out}")
+    if out["dispatch_overlapped_total"] <= 0 or not native.available():
+        raise AssertionError(f"the feed never overlapped two copies, or "
+                             f"the native library did not build: {out}")
+    return out
+
+
+def feed_check(dev, path):
+    """(b) Epoch 0's first batches through the feed over a depth-2 ring,
+    every device batch kept alive while the ring refills its slots, then
+    read back: equal to the serial batches to the bit, for 1 worker and
+    for the tuned count."""
+    import itertools
+
+    from bigdl_tpu_torch.data import dispatch_to_device
+    from bigdl_tpu_torch.data.pipeline import autotune_workers
+
+    c = RECORDS
+    ds = record_images(path)
+    want = list(itertools.islice(ds.batches(c["batch"], seed=SEED, epoch=0),
+                                 c["feed_batches"]))
+    runs = []
+    for workers in (1, autotune_workers()):
+        feed = dispatch_to_device(
+            ds.stream_batches(c["batch"], seed=SEED, epoch=0,
+                              workers=workers, ring_depth=c["feed_ring"]),
+            _xy, device=dev)
+        kept = list(itertools.islice(feed, c["feed_batches"]))
+        feed.close()
+        equal = [bool(np.array_equal(x.cpu().numpy(), mb["input"])
+                      and np.array_equal(y.cpu().numpy(), mb["target"]))
+                 for (x, y), mb in zip(kept, want)]
+        runs.append({"workers": workers, "batches": len(kept),
+                     "bit_equal": equal})
+    ds.close()
+    out = {"phase": "feed_check", "ring_depth": c["feed_ring"], "runs": runs}
+    emit(out)
+    if not all(r["batches"] == c["feed_batches"] and all(r["bit_equal"])
+               for r in runs):
+        raise AssertionError(f"the feed's batches differ from the serial "
+                             f"batches: {out}")
+    return out
+
+
+def train_resnet_records(dev, path, in_memory):
+    """(c) ResNet-50 through ``Optimizer.optimize()`` from the record
+    dataset with the JAX defaults (streaming, host_prefetch 2, prefetch
+    2): step time beside the in-memory run's, the data waits, and the
+    first losses held to the serial feed's to the bit; a train summary
+    with a loss and a throughput a step."""
+    import shutil
+
+    from bigdl_tpu_torch.models import resnet50
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+    from bigdl_tpu_torch.optim.metrics import SummaryWriter
+    from bigdl_tpu_torch.utils.tbwriter import read_scalars
+
+    c = RECORDS
+    ds = record_images(path)
+
+    def make(end, **attrs):
+        model = resnet50(classes=1000, stem="conv",
+                         generator=torch.Generator().manual_seed(SEED))
+        opt = (Optimizer(model, ds, CrossEntropyCriterion(),
+                         batch_size=c["batch"], device=dev)
+               .set_optim_method(_resnet_recipe()).set_end_when(end))
+        for k, v in attrs.items():
+            setattr(opt, k, v)
+        return opt
+
+    serial = make(Trigger.max_iteration(c["bit_steps"]), streaming=False,
+                  host_prefetch=0)
+    serial.optimize()
+    serial_losses = serial.losses
+    del serial
+    torch.cuda.empty_cache()
+    summary = tempfile.mkdtemp(prefix="resnet_records_summary_")
+    try:
+        events = {}
+        opt = make(Trigger.or_(_step_clock(events),
+                               Trigger.max_iteration(c["steps"])))
+        if (opt.streaming, opt.host_prefetch, opt.prefetch) != (True, 2, 2):
+            raise AssertionError("the Optimizer's input defaults moved")
+        opt.set_train_summary(summary)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        with SummaryWriter(summary, "train", tensorboard=False) as s:
+            logged = {tag: [step for step, _ in s.read_scalar(tag)]
+                      for tag in ("loss", "throughput", "lr")}
+        (event_file,) = os.listdir(os.path.join(summary, "train"))
+        tb = read_scalars(os.path.join(summary, "train", event_file))
+        tb_counts = {tag: sum(1 for _, t, _ in tb if t == tag)
+                     for tag in ("loss", "throughput")}
+    finally:
+        shutil.rmtree(summary, ignore_errors=True)
+    step_ms = _step_ms(events, 0, c["steps"])
+    med = float(np.median(step_ms[2:]))
+    snap = opt.metrics.snapshot()
+    waits, counters = snap["hists"]["train.data_wait_s"], snap["counters"]
+    wait_p = [opt.metrics.percentile("train.data_wait_s", q)
+              for q in (50, 99)]
+    losses = opt.losses
+    del opt
+    torch.cuda.empty_cache()
+    profiled = make(Trigger.max_iteration(2))
+    prof = _profile_train(profiled.optimize)
+    del profiled
+    ds.close()
+    out = {"phase": "train_resnet_records", "config": c,
+           "cudnn_deterministic": torch.backends.cudnn.deterministic,
+           "losses": losses, "serial_feed_losses": serial_losses,
+           "step_ms": step_ms, "median_step_ms": med,
+           "images_per_s": c["batch"] / med * 1e3,
+           "in_memory_median_step_ms": in_memory["median_step_ms"],
+           "step_over_in_memory": med / in_memory["median_step_ms"],
+           "busy_share": prof["device_busy_s"] * 1e3 / 2 / med,
+           # the histogram's percentiles: the upper bound of the bucket
+           # that holds them (x2 buckets from 0.1 ms), clamped to the max
+           "data_wait_s": {
+               "count": waits["n"], "p50_bucket_bound": wait_p[0],
+               "p99_bucket_bound": wait_p[1], "max": waits["max"],
+               "sum": waits["sum"]},
+           "dispatch_overlapped_total": counters.get(
+               "data.dispatch_overlapped_total", 0.0),
+           "wall_s": wall, "peak_mem_gb": peak / 2**30,
+           "in_memory_peak_mem_gb": in_memory["peak_mem_gb"],
+           "summary_steps": {k: len(v) for k, v in logged.items()},
+           "summary_event_scalars": tb_counts,
+           "profile_2_steps": prof}
+    emit(out)
+    first = losses[:c["bit_steps"]]
+    if len(losses) != c["steps"] or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet-50 record losses: {losses}")
+    if first != serial_losses:
+        raise AssertionError(f"the streamed losses differ from the serial "
+                             f"feed's: {first} / {serial_losses}")
+    steps = list(range(1, c["steps"] + 1))
+    if logged["loss"] != steps or logged["throughput"] != steps or \
+            tb_counts != {"loss": c["steps"], "throughput": c["steps"]}:
+        raise AssertionError(f"the train summary: {logged} {tb_counts}")
+    if out["dispatch_overlapped_total"] <= 0 or waits["n"] < c["steps"]:
+        raise AssertionError(f"the feed or the data waits: {out}")
+    return out
+
+
+def stream_jpeg(dev):
+    """256 seeded images encoded as JPEG (the native encoder) streamed
+    through ``stream_jpeg_batches`` (decode, resize, crop, flip and
+    normalize in the native workers) into the feed, for 1 worker and the
+    tuned count: the same bits either way, finite, the recipe's shape."""
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.data import dispatch_to_device, stream_jpeg_batches
+    from bigdl_tpu_torch.data.pipeline import autotune_workers
+
+    c = RECORDS
+    if not native.jpeg_available():
+        out = {"phase": "stream_jpeg", "ran": False,
+               "reason": native.jpeg_unavailable_reason()}
+        emit(out)
+        return out
+    rng = np.random.default_rng(SEED + 1)
+    t0 = time.perf_counter()
+    enc = [native.encode_jpeg(rng.integers(0, 256, (c["src"], c["src"], 3),
+                                           dtype=np.uint8), c["jpeg_quality"])
+           for _ in range(c["jpeg_images"])]
+    encode_s = time.perf_counter() - t0
+    labels = rng.integers(0, 1000, c["jpeg_images"]).astype(np.int32)
+    runs, batches = [], {}
+    for workers in (1, autotune_workers()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream = stream_jpeg_batches(
+            enc, c["batch"], IMAGE[:2], IMAGENET_MEAN, IMAGENET_STD,
+            labels=labels, resize_hw=(c["resize"],) * 2, random_crop=True,
+            random_flip=True, shuffle=True, seed=SEED, workers=workers)
+        got = list(dispatch_to_device(stream, _xy, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batches[workers] = [(x.cpu().numpy(), y.cpu().numpy())
+                            for x, y in got]
+        runs.append({"workers": workers, "batches": len(got),
+                     "images_per_s": len(got) * c["batch"] / wall,
+                     "stage_rates": stream.stage_rates()})
+    (one, many) = batches.values()
+    equal = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(one, many))
+    finite = all(np.all(np.isfinite(x)) for x, _ in one)
+    shapes = sorted({x.shape for x, _ in one})
+    out = {"phase": "stream_jpeg", "ran": True, "images": len(enc),
+           "jpeg_bytes": sum(map(len, enc)), "encode_s": encode_s,
+           "runs": runs, "bit_equal_1_vs_n": equal, "finite": finite,
+           "shapes": [list(sh) for sh in shapes]}
+    emit(out)
+    if not (equal and finite and shapes == [(c["batch"],) + IMAGE]
+            and len(one) == c["jpeg_images"] // c["batch"]):
+        raise AssertionError(f"stream_jpeg_batches on the card: {out}")
+    return out
+
+
+class _PinnedWorkers:
+    """A record dataset whose streaming decode pool has ``workers``
+    threads (the driver leaves the width to ``autotune_workers``)."""
+
+    def __init__(self, ds, workers):
+        self.ds, self.workers = ds, workers
+
+    def __getattr__(self, name):
+        return getattr(self.ds, name)
+
+    def stream_batches(self, *args, **kw):
+        return self.ds.stream_batches(*args, workers=self.workers, **kw)
+
+
+def feed_ab(dev):
+    """``--feed-ab``: where the record path's step time goes.  In one
+    call, alternating, 20 ResNet-50 steps each: in memory, from records
+    with the tuned decode pool, with one decode worker, and with the
+    tuned pool plus a train summary; then 12 steps in memory and from
+    records with the card synchronised at every iteration edge, which
+    gives the host's time to dispatch one step onto an idle card."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.data.pipeline import (autotune_workers,
+                                              host_core_count)
+    from bigdl_tpu_torch.models import resnet50
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+
+    c = RECORDS
+    (x, y), _ = resnet_train_data()
+    memory = DataSet.array(x, y)
+    del x, y
+
+    def run(ds, steps=c["steps"], summary=None, sync=False):
+        events, arrive, idle = {}, {}, {}
+
+        def tick(state):
+            it = state["iteration"]
+            if it not in events:
+                arrive[it] = time.perf_counter()
+                events[it] = torch.cuda.Event(enable_timing=True)
+                events[it].record()
+                if sync:
+                    torch.cuda.synchronize()
+                idle[it] = time.perf_counter()
+            return False
+
+        model = resnet50(classes=1000, stem="conv",
+                         generator=torch.Generator().manual_seed(SEED))
+        opt = (Optimizer(model, ds, CrossEntropyCriterion(),
+                         batch_size=c["batch"], device=dev)
+               .set_optim_method(_resnet_recipe())
+               .set_end_when(Trigger.or_(Trigger(tick, "clock"),
+                                         Trigger.max_iteration(steps))))
+        if summary:
+            opt.set_train_summary(summary)
+        opt.optimize()
+        torch.cuda.synchronize()
+        step_ms = _step_ms(events, 0, steps)
+        out = {"median_step_ms": float(np.median(step_ms[2:])),
+               "step_ms": step_ms}
+        if sync:
+            host = [(arrive[i] - idle[i - 1]) * 1e3
+                    for i in range(1, steps + 1)]
+            out["median_host_dispatch_ms"] = float(np.median(host[2:]))
+        del opt, model
+        torch.cuda.empty_cache()
+        return out
+
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="feed_ab_") as d:
+        path, _ = write_record_images(d)
+        records = record_images(path)
+        tuned = autotune_workers()
+        plan = {"memory": (memory, None),
+                f"records_{tuned}_workers": (records, None),
+                "records_1_worker": (_PinnedWorkers(records, 1), None),
+                f"records_{tuned}_workers_summary": (
+                    records, os.path.join(d, "summary"))}
+        order = list(plan) + list(plan)[::-1]
+        for name in order:
+            ds, summary = plan[name]
+            runs.append({"run": name, **run(ds, summary=summary)})
+        for name in ("memory", f"records_{tuned}_workers"):
+            runs.append({"run": name + "_synced",
+                         **run(plan[name][0], steps=12, sync=True)})
+        records.close()
+    medians = {}
+    for r in runs:
+        medians.setdefault(r["run"], []).append(r["median_step_ms"])
+    out = {"phase": "feed_ab", "host_cores": host_core_count(),
+           "tuned_workers": tuned, "median_step_ms": medians,
+           "host_dispatch_ms": {r["run"]: r["median_host_dispatch_ms"]
+                                for r in runs if r["run"].endswith("_synced")},
+           "runs": runs}
+    emit(out)
+    return out
+
+
 def resnet_model():
     """ResNet-50 (stem "conv", 1000 classes) on the CPU, random weights
     from ``torch.Generator`` seed 0, every BatchNorm redrawn from it
@@ -2355,6 +2771,11 @@ def main() -> int:
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if sys.argv[1:] == ["--feed-ab"]:
+        torch.backends.cudnn.deterministic = True
+        feed_ab(dev)
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -2417,10 +2838,19 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     try:
         data = resnet_train_data()
-        train_resnet(dev, data)
+        in_memory = train_resnet(dev, data)
         torch.cuda.empty_cache()
         train_resnet_remat(dev, data)
         del data
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="resnet_records_") as d:
+            path, write_s = write_record_images(d)
+            emit({"phase": "record_file", "images": RECORDS["n"],
+                  "bytes": os.path.getsize(path), "write_s": write_s})
+            pipeline_alone(dev, path)
+            feed_check(dev, path)
+            train_resnet_records(dev, path, in_memory)
+        stream_jpeg(dev)
     finally:
         torch.backends.cudnn.deterministic = False
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,

@@ -775,3 +775,72 @@ def test_remat_keeps_bn_buffers_on_the_card(card):
                 torch.testing.assert_close(got[n], b, rtol=0, atol=1e-6)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# ---- the input pipeline's device feed -----------------------------------------
+
+def _image_records(tmp_path, n=96, hw=40):
+    from bigdl_tpu_torch.data.records import write_records
+
+    rs = np.random.RandomState(0)
+    p = str(tmp_path / "imgs.btrec")
+    write_records(p, {"image": rs.randint(0, 255, (n, hw, hw, 3), np.uint8),
+                      "label": rs.randint(0, 1000, n).astype(np.int32)})
+    return p
+
+
+def test_pinned_side_stream_feed_equals_serial_batches(card, tmp_path):
+    """Three epochs of augmented records through a depth-2 ring into the
+    feed, tensors read back from the card: equal to the serial batches
+    to the bit; the slots were page-locked and the copies overlapped."""
+    from bigdl_tpu_torch.data import AugmentedRecordImages, dispatch_to_device
+    from bigdl_tpu_torch.data.pipeline import PAGE_LOCKS
+    from bigdl_tpu_torch.optim.metrics import Metrics
+
+    ds = AugmentedRecordImages(_image_records(tmp_path), (32, 32),
+                               (124.0, 116.0, 104.0), (58.0, 57.0, 57.0),
+                               resize_hw=(36, 36), random_crop=True,
+                               random_flip=True)
+    m = Metrics()
+    for epoch in range(3):
+        stream = ds.stream_batches(16, seed=4, epoch=epoch, workers=2,
+                                   ring_depth=2, raw_depth=1)
+        got = [(x.cpu().numpy(), y.cpu().numpy()) for x, y in
+               dispatch_to_device(stream, lambda mb: (mb["input"],
+                                                      mb["target"]),
+                                  metrics=m, device=card)]
+        want = list(ds.batches(16, seed=4, epoch=epoch))
+        assert len(got) == len(want) == 6
+        for (x, y), mb in zip(got, want):
+            np.testing.assert_array_equal(x, mb["input"])
+            np.testing.assert_array_equal(y, mb["target"])
+    slots = next(iter(ds._slot_cache.values()))
+    assert all(torch.from_numpy(s["input"]).is_pinned() for s in slots)
+    assert len(PAGE_LOCKS._ranges) >= 2
+    assert m.counter("data.dispatch_overlapped_total") == 15
+    ds.close()
+
+
+def test_feed_waits_for_its_copy_before_a_slot_refills(card):
+    """A source that overwrites a slot the moment the feed gives it back,
+    with each batch yielded while its copy may still run (lookahead 1,
+    three copies in flight): every batch read on the consumer's stream
+    at once still holds its own value (the consumer's stream waits on the
+    copy event, and a slot returns only after its own copy landed)."""
+    from bigdl_tpu_torch.data import RingBatch, dispatch_to_device
+
+    slots = [np.zeros((64 << 20) // 4, np.float32) for _ in range(3)]
+
+    def source():
+        for i in range(9):
+            slot = slots[i % 3]
+            slot.fill(float(i + 1))
+            yield RingBatch(lambda s=slot: s.fill(-1.0), input=slot)
+
+    seen = []
+    for (x,) in dispatch_to_device(source(), lambda mb: (mb["input"],),
+                                   size=1, inflight=3, device=card):
+        seen.append(torch.stack([x.min(), x.max()]))  # at once
+    got = [tuple(float(v) for v in s.cpu()) for s in seen]
+    assert got == [(float(i + 1),) * 2 for i in range(9)]
+    assert all(float(s[0]) == -1.0 for s in slots)  # every slot went back
