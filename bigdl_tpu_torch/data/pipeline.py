@@ -626,8 +626,11 @@ def bundle_batches(batches: Iterable,
     """Group a device-ready batch iterator into bundles for fused
     multi-step dispatch: each pull asks ``span()`` how many steps the next
     bundle may cover and yields up to that many batches — fewer at the
-    epoch tail, which becomes the remainder bundle.  (A host function
-    here; the driver's step bundles come with CUDA graphs.)
+    epoch tail, which becomes the remainder bundle.  On the card the
+    driver replays a captured step for each batch
+    (``TrainStep.train_bundle``), copying it into the graph's static
+    inputs on the step's stream, which already waits on this feed's
+    copy event (ROADMAP C.8).
 
     Ring economics: the batches come out of :func:`dispatch_to_device`,
     which released each ring slot the moment its host→device copy landed

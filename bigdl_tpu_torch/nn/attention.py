@@ -41,7 +41,9 @@ def positional_encoding(length: int, dim: int,
     n_sin = (dim + 1) // 2
     pos = torch.arange(length, device=device)[:, None].float()
     i = torch.arange(n_sin, device=device)[None, :].float()
-    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+    # a fill on the device, not a host copy that waits: the forward runs
+    # inside captured training steps
+    angle = pos / torch.pow(torch.full((), 10000.0, device=device),
                             2 * i / dim)
     pe = torch.zeros(length, dim, device=device)
     pe[:, 0::2] = torch.sin(angle)

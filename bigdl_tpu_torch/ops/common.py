@@ -2,9 +2,10 @@
 a built kernel's C entry point, and the launch counts every kernel wrapper
 keeps."""
 
+import contextlib
 import ctypes
 from collections import Counter
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
 
@@ -18,6 +19,29 @@ LAUNCHES: Counter = Counter()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Counter]:
+    """Around a CUDA-graph capture.  A capture runs the wrappers, which
+    count, but launches nothing; a replay launches the captured kernels
+    without running any wrapper.  So what the wrappers counted inside
+    comes back in the yielded Counter and ``LAUNCHES`` is put back as it
+    was; the caller adds the Counter at every replay
+    (:func:`credit_launches`)."""
+    before = Counter(LAUNCHES)
+    captured: Counter = Counter()
+    try:
+        yield captured
+    finally:
+        captured.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
+
+def credit_launches(captured: Counter) -> None:
+    """Count one replay of a graph whose capture recorded ``captured``."""
+    LAUNCHES.update(captured)
 
 
 # (library, C symbol) -> (C function, error-string function)

@@ -21,9 +21,11 @@ A checkpoint is the directory ``<path>/ckpt-<step>``, written into
 So either package resumes from the other's checkpoint; a JAX vector
 padded to its mesh (``n_pad``) is read up to the port's length.  This
 module works on host numpy arrays: the caller snapshots its tensors at
-the trigger.  Not ported: the sharded ZeRO-1 shards and remote storage
-(with multi-device training), and mirrors and fault hooks (with the
-retry loop)."""
+the trigger.  ``checkpoint_write_fail`` (``resilience.faults``) fires
+after the blobs and before the manifest, the worst place to crash: the
+``.tmp`` directory left behind is never a checkpoint.  Not ported: the
+sharded ZeRO-1 shards, remote storage and mirrors (with multi-device
+training)."""
 
 import json
 import os
@@ -32,6 +34,8 @@ import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from bigdl_tpu_torch.resilience import faults
 
 Arrays = Dict[str, np.ndarray]
 
@@ -75,6 +79,7 @@ def save_checkpoint(path: str, step: int, *, flat_params: np.ndarray,
     savez("opt_state.npz", **opt_state)
     savez("model_state.npz", **model_state)
     manifest = {"step": step, "driver_state": jsonable_state(driver_state)}
+    faults.fire("checkpoint_write_fail", step=step)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(d):

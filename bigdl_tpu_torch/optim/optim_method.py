@@ -1,7 +1,7 @@
 """Optimization methods — the port of ``bigdl_tpu.optim.optim_method``.
 
 The JAX methods are pure: ``update(step, grads, params, state)`` returns
-new params and a new state.  Here ``update`` runs under
+new params and a new state.  Here the update runs under
 ``torch.no_grad()`` and changes the parameters and the state tensors IN
 PLACE, which keeps one copy of each on the device; it returns nothing.
 ``params`` and ``grads`` are equal-length lists of tensors and the state
@@ -9,6 +9,17 @@ holds one list per slot (Adam's ``m`` and ``v``), under the JAX slot
 names, which checkpoints key on.  ``step`` is the 0-based iteration, as
 ``Optimizer`` passes it: Adam's bias correction uses ``t = step + 1``, as
 in the JAX package.
+
+The values of an update that depend on the step (the rate from the live
+schedule, Adam's bias corrections, a warmup factor) are computed on the
+host by ``scalars(step)`` and written with ``fill_`` into 0-d float32
+tensors on the parameters' device (``step_tensors``); ``apply`` reads
+them there.  A captured step (``TrainStep.train_bundle``) thus holds the
+tensors' addresses, never their values: each replay reads the values
+written before it, a ``Plateau`` drop included (ROADMAP C.11).  The
+float32 value written is the one a Python float multiplies by, so the
+update is the same bits either way.  ``update(step, ...)`` writes and
+applies in one call.
 
 ``elementwise`` methods are the JAX package's slice-safe ones: every slot
 is per element.  ``LarsSGD`` and ``LBFGS`` are not: LARS takes one trust
@@ -23,6 +34,7 @@ import torch
 from bigdl_tpu_torch.optim.schedules import Default, LearningRateSchedule
 
 State = Dict[str, List[torch.Tensor]]
+Scalars = Dict[str, torch.Tensor]
 
 
 class OptimMethod:
@@ -31,9 +43,36 @@ class OptimMethod:
     def init_state(self, params: List[torch.Tensor]) -> State:
         return {}
 
+    def scalars(self, step: int) -> Dict[str, float]:
+        """The host values of ``step``'s update that depend on the step,
+        by name (none for a method whose update reads no step)."""
+        return {}
+
+    def step_tensors(self, step: int, device) -> Scalars:
+        """``scalars(step)`` written into 0-d float32 tensors on
+        ``device`` that this method keeps, one per name: the same tensors
+        every step, so a captured update reads the values of the step it
+        replays."""
+        vals = self.scalars(step)
+        # device -> tensors (the methods call no base __init__)
+        held = self.__dict__.setdefault("_held_scalars", {})
+        dev = torch.device(device)
+        if dev not in held:
+            held[dev] = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                         for k in vals}
+        for k, v in vals.items():
+            held[dev][k].fill_(v)
+        return held[dev]
+
+    def apply(self, s: Scalars, grads: List[torch.Tensor],
+              params: List[torch.Tensor], state: State) -> None:
+        """The update in place, reading the step's values from ``s``."""
+        raise NotImplementedError
+
     def update(self, step: int, grads: List[torch.Tensor],
                params: List[torch.Tensor], state: State) -> None:
-        raise NotImplementedError
+        dev = params[0].device if params else "cpu"
+        self.apply(self.step_tensors(step, dev), grads, params, state)
 
     def get_learning_rate(self, step: int) -> float:
         return getattr(self, "lr", 0.0)
@@ -66,9 +105,12 @@ class SGD(OptimMethod):
             return {"velocity": [torch.zeros_like(p) for p in params]}
         return {}
 
+    def scalars(self, step):
+        return {"lr": self.schedule(self.lr, step)}
+
     @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr = self.schedule(self.lr, step)
+    def apply(self, s, grads, params, state):
+        lr = s["lr"]
         for i, (g, p) in enumerate(zip(grads, params)):
             if self.weight_decay > 0:
                 g = g + self.weight_decay * p
@@ -99,12 +141,14 @@ class Adam(OptimMethod):
         return {"m": [torch.zeros_like(p) for p in params],
                 "v": [torch.zeros_like(p) for p in params]}
 
-    @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr = self.schedule(self.lr, step)
+    def scalars(self, step):
         t = step + 1
-        bc1 = 1 - self.beta1 ** t
-        bc2 = 1 - self.beta2 ** t
+        return {"lr": self.schedule(self.lr, step),
+                "bc1": 1 - self.beta1 ** t, "bc2": 1 - self.beta2 ** t}
+
+    @torch.no_grad()
+    def apply(self, s, grads, params, state):
+        lr, bc1, bc2 = s["lr"], s["bc1"], s["bc2"]
         for g, p, m, v in zip(grads, params, state["m"], state["v"]):
             m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
             v.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
@@ -143,9 +187,12 @@ class AdamWeightDecay(OptimMethod):
     def init_state(self, params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
+    def scalars(self, step):
+        return {"lr": self.get_learning_rate(step)}
+
     @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr = self.get_learning_rate(step)
+    def apply(self, s, grads, params, state):
+        lr = s["lr"]
         for g, p, m, v in zip(grads, params, state["m"], state["v"]):
             m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
             v.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
@@ -163,9 +210,12 @@ class Adagrad(OptimMethod):
     def init_state(self, params):
         return {"accum": _zeros(params)}
 
+    def scalars(self, step):
+        return {"lr": self.lr / (1.0 + step * self.decay)}
+
     @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr = self.lr / (1.0 + step * self.decay)
+    def apply(self, s, grads, params, state):
+        lr = s["lr"]
         for g, p, a in zip(grads, params, state["accum"]):
             if self.weight_decay > 0:
                 g = g + self.weight_decay * p
@@ -185,9 +235,12 @@ class RMSprop(OptimMethod):
     def init_state(self, params):
         return {"rms": _zeros(params)}
 
+    def scalars(self, step):
+        return {"lr": self.lr / (1.0 + step * self.decay)}
+
     @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr = self.lr / (1.0 + step * self.decay)
+    def apply(self, s, grads, params, state):
+        lr = s["lr"]
         for g, p, r in zip(grads, params, state["rms"]):
             r.mul_(self.rho).addcmul_(g, g, value=1 - self.rho)
             p.sub_(lr * g / (r.sqrt() + self.eps))
@@ -207,7 +260,7 @@ class Adadelta(OptimMethod):
         return {"accum": _zeros(params), "delta": _zeros(params)}
 
     @torch.no_grad()
-    def update(self, step, grads, params, state):
+    def apply(self, s, grads, params, state):
         rho, eps = self.rho, self.eps
         for g, p, a, d in zip(grads, params, state["accum"], state["delta"]):
             a.mul_(rho).addcmul_(g, g, value=1 - rho)
@@ -229,9 +282,12 @@ class Adamax(OptimMethod):
     def init_state(self, params):
         return {"m": _zeros(params), "u": _zeros(params)}
 
+    def scalars(self, step):
+        return {"lr_t": self.lr / (1.0 - self.b1 ** (step + 1))}
+
     @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr_t = self.lr / (1.0 - self.b1 ** (step + 1))
+    def apply(self, s, grads, params, state):
+        lr_t = s["lr_t"]
         for g, p, m, u in zip(grads, params, state["m"], state["u"]):
             m.mul_(self.b1).add_(g, alpha=1 - self.b1)
             torch.maximum(u * self.b2, g.abs() + self.eps, out=u)
@@ -259,7 +315,7 @@ class Ftrl(OptimMethod):
                 "linear": _zeros(params)}
 
     @torch.no_grad()
-    def update(self, step, grads, params, state):
+    def apply(self, s, grads, params, state):
         pw = -self.lr_power
         for g, p, n, z in zip(grads, params, state["accum"],
                               state["linear"]):
@@ -295,9 +351,12 @@ class LarsSGD(OptimMethod):
     def init_state(self, params):
         return {"velocity": _zeros(params)}
 
+    def scalars(self, step):
+        return {"lr": self.schedule(self.lr, step)}
+
     @torch.no_grad()
-    def update(self, step, grads, params, state):
-        lr = self.schedule(self.lr, step)
+    def apply(self, s, grads, params, state):
+        lr = s["lr"]
         wd = self.weight_decay
         for g, p, v in zip(grads, params, state["velocity"]):
             p_norm = torch.linalg.vector_norm(p)
@@ -342,7 +401,7 @@ class LBFGS(OptimMethod):
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, step, grads, params, state):
+    def apply(self, s, grads, params, state):
         eps = self.eps
         s_new = [p - q for p, q in zip(params, state["prev_params"])]
         y_new = [g - h for g, h in zip(grads, state["prev_grads"])]

@@ -5,7 +5,9 @@ Python float.  The JAX schedules are traced inside the jitted step and
 compute in float32; these compute the same formulas in double on the
 host, so the two agree to float32 rounding.  ``Plateau`` is host state
 ``Optimizer`` feeds after each validation (``on_score``); the next step
-just reads the new factor (there is no compiled step to rebuild)."""
+reads the new factor, since an optim method writes each step's rate into
+a device tensor before the step runs (``OptimMethod.step_tensors``),
+captured steps included."""
 
 import math
 from typing import Callable, List, Optional, Sequence, Tuple

@@ -7,7 +7,7 @@ then global L2 norm, as the JAX step clips; a layer-wise method such as
 ``LarsSGD`` gets only the norm clip, as on the JAX replicated path), the
 optimizer's in-place update, and the EMA of the parameters.  With one
 rank the JAX step's reduce-scatter / all-gather cycle is the identity,
-so nothing of it is here; step bundles are not ported.
+so nothing of it is here.
 
 - ``accum_steps``: the batch is cut into that many contiguous
   microbatches; BatchNorm buffers move through them in order, the
@@ -34,11 +34,39 @@ Dropout is seeded as the JAX Optimizer seeds it: the run's key is
 ``PRNGKey(seed + 1)``, step ``i`` draws from ``fold_in(key, i)``, the one
 data replica from ``fold_in(step_key, 0)`` — the key the JAX step hands
 to the forward of its replica 0 — and microbatch ``k`` from
-``fold_in(replica_key, k)``."""
+``fold_in(replica_key, k)``.
+
+Everything a step reads that depends on its index lives in device
+tensors written before it runs: the step counter the dropout key folds
+in, and the optim method's rate and bias corrections
+(``OptimMethod.step_tensors``).  So the step itself reads nothing from
+the host, and ``train_bundle`` can replay it as a CUDA graph.
+
+Step bundles (``train_bundle``, the JAX ``train_bundle_device``): K
+consecutive steps with one loss vector back.  On the card the bundle
+replays a captured CUDA graph of ONE step K times, one graph per batch
+signature (shapes and dtypes): a full batch and an epoch's ragged tail
+get one each, in private memory pools, and one step's activations stay
+in memory whatever K.  (The JAX package compiles one program per bundle
+size instead, ``tests/test_step_bundle.py``; replaying one step keeps
+memory flat and needs no program per size.)  Before each replay the host
+writes the step's scalars and copies the batch into the graph's static
+inputs on the step's stream, which already waits on the device feed's
+copy, then replays; the launch counts the capture recorded are credited
+at each replay (``ops.common.captured_launches``).  The first
+``WARM_STEPS`` steps of a new signature are the run's own steps run
+eagerly on a side stream (cuBLAS and cuDNN set themselves up there),
+then one step is captured (a capture runs nothing) and replayed: no
+step runs twice.  A step that cannot be captured (one that reads the
+card on the host: ``.item()``, ``.cpu()``, ``bool`` of a tensor) raises
+at the capture, with the offending call named; it never falls back to
+eager steps.  On the CPU there are no graphs: the bundle runs the same
+step K times, the plain version of the graph."""
 
 import functools
+from collections import Counter
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +74,7 @@ from torch.profiler import record_function
 
 from bigdl_tpu_torch.nn.layers import BatchNorm, Dropout
 from bigdl_tpu_torch.nn.module import Module, Sequential, _as_tuple
+from bigdl_tpu_torch.ops.common import captured_launches, credit_launches
 from bigdl_tpu_torch.optim.optim_method import OptimMethod
 from bigdl_tpu_torch.optim.validation import (StatsAccumulator,
                                               ValidationMethod,
@@ -185,8 +214,13 @@ class TrainStep:
     """Trains ``model``'s parameters in place.  ``step(it, x, y)`` runs
     iteration ``it`` (0-based) on a batch already on the model's device
     and returns the loss as a 0-d tensor on that device (reading it
-    waits for the step).  A model with active dropout gets the step's
-    key, derived from ``seed``, as ``model(x, key=key)``."""
+    waits for the step); ``train_bundle(it0, xs, ys)`` runs ``len(xs)``
+    steps (captured CUDA graphs on the card).  A model with active
+    dropout gets the step's key, derived from ``seed``, as
+    ``model(x, key=key)``."""
+
+    # eager steps of a new batch signature before its capture
+    WARM_STEPS = 2
 
     def __init__(self, model: torch.nn.Module, criterion,
                  optim_method: OptimMethod,
@@ -223,18 +257,32 @@ class TrainStep:
                 self.masks.append(None if bool(m.all()) else m)
             if all(m is None for m in self.masks):
                 self.masks = None
+        self.device = (self.params[0].device if self.params
+                       else torch.device("cpu"))
         self._base_key = None
         if any(isinstance(m, Dropout) and m.p > 0.0
                for m in model.modules()):
-            self._base_key = prng.PRNGKey(
-                seed + 1, device=next(model.parameters()).device)
+            self._base_key = prng.PRNGKey(seed + 1, device=self.device)
+        # the index of the step being run, written before it runs
+        self._step_t = torch.zeros((), dtype=torch.int64,
+                                   device=self.device)
+        # step bundles on the card: batch signature -> _Captured, and the
+        # eager steps each signature has run so far
+        self._graphs: Dict[tuple, "_Captured"] = {}
+        self._warm: Counter = Counter()
+        self._side: Optional[torch.cuda.Stream] = None
 
-    def step_key(self, step: int) -> Optional[torch.Tensor]:
-        """Replica 0's dropout key of iteration ``step`` (None when the
-        model drops nothing)."""
+    def step_key(self, step) -> Optional[torch.Tensor]:
+        """Replica 0's dropout key of iteration ``step`` (an int, or the
+        int64 step tensor the step reads; None when the model drops
+        nothing)."""
         if self._base_key is None:
             return None
         return prng.fold_in(prng.fold_in(self._base_key, step), 0)
+
+    @property
+    def graphs_captured(self) -> int:
+        return len(self._graphs)
 
     # ---- the step ----------------------------------------------------------
     def _forward(self, x, key):
@@ -258,11 +306,21 @@ class TrainStep:
         loss.backward()
         return loss.detach()
 
-    def __call__(self, step: int, x, y) -> torch.Tensor:
+    def _set_step(self, step: int):
+        """Write ``step``'s values into the device tensors the step
+        reads; returns the optim method's."""
+        self._step_t.fill_(step)
+        return self.optim_method.step_tensors(step, self.device)
+
+    def _run(self, x, y, scalars, want_gnorm: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One step on the values already written: everything a capture
+        holds.  Returns the loss and, with ``want_gnorm``, the global L2
+        norm of the (masked, averaged) gradient before clipping."""
         self.model.train(True)
         for p in self.params:
             p.grad = None
-        key = self.step_key(step)
+        key = self.step_key(self._step_t)
         accum = self.accum_steps
         if accum == 1:
             loss = self._loss(x, y, key)
@@ -281,11 +339,14 @@ class TrainStep:
                                 else prng.fold_in(key, k))
                 total = lk if total is None else total + lk
             loss = total / accum
-        self._apply(step, accum)
-        return loss
+        return loss, self._apply(scalars, accum, want_gnorm)
+
+    def __call__(self, step: int, x, y) -> torch.Tensor:
+        return self._run(x, y, self._set_step(step))[0]
 
     @torch.no_grad()
-    def _apply(self, step: int, accum: int) -> None:
+    def _apply(self, scalars, accum: int, want_gnorm: bool
+               ) -> Optional[torch.Tensor]:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if accum > 1:
@@ -297,18 +358,111 @@ class TrainStep:
                 if m is not None:
                     g.mul_(m)
                     frozen.append((p, m, p.detach().clone()))
+        gnorm = None
+        if want_gnorm:
+            gnorm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         with record_function("train_step/update"):
             if self.clip is not None:
                 clip_gradients(grads, self.clip,
                                constant=self.optim_method.elementwise)
-            self.optim_method.update(step, grads, self.params,
-                                     self.opt_state)
+            self.optim_method.apply(scalars, grads, self.params,
+                                    self.opt_state)
             for p, m, old in frozen:
                 p.copy_(torch.where(m, p, old))
             if self.ema is not None:
                 d = self.ema_decay
                 for e, p in zip(self.ema, self.params):
                     e.mul_(d).add_(p, alpha=1.0 - d)
+        return gnorm
+
+    # ---- step bundles ---------------------------------------------------------
+    def train_bundle(self, step0: int, xs: Sequence, ys: Sequence
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Steps ``step0 .. step0 + len(xs) - 1`` on the device batches
+        ``xs``/``ys``; returns the losses and the gradient norms as
+        (K,) float32 vectors on the device, read by the caller when it
+        needs them.  The same losses, to the bit, as K calls of the step
+        (module docstring)."""
+        k = len(xs)
+        if k == 0 or len(ys) != k:
+            raise ValueError(f"a bundle needs matching non-empty batch "
+                             f"lists, got {k} inputs / {len(ys)} targets")
+        losses = torch.empty(k, device=self.device)
+        gnorms = torch.empty(k, device=self.device)
+        for j, (x, y) in enumerate(zip(xs, ys)):
+            scalars = self._set_step(step0 + j)
+            if self.device.type != "cuda":
+                loss, gnorm = self._run(x, y, scalars, want_gnorm=True)
+            else:
+                loss, gnorm = self._graph_step(x, y, scalars)
+            losses[j] = loss
+            gnorms[j] = gnorm
+        return losses, gnorms
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    def _graph_step(self, x, y, scalars):
+        """One step of a bundle on the card: eager on the side stream
+        while the signature warms up, then captured once and replayed."""
+        sig = tuple((tuple(t.shape), t.dtype) for t in _as_tuple(x) + (y,))
+        entry = self._graphs.get(sig)
+        if entry is None and self._warm[sig] < self.WARM_STEPS:
+            self._warm[sig] += 1
+            cur = torch.cuda.current_stream(self.device)
+            side = self._side_stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                loss, gnorm = self._run(x, y, scalars, want_gnorm=True)
+            cur.wait_stream(side)
+            loss.record_stream(cur)
+            gnorm.record_stream(cur)
+            return loss, gnorm
+        if entry is None:
+            entry = self._graphs[sig] = self._capture(x, y, scalars)
+        for static, t in zip(entry.xs, _as_tuple(x)):
+            static.copy_(t)
+        entry.y.copy_(y)
+        entry.graph.replay()
+        credit_launches(entry.launches)
+        return entry.loss, entry.gnorm
+
+    def _capture(self, x, y, scalars) -> "_Captured":
+        """Capture one step on static copies of ``x`` and ``y`` into a
+        CUDA graph with its own memory pool.  A synchronizing call inside
+        the step raises (``set_sync_debug_mode("error")``) before it
+        reaches the card, so the capture ends cleanly and the error names
+        the call; nothing runs eagerly in its place."""
+        xs = tuple(t.clone() for t in _as_tuple(x))
+        ys = y.clone()
+        graph = torch.cuda.CUDAGraph()
+        side = self._side_stream()
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        mode = torch.cuda.get_sync_debug_mode()
+        with captured_launches() as launches:
+            try:
+                # entering the capture synchronizes: the mode goes on
+                # inside it
+                with torch.cuda.graph(graph, stream=side):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        loss, gnorm = self._run(
+                            xs if len(xs) > 1 else xs[0], ys, scalars,
+                            want_gnorm=True)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"steps_per_call > 1 runs each step as a captured CUDA "
+                    f"graph, and a step of {type(self.model).__name__} "
+                    f"cannot be captured: {e}.  A step that reads the card "
+                    f"on the host (.item(), .cpu(), bool or float of a "
+                    f"tensor, a Python scalar copied to the card) cannot "
+                    f"be replayed; train it with steps_per_call=1") from e
+        return _Captured(graph, xs, ys, loss, gnorm, launches)
 
     # ---- variables and checkpoints -------------------------------------------
     def get_variables(self, ema: bool = False) -> Dict[str, Any]:
@@ -371,3 +525,16 @@ class TrainStep:
         if self.ema is not None:
             unravel_into(flat if ema is None else ema,
                          self._ordered(self.ema))
+
+
+@dataclass
+class _Captured:
+    """One captured step: the graph, its static inputs and outputs, and
+    the kernel launches its capture recorded."""
+
+    graph: Any
+    xs: Tuple[torch.Tensor, ...]
+    y: torch.Tensor
+    loss: torch.Tensor
+    gnorm: torch.Tensor
+    launches: Counter

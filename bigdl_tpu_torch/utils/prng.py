@@ -58,8 +58,13 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def _data(data, like: torch.Tensor) -> torch.Tensor:
     """``data`` as uint32 words in int64 on ``like``'s device (negative
-    int32 values wrap, as JAX's cast to uint32 does)."""
-    d = torch.as_tensor(data, device=like.device)
+    int32 values wrap, as JAX's cast to uint32 does).  A Python int is
+    written by a fill on the device, not copied from the host: a copy
+    waits for the card, and a captured step cannot hold one."""
+    if isinstance(data, int):
+        d = torch.full((), data, dtype=torch.int64, device=like.device)
+    else:
+        d = torch.as_tensor(data, device=like.device)
     return d.to(torch.int64) & _M32
 
 
@@ -106,13 +111,15 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # torch.full, not torch.tensor: a fill on the device, no host copy,
+    # so a captured step can draw
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
     """bool samples, True with probability ``p``, as
     ``jax.random.bernoulli`` (``uniform < p`` in float32)."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
-                                              device=key.device)
+    return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
+                                            device=key.device)

@@ -11,9 +11,9 @@ Remote "directories" follow object-store semantics: they exist only as
 key prefixes, creation is a no-op, and there is no atomic rename, so
 writers order their files (data first, sidecar or manifest last).
 
-Not here yet: the fault-injection hook on ``open_file`` (it comes with
-the driver's retry loop) and ``mirror_tree`` (checkpoint mirrors come
-with multi-device training)."""
+``open_file`` is the fault-injection seam (``storage_io_fail``,
+``resilience.faults``).  Not here yet: ``mirror_tree`` (checkpoint
+mirrors come with multi-device training)."""
 
 import json
 import logging
@@ -21,6 +21,8 @@ import os
 import posixpath
 import shutil
 from typing import IO, List, Optional
+
+from bigdl_tpu_torch.resilience import faults
 
 log = logging.getLogger("bigdl_tpu_torch.storage")
 
@@ -83,6 +85,7 @@ def basename(path: str) -> str:
 
 
 def open_file(path: str, mode: str = "rb") -> IO:
+    faults.fire("storage_io_fail")  # the one seam every byte crosses
     if is_remote(path):
         fs, p = _fs_path(path)
         return fs.open(p, mode)

@@ -80,6 +80,11 @@ one JSON line:
    held-out batches of 8 x 1024 tokens with ``Loss``: 12 flash-forward
    launches a batch and nothing else, the mean loss within 1e-4 of
    plain attention's;
+14b. train_lm_bundles — the LM at K = 1 (eager) and K = 4 (one captured
+   step replayed), 12 steps each on 48 seeded rows (6 batches an epoch):
+   losses equal to the bit, the flash forward and backward launches a
+   step the same under replay (credited at each replay), step ms,
+   tokens/s, peak memory, the busy share over [4, 8);
 15. train_lenet — LeNet-5 trained 3 epochs on a learnable synthetic
    28x28 set (Adam 1e-3, batch 128, 2 microbatches a step, EMA 0.99,
    validation every epoch): the last validation's top-1 and the EMA
@@ -94,6 +99,19 @@ one JSON line:
    checkpoint's bytes and its write, async write and resume times;
 17. train_resnet_remat — 6 steps with ``remat`` against 6 without: peak
    memory, step time, the BatchNorm buffers equal;
+17b. sync_audit — one eager ResNet-50 TrainStep step and three steps of
+   the driver under ``torch.cuda.set_sync_debug_mode("warn")``: the
+   count and call sites of the host syncs (none may be left in the step);
+   train_resnet_bundles — K = 1 and K = 4 alternating (three runs each,
+   12 steps): step ms, the host's dispatch of a step onto an idle card,
+   busy share, peak memory, graphs captured, K = 4's losses equal to
+   K = 1's to the bit with the epoch-tail bundle, and a K = 4 run
+   checkpointed off the grid (every 6) and resumed to the same bits;
+   recovery — K = 4 runs with ``step_fail@5``, a NaN batch caught by
+   ``StepWatchdog(nan_patience=1)``, and SIGTERM sent at a step: each
+   recovers or resumes, the steps after it equal the clean run's to the
+   bit; profile_window — ``set_profile`` over iterations [2, 4) of a
+   K = 2 run writes a trace;
 18. the record-file input pipeline: record_file writes 1,280 seeded
    uint8 images of 300x300x3 and their labels with ``write_records``
    (345.6 MB) and opens them as ``AugmentedRecordImages`` (resize 256^2,
@@ -110,7 +128,9 @@ one JSON line:
    train_resnet's, images/s, busy share, the p50 and p99 of
    ``train.data_wait_s``, peak memory, its first 6 losses equal to the
    serial feed's to the bit, and a train summary with a loss and a
-   throughput a step;
+   throughput a step; train_resnet_records_bundles the same at K = 1
+   and K = 4 alternating, losses equal to the bit, the data wait's p50
+   and p99;
 19. stream_jpeg — 256 seeded images JPEG-encoded by the native library
    and streamed through ``stream_jpeg_batches`` into the feed, 1 worker
    against the tuned count (the same bits); where the library has no
@@ -121,23 +141,31 @@ one JSON line:
 Then the kernel table, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
+Each kernel row also says whether the kernel runs inside a captured
+CUDA graph (``in_graph``: one call captured, replayed and held to the
+eager call's bits).
+
 ``python3 chip_smoke.py --feed-ab`` runs only ``feed_ab``: where the
 record path's ResNet-50 step time goes (in memory against records with
-the tuned decode pool, one decode worker, and a train summary,
-alternating in one call; the host's time to dispatch a step onto an
-idle card).
+the tuned decode pool, one decode worker, and a train summary, each at
+K = 1 and K = 4, alternating in one call; the host's time to dispatch a
+step onto an idle card at each K).
 
 Any failed phase raises and the
 script exits non-zero; without a CUDA card it exits non-zero and prints
 no result."""
 
+import contextlib
+import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -211,6 +239,19 @@ RECORDS = dict(n=1280, src=300, resize=256, batch=64, pipeline_epochs=2,
                jpeg_images=256, jpeg_quality=90)
 IMAGENET_MEAN = tuple(v * 255 for v in (0.485, 0.456, 0.406))
 IMAGENET_STD = tuple(v * 255 for v in (0.229, 0.224, 0.225))
+
+# step bundles (sync_audit, train_resnet_bundles,
+# train_resnet_records_bundles, train_lm_bundles, recovery,
+# profile_window): K = 4 (one captured step replayed) beside K = 1 (eager)
+# in one call, alternating 1, 4, 4, 1, ...; 12 steps a run (ResNet-50 in
+# memory: 10 an epoch, bundles 4, 4, the 2-step epoch tail, 2; the LM: 6
+# batches of 8 x 1024 an epoch), timed from iteration 4 (the first
+# bundle holds the two eager warm steps and the capture); 8-step runs
+# synchronised at each edge for the host's dispatch and profiled over
+# [4, 8) for the busy share; a resume from a checkpoint off the grid of
+# 4 (every 6)
+BUNDLE = dict(k=4, steps=12, pairs=3, timed_from=4, sync_steps=8,
+              ckpt_every=6, records_pairs=2, lm_batches=6)
 
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
@@ -409,6 +450,30 @@ def _assert_bit_equal(name, first, second) -> None:
                                  f"differ, max {(a - b).abs().max().item()}")
 
 
+def _in_graph(fn, want) -> dict:
+    """Whether a kernel runs inside a captured CUDA graph: one call of its
+    wrapper captured (after an eager call, as a captured step's warm-up
+    runs it), replayed, and held to ``want`` (the eager outputs) to the
+    bit.  A capture that fails is reported with its reason, not raised:
+    the row records it."""
+    from bigdl_tpu_torch.ops.common import captured_launches
+
+    wants = want if isinstance(want, (tuple, list)) else (want,)
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with captured_launches() as launched:
+            with torch.cuda.graph(graph):
+                out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"in_graph": False, "in_graph_reason": str(e)[:300]}
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    equal = all(torch.equal(a, b) for a, b in zip(outs, wants))
+    return {"in_graph": equal, "in_graph_launches": dict(launched)}
+
+
 def check_paged_decode(dev, flush):
     """The paged decode kernel against its plain version at the serving
     shapes: 16 slots, 12 heads, head_dim 64, pages of 16, a 64-page
@@ -426,6 +491,7 @@ def check_paged_decode(dev, flush):
     ref = paged_decode_attention_ref(q, kp, vp, pt, ln)
     torch.cuda.synchronize()
     _assert_bit_equal("paged_decode_attention", [out], [again])
+    graph = _in_graph(lambda: paged_decode_attention(q, kp, vp, pt, ln), out)
     err = (out - ref).abs().max().item()
     if not torch.allclose(out, ref, rtol=RTOL, atol=ATOL):
         raise AssertionError(f"paged_decode_attention disagrees with its "
@@ -459,7 +525,7 @@ def check_paged_decode(dev, flush):
                   "launches": None, "max_abs_err": err, "bit_equal": True,
                   "ms": ms, "plain_ms": plain_ms,
                   **_bound(kv_bytes + io_bytes, flops),
-                  "library_ms": library_ms})
+                  "library_ms": library_ms, **graph})
     emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                        "head_dim": d, "page": page,
                                        "n_blocks": nb, "pages": P},
@@ -513,6 +579,8 @@ def check_paged_decode_int8(dev, flush):
     ref = paged_decode_attention_ref(q, kp, vp, pt, ln, **sc)
     torch.cuda.synchronize()
     _assert_bit_equal("paged_decode_attention int8", [out], [again])
+    graph = _in_graph(
+        lambda: paged_decode_attention(q, kp, vp, pt, ln, **sc), out)
     err = _assert_close("paged_decode_attention int8", out, ref, RTOL, ATOL)
     ms = time_cold(lambda: paged_decode_attention(q, kp, vp, pt, ln, **sc),
                    flush)
@@ -542,7 +610,7 @@ def check_paged_decode_int8(dev, flush):
                   "launches": None, "max_abs_err": err, "bit_equal": True,
                   "ms": ms, "plain_ms": plain_ms,
                   **_bound(kv_bytes + io_bytes, flops),
-                  "library_ms": library_ms})
+                  "library_ms": library_ms, **graph})
     emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                        "head_dim": d, "page": page,
                                        "n_blocks": nb, "pages": kp.shape[0],
@@ -577,6 +645,8 @@ def check_paged_verify(dev, flush):
         torch.cuda.synchronize()
         tag = "int8" if int8 else "f32"
         _assert_bit_equal(f"paged_verify_attention {tag}", [out], [again])
+        graph = _in_graph(lambda: paged_verify_attention(
+            q, kp, vp, pt, pos, **sc), out)
         err = _assert_close(f"paged_verify_attention {tag}", out, ref, RTOL,
                             ATOL)
         ms = time_cold(lambda: paged_verify_attention(q, kp, vp, pt, pos,
@@ -607,7 +677,8 @@ def check_paged_verify(dev, flush):
             "replaces": "bigdl_tpu/ops/flash_attention.py:514",
             "launches": None, "max_abs_err": err, "bit_equal": True,
             "ms": ms, "plain_ms": plain_ms,
-            **_bound(kv_bytes + io_bytes, flops), "library_ms": library_ms})
+            **_bound(kv_bytes + io_bytes, flops), "library_ms": library_ms,
+            **graph})
         emit({"phase": "kernel", "shape": {"slots": S, "heads": h,
                                            "chunk": C, "head_dim": d,
                                            "page": page, "n_blocks": nb,
@@ -617,7 +688,7 @@ def check_paged_verify(dev, flush):
     row = dict(rows["f32"])
     row["int8_pages"] = {k: rows["int8"][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "share")}
+        "library_ms", "share", "in_graph")}
     return row
 
 
@@ -657,6 +728,8 @@ def check_block_sparse(dev, flush):
                          "density": float(mask.mean())}
                 _assert_bit_equal(f"block_sparse_matmul {shape}", [out],
                                   [again])
+                graph = (_in_graph(lambda: _bs_raw(x, w, plan), out)
+                         if not rows else {})
                 err = _assert_close(f"block_sparse_matmul {shape}", out,
                                     ref, RTOL, BS_ATOL)
                 worst = max(worst, err)
@@ -668,7 +741,7 @@ def check_block_sparse(dev, flush):
                     "library_ms": time_cold(lambda: torch.matmul(x, wm),
                                             flush),
                     **_bound_3xtf32(4 * (m * k + kept + m * n),
-                                    2 * m * kept)})
+                                    2 * m * kept), **graph})
                 if m == 256:
                     # dx = g @ (w masked)^T: the kernel on the transposed
                     # plan
@@ -705,7 +778,7 @@ def check_block_sparse(dev, flush):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "bounds": main["bounds"], "share": main["share"],
-            "shape": main["shape"],
+            "shape": main["shape"], "in_graph": main["in_graph"],
             "m256": {k: rows[1][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "bounds", "share",
                                              "library_ms", "dx")}}
@@ -774,6 +847,11 @@ def check_flash(dev, flush):
     q, k, v, go = (torch.randn(b, h, s, d, generator=g).to(dev)
                    for _ in range(4))
     out, lse = flash_attention_fwd(q, k, v, causal=True)
+    graphs = (_in_graph(lambda: flash_attention_fwd(q, k, v, causal=True),
+                        (out, lse)),
+              _in_graph(lambda: flash_attention_bwd(
+                  q, k, v, out, lse, go, causal=True),
+                  flash_attention_bwd(q, k, v, out, lse, go, causal=True)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = sdpa(q, k, v, is_causal=True)
     _assert_close("the SDPA yardstick", lib, out, RTOL, ATOL)
@@ -806,14 +884,14 @@ def check_flash(dev, flush):
                 "launches": None, "max_abs_err": errs["fwd"],
                 "bit_equal": True, "ms": fwd_ms, "plain_ms": fwd_plain,
                 **_bound_3xtf32(fwd_bytes, fwd_flops),
-                "library_ms": fwd_lib}),
+                "library_ms": fwd_lib, **graphs[0]}),
         _share({"name": "flash_attention_bwd", "route": "cuda",
                 "source": "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": "bigdl_tpu/ops/flash_attention.py:141",
                 "launches": None, "max_abs_err": errs["bwd"],
                 "bit_equal": True, "ms": bwd_ms, "plain_ms": bwd_plain,
                 **_bound_3xtf32(bwd_bytes, bwd_flops),
-                "library_ms": fb_lib - fwd_lib})]
+                "library_ms": fb_lib - fwd_lib, **graphs[1]})]
     for row, flops, nbytes in ((rows[0], fwd_flops, fwd_bytes),
                                (rows[1], bwd_flops, bwd_bytes)):
         emit({"phase": "kernel", "shape": shape,
@@ -1104,6 +1182,21 @@ def profile_serving(im, prompts) -> dict:
     return _profile(lambda: im.generate(prompts))
 
 
+def _device_kernels(events) -> list:
+    """The device-side entries of ``key_averages()`` that are kernels and
+    copies.  A profiler range (``record_function``: the driver's
+    ``train/data`` and ``train/bundle``, the step's
+    ``train_step/update``) also shows on the device, under its host-side
+    name, as an annotation spanning the kernels it launched: counted as
+    device time it would count them twice, so every device entry whose
+    name is also a host event's is left out."""
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in host]
+
+
 def _profile(fn, named=()) -> dict:
     """``fn()`` under torch.profiler: the device's busy share of the wall
     time and its time by kernel; for each substring in ``named``, the
@@ -1116,8 +1209,7 @@ def _profile(fn, named=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof.key_averages())
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
@@ -1476,9 +1568,7 @@ def _profile_train(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != "train_step/update"]
+    kernels = _device_kernels(events)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     conv_words = ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
                   "implicit", "cutlass", "sm90")
@@ -1948,63 +2038,49 @@ class _PinnedWorkers:
         return getattr(self.ds, name)
 
     def stream_batches(self, *args, **kw):
-        return self.ds.stream_batches(*args, workers=self.workers, **kw)
+        return self.ds.stream_batches(*args, **dict(kw,
+                                                     workers=self.workers))
 
 
 def feed_ab(dev):
-    """``--feed-ab``: where the record path's step time goes.  In one
-    call, alternating, 20 ResNet-50 steps each: in memory, from records
+    """``--feed-ab``: where the record path's step time goes, eager and
+    in step bundles.  In one call, alternating, 20 ResNet-50 steps each,
+    at K = 1 (eager) and K = 4 (captured graphs): in memory, from records
     with the tuned decode pool, with one decode worker, and with the
-    tuned pool plus a train summary; then 12 steps in memory and from
-    records with the card synchronised at every iteration edge, which
-    gives the host's time to dispatch one step onto an idle card."""
+    tuned pool plus a train summary; the step's device ms over steps
+    5-20 (CUDA events at the bundle edges).  Then 12 steps of each K in
+    memory and from records with the card synchronised at every edge,
+    which gives the host's time to dispatch one step onto an idle
+    card."""
     from bigdl_tpu_torch.data import DataSet
     from bigdl_tpu_torch.data.pipeline import (autotune_workers,
                                               host_core_count)
     from bigdl_tpu_torch.models import resnet50
     from bigdl_tpu_torch.nn import CrossEntropyCriterion
-    from bigdl_tpu_torch.optim import Optimizer, Trigger
+    from bigdl_tpu_torch.optim import Optimizer
 
     c = RECORDS
     (x, y), _ = resnet_train_data()
     memory = DataSet.array(x, y)
     del x, y
 
-    def run(ds, steps=c["steps"], summary=None, sync=False):
-        events, arrive, idle = {}, {}, {}
+    def maker(ds, summary):
+        def make(end):
+            model = resnet50(classes=1000, stem="conv",
+                             generator=torch.Generator().manual_seed(SEED))
+            opt = (Optimizer(model, ds, CrossEntropyCriterion(),
+                             batch_size=c["batch"], device=dev)
+                   .set_optim_method(_resnet_recipe()).set_end_when(end))
+            if summary:
+                opt.set_train_summary(summary)
+            return opt
+        return make
 
-        def tick(state):
-            it = state["iteration"]
-            if it not in events:
-                arrive[it] = time.perf_counter()
-                events[it] = torch.cuda.Event(enable_timing=True)
-                events[it].record()
-                if sync:
-                    torch.cuda.synchronize()
-                idle[it] = time.perf_counter()
-            return False
-
-        model = resnet50(classes=1000, stem="conv",
-                         generator=torch.Generator().manual_seed(SEED))
-        opt = (Optimizer(model, ds, CrossEntropyCriterion(),
-                         batch_size=c["batch"], device=dev)
-               .set_optim_method(_resnet_recipe())
-               .set_end_when(Trigger.or_(Trigger(tick, "clock"),
-                                         Trigger.max_iteration(steps))))
-        if summary:
-            opt.set_train_summary(summary)
-        opt.optimize()
-        torch.cuda.synchronize()
-        step_ms = _step_ms(events, 0, steps)
-        out = {"median_step_ms": float(np.median(step_ms[2:])),
-               "step_ms": step_ms}
-        if sync:
-            host = [(arrive[i] - idle[i - 1]) * 1e3
-                    for i in range(1, steps + 1)]
-            out["median_host_dispatch_ms"] = float(np.median(host[2:]))
-        del opt, model
-        torch.cuda.empty_cache()
-        return out
+    def run(name, k, steps=c["steps"], sync=False):
+        ds, summary = plan[name]
+        r = _bundle_run(maker(ds, summary), k, steps, sync=sync)
+        del r["losses"]
+        return {"run": f"{name}_k{k}" + ("_synced" if sync else ""), **r}
 
     runs = []
     with tempfile.TemporaryDirectory(prefix="feed_ab_") as d:
@@ -2016,21 +2092,23 @@ def feed_ab(dev):
                 "records_1_worker": (_PinnedWorkers(records, 1), None),
                 f"records_{tuned}_workers_summary": (
                     records, os.path.join(d, "summary"))}
-        order = list(plan) + list(plan)[::-1]
-        for name in order:
-            ds, summary = plan[name]
-            runs.append({"run": name, **run(ds, summary=summary)})
-        for name in ("memory", f"records_{tuned}_workers"):
-            runs.append({"run": name + "_synced",
-                         **run(plan[name][0], steps=12, sync=True)})
+        order = [(n, k) for k in (1, BUNDLE["k"]) for n in plan]
+        for name, k in order + order[::-1]:
+            runs.append(run(name, k))
+        for k in (1, BUNDLE["k"]):
+            for name in ("memory", f"records_{tuned}_workers"):
+                runs.append(run(name, k, steps=12, sync=True))
         records.close()
-    medians = {}
+    step_ms = {}
     for r in runs:
-        medians.setdefault(r["run"], []).append(r["median_step_ms"])
+        if "host_dispatch_ms" not in r:
+            step_ms.setdefault(r["run"], []).append(r["step_ms"])
     out = {"phase": "feed_ab", "host_cores": host_core_count(),
-           "tuned_workers": tuned, "median_step_ms": medians,
-           "host_dispatch_ms": {r["run"]: r["median_host_dispatch_ms"]
-                                for r in runs if r["run"].endswith("_synced")},
+           "tuned_workers": tuned, "step_ms": step_ms,
+           "host_dispatch_ms": {r["run"]: r["host_dispatch_ms"]
+                                for r in runs if "host_dispatch_ms" in r},
+           "host_ms_per_step": {r["run"]: r["host_ms_per_step"]
+                                for r in runs if "host_ms_per_step" in r},
            "runs": runs}
     emit(out)
     return out
@@ -2145,8 +2223,6 @@ def check_int8_matmul(dev, flush, resnet_shapes):
     K, N multiples of 8: its operands are zero-padded to that, and its
     result checked too); the int32 entry's time stands beside it.  The
     row is the sum over the 54 calls of the bucket-16 forward."""
-    from collections import Counter
-
     from bigdl_tpu_torch.ops.common import round_up
     from bigdl_tpu_torch.ops.quantized import (int8_matmul, int8_matmul_nk,
                                                int8_matmul_plain, int8_plan,
@@ -2179,6 +2255,10 @@ def check_int8_matmul(dev, flush, resnet_shapes):
         _assert_bit_equal(f"int8_matmul ({m}, {k}, {n})", [out], [again])
         _check_int8_epilogue(f"int8_matmul ({m}, {k}, {n})", x, w_nk, ref,
                              sx, sw, bias)
+        if not per_shape:
+            # the main path's launch: K-major weight, fused rescale
+            graph = _in_graph(lambda: int8_matmul_nk(x, w_nk, sw, sx[:, None]),
+                              int8_matmul_nk(x, w_nk, sw, sx[:, None]))
         r = {"shape": [m, k, n], "calls": counts.get((m, k, n), 0),
              "plan": list(int8_plan(m, k, n)),
              "max_abs_err": (out - ref).abs().max().item(),
@@ -2238,6 +2318,7 @@ def check_int8_matmul(dev, flush, resnet_shapes):
             "s32": {"ms": total("s32_ms", counts),
                     "plain_ms": total("s32_plain_ms", counts),
                     "bound_ms": total("s32_bound_ms", counts)},
+            **graph,
             "work": f"the {sum(counts.values())} int8 products of one "
                     f"ResNet-50 forward at bucket 16 "
                     f"({len(counts)} distinct shapes) as the main path "
@@ -2261,11 +2342,7 @@ def _profile_groups(fn) -> dict:
         wall = time.perf_counter() - t0
     names = ("int8_im2col", "int8_quantize_activations")
     events = prof.key_averages()
-    # a range also shows as a device-side annotation spanning its
-    # kernels: not a kernel
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key not in names]
+    kernels = _device_kernels(events)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     # the host-side range: the device time of the kernels launched in it
     ranges = {e.key: e.device_time_total / 1e3 for e in events
@@ -2477,6 +2554,8 @@ def check_fused_layernorm(dev, flush):
 
     x, gamma, beta = inputs(rows, d)
     eps = BERT["eps"]
+    graph = _in_graph(lambda: fused_layernorm(x, gamma, beta, eps=eps),
+                      fused_layernorm(x, gamma, beta, eps=eps))
     lib = torch.nn.functional.layer_norm(x, (d,), gamma, beta, eps)
     _assert_close("the F.layer_norm yardstick", lib,
                   fused_layernorm_plain(x, gamma, beta, eps), LN_RTOL,
@@ -2493,7 +2572,7 @@ def check_fused_layernorm(dev, flush):
                x, gamma, beta, eps), flush, reps=10),
            **_bound(nbytes, flops),
            "library_ms": time_cold(lambda: torch.nn.functional.layer_norm(
-               x, (d,), gamma, beta, eps), flush)}
+               x, (d,), gamma, beta, eps), flush), **graph}
     emit({"phase": "kernel", "shape": [rows, d], "eps": eps,
           "checked": checked, "bytes": nbytes, "flops": flops,
           "rtol": LN_RTOL, "atol": LN_ATOL, "backward_max_abs_err": bwd_err,
@@ -2519,6 +2598,8 @@ def check_flash_noncausal(dev, flush):
                                      sm_scale=d ** -0.5)
     torch.cuda.synchronize()
     _assert_bit_equal("flash fwd (non-causal)", (out, lse), again)
+    graph = _in_graph(lambda: flash_attention_fwd(q, k, v, causal=False),
+                      (out, lse))
     err = max(_assert_close("flash fwd out (non-causal)", out, ro, RTOL,
                             ATOL),
               _assert_close("flash fwd lse (non-causal)", lse, rl, RTOL,
@@ -2540,7 +2621,7 @@ def check_flash_noncausal(dev, flush):
         "plain_ms": time_cold(lambda: flash_attention_fwd_ref(
             q, k, v, causal=False, sm_scale=d ** -0.5), flush, reps=10),
         **_bound_3xtf32(nbytes, flops),
-        "library_ms": time_cold(lambda: sdpa(q, k, v), flush)})
+        "library_ms": time_cold(lambda: sdpa(q, k, v), flush), **graph})
     emit({"phase": "kernel", "shape": {"batch": b, "heads": h, "seq": s,
                                        "head_dim": d, "causal": False},
           "bytes": nbytes, "flops": flops, "rtol": RTOL, "atol": ATOL,
@@ -2754,6 +2835,602 @@ def resnet_fused(dev, model):
                              f"model: {err} of max |log-prob|")
 
 
+# ---------------------------------------------------------------------------
+# step bundles: captured CUDA graphs of the training step
+# ---------------------------------------------------------------------------
+
+class _SyncWindow:
+    """``set_sync_debug_mode("warn")`` over a window: as an end trigger,
+    from iteration ``start`` to ``stop`` (edges of the driver's loop),
+    or around a call (``with``).  ``sites``: the Python line of every
+    call in the window that waited on the card, with its count."""
+
+    def __init__(self, start=0, stop=0):
+        import warnings
+
+        self.start, self.stop = start, stop
+        self._catch = warnings.catch_warnings(record=True)
+        self.caught, self.sites = None, None
+
+    def __enter__(self):
+        import warnings
+
+        torch.cuda.synchronize()
+        self.caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        sites = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                        for w in self.caught
+                        if "called a synchronizing" in str(w.message))
+        self.sites = [{"site": k, "count": v}
+                      for k, v in sites.most_common()]
+        return False
+
+    def __call__(self, state):
+        it = state["iteration"]
+        if it == self.start and self.caught is None:
+            self.__enter__()
+        elif it >= self.stop and self.caught is not None \
+                and self.sites is None:
+            self.__exit__(None, None, None)
+        return False
+
+
+def sync_audit(dev, data):
+    """Where the eager ResNet-50 step waits on the card, under
+    ``set_sync_debug_mode("warn")``.  (a) One ``TrainStep`` step on a
+    batch already on the card: none may remain, or the step could not be
+    captured; (b) steps 2-4 of the driver's loop from memory (the feed,
+    the triggers around the step; the set-up's parameter copies and the
+    run's final read of the losses are outside the window)."""
+    from bigdl_tpu_torch.models import resnet50
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import TrainStep, Trigger
+
+    (x, y), _ = data
+    b = RESNET_TRAIN["batch"]
+    model = resnet50(classes=1000, stem="conv",
+                     generator=torch.Generator().manual_seed(SEED)).to(dev)
+    step = TrainStep(model, CrossEntropyCriterion(), _resnet_recipe())
+    xt = torch.from_numpy(x[:b]).to(dev)
+    yt = torch.from_numpy(y[:b]).to(dev)
+    step(0, xt, yt)
+    with _SyncWindow() as window:
+        step(1, xt, yt)
+    in_step = window.sites
+    del step, model, xt, yt
+    _release()
+    window = _SyncWindow(1, 4)
+    opt = _resnet_optimizer(dev, (x, y), Trigger.or_(
+        window, Trigger.max_iteration(5)))
+    opt.optimize()
+    in_loop = window.sites
+    del opt
+    _release()
+    out = {"phase": "sync_audit",
+           "train_step": {"syncs": sum(s["count"] for s in in_step),
+                          "sites": in_step},
+           "driver_steps_2_to_4": {
+               "syncs": sum(s["count"] for s in in_loop), "sites": in_loop}}
+    emit(out)
+    if in_step:
+        raise AssertionError(f"the eager TrainStep step still waits on the "
+                             f"card: {in_step}")
+    return out
+
+
+class _BusyWindow:
+    """An end trigger that profiles iterations ``[start, stop)`` (bundle
+    edges): the device's kernel time over the wall time between them."""
+
+    def __init__(self, start, stop):
+        self.start, self.stop = start, stop
+        self.prof, self.out = None, None
+
+    def __call__(self, state):
+        from torch.profiler import ProfilerActivity, profile
+
+        it = state["iteration"]
+        if it == self.start and self.prof is None:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif it >= self.stop and self.prof is not None and self.out is None:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            self.prof.stop()
+            kernels = _device_kernels(self.prof.key_averages())
+            busy = sum(e.self_device_time_total for e in kernels) / 1e6
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            self.out = {"steps": it - self.start, "wall_s": wall,
+                        "device_busy_s": busy, "busy_share": busy / wall,
+                        "top": [{"kernel": e.key[:60], "calls": e.count,
+                                 "device_ms": e.self_device_time_total
+                                 / 1e3} for e in top[:4]],
+                        "kernel_launches": sum(e.count for e in kernels)}
+        return False
+
+
+def _bundle_run(make_opt, k, steps, sync=False, busy=None, extra=None):
+    """One run of ``make_opt(end_when)`` at ``steps_per_call=k`` to
+    ``steps``: the CUDA events at the bundle edges it reaches (step ms
+    from iteration BUNDLE["timed_from"] on), the losses, peak memory and
+    the graphs captured; ``sync`` synchronises at every edge and gives
+    the host's time to dispatch a step onto an idle card; ``busy`` a
+    ``_BusyWindow``; ``extra(opt)`` more entries.  The kernel launches
+    a step are counted (replays credited).  The run, its graphs and their
+    memory pools are released before it returns."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.optim import Trigger
+
+    events, arrive, idle = {}, {}, {}
+
+    def tick(state):
+        it = state["iteration"]
+        if it not in events:
+            arrive[it] = time.perf_counter()
+            events[it] = torch.cuda.Event(enable_timing=True)
+            events[it].record()
+            if sync:
+                torch.cuda.synchronize()
+            idle[it] = time.perf_counter()
+        return False
+
+    ends = [Trigger(tick, "clock")] + ([busy] if busy else [])
+    opt = make_opt(Trigger.or_(*ends, Trigger.max_iteration(steps)))
+    opt.steps_per_call = k
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(opt.device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with _timed_step_calls(calls) if sync else contextlib.nullcontext():
+        trained = opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    edges = sorted(events)
+    a = min(e for e in edges if e >= BUNDLE["timed_from"])
+    out = {"k": k, "steps": steps, "edges": edges,
+           "step_ms": events[a].elapsed_time(events[steps]) / (steps - a),
+           "wall_s": wall, "peak_mem_gb":
+               torch.cuda.max_memory_allocated(opt.device) / 2**30,
+           "graphs_captured": trained._step.graphs_captured,
+           "launches_per_step": {n: v / steps for n, v in LAUNCHES.items()},
+           "losses": opt.losses, **(extra(opt) if extra else {})}
+    del opt, trained
+    _release()
+    if sync:
+        # all the host's work a step (the feed, the loop, the dispatch)
+        # and the step call alone, from iteration a on
+        per = [(arrive[e2] - idle[e1]) * 1e3 / (e2 - e1)
+               for e1, e2 in zip(edges, edges[1:]) if e1 >= a]
+        out["host_ms_per_step"] = float(np.median(per))
+        timed = [dts for it0, dts in calls if it0 >= a and dts]
+        out["host_dispatch_ms"] = (float(np.median([d[0] for d in timed]))
+                                   * 1e3 if timed else None)
+        out["host_step_calls_ms"] = [[t * 1e3 for t in d] for d in timed]
+    if busy is not None:
+        out["busy"] = busy.out
+    return out
+
+
+@contextlib.contextmanager
+def _timed_step_calls(calls):
+    """Record every call of the train step (``TrainStep.__call__`` and
+    ``train_bundle``) as ``(first step, [host seconds of each step])``:
+    the host's dispatch of the steps themselves, without the feed and
+    the loop.  With the card synchronised at every bundle edge, a call's
+    first step is dispatched onto an idle card; the later steps of a
+    bundle can wait for room in the card's launch queue, which holds
+    about two replays of a ResNet-50 step."""
+    from bigdl_tpu_torch.optim import TrainStep
+
+    real_call, real_bundle = TrainStep.__call__, TrainStep.train_bundle
+    real_graph = TrainStep._graph_step
+
+    def call(self, step, x, y):
+        t0 = time.perf_counter()
+        out = real_call(self, step, x, y)
+        calls.append((step, [time.perf_counter() - t0]))
+        return out
+
+    def graph_step(self, x, y, scalars):
+        t0 = time.perf_counter()
+        out = real_graph(self, x, y, scalars)
+        calls[-1][1].append(time.perf_counter() - t0)
+        return out
+
+    def bundle(self, step0, xs, ys):
+        calls.append((step0, []))
+        return real_bundle(self, step0, xs, ys)
+
+    TrainStep.__call__, TrainStep.train_bundle = call, bundle
+    TrainStep._graph_step = graph_step
+    try:
+        yield calls
+    finally:
+        TrainStep.__call__, TrainStep.train_bundle = real_call, real_bundle
+        TrainStep._graph_step = real_graph
+
+
+def _release():
+    """Collect dropped runs (their captured graphs hold private memory
+    pools) and hand the cached memory back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bundle_pairs(make_opt, steps, pairs, name, extra=None):
+    """``pairs`` x (K = 1, K = 4) alternating (1, 4, 4, 1, ...; ``extra``
+    for each), then one synchronised run of each for the host's dispatch
+    and one profiled window of each for the busy share.  Every run's
+    losses must equal the first K = 1 run's to the bit."""
+    k = BUNDLE["k"]
+    order = [1, k, k, 1] * (pairs // 2) + ([1, k] if pairs % 2 else [])
+    runs = []
+    for kk in order:
+        runs.append(_bundle_run(make_opt, kk, steps, extra=extra))
+    sync_steps = BUNDLE["sync_steps"]
+    for kk in (1, k):
+        runs.append({**_bundle_run(make_opt, kk, sync_steps, sync=True),
+                     "run": "synced"})
+        runs.append({**_bundle_run(
+            make_opt, kk, sync_steps,
+            busy=_BusyWindow(BUNDLE["timed_from"], sync_steps)),
+            "run": "profiled"})
+    ref = runs[0]["losses"]
+    timed = [r for r in runs if "run" not in r]
+    summary = {
+        f"k{kk}": {
+            "step_ms": [r["step_ms"] for r in timed if r["k"] == kk],
+            "median_step_ms": float(np.median(
+                [r["step_ms"] for r in timed if r["k"] == kk])),
+            "host_dispatch_ms": next(r["host_dispatch_ms"] for r in runs
+                                     if r.get("run") == "synced"
+                                     and r["k"] == kk),
+            "host_ms_per_step": next(r["host_ms_per_step"] for r in runs
+                                     if r.get("run") == "synced"
+                                     and r["k"] == kk),
+            "busy_share": next(r["busy"]["busy_share"] for r in runs
+                               if r.get("run") == "profiled"
+                               and r["k"] == kk),
+            "peak_mem_gb": max(r["peak_mem_gb"] for r in timed
+                               if r["k"] == kk),
+            "graphs_captured": max(r["graphs_captured"] for r in timed
+                                   if r["k"] == kk),
+            "launches_per_step": next(r["launches_per_step"] for r in timed
+                                      if r["k"] == kk)}
+        for kk in (1, k)}
+    equal = [r["losses"] == ref[:len(r["losses"])] for r in runs]
+    out = {"phase": name, "order": order, "summary": summary,
+           "losses_k1": ref, "all_losses_bit_equal": all(equal),
+           "runs": [{kk: v for kk, v in r.items() if kk != "losses"}
+                    for r in runs]}
+    return out, equal
+
+
+def train_resnet_bundles(dev, data):
+    """ResNet-50 at batch 64 from memory, K = 1 (eager) and K = 4 (one
+    captured step replayed) alternating: step ms, the host's dispatch
+    onto an idle card, busy share, peak memory, graphs captured, and
+    K = 4's losses equal to K = 1's to the bit over 12 steps (10 an
+    epoch: bundles 4, 4, the 2-step epoch tail, then 2).  Then a K = 4
+    run checkpointed off the grid (every 6) and resumed: the resumed
+    steps equal the uninterrupted run's to the bit."""
+    import shutil
+
+    from bigdl_tpu_torch.optim import Trigger
+
+    (x, y), _ = data
+    steps = BUNDLE["steps"]
+
+    def make(end):
+        return _resnet_optimizer(dev, (x, y), end)
+
+    out, equal = _bundle_pairs(make, steps, BUNDLE["pairs"],
+                               "train_resnet_bundles")
+    ref = out["losses_k1"]
+    tmp = tempfile.mkdtemp(prefix="bundle_ckpt_")
+    try:
+        every = Trigger.several_iteration(BUNDLE["ckpt_every"])
+        first = make(Trigger.max_iteration(BUNDLE["ckpt_every"] + 1))
+        first.set_checkpoint(tmp, every)
+        first.steps_per_call = BUNDLE["k"]
+        first.optimize()
+        del first
+        _release()
+        second = make(Trigger.max_iteration(steps))
+        second.set_checkpoint(tmp, every)
+        second.steps_per_call = BUNDLE["k"]
+        second.optimize()
+        resumed = second.losses
+        del second
+        _release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["resumed_off_grid"] = {
+        "ckpt_every": BUNDLE["ckpt_every"], "losses": resumed,
+        "bit_equal": resumed == ref[BUNDLE["ckpt_every"]:]}
+    emit(out)
+    if not all(equal) or len(ref) != steps or not np.all(np.isfinite(ref)):
+        raise AssertionError(f"K = 4 losses differ from K = 1's: {out}")
+    if not out["resumed_off_grid"]["bit_equal"]:
+        raise AssertionError(f"the resumed bundles differ: {resumed} / "
+                             f"{ref}")
+    if out["summary"][f"k{BUNDLE['k']}"]["graphs_captured"] != 1:
+        raise AssertionError(f"one graph per batch shape: {out}")
+    return out
+
+
+def train_resnet_records_bundles(dev, path):
+    """The same from the record file through the stage-parallel pipeline
+    (the driver's defaults), K = 1 beside K = 4 (two runs each, then a
+    synchronised and a profiled one): step ms, the host's dispatch, busy
+    share, peak memory, losses equal to the bit, the data wait's p50 and
+    p99."""
+    from bigdl_tpu_torch.models import resnet50
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Optimizer
+
+    c = RECORDS
+    ds = record_images(path)
+
+    def make(end):
+        model = resnet50(classes=1000, stem="conv",
+                         generator=torch.Generator().manual_seed(SEED))
+        return (Optimizer(model, ds, CrossEntropyCriterion(),
+                          batch_size=c["batch"], device=dev)
+                .set_optim_method(_resnet_recipe()).set_end_when(end))
+
+    def waits(opt):
+        m = opt.metrics
+        return {"data_wait_s": {
+            "count": m.snapshot()["hists"]["train.data_wait_s"]["n"],
+            "p50_bucket_bound": m.percentile("train.data_wait_s", 50),
+            "p99_bucket_bound": m.percentile("train.data_wait_s", 99)}}
+
+    out, equal = _bundle_pairs(make, BUNDLE["steps"],
+                               BUNDLE["records_pairs"],
+                               "train_resnet_records_bundles", extra=waits)
+    ds.close()
+    emit(out)
+    if not all(equal) or not np.all(np.isfinite(out["losses_k1"])):
+        raise AssertionError(f"record-file bundles: {out}")
+    return out
+
+
+def train_lm_bundles(dev):
+    """The LM (12 layers, d 768, batch 8 x 1024) at K = 1 and K = 4: the
+    flash forward and backward launch counts a step the same under replay
+    as eager (credited at each replay), the losses equal to the bit, step
+    ms, tokens/s, the host's dispatch, busy share and peak memory.  48
+    seeded rows: 6 steps an epoch."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.optim import Adam, Optimizer
+
+    rs = np.random.RandomState(SEED + 2)
+    shape = (TRAIN["batch"] * BUNDLE["lm_batches"], TRAIN["seq"])
+    ids = rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+    tgt = rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+
+    def make(end):
+        return (Optimizer(Transformer(**LM, dropout=0.0, seed=SEED),
+                          DataSet.array(ids, tgt), CrossEntropyCriterion(),
+                          batch_size=TRAIN["batch"], device=dev)
+                .set_optim_method(Adam(learning_rate=TRAIN["lr"]))
+                .set_end_when(end))
+
+    out, equal = _bundle_pairs(make, BUNDLE["steps"], 1, "train_lm_bundles")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    for summary in out["summary"].values():
+        summary["tokens_per_s"] = tokens / summary["median_step_ms"] * 1e3
+    emit(out)
+    want = {n: float(LM["num_layers"]) for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+    for kk, summary in out["summary"].items():
+        got = {n: summary["launches_per_step"].get(n) for n in want}
+        if got != want:
+            raise AssertionError(f"flash launches a step at {kk}: {got}")
+    if not all(equal) or not np.all(np.isfinite(out["losses_k1"])):
+        raise AssertionError(f"LM bundles: {out}")
+    return out
+
+
+class _Poisoned:
+    """The in-memory set with batch 5 of epoch 1 NaN the first time it
+    is served."""
+
+    def __init__(self, ds):
+        self.ds, self.fired = ds, False
+
+    def __getattr__(self, name):
+        return getattr(self.ds, name)
+
+    def batches(self, *a, **kw):
+        for i, mb in enumerate(self.ds.batches(*a, **kw)):
+            if kw.get("epoch") == 1 and i == 5 and not self.fired:
+                self.fired = True
+                mb = dict(mb, input=np.full_like(mb["input"], np.nan))
+            yield mb
+
+
+class _SigtermAt:
+    """An end trigger that sends this process SIGTERM the first time the
+    run reaches ``at``: at a step, never from a timer."""
+
+    def __init__(self, inner, at):
+        self.inner, self.at, self.fired = inner, at, False
+        self.boundary = inner.boundary
+
+    def __call__(self, state):
+        if not self.fired and state["iteration"] >= self.at:
+            self.fired = True
+            self.t = time.perf_counter()
+            os.kill(os.getpid(), signal.SIGTERM)
+        return self.inner(state)
+
+
+def recovery(dev, data, clean):
+    """ResNet-50 at K = 4 through the retry loop and preemption, each run
+    held to the clean K = 4 run of train_resnet_bundles (``clean``, its
+    12 losses): (a) ``step_fail@5`` recovered from the bundle-edge
+    checkpoint at 4; (b) a NaN batch (batch 5) caught by
+    ``StepWatchdog(nan_patience=1)`` before ckpt-8 is written and rewound
+    to ckpt-4; (c) SIGTERM delivered at iteration 4's edge: checkpoint
+    at 5 (the next bundle shrunk to one step), stop, and a new run
+    resumes to 12.  The steps after each rewind or resume equal the
+    clean run's to the bit."""
+    import shutil
+
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.resilience.detector import StepWatchdog
+    from bigdl_tpu_torch.runtime import Engine
+
+    (x, y), _ = data
+    steps, k = BUNDLE["steps"], BUNDLE["k"]
+    config = Engine.get().config
+    interval = config.failure_retry_interval_s
+    config.failure_retry_interval_s = 0.0
+    tmp = tempfile.mkdtemp(prefix="recovery_")
+    out = {"phase": "recovery", "k": k}
+    try:
+        def run(tag, dataset=None, end=None, **attrs):
+            opt = _resnet_optimizer(dev, (x, y),
+                                    end or Trigger.max_iteration(steps))
+            if dataset is not None:
+                opt.dataset = dataset
+            opt.steps_per_call = k
+            d = os.path.join(tmp, tag)
+            opt.set_checkpoint(d, Trigger.several_iteration(k))
+            for name, v in attrs.items():
+                setattr(opt, name, v)
+            t0 = time.perf_counter()
+            opt.optimize()
+            wall = time.perf_counter() - t0
+            r = {"final_iteration": opt.final_state["iteration"],
+                 "wall_s": wall,
+                 "recoveries_total": opt.metrics.counter("recoveries_total"),
+                 "retries_by_cause": {
+                     n: v for n, v in opt.metrics.counters.items()
+                     if n.startswith("retries_by_cause.")},
+                 "time_lost_to_recovery_s": opt.metrics.counter(
+                     "time_lost_to_recovery_s"),
+                 "losses": opt.losses}
+            del opt
+            _release()
+            return r
+
+        inj = faults.install(faults.parse_plan("step_fail@5"))
+        try:
+            out["step_fail"] = run("step_fail")
+        finally:
+            faults.clear()
+        out["step_fail"]["events"] = inj.events
+        poisoned = _Poisoned(DataSet.array(x, y))
+        out["nan"] = run("nan", dataset=poisoned,
+                         watchdog=StepWatchdog(nan_patience=1))
+        out["nan"]["poison_served"] = poisoned.fired
+        end = _SigtermAt(Trigger.max_iteration(steps), 3)
+        opt = _resnet_optimizer(dev, (x, y), end)
+        opt.steps_per_call = k
+        d = os.path.join(tmp, "sigterm")
+        opt.set_checkpoint(d, Trigger.several_iteration(100))
+        opt.set_preemption_checkpoint()
+        opt.optimize()
+        stopped_s = time.perf_counter() - end.t
+        stopped = opt.final_state["iteration"]
+        del opt
+        _release()
+        resume = _resnet_optimizer(dev, (x, y), Trigger.max_iteration(steps))
+        resume.steps_per_call = k
+        resume.set_checkpoint(d, Trigger.several_iteration(100))
+        t_resume = {}
+        restore = resume._try_resume
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            restore(*a)
+            torch.cuda.synchronize()
+            t_resume["s"] = time.perf_counter() - t0
+
+        resume._try_resume = timed
+        resume.optimize()
+        out["sigterm"] = {"stopped_at": stopped,
+                          "checkpoints": sorted(os.listdir(d)),
+                          "signal_to_stop_s": stopped_s,
+                          "resume_s": t_resume.get("s"),
+                          "losses": resume.losses}
+        del resume
+        _release()
+    finally:
+        config.failure_retry_interval_s = interval
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks = {
+        "step_fail": out["step_fail"]["recoveries_total"] == 1
+        and out["step_fail"]["final_iteration"] == steps
+        and ("step_fail", 5, 5) in out["step_fail"]["events"]
+        and out["step_fail"]["losses"][k:] == clean[k:],
+        "nan": out["nan"]["poison_served"]
+        and out["nan"]["retries_by_cause"] == {
+            "retries_by_cause.poisoned_batch": 1.0}
+        and out["nan"]["final_iteration"] == steps
+        and out["nan"]["losses"][2 * k:] == clean[2 * k:],
+        "sigterm": out["sigterm"]["stopped_at"] == k + 1
+        and out["sigterm"]["checkpoints"] == [f"ckpt-{k + 1}"]
+        and out["sigterm"]["losses"] == clean[k + 1:]}
+    out["bit_equal_after_recovery"] = checks
+    for key in ("step_fail", "nan"):
+        out[key]["losses_tail"] = out[key].pop("losses")[-4:]
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"recovery: {checks}")
+    return out
+
+
+def profile_window(dev, data):
+    """``set_profile`` over iterations [2, 4) of a K = 2 ResNet-50 run
+    (the second bundle: its capture and first replays) writes one
+    Chrome trace; the phase prints its size."""
+    import shutil
+
+    from bigdl_tpu_torch.optim import Trigger
+
+    (x, y), _ = data
+    d = tempfile.mkdtemp(prefix="profile_window_")
+    try:
+        opt = _resnet_optimizer(dev, (x, y), Trigger.max_iteration(6))
+        opt.steps_per_call = 2
+        opt.set_profile(d, start_iter=2, num_iters=2)
+        opt.optimize()
+        files = {f: os.path.getsize(os.path.join(d, f))
+                 for f in os.listdir(d)}
+        text = open(os.path.join(d, next(iter(files)))).read() \
+            if files else ""
+        del opt
+        _release()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"phase": "profile_window", "window": [2, 4], "k": 2,
+           "trace_files": files,
+           "has_bundle_range": "train/bundle" in text,
+           "has_device_kernels": '"cat": "kernel"' in text}
+    emit(out)
+    if len(files) != 1 or not out["has_bundle_range"]:
+        raise AssertionError(f"profile window: {out}")
+    return out
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -2832,6 +3509,11 @@ def main() -> int:
         "flash_attention_fwd", 0)
     del trained
     torch.cuda.empty_cache()
+    lm_bundles = train_lm_bundles(dev)
+    for row, kernel in ((fwd_row, "flash_attention_fwd"),
+                        (bwd_row, "flash_attention_bwd_dq")):
+        row["launches_per_step_in_graph"] = lm_bundles["summary"][
+            f"k{BUNDLE['k']}"]["launches_per_step"][kernel]
     train_lenet(dev)
     # the training phases pin cuDNN to deterministic algorithms, so that a
     # resume can be held to the uninterrupted run
@@ -2841,8 +3523,13 @@ def main() -> int:
         in_memory = train_resnet(dev, data)
         torch.cuda.empty_cache()
         train_resnet_remat(dev, data)
-        del data
         torch.cuda.empty_cache()
+        sync_audit(dev, data)
+        bundles = train_resnet_bundles(dev, data)
+        recovery(dev, data, bundles["losses_k1"])
+        profile_window(dev, data)
+        del data
+        _release()
         with tempfile.TemporaryDirectory(prefix="resnet_records_") as d:
             path, write_s = write_record_images(d)
             emit({"phase": "record_file", "images": RECORDS["n"],
@@ -2850,13 +3537,15 @@ def main() -> int:
             pipeline_alone(dev, path)
             feed_check(dev, path)
             train_resnet_records(dev, path, in_memory)
+            train_resnet_records_bundles(dev, path)
         stream_jpeg(dev)
     finally:
         torch.backends.cudnn.deterministic = False
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
                       verify_row, int8mm_row, sparse_row, ln_row]})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

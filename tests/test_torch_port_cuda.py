@@ -844,3 +844,244 @@ def test_feed_waits_for_its_copy_before_a_slot_refills(card):
     got = [tuple(float(v) for v in s.cpu()) for s in seen]
     assert got == [(float(i + 1),) * 2 for i in range(9)]
     assert all(float(s[0]) == -1.0 for s in slots)  # every slot went back
+
+
+# ---- step bundles as captured CUDA graphs --------------------------------------
+
+def _bundle_data(n=320, d=12, classes=3, seed=0):
+    rs = np.random.RandomState(seed)
+    centers = rs.randn(classes, d) * 3
+    y = rs.randint(0, classes, n).astype(np.int32)
+    return (centers[y] + rs.randn(n, d)).astype(np.float32), y
+
+
+def _bundle_mlp(dropout=0.1, bn=False):
+    from bigdl_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(0)
+    layers = [nn.Linear(12, 32, generator=g)]
+    if bn:
+        layers.append(nn.BatchNorm(32))
+    layers += [nn.ReLU(), nn.Dropout(dropout), nn.Linear(32, 3, generator=g),
+               nn.LogSoftMax()]
+    return nn.Sequential(layers)
+
+
+def _bundle_run(card, k, model, x, y, end, method=None, **attrs):
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer
+
+    opt = (Optimizer(model, DataSet.array(x, y), ClassNLLCriterion(),
+                     batch_size=32, seed=11, device=card)
+           .set_optim_method(method or SGD(learning_rate=0.1, momentum=0.9))
+           .set_end_when(end))
+    opt.steps_per_call = k
+    for name, v in attrs.items():
+        setattr(opt, name, v)
+    trained = opt.optimize()
+    return opt, trained
+
+
+@pytest.mark.parametrize("option", [
+    {}, {"accum_steps": 2}, {"ema_decay": 0.9}, {"remat": True},
+    {"remat": True, "remat_policy": "dots"}, {"clip": "l2"},
+    {"trainable_mask": "first"}, {"bn": True}])
+def test_graph_bundles_equal_eager_steps(card, option):
+    """Two epochs of 10 steps at K = 4 (4 + 4 + 2 a epoch) through one
+    captured graph, against K = 1's eager steps: the same losses and
+    parameters to the bit, with each TrainStep option the JAX bundle
+    takes; two eager warm steps, then every step a replay."""
+    from bigdl_tpu_torch.optim import GradientClipping, Trigger
+
+    x, y = _bundle_data()
+    option = dict(option)
+    bn = option.pop("bn", False)
+    if option.get("clip") == "l2":
+        option["clip"] = GradientClipping(l2_norm=0.5)
+    if option.get("trainable_mask") == "first":
+        option["trainable_mask"] = {
+            "0_Linear": {"weight": np.arange(12 * 32).reshape(12, 32) % 2
+                         == 0, "bias": False},
+            f"{4 if bn else 3}_Linear": True}
+    runs = []
+    for k in (1, 4):
+        opt, trained = _bundle_run(card, k, _bundle_mlp(bn=bn), x, y,
+                                   Trigger.max_epoch(2), **option)
+        runs.append((opt.losses, trained))
+    (l1, t1), (l4, t4) = runs
+    assert len(l1) == 20 and l4 == l1
+    for a, b in zip(t1.model.parameters(), t4.model.parameters()):
+        assert torch.equal(a, b)
+    assert t4._step.graphs_captured == 1 and t1._step.graphs_captured == 0
+
+
+def test_graph_bundles_lm_on_the_flash_kernels(card):
+    """A 2-layer LM whose attention runs the flash kernels: K = 4 replays
+    equal K = 1's eager steps to the bit, and the wrappers' launch counts
+    are credited at every replay (12 steps x 2 layers each way)."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.ops import reset_launches
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 256, (48, 128)).astype(np.int32)
+    tgt = rs.randint(0, 256, (48, 128)).astype(np.int32)
+    runs = []
+    for k in (1, 4):
+        model = Transformer(256, 128, 2, 256, num_layers=2, dropout=0.0,
+                            seed=0)
+        opt = (Optimizer(model, DataSet.array(ids, tgt),
+                         CrossEntropyCriterion(), batch_size=4,
+                         device=card)
+               .set_optim_method(Adam(learning_rate=1e-3))
+               .set_end_when(Trigger.max_iteration(12)))
+        opt.steps_per_call = k
+        reset_launches()
+        trained = opt.optimize()
+        torch.cuda.synchronize()
+        runs.append((opt.losses, dict(LAUNCHES), trained))
+    (l1, n1, _), (l4, n4, t4) = runs
+    assert l4 == l1 and len(l1) == 12
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv"):
+        assert n1[name] == n4[name] == 24, (n1, n4)
+    assert t4._step.graphs_captured == 1
+
+
+def test_one_graph_per_batch_shape(card):
+    """A full batch and a ragged one get a graph each, after their own
+    two warm steps; bundles of either shape then only replay."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, TrainStep
+
+    x, y = _bundle_data(64)
+    xt, yt = torch.from_numpy(x).to(card), torch.from_numpy(y).to(card)
+    step = TrainStep(_bundle_mlp().to(card), ClassNLLCriterion(),
+                     SGD(learning_rate=0.1))
+    it = 0
+    for rows, k, graphs in ((32, 4, 1), (20, 2, 1), (20, 3, 2), (32, 4, 2),
+                            (20, 4, 2)):
+        step.train_bundle(it, [xt[:rows]] * k, [yt[:rows]] * k)
+        it += k
+        assert step.graphs_captured == graphs
+    assert sorted(s[0][0][0] for s in step._graphs) == [20, 32]
+
+
+def test_uncapturable_step_raises_and_never_runs_eagerly(card):
+    """A layer that reads the card on the host (``float`` of a tensor)
+    runs its two warm steps, then the capture raises naming it: step 2
+    never runs, eagerly or otherwise (the parameters are those after two
+    eager steps)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn.module import Module
+    from bigdl_tpu_torch.optim import SGD, TrainStep
+
+    class HostRead(Module):
+        def forward(self, x):
+            return x * float(x.abs().max() > 0)
+
+    def model():
+        g = torch.Generator().manual_seed(0)
+        return nn.Sequential([nn.Linear(12, 3, generator=g), HostRead(),
+                              nn.LogSoftMax()]).to(card)
+
+    x, y = _bundle_data(32)
+    xt, yt = torch.from_numpy(x).to(card), torch.from_numpy(y).to(card)
+    step = TrainStep(model(), nn.ClassNLLCriterion(), SGD(learning_rate=0.1))
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        step.train_bundle(0, [xt] * 4, [yt] * 4)
+    twin = TrainStep(model(), nn.ClassNLLCriterion(), SGD(learning_rate=0.1))
+    for i in range(TrainStep.WARM_STEPS):
+        twin(i, xt, yt)
+    for a, b in zip(step.params, twin.params):
+        assert torch.equal(a, b)
+    assert step.graphs_captured == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_step_scalars_reach_every_replay(card):
+    """The rate after a Plateau drop and the dropout key of each step
+    reach replays: a graph run and an eager twin fed the same batches and
+    the same drop agree to the bit, the drop moves the parameters, and
+    at lr 0 the same batch's loss changes with the step's dropout key."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Plateau, TrainStep
+
+    x, y = _bundle_data(32)
+    xt, yt = torch.from_numpy(x).to(card), torch.from_numpy(y).to(card)
+
+    def make(drop):
+        sched = Plateau(factor=0.5, patience=1, mode="min")
+        step = TrainStep(_bundle_mlp().to(card), ClassNLLCriterion(),
+                         SGD(learning_rate=0.1,
+                             learning_rate_schedule=sched))
+        return step, sched, drop
+
+    runs = [make(True), make(True), make(False)]
+    for i, (step, sched, drop) in enumerate(runs):
+        for it in range(12):
+            if it == 6 and drop:
+                sched.on_score(1.0)
+                sched.on_score(1.0)  # no improvement: the factor halves
+            if i == 1:
+                step(it, xt, yt)
+            elif it % 2 == 0:
+                step.train_bundle(it, [xt] * 2, [yt] * 2)
+    (g, _, _), (e, se, _), (nodrop, _, _) = runs
+    assert se.current_factor == 0.5 and g.graphs_captured == 1
+    for a, b, c in zip(g.params, e.params, nodrop.params):
+        assert torch.equal(a, b) and not torch.equal(a, c)
+    frozen = TrainStep(_bundle_mlp().to(card), ClassNLLCriterion(),
+                       SGD(learning_rate=0.0))
+    losses = torch.cat([frozen.train_bundle(it, [xt] * 4, [yt] * 4)[0]
+                        for it in (0, 4)]).tolist()
+    assert len(set(losses)) == 8
+
+
+def test_bundles_from_a_depth_2_ring_equal_the_serial_feed(card, tmp_path):
+    """Augmented records streamed over a depth-2 ring into the feed, 4
+    batches a bundle copied into the graph's static inputs: the losses of
+    the serial feed at K = 1, to the bit (a slot refilled before its copy
+    into the graph landed would show)."""
+    from bigdl_tpu_torch.data import AugmentedRecordImages
+    from bigdl_tpu_torch.models import resnet_cifar
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    ds = AugmentedRecordImages(_image_records(tmp_path), (32, 32),
+                               (124.0, 116.0, 104.0), (58.0, 57.0, 57.0),
+                               resize_hw=(36, 36), random_crop=True,
+                               random_flip=True)
+
+    class Depth2:
+        def __getattr__(self, name):
+            return getattr(ds, name)
+
+        def stream_batches(self, *a, **kw):
+            kw.update(workers=2, ring_depth=2, raw_depth=1)
+            return ds.stream_batches(*a, **kw)
+
+    def run(data, k, **attrs):
+        opt = (Optimizer(resnet_cifar(8, generator=torch.Generator()
+                                      .manual_seed(0)),
+                         data, CrossEntropyCriterion(), batch_size=16,
+                         device=card)
+               .set_optim_method(SGD(learning_rate=0.05, momentum=0.9))
+               .set_end_when(Trigger.max_iteration(12)))
+        opt.steps_per_call = k
+        for name, v in attrs.items():
+            setattr(opt, name, v)
+        opt.optimize()
+        return opt
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        serial = run(ds, 1, streaming=False, host_prefetch=0)
+        bundled = run(Depth2(), 4)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert bundled.losses == serial.losses and len(serial.losses) == 12
+    assert bundled.metrics.counter("data.dispatch_overlapped_total") > 0
+    ds.close()
