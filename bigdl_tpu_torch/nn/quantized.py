@@ -101,7 +101,15 @@ class Int8Weights:
     only while a call runs.  Other holders of the twin's ``Parameter``
     objects (a weight-sharing draft) see the same view.  A view is held
     by one thread at a time (an engine call, or a caller's forward
-    between calls)."""
+    between calls).
+
+    Under a captured CUDA graph (the decode engine's programs) the view
+    is opened INSIDE the captured region: its dequantize kernels are
+    captured, write into the graph's memory pool, and run again at every
+    replay, so the weights stay int8 at rest between calls.  A graph
+    captured inside a view opened outside the capture would read
+    float32 weights freed when that view closes; :meth:`held_here` lets
+    a capture refuse that case."""
 
     def __init__(self, module: torch.nn.Module, min_dim: int = 16):
         named = dict(module.named_parameters())
@@ -119,6 +127,7 @@ class Int8Weights:
                 self._q[name] = (twin, leaf[_Q8_KEY], leaf["scale"])
         self.module = copy.deepcopy(module, memo)
         self._depth = 0
+        self._owner = None
         self._lock = threading.RLock()
 
     @property
@@ -129,6 +138,10 @@ class Int8Weights:
         """Bytes held at rest: int8 payloads and float32 scales."""
         return sum(w.numel() + 4 * s.numel() for _, w, s in self._q.values())
 
+    def held_here(self) -> bool:
+        """Whether the calling thread holds an open view."""
+        return self._depth > 0 and self._owner == threading.get_ident()
+
     @contextmanager
     def view(self):
         """Dequantized float32 weights for the length of the block
@@ -136,6 +149,7 @@ class Int8Weights:
         thread's block waits for it)."""
         with self._lock:
             if self._depth == 0:
+                self._owner = threading.get_ident()
                 with torch.no_grad():
                     for p, w, s in self._q.values():
                         p.data = w.float() * s
@@ -145,6 +159,7 @@ class Int8Weights:
             finally:
                 self._depth -= 1
                 if self._depth == 0:
+                    self._owner = None
                     for p, _, _ in self._q.values():
                         p.data = p.data.new_empty((0,))
 
@@ -377,12 +392,12 @@ def _twin(leaf, calib, weight_only):
 def refuse_keras_quantization(model, what: str) -> None:
     """Raise ``ValueError`` for a keras ``Model``: the JAX package
     quantizes one by swapping its nodes' layers, which the port does not
-    do yet (ROADMAP item 7.1, the keras surface)."""
+    do yet (ROADMAP A.6.1, the keras surface)."""
     from bigdl_tpu_torch.keras.engine import Model
 
     if isinstance(model, Model):
         raise ValueError(f"{what} of a keras Model is not ported yet "
-                         f"(ROADMAP item 7.1); quantize a Container or "
+                         f"(ROADMAP A.6.1); quantize a Container or "
                          f"the Transformer LM")
 
 

@@ -11,8 +11,8 @@ slots:
   or, with ``kv_dtype="int8"``, int8 with one float32 abs-max scale per
   (layer, page).
 - **In-flight insertion / eviction at step granularity** — admission is
-  re-evaluated between steps from a (deadline, seq) heap; a finished or
-  expired sequence frees its slot and pages immediately.
+  re-evaluated between steps from a (deadline, seq) heap; a finished,
+  expired or cancelled sequence frees its slot and pages immediately.
 - **Prefill/decode separation** — prompts run through a prefill call
   ``prompt_chunk`` tokens at a time (up to ``prefill_batch`` slots per
   call), one call per engine iteration between decode steps, so a long
@@ -37,6 +37,31 @@ slots:
   decode-step bodies) and the host accepts the longest agreeing
   prefix.  Emitted tokens are always the target's selections.
 
+**The closed program set.**  Every engine call is one of three programs
+— the decode step; the prefill call (with the draft's prefill under
+speculation); the speculative iteration (the draft's k+1 steps and the
+verify, the drafted tokens staying on the device) — at shapes fixed by
+its cache bucket ``n_blocks`` and the config alone.  A call's inputs
+(page table, lengths, tokens, active mask, the four sampling boards, the
+pages whose int8 scales reset) are written into one page-locked host
+buffer and reach the card in one copy; its tokens and log-probs come
+back in one copy, read after an event.  Whether any row samples is
+known on the host and picks the program's greedy or sampled form.  On
+CUDA (``DecodeConfig.cuda_graphs``) :meth:`DecodeEngine.warmup`
+captures each (program, bucket, greedy or sampled) as a CUDA graph, all
+in one memory pool, and every call replays its graph; with
+``cuda_graphs=False``, and on the CPU, the same functions run eagerly:
+the plain version the graphs are held to.  A program that cannot be
+captured raises, naming itself; it never runs eagerly in its place.
+
+**Writes as the JAX engine drops them.**  Every pool (the target K/V
+pages, their int8 scales, the draft's pages) has one extra SINK page, id
+``total_pages``, that no page table names.  Inactive rows, rows at the
+cap and padded chunk positions write there, so every write has a fixed
+shape and no mask is computed on the host; nothing reads the sink, and
+rows that collide there do no harm.  A gathered cache (the buffers of
+:meth:`LMAdapter.chunk_forward`) has a sink row the same way.
+
 :meth:`DecodeEngine.static_generate` decodes each request alone over a
 contiguous cache with no pages, slots or scheduling; it is the engine's
 own reference.  Both paths share ``chunk_forward`` (the layer math) and
@@ -45,15 +70,10 @@ own reference.  Both paths share ``chunk_forward`` (the layer math) and
 What this port covers: the LM adapter, float32 and int8 pages, int8
 serving weights, greedy and seeded sampled selection, speculative
 decoding, continuous and whole-batch-restart (``continuous=False``)
-scheduling.  The prefix cache and the draft attention window
+scheduling, cancellation, and the engine's metrics, events and gauges.
+The prefix cache and the draft attention window
 (``SpecConfig.draft_window``) are refused with a ``ValueError`` until
-they are ported.
-
-PyTorch writes are in place: the page pool is updated where it lies,
-and every write is masked to active rows and in-range positions first
-(JAX dropped out-of-range scatter writes; PyTorch's index writes would
-raise or corrupt).  Every mask is computed on the host, so no write
-waits on the device."""
+they are ported."""
 
 import heapq
 import itertools
@@ -61,9 +81,10 @@ import logging
 import math
 import threading
 import time
+from collections import Counter, deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +93,8 @@ from bigdl_tpu_torch.nn.attention import (Transformer, _attn_project,
                                           positional_encoding)
 from bigdl_tpu_torch.nn.quantized import Int8Weights
 from bigdl_tpu_torch.ops.block_sparse import derive_draft_masks
+from bigdl_tpu_torch.ops.common import (captured_launches, cdiv,
+                                        credit_launches)
 from bigdl_tpu_torch.ops.flash_attention import (_gather_pages,
                                                  paged_decode_attention,
                                                  paged_verify_attention)
@@ -91,6 +114,19 @@ class DeadlineExceededError(TimeoutError):
         super().__init__(f"request {rid} expired after {waited_s:.3f}s")
         self.rid = rid
         self.waited_s = waited_s
+
+
+class RequestCancelledError(RuntimeError):
+    """A request was cancelled before it completed: its client went away
+    (``reason="client_disconnect"``) or a caller cancelled it
+    (:meth:`DecodeEngine.cancel`).  Carries the request id and the
+    reason; a stream cancelled after its first token also carries the
+    tokens it produced as ``partial_tokens``."""
+
+    def __init__(self, rid: str, reason: str):
+        super().__init__(f"request {rid} cancelled: {reason}")
+        self.rid = rid
+        self.reason = reason
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +197,10 @@ class DecodeConfig:
     # a SpecConfig turns every decode iteration into draft(k) + verify
     # (continuous LM engines only)
     speculative: Optional[SpecConfig] = None
+    # every engine call a replay of a CUDA graph that warmup() captured:
+    # None = graphs on CUDA, eager on the CPU; False = eager (the plain
+    # version the graphs are held to); True on the CPU raises
+    cuda_graphs: Optional[bool] = None
 
     def __post_init__(self):
         if self.kv_dtype not in ("float32", "int8"):
@@ -278,36 +318,43 @@ class _ActiveSeq:
 # ---------------------------------------------------------------------------
 
 class _Sampling:
-    """Per-row sampling boards of one call, on the host: request seeds,
-    temperatures, top-k and top-p.  ``sampled`` says whether any row
-    samples (else selection is the plain argmax)."""
+    """Per-row sampling boards of one call, on the call's device: request
+    seeds, temperatures, top-k and top-p.  ``sampled`` — known on the
+    host — says whether any row samples; a greedy call takes the plain
+    argmax and derives no key."""
 
     __slots__ = ("seeds", "temps", "top_ks", "top_ps", "sampled")
 
-    def __init__(self, seeds, temps, top_ks, top_ps):
-        self.seeds = np.asarray(seeds, np.int32)
-        self.temps = np.asarray(temps, np.float32)
-        self.top_ks = np.asarray(top_ks, np.int32)
-        self.top_ps = np.asarray(top_ps, np.float32)
-        self.sampled = bool(np.any(self.temps > 0.0))
+    def __init__(self, seeds, temps, top_ks, top_ps, sampled: bool):
+        self.seeds, self.temps = seeds, temps
+        self.top_ks, self.top_ps = top_ks, top_ps
+        self.sampled = sampled
+
+    @classmethod
+    def from_host(cls, seeds, temps, top_ks, top_ps, device) -> "_Sampling":
+        temps = np.asarray(temps, np.float32)
+
+        def t(a, dt):
+            return torch.from_numpy(np.asarray(a, dt)).to(device)
+
+        return cls(t(seeds, np.int32), t(temps, np.float32),
+                   t(top_ks, np.int32), t(top_ps, np.float32),
+                   bool(np.any(temps > 0.0)))
 
     def repeat(self, c: int) -> "_Sampling":
         """Each row ``c`` times (the rows of a verify chunk)."""
-        return _Sampling(*(np.repeat(a, c) for a in (
-            self.seeds, self.temps, self.top_ks, self.top_ps)))
+        return _Sampling(*(b[:, None].expand(-1, c).reshape(-1) for b in (
+            self.seeds, self.temps, self.top_ks, self.top_ps)),
+            self.sampled)
 
     def select(self, logits, base_key, positions):
         """:func:`_select_tokens` of ``logits`` (B, V) for tokens at
-        ``positions`` (B,) long; the row keys are derived only when a row
-        samples."""
+        ``positions`` (B,) long."""
         if not self.sampled:
             return _select_tokens(logits)
-        dev = logits.device
-        keys = prng.fold_in(base_key, torch.from_numpy(self.seeds).to(dev))
-        return _select_tokens(
-            logits, keys, positions, torch.from_numpy(self.temps).to(dev),
-            torch.from_numpy(self.top_ks).to(dev),
-            torch.from_numpy(self.top_ps).to(dev))
+        keys = prng.fold_in(base_key, self.seeds)
+        return _select_tokens(logits, keys, positions, self.temps,
+                              self.top_ks, self.top_ps)
 
 
 def _select_tokens(logits, keys=None, positions=None, temps=None,
@@ -322,7 +369,8 @@ def _select_tokens(logits, keys=None, positions=None, temps=None,
     draw ``argmax(z - log(-log(u)))`` with ``u = uniform(fold_in(key,
     position), (vocab,), tiny, 1)``: ``keys`` (B, 2) are the rows'
     request keys and ``positions`` (B,) the positions the tokens will
-    occupy.  The JAX engine's rule, bit for bit in its draws."""
+    occupy.  The JAX engine's rule, bit for bit in its draws.  No value
+    crosses from the host: a captured program can select."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
     tok = greedy
@@ -331,13 +379,12 @@ def _select_tokens(logits, keys=None, positions=None, temps=None,
         z = logits / torch.clamp(temps, min=1e-6)[:, None]
         zs = torch.sort(z, dim=-1, descending=True).values
         kth = zs.gather(-1, (top_ks.long() - 1).clamp(0, vocab - 1)[:, None])
-        neg = torch.tensor(float("-inf"), device=z.device)
-        z = torch.where((top_ks > 0)[:, None] & (z < kth), neg, z)
+        z = torch.where((top_ks > 0)[:, None] & (z < kth), -math.inf, z)
         zs2 = torch.sort(z, dim=-1, descending=True).values
         ps = torch.softmax(zs2, dim=-1)
         keep = (torch.cumsum(ps, dim=-1) - ps) < top_ps[:, None]
-        minz = torch.where(keep, zs2, -neg).amin(dim=-1, keepdim=True)
-        z = torch.where((top_ps < 1.0)[:, None] & (z < minz), neg, z)
+        minz = torch.where(keep, zs2, math.inf).amin(dim=-1, keepdim=True)
+        z = torch.where((top_ps < 1.0)[:, None] & (z < minz), -math.inf, z)
         u = prng.uniform(prng.fold_in(keys, positions), (vocab,),
                          float(np.finfo(np.float32).tiny), 1.0)
         sampled = torch.argmax(z - torch.log(-torch.log(u)), dim=-1)
@@ -347,15 +394,16 @@ def _select_tokens(logits, keys=None, positions=None, temps=None,
 
 
 def _write_chunk(buf, positions, new, cap):
-    """Write ``new`` (B, h, C, hd) into ``buf`` (B, h, K, hd) in place
-    at per-row positions ``positions + [0..C)``; positions past the cap
-    or the buffer (padded chunk tails) are not written."""
+    """Write ``new`` (B, h, C, hd) into ``buf`` (B+1, h, K, hd) in place
+    at per-row positions ``positions + [0..C)``; a position past the cap
+    or the buffer (a padded chunk tail) lands in the sink row B instead,
+    so the write has one shape whatever the positions."""
     B, _, C, _ = new.shape
     cols = positions[:, None] + torch.arange(C, device=buf.device)[None, :]
     keep = cols < min(cap, buf.shape[2])
-    rows = torch.arange(B, device=buf.device)[:, None].expand(B, C)
-    buf[rows[keep], :, cols[keep]] = \
-        new.permute(0, 2, 1, 3)[keep].to(buf.dtype)
+    rows = torch.where(keep, torch.arange(B, device=buf.device)[:, None], B)
+    buf[rows, :, torch.where(keep, cols, 0)] = \
+        new.permute(0, 2, 1, 3).to(buf.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -372,9 +420,10 @@ class LMAdapter:
 
     ``weight_quant="int8"`` serves a copy of the model whose matmul
     weights are int8 at rest (``nn.quantized.Int8Weights``: per-out-column
-    scales; the caller's model is left as it is); every engine call runs
-    inside :meth:`weights`, which lends ``self.model`` a dequantized
-    float32 view for that call only."""
+    scales; the caller's model is left as it is); every engine program
+    runs inside :meth:`weights`, which lends ``self.model`` a dequantized
+    float32 view for that call only (inside a captured graph, the view's
+    dequantize kernels are part of the graph)."""
 
     def __init__(self, model, cap: int, weight_quant: Optional[str] = None):
         if getattr(model, "mode", None) != "lm":
@@ -433,12 +482,14 @@ class LMAdapter:
         """One step of C tokens per row: embed at absolute positions,
         write each layer's K/V into the buffer, attend causally over the
         cache, return last-layer logits.  ``tokens`` (B, C) and
-        ``positions`` (B,) are int64; ``kbuf/vbuf`` (B, L, h, K, hd)
-        float32 are written in place.  ``self_attend(i, q, k_new,
-        v_new)`` replaces the buffer attention (the engine's paged path,
-        which owns its own cache writes); ``kbuf/vbuf`` may then be
-        None.  ``model`` walks a twin's layers instead (the speculative
-        draft: the same parameters, block-sparse FFNs)."""
+        ``positions`` (B,) are int64; ``kbuf/vbuf`` (B+1, L, h, K, hd)
+        float32 are written in place, row B a sink that takes the writes
+        of positions past the cap or the buffer (see
+        :func:`_write_chunk`).  ``self_attend(i, q, k_new, v_new)``
+        replaces the buffer attention (the engine's paged path, which
+        owns its own cache writes); ``kbuf/vbuf`` may then be None.
+        ``model`` walks a twin's layers instead (the speculative draft:
+        the same parameters, block-sparse FFNs)."""
         B, C = tokens.shape
         cap = self._pe.shape[0] - 1
         q_pos = positions[:, None] + torch.arange(C, device=self.device)
@@ -462,7 +513,7 @@ class LMAdapter:
             else:
                 _write_chunk(kbuf[:, i], positions, k_new, cap)
                 _write_chunk(vbuf[:, i], positions, v_new, cap)
-                a = self._attend(q, kbuf[:, i], vbuf[:, i], valid)
+                a = self._attend(q, kbuf[:B, i], vbuf[:B, i], valid)
             x = x + self._merge(a, x, sp)
             x = x + layer.ffn(layer.ln2(x))
             k_news.append(k_new)
@@ -500,27 +551,157 @@ class LMAdapter:
 
 
 # ---------------------------------------------------------------------------
+# the closed program set: packed inputs and outputs, captured graphs
+# ---------------------------------------------------------------------------
+
+class _Fields:
+    """Named fields of one flat int32 buffer (float32 fields hold their
+    bits): a call's inputs or outputs, packed so that they cross between
+    the host and the card in one copy."""
+
+    def __init__(self, fields):
+        self.layout = {}
+        n = 0
+        for name, shape, dtype in fields:
+            size = int(np.prod(shape))
+            self.layout[name] = (n, n + size, tuple(shape), dtype)
+            n += size
+        self.size = n
+
+    def split(self, flat) -> Dict[str, Any]:
+        """Typed views of ``flat`` (a numpy array or a tensor)."""
+        out = {}
+        for name, (a, b, shape, dtype) in self.layout.items():
+            v = flat[a:b]
+            if dtype == "float32":
+                v = v.view(torch.float32 if isinstance(v, torch.Tensor)
+                           else np.float32)
+            out[name] = v.reshape(shape)
+        return out
+
+
+class _Program:
+    """One program of the closed set: its function, its packed inputs and
+    outputs (a host image, page-locked on CUDA, and the device buffer
+    every graph of the program reads or writes), the inputs of an idle
+    call (no row active: it writes only the sink pages), and the event
+    after which its outputs are read."""
+
+    def __init__(self, fn, inputs, outputs, sink: int, device):
+        on_card = device.type == "cuda"
+        self.fn = fn
+        self.inputs, self.outputs = _Fields(inputs), _Fields(outputs)
+        self.host_in = torch.zeros(self.inputs.size, dtype=torch.int32,
+                                   pin_memory=on_card)
+        self.dev_in = torch.zeros(self.inputs.size, dtype=torch.int32,
+                                  device=device)
+        self.host_out = torch.zeros(self.outputs.size, dtype=torch.int32,
+                                    pin_memory=on_card)
+        self.dev_out = torch.zeros(self.outputs.size, dtype=torch.int32,
+                                   device=device)
+        self.x = self.inputs.split(self.host_in.numpy())
+        self.x_dev = self.inputs.split(self.dev_in)
+        self.y = self.outputs.split(self.host_out.numpy())
+        self.y_dev = self.outputs.split(self.dev_out)
+        idle = np.zeros(self.inputs.size, np.int32)
+        v = self.inputs.split(idle)
+        v["top_ps"][:] = 1.0
+        v["fresh"][:] = sink
+        self.idle_np = idle
+        self.idle = torch.from_numpy(idle)
+        self.done = torch.cuda.Event() if on_card else None
+
+    def reset(self) -> None:
+        """The host image back to an idle call."""
+        self.host_in.numpy()[:] = self.idle_np
+
+    def run(self, n_blocks: int, sampled: bool) -> None:
+        """The program on the inputs in ``dev_in``, its outputs written
+        into ``dev_out``: what a graph captures and a replay repeats."""
+        outs = self.fn(n_blocks, sampled, self.x_dev)
+        for t, v in zip(outs, self.y_dev.values()):
+            v.copy_(t)
+
+
+@dataclass
+class _Graph:
+    """One captured program: the graph and the kernel launches its
+    capture recorded (credited at each replay)."""
+
+    graph: Any
+    launches: Any
+
+
+class _Marks:
+    """Points that split a program's device time (the speculative
+    iteration's draft and verify): CUDA events recorded inside the
+    program, external so that a replay of its graph records them too;
+    on the CPU, where every op has finished when it returns, the host
+    clock."""
+
+    def __init__(self, n: int, device):
+        self._ev = ([torch.cuda.Event(enable_timing=True, external=True)
+                     for _ in range(n)] if device.type == "cuda" else None)
+        self._t = [0.0] * n
+
+    def mark(self, i: int) -> None:
+        if self._ev is not None:
+            self._ev[i].record()
+        else:
+            self._t[i] = time.perf_counter()
+
+    def seconds(self, i: int, j: int) -> float:
+        """From mark ``i`` to mark ``j``, once both have been reached."""
+        if self._ev is not None:
+            return self._ev[i].elapsed_time(self._ev[j]) / 1e3
+        return self._t[j] - self._t[i]
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
 class DecodeEngine:
     """Fixed slot pool + paged KV cache + step-granular scheduling.
 
-    Thread model: clients call :meth:`submit` (any thread); one engine
-    thread owns the slots, pages and device cache.  Results are
-    delivered through ``DecodeRequest.wait()`` / ``on_done``; per-token
-    streaming through ``on_token`` (called on the engine thread)."""
+    Thread model: clients call :meth:`submit` and :meth:`cancel` (any
+    thread); one engine thread owns the slots, pages and device cache,
+    one iteration at a time under ``_iter_lock``.  Results are delivered
+    through ``DecodeRequest.wait()`` / ``on_done``; per-token streaming
+    through ``on_token`` (called on the engine thread).
+
+    ``metrics`` (default: the process-wide ``optim.metrics`` registry)
+    receives the ``serving.decode.*`` counters, histograms and gauges
+    under the JAX engine's names; ``events`` keeps the last 512
+    scheduling events."""
+
+    # eager runs of a program on idle rows before its capture
+    WARM_RUNS = 1
 
     def __init__(self, adapter: LMAdapter,
-                 config: Optional[DecodeConfig] = None,
+                 config: Optional[DecodeConfig] = None, metrics=None,
                  name: str = "decode"):
         apply_precision_policy()
         self.adapter = adapter
         self.cfg = cfg = config or DecodeConfig()
+        if metrics is None:
+            from bigdl_tpu_torch.optim.metrics import global_metrics
+
+            metrics = global_metrics()
+        self.metrics = metrics
         self.name = name
         self.device = adapter.device
+        on_card = self.device.type == "cuda"
+        if cfg.cuda_graphs and not on_card:
+            raise ValueError(f"DecodeConfig.cuda_graphs=True needs a CUDA "
+                             f"device, got {self.device}; None runs "
+                             f"eagerly off the card")
+        self._graphs_on = (on_card if cfg.cuda_graphs is None
+                           else bool(cfg.cuda_graphs))
         L, h, hd = adapter.num_layers, adapter.num_heads, adapter.head_dim
-        shape = (L, cfg.total_pages, h, cfg.page_size, hd)
+        # one sink page past the pool: the target of every masked write
+        self._sink = cfg.total_pages
+        shape = (L, cfg.total_pages + 1, h, cfg.page_size, hd)
         # int8 pages: one float32 abs-max scale per (layer, page) beside
         # the int8 payload
         self._quant_kv = cfg.kv_dtype == "int8"
@@ -529,11 +710,11 @@ class DecodeEngine:
         self._kv_v = torch.zeros_like(self._kv_k)
         self._kv_sk = self._kv_sv = None
         if self._quant_kv:
-            self._kv_sk = torch.zeros((L, cfg.total_pages),
+            self._kv_sk = torch.zeros((L, cfg.total_pages + 1),
                                       dtype=torch.float32, device=self.device)
             self._kv_sv = torch.zeros_like(self._kv_sk)
         # pages popped off the free list whose scales still hold the last
-        # owner's: zeroed before the next call reads them
+        # owner's: zeroed by the next call before it reads them
         self._fresh_pages: List[int] = []
         # speculative decoding: the draft's K/V live in a parallel float32
         # pool indexed by the SAME page table, so one allocation and one
@@ -565,7 +746,7 @@ class DecodeEngine:
                                      device=self.device)
             self._dr_v = torch.zeros_like(self._dr_k)
         self._base_key = prng.PRNGKey(cfg.base_seed, device=self.device)
-        # host-side slot boards (numpy; copied to the device per call)
+        # host-side slot boards (numpy; packed into each call's inputs)
         S = cfg.slots
         self._page_table = np.zeros((S, cfg.pages_per_slot), np.int32)
         self._lengths = np.zeros((S,), np.int32)
@@ -578,6 +759,16 @@ class DecodeEngine:
         self._slots: List[Optional[_ActiveSeq]] = [None] * S
         self._free_pages: List[int] = list(range(cfg.total_pages))
         self._reserved_pages = 0
+        # the closed program set and its graphs
+        self._programs = self._build_programs()
+        self._marks = _Marks(3, self.device)
+        self._graphs: Dict[Tuple[str, int, bool], _Graph] = {}
+        # calls by (program, bucket, sampled), graphs or not
+        self.calls: Counter = Counter()
+        self._graph_pool = None
+        self._side: Optional[torch.cuda.Stream] = None
+        self._warming = False
+        self.warmup_s = 0.0
         # work queue: (deadline_t, seq, req)
         self._heap: List[Tuple[float, int, DecodeRequest]] = []
         self._seq = itertools.count(1)
@@ -586,11 +777,25 @@ class DecodeEngine:
         self._cv = threading.Condition()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # cross-thread cancellation: rid -> reason, swept on the engine
+        # thread; _iter_lock serialises one engine iteration (and warmup)
+        self._cancelled: Dict[str, str] = {}
+        self._iter_lock = threading.Lock()
+        # scheduling events ("admit", "prefill_chunk", "decode_step",
+        # "spec_step", "cancel", "expire", "release", ...)
+        self.events: deque = deque(maxlen=512)
+        self._tokens_window: deque = deque(maxlen=256)   # (t, n)
+        self._accept_window: deque = deque(maxlen=256)   # (t, acc, judged)
+        self._gauge_t = 0.0
+        self._last_step_t = 0.0
         self.stats = {"requests": 0, "completed": 0, "expired": 0,
                       "tokens": 0, "steps": 0, "prefill_chunks": 0,
-                      "prefill_calls": 0,
-                      "rejected": 0, "spec_drafted": 0, "spec_accepted": 0,
-                      "spec_rejected": 0}
+                      "prefill_calls": 0, "rejected": 0, "kv_exports": 0,
+                      "kv_imports": 0, "cancelled": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "spec_rejected": 0}
+        self.metrics.describe(
+            "serving.decode.tokens_per_s",
+            "generated tokens/s over the recent step window")
 
     def kv_bytes_per_page(self) -> int:
         """Device bytes one page row costs across every layer's K and V
@@ -605,33 +810,88 @@ class DecodeEngine:
 
     # -- client side --------------------------------------------------------
     def submit(self, req: DecodeRequest) -> DecodeRequest:
+        return self.submit_many([req])[0]
+
+    def submit_many(self, reqs: Sequence[DecodeRequest]
+                    ) -> List[DecodeRequest]:
+        """Queue ``reqs`` together: the engine admits none of them before
+        all are queued, so the requests of one call are scheduled as one
+        batch (the same schedule, and so the same bits, from run to
+        run).  A full queue refuses the whole batch."""
         if self._stop.is_set():
             raise RuntimeError("decode engine stopped")
-        prompt = np.asarray(req.tokens, np.int32).reshape(-1)
-        if len(prompt) == 0:
-            raise ValueError("empty prompt: a generate request needs at "
-                             "least one input token")
-        if len(prompt) >= self.cfg.cap:
-            raise ValueError(
-                f"prompt of {len(prompt)} tokens exceeds the cache cap "
-                f"{self.cfg.cap} (page_size * pages_per_slot)")
-        req.admit_t = time.time()
-        req.rid = req.rid or f"{self.name}-{next(self._seq)}"
+        for req in reqs:
+            prompt = np.asarray(req.tokens, np.int32).reshape(-1)
+            if len(prompt) == 0:
+                raise ValueError("empty prompt: a generate request needs "
+                                 "at least one input token")
+            if len(prompt) >= self.cfg.cap:
+                raise ValueError(
+                    f"prompt of {len(prompt)} tokens exceeds the cache cap "
+                    f"{self.cfg.cap} (page_size * pages_per_slot)")
+        now = time.time()
+        for req in reqs:
+            req.admit_t = now
+            req.rid = req.rid or f"{self.name}-{next(self._seq)}"
         with self._cv:
-            if len(self._heap) >= self.cfg.queue_capacity:
-                self.stats["rejected"] += 1
+            if len(self._heap) + len(reqs) > self.cfg.queue_capacity:
+                self.stats["rejected"] += len(reqs)
                 raise RuntimeError("decode queue full")
-            req.seq = next(self._seq)
-            heapq.heappush(self._heap, (req.deadline_t, req.seq, req))
+            for req in reqs:
+                req.seq = next(self._seq)
+                heapq.heappush(self._heap, (req.deadline_t, req.seq, req))
             self._cv.notify_all()
         self._ensure_thread()
-        return req
+        return list(reqs)
 
     def generate(self, prompts, **kw) -> List[DecodeResult]:
         """Synchronous helper: submit every prompt, wait for all."""
-        reqs = [self.submit(DecodeRequest(tokens=np.asarray(p), **kw))
-                for p in prompts]
+        reqs = self.submit_many([DecodeRequest(tokens=np.asarray(p), **kw)
+                                 for p in prompts])
         return [r.wait(timeout=300.0) for r in reqs]
+
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._heap)
+
+    def active_slots(self) -> int:
+        return int(self._active_mask.sum())
+
+    def decode_pressure(self) -> Dict[str, Any]:
+        """Admission-pressure snapshot: free slots, reservable pages and
+        the prefill backlog (prefilling slots + queued requests), with
+        the JAX engine's keys (``kv_exports`` / ``kv_imports`` stay 0
+        until the fleet handoff is ported).  Read from any thread: a
+        torn read across fields skews a score, never correctness."""
+        queued = self.queue_depth()
+        slots = list(self._slots)
+        return {
+            "total_slots": self.cfg.slots,
+            "free_slots": sum(s is None for s in slots),
+            "total_pages": self.cfg.total_pages,
+            "free_pages": max(len(self._free_pages)
+                              - self._reserved_pages, 0),
+            "queued": queued,
+            "prefill_backlog": queued + sum(
+                1 for s in slots if s is not None and s.prefilling),
+            "active": int(self._active_mask.sum()),
+            "kv_exports": self.stats["kv_exports"],
+            "kv_imports": self.stats["kv_imports"],
+            "page_dtype": self.cfg.kv_dtype,
+            "kv_bytes_per_page": self.kv_bytes_per_page(),
+            "speculative": self._spec is not None,
+            "spec_k": int(self._spec.k) if self._spec is not None else 0,
+        }
+
+    def cancel(self, rid: str, reason: str = "cancelled") -> None:
+        """Cancel a queued or in-flight request from any thread.  The
+        engine thread sweeps the mark before its next iteration: a queued
+        request leaves the heap, an active slot frees its target and
+        draft pages at once and its row is inactive in the next call.
+        An unknown rid is a no-op (the request may have just finished)."""
+        with self._cv:
+            self._cancelled[rid] = reason
+            self._cv.notify_all()
 
     # -- lifecycle ----------------------------------------------------------
     def _ensure_thread(self) -> None:
@@ -669,129 +929,288 @@ class DecodeEngine:
                         "stopped"))
                 self._release_slot(s)
 
+    def closed_set(self) -> List[Tuple[str, int, bool]]:
+        """Every (program, cache bucket, sampled) the engine can call:
+        the decode step (the speculative iteration in its place under
+        speculation, where the plain step never runs) and the prefill
+        call, greedy and sampled, for every bucket."""
+        names = ("spec" if self._spec is not None else "step", "prefill")
+        return [(name, nb, sampled) for nb in self.cfg.len_buckets()
+                for sampled in (False, True) for name in names]
+
     def warmup(self) -> "DecodeEngine":
-        """Run one decode step and one prefill call per cache-length
-        bucket (and, with speculation, one draft and both verify forms)
-        on all-inactive rows before traffic: on CUDA this builds and
-        loads the kernels and initializes the math libraries.  No row is
-        active, so nothing is written to the page pools."""
-        cfg = self.cfg
-        S, B = cfg.slots, cfg.prefill_batch
-
-        def idle(n):
-            return _Sampling(np.zeros(n), np.zeros(n), np.zeros(n),
-                             np.ones(n))
-
-        zs, zb = np.zeros((S,), np.int32), np.zeros((B,), np.int32)
-        for nb in cfg.len_buckets():
-            self._step(nb, self._page_table, zs, zs, np.zeros((S,), bool),
-                       idle(S))
-            self._prefill(nb, np.zeros((B, cfg.pages_per_slot), np.int32),
-                          np.zeros((B, cfg.prompt_chunk), np.int32), zb, zb,
-                          np.zeros((B,), bool), idle(B))
-            if self._spec is not None:
-                with torch.no_grad(), self.adapter.weights():
-                    d = self._draft(nb, zs, zs, np.zeros((S,), bool),
-                                    idle(S))
-                    for force_scan in (False, True):
-                        self._verify(nb, zs, zs, d, np.zeros((S,), bool),
-                                     idle(S), force_scan)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """The closed program set before traffic.  With graphs on, each
+        program of :meth:`closed_set` runs once eagerly on idle rows on a
+        side stream and is captured (``serving.decode.graph_captures``);
+        a capture after warmup counts as
+        ``serving.decode.unexpected_captures``.  Eagerly, each runs once
+        on idle rows (the kernels built, the libraries initialised).
+        Idle rows write only the sink pages."""
+        t0 = time.perf_counter()
+        with self._iter_lock:
+            self._warming = True
+            try:
+                for key in self.closed_set():
+                    if not self._graphs_on:
+                        prog = self._programs[key[0]]
+                        prog.dev_in.copy_(prog.idle)
+                        with torch.no_grad():
+                            prog.run(key[1], key[2])
+                    elif key not in self._graphs:
+                        self._capture(key)
+            finally:
+                self._warming = False
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.warmup_s = time.perf_counter() - t0
         return self
 
-    # -- device calls -------------------------------------------------------
-    def _t(self, a, dtype):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+    @property
+    def graphs_captured(self) -> int:
+        return len(self._graphs)
 
-    def _gather(self, kv, pt):
-        """(L, P, h, page, hd)[pages pt (B, nb)] -> (B, L, h, nb*page,
-        hd) contiguous per-slot cache view."""
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes the graphs' shared memory pool holds (the
+        allocator's segments of that pool), or None without graphs."""
+        if self._graph_pool is None:
+            return None
+        pool = tuple(self._graph_pool)
+        segs = torch.cuda.memory._snapshot()["segments"]
+        return int(sum(s["total_size"] for s in segs
+                       if tuple(s.get("segment_pool_id", ())) == pool))
+
+    # -- the programs -------------------------------------------------------
+    def _fresh_width(self) -> int:
+        """Pages one call can pop off the free list (the int8 scales that
+        call resets): a decode step one a slot, a speculative iteration
+        the pages k+1 positions reach a slot, a prefill call the pages a
+        chunk reaches a row."""
+        cfg = self.cfg
+        page = cfg.page_size
+        per_slot = 1 if self._spec is None \
+            else cdiv(self._spec.k + 1, page) + 1
+        n = max(cfg.slots * per_slot,
+                cfg.prefill_batch * (cdiv(cfg.prompt_chunk, page) + 1))
+        return min(n, cfg.total_pages)
+
+    def _build_programs(self) -> Dict[str, _Program]:
+        cfg = self.cfg
+        S, B, W = cfg.slots, cfg.prefill_batch, cfg.pages_per_slot
+        F = self._fresh_width()
+
+        def boards(n):
+            return [("seeds", (n,), "int32"), ("temps", (n,), "float32"),
+                    ("top_ks", (n,), "int32"), ("top_ps", (n,), "float32")]
+
+        decode_in = [("pt", (S, W), "int32"), ("lengths", (S,), "int32"),
+                     ("last", (S,), "int32"), ("active", (S,), "int32"),
+                     *boards(S), ("fresh", (F,), "int32")]
+        progs = {
+            "step": _Program(self._step_program, decode_in,
+                             [("tok", (S,), "int32"),
+                              ("logp", (S,), "float32")],
+                             self._sink, self.device),
+            "prefill": _Program(
+                self._prefill_program,
+                [("pt", (B, W), "int32"),
+                 ("tokens", (B, cfg.prompt_chunk), "int32"),
+                 ("position", (B,), "int32"), ("last_index", (B,), "int32"),
+                 ("active", (B,), "int32"), *boards(B),
+                 ("fresh", (F,), "int32")],
+                [("tok", (B,), "int32"), ("logp", (B,), "float32")],
+                self._sink, self.device)}
+        if self._spec is not None:
+            C = self._spec.k + 1
+            progs["spec"] = _Program(
+                self._spec_program, decode_in,
+                [("d_toks", (S, C), "int32"), ("g_toks", (S, C), "int32"),
+                 ("g_logps", (S, C), "float32")], self._sink, self.device)
+        return progs
+
+    def _sampling(self, x, sampled: bool) -> _Sampling:
+        return _Sampling(x["seeds"], x["temps"], x["top_ks"], x["top_ps"],
+                         sampled)
+
+    def _reset_scales(self, fresh) -> None:
+        """Zero the int8 scales of the pages just popped off the free
+        list (the fixed-width ``fresh`` ids, padded with the sink) before
+        the call reads them: a reused page would otherwise dequantize its
+        last owner's payload under its last owner's scale."""
+        if self._quant_kv:
+            ids = fresh.long()
+            self._kv_sk.index_fill_(1, ids, 0.0)
+            self._kv_sv.index_fill_(1, ids, 0.0)
+
+    def _step_program(self, n_blocks, sampled, x):
+        """One decode step for every slot: write each active slot's new
+        K/V at position ``lengths`` and select its next token.  Returns
+        (tokens, log-probs) over all slots."""
+        self._reset_scales(x["fresh"])
+        pos = x["lengths"].long()
+        with self.adapter.weights():
+            logits = self._decode_body(n_blocks, x["pt"], pos,
+                                       x["last"].long()[:, None],
+                                       x["active"].bool())
+            return self._sampling(x, sampled).select(logits, self._base_key,
+                                                     pos + 1)
+
+    def _prefill_program(self, n_blocks, sampled, x):
+        """Prefill one chunk for up to ``prefill_batch`` rows in one
+        call: attend over the pages written so far, write every active
+        row's chunk K/V into its pages, and select the FIRST generated
+        token at ``last_index`` (meaningful for rows on their final
+        chunk).  With speculation the draft twin consumes the same chunk
+        into its own pool.  Returns (tokens, log-probs)."""
+        self._reset_scales(x["fresh"])
+        a = self.adapter
+        pt_rows = x["pt"]
+        pt = pt_rows[:, :n_blocks].long()
+        tok_t = x["tokens"].long()
+        pos_t = x["position"].long()
+        li = x["last_index"].long()
+        active = x["active"].bool()
+        with a.weights():
+            if self._quant_kv:
+                kbuf = self._gather(self._kv_k, pt, self._kv_sk)
+                vbuf = self._gather(self._kv_v, pt, self._kv_sv)
+            else:
+                kbuf = self._gather(self._kv_k, pt)
+                vbuf = self._gather(self._kv_v, pt)
+            logits, _, _, k_new, v_new = a.chunk_forward(tok_t, pos_t, kbuf,
+                                                         vbuf)
+            B = logits.shape[0]
+            last = logits[torch.arange(B, device=self.device), li]  # (B, V)
+            tok, logp = self._sampling(x, sampled).select(
+                last, self._base_key, pos_t + li + 1)
+            if self._quant_kv:
+                self._write_back_int8(kbuf, vbuf, pt, pos_t, active)
+            else:
+                self._write_chunk_pages(self._kv_k, self._kv_v, k_new, v_new,
+                                        pt_rows, pos_t, active)
+            if self._spec is not None:
+                self._draft_prefill(pt, tok_t, pos_t, pt_rows, active)
+        return tok, logp
+
+    def _spec_program(self, n_blocks, sampled, x):
+        """One speculative iteration on the device: the draft's k+1
+        steps, then ONE target verify of the chunk built from the drafts
+        (they never leave the device).  Any sampled row routes the verify
+        to its scan form.  Returns the drafts and the target's tokens and
+        log-probs, (S, k+1) each."""
+        self._reset_scales(x["fresh"])
+        pos = x["lengths"].long()
+        last = x["last"].long()
+        active = x["active"].bool()
+        sampling = self._sampling(x, sampled)
+        self._marks.mark(0)
+        with self.adapter.weights():
+            d_toks = self._draft(n_blocks, x["pt"], pos, last, active,
+                                 sampling)
+            self._marks.mark(1)
+            g_toks, g_logps = self._verify(n_blocks, x["pt"], pos, last,
+                                           d_toks, active, sampling,
+                                           force_scan=sampled)
+        self._marks.mark(2)
+        return d_toks, g_toks, g_logps
+
+    # -- device math --------------------------------------------------------
+    def _gather(self, kv, pt, sc=None):
+        """(L, P+1, h, page, hd)[pages pt (B, nb)] -> (B+1, L, h,
+        nb*page, hd): each row's pages as one contiguous cache (each page
+        times its (layer, page) scale for an int8 pool ``sc``; a fresh
+        page has scale 0, so its stale payload reads as zeros), and a
+        sink row B for :func:`_write_chunk`."""
         g = kv[:, pt]                       # (L, B, nb, h, page, hd)
+        if sc is not None:
+            g = g.float() * sc[:, pt][..., None, None, None]
         L, B, nb, h, page, hd = g.shape
-        return g.permute(1, 0, 3, 2, 4, 5).reshape(B, L, h, nb * page, hd)
-
-    def _gather_deq(self, kv, sc, pt):
-        """:meth:`_gather` of an int8 pool: each page times its (layer,
-        page) scale.  A fresh page has scale 0, so its stale payload
-        reads as zeros."""
-        g = kv[:, pt].float() * sc[:, pt][..., None, None, None]
-        L, B, nb, h, page, hd = g.shape
-        return g.permute(1, 0, 3, 2, 4, 5).reshape(B, L, h, nb * page, hd)
+        out = g.new_empty((B + 1, L, h, nb * page, hd))
+        out[:B].view(B, L, h, nb, page, hd).copy_(g.permute(1, 0, 3, 2, 4, 5))
+        return out
 
     def _use_flash(self) -> bool:
         if self.cfg.use_flash_decode is not None:
             return bool(self.cfg.use_flash_decode)
         return self.device.type == "cuda"
 
-    def _sampling(self) -> _Sampling:
-        return _Sampling(self._seeds, self._temps, self._top_ks,
-                         self._top_ps)
+    def _page_ids(self, pt_full, pos, ok):
+        """The page id holding each position ``pos`` (any shape, rows
+        first) in ``pt_full`` (rows, pages_per_slot), the sink where
+        ``ok`` is False."""
+        cfg = self.cfg
+        j = (pos // cfg.page_size).clamp(max=cfg.pages_per_slot - 1)
+        pid = pt_full.long().gather(1, j.reshape(j.shape[0], -1))
+        return torch.where(ok, pid.reshape(pos.shape), self._sink)
 
-    def _flush_fresh_scales(self) -> None:
-        """Zero the scales of pages just popped off the free list (int8
-        pages), before the next call reads them: a reused page would
-        otherwise dequantize its last owner's payload under its last
-        owner's scale."""
-        if not self._fresh_pages:
-            return
-        fresh, self._fresh_pages = self._fresh_pages, []
-        if self._quant_kv:
-            idx = self._t(fresh, torch.long)
-            self._kv_sk[:, idx] = 0.0
-            self._kv_sv[:, idx] = 0.0
-
-    def _write_chunk_pages(self, pool_k, pool_v, k_new, v_new, page_table,
+    def _write_chunk_pages(self, pool_k, pool_v, k_new, v_new, pt_rows,
                            start, active) -> None:
         """Write a chunk's fresh K/V, (B, L, h, C, hd) for positions
-        ``start .. start+C-1`` of each row, into float32 pools in place:
-        active rows and positions inside the cap only (padded prompt
-        tails are written, as the JAX engine writes them)."""
-        cfg = self.cfg
+        ``start .. start+C-1`` of each row, into float32 pools in place;
+        positions of inactive rows or past the cap go to the sink
+        (padded prompt tails inside the cap are written, as the JAX
+        engine writes them)."""
         C = k_new.shape[3]
-        pos_c = np.asarray(start, np.int64)[:, None] + np.arange(C)[None, :]
-        ok = np.asarray(active, bool)[:, None] & (pos_c < cfg.cap)
-        b_idx, c_idx = np.nonzero(ok)
-        if not len(b_idx):
-            return
-        pc = pos_c[b_idx, c_idx]
-        pid = self._t(np.asarray(page_table)[b_idx, pc // cfg.page_size],
-                      torch.long)
-        off = self._t(pc % cfg.page_size, torch.long)
-        bi, ci = self._t(b_idx, torch.long), self._t(c_idx, torch.long)
-        # (L, P, h, page, hd)[:, pid, :, off] <- (n, L, h, hd)
-        pool_k[:, pid, :, off] = k_new[bi, :, :, ci].to(pool_k.dtype)
-        pool_v[:, pid, :, off] = v_new[bi, :, :, ci].to(pool_v.dtype)
+        pos_c = start[:, None] + torch.arange(C, device=self.device)[None, :]
+        ok = active[:, None] & (pos_c < self.cfg.cap)
+        pid = self._page_ids(pt_rows, pos_c, ok)
+        off = pos_c % self.cfg.page_size
+        # (L, P+1, h, page, hd)[:, pid, :, off] <- (B, C, L, h, hd)
+        pool_k[:, pid, :, off] = k_new.permute(0, 3, 1, 2, 4).to(pool_k.dtype)
+        pool_v[:, pid, :, off] = v_new.permute(0, 3, 1, 2, 4).to(pool_v.dtype)
 
-    def _decode_body(self, n_blocks, pt_np, pt_full, lengths, tokens,
-                     active):
-        """One decode-step body: ``tokens`` (S, 1) int64 sit at the host
-        positions ``lengths``.  Writes each active row's K/V at its
-        position (inside the cap) into the pool, then attends; returns
-        the logits (S, V).  With int8 pages the write is a
-        read-modify-write of the one page it lands in: dequantize, insert
-        the row, requantize under the page's monotone scale floor (the
-        untouched positions requantize exactly)."""
+    def _write_back_int8(self, kbuf, vbuf, pt, position, active) -> None:
+        """Requantize and write back the int8 pages a prefill chunk
+        touched: a fixed ``ceil(prompt_chunk / page_size) + 1`` pages a
+        row from ``position // page_size`` on, a page past the row's
+        reach (or an inactive row's) sent to the sink.  Table rows past a
+        slot's allocation may name pages other slots own now, so only
+        the reach is written.  Untouched positions of a touched page came
+        from the dequantized gather, so under the monotone scale floor
+        they requantize exactly."""
         cfg = self.cfg
-        page = cfg.page_size
+        page, C = cfg.page_size, cfg.prompt_chunk
+        B, n_blocks = pt.shape
+        dev = self.device
+        j = (position // page)[:, None] \
+            + torch.arange(cdiv(C, page) + 1, device=dev)[None, :]
+        lim = torch.clamp(position + C, max=cfg.cap)[:, None]
+        ok = active[:, None] & (j * page < lim) & (j < n_blocks)
+        jc = j.clamp(max=n_blocks - 1)
+        pid = torch.where(ok, pt.gather(1, jc), self._sink)      # (B, TP)
+        cols = jc[:, :, None] * page + torch.arange(page, device=dev)
+        rows = torch.arange(B, device=dev)[:, None, None]
+        for buf, pool, scales in ((kbuf, self._kv_k, self._kv_sk),
+                                  (vbuf, self._kv_v, self._kv_sv)):
+            # (B, TP, page, L, h, hd) -> (L, B, TP, h, page, hd)
+            pages = buf[rows, :, :, cols].permute(3, 0, 1, 4, 2, 5)
+            q, sc = quantize_pages(pages, floor_scales=scales[:, pid])
+            pool[:, pid] = q
+            scales[:, pid] = sc
+
+    def _decode_body(self, n_blocks, pt_full, pos, tokens, active):
+        """One decode-step body: ``tokens`` (S, 1) int64 sit at positions
+        ``pos`` (S,) int64.  Writes every row's K/V at its position into
+        the pool — an inactive row's, or one at the cap, into the sink —
+        then attends (a row at the cap still attends); returns the
+        logits (S, V).  With int8 pages the write is a read-modify-write
+        of the one page it lands in: dequantize, insert the row,
+        requantize under the page's monotone scale floor (the untouched
+        positions requantize exactly)."""
+        cfg = self.cfg
         adapter = self.adapter
         pt = pt_full[:, :n_blocks]          # row-strided view
-        lengths = np.asarray(lengths, np.int64)
-        pos = self._t(lengths, torch.long)
         len32 = pos.int()
-        r_np = np.flatnonzero(np.asarray(active, bool) & (lengths < cfg.cap))
-        rows = self._t(r_np, torch.long)
         # write target of this step's K/V: the page holding the position
-        wid = self._t(pt_np[r_np, lengths[r_np] // page], torch.long)
-        off = self._t(lengths[r_np] % page, torch.long)
+        wid = self._page_ids(pt_full, pos, active & (pos < cfg.cap))
+        off = pos % cfg.page_size
         use_flash = self._use_flash()
         if self._quant_kv:
-            ar = torch.arange(len(r_np), device=self.device)
+            rows = torch.arange(pos.shape[0], device=self.device)
 
             def rmw(pool, scales, i, new):
                 floor = scales[i, wid]
                 pg = pool[i, wid].float() * floor[:, None, None, None]
-                pg[ar, :, off] = new[rows, :, 0]
+                pg[rows, :, off] = new[:, :, 0]
                 q, sc = quantize_pages(pg, floor_scales=floor)
                 pool[i, wid] = q
                 scales[i, wid] = sc
@@ -821,8 +1240,8 @@ class DecodeEngine:
                 # write this layer's K/V into the pages FIRST, then run
                 # the single-query kernel straight off the page pool
                 kp, vp = self._kv_k[i], self._kv_v[i]
-                kp[wid, :, off] = k_new[rows, :, 0]
-                vp[wid, :, off] = v_new[rows, :, 0]
+                kp[wid, :, off] = k_new[:, :, 0]
+                vp[wid, :, off] = v_new[:, :, 0]
                 out = paged_decode_attention(q[:, :, 0].contiguous(), kp, vp,
                                              pt, len32)
                 return out[:, :, None]
@@ -834,91 +1253,11 @@ class DecodeEngine:
         vbuf = self._gather(self._kv_v, pt64)
         logits, _, _, k_new, v_new = adapter.chunk_forward(tokens, pos, kbuf,
                                                            vbuf)
-        self._kv_k[:, wid, :, off] = k_new[rows, :, :, 0]
-        self._kv_v[:, wid, :, off] = v_new[rows, :, :, 0]
+        self._kv_k[:, wid, :, off] = k_new[:, :, :, 0]
+        self._kv_v[:, wid, :, off] = v_new[:, :, :, 0]
         return logits[:, 0]
 
-    @torch.no_grad()
-    def _step(self, n_blocks, page_table, lengths, last_tokens, active,
-              sampling: _Sampling):
-        """One decode step for every slot: write each active slot's new
-        K/V at position ``lengths`` and select its next token.  Returns
-        (tokens, logps) as numpy arrays over all slots."""
-        tokens = self._t(last_tokens, torch.long)[:, None]
-        with self.adapter.weights():
-            logits = self._decode_body(
-                n_blocks, np.asarray(page_table),
-                self._t(page_table, torch.int32), lengths, tokens, active)
-            tok, logp = sampling.select(
-                logits, self._base_key, self._t(lengths, torch.long) + 1)
-        return tok.cpu().numpy(), logp.cpu().numpy()
-
-    @torch.no_grad()
-    def _prefill(self, n_blocks, pt_rows, tokens, position, last_index,
-                 active, sampling: _Sampling):
-        """Prefill one chunk for up to ``prefill_batch`` rows in one
-        call: attend over the pages written so far, write every active
-        row's chunk K/V into its pages, and select the FIRST generated
-        token at ``last_index`` (meaningful for rows on their final
-        chunk).  With speculation the draft twin consumes the same chunk
-        into its own pool.  Returns (tokens, logps) as numpy arrays."""
-        cfg = self.cfg
-        page, C = cfg.page_size, cfg.prompt_chunk
-        a = self.adapter
-        pt_rows = np.asarray(pt_rows)
-        position = np.asarray(position, np.int64)
-        active = np.asarray(active, bool)
-        pt = self._t(pt_rows, torch.long)[:, :n_blocks]
-        pos_t = self._t(position, torch.long)
-        tok_t = self._t(tokens, torch.long)
-        with self.adapter.weights():
-            if self._quant_kv:
-                kbuf = self._gather_deq(self._kv_k, self._kv_sk, pt)
-                vbuf = self._gather_deq(self._kv_v, self._kv_sv, pt)
-            else:
-                kbuf = self._gather(self._kv_k, pt)
-                vbuf = self._gather(self._kv_v, pt)
-            logits, _, _, k_new, v_new = a.chunk_forward(tok_t, pos_t, kbuf,
-                                                         vbuf)
-            B = logits.shape[0]
-            li = self._t(last_index, torch.long)
-            last = logits[torch.arange(B, device=self.device), li]  # (B, V)
-            tok, logp = sampling.select(last, self._base_key, pos_t + li + 1)
-            if self._quant_kv:
-                # requantize and write back whole pages, only those this
-                # chunk touched: table rows past a slot's allocation may
-                # name pages other slots own now.  Untouched positions of
-                # a touched page came from the dequantized gather, so
-                # under the monotone floor they requantize exactly
-                pg0 = np.arange(n_blocks)[None, :] * page
-                lim = np.minimum(position + C, cfg.cap)[:, None]
-                touched = (active[:, None] & (pg0 < lim)
-                           & (pg0 + page > position[:, None]))
-                b_idx, j_idx = np.nonzero(touched)
-                if len(b_idx):
-                    bi = self._t(b_idx, torch.long)
-                    ji = self._t(j_idx, torch.long)
-                    pids = self._t(pt_rows[b_idx, j_idx], torch.long)
-                    L, h, hd = a.num_layers, a.num_heads, a.head_dim
-                    for buf, pool, scales in (
-                            (kbuf, self._kv_k, self._kv_sk),
-                            (vbuf, self._kv_v, self._kv_sv)):
-                        pages = buf.reshape(B, L, h, n_blocks, page, hd)[
-                            bi, :, :, ji].permute(1, 0, 2, 3, 4)
-                        q, sc = quantize_pages(pages,
-                                               floor_scales=scales[:, pids])
-                        pool[:, pids] = q
-                        scales[:, pids] = sc
-            else:
-                self._write_chunk_pages(self._kv_k, self._kv_v, k_new, v_new,
-                                        pt_rows, position, active)
-            if self._spec is not None:
-                self._draft_prefill(pt, tok_t, pos_t, pt_rows, position,
-                                    active)
-        return tok.cpu().numpy(), logp.cpu().numpy()
-
-    # -- speculative calls --------------------------------------------------
-    def _draft_prefill(self, pt, tok_t, pos_t, pt_rows, position, active):
+    def _draft_prefill(self, pt, tok_t, pos_t, pt_rows, active):
         """The draft twin consumes a prefill chunk, so its pool holds the
         prompt position for position before its first draft step (no
         token is selected: the first generated token is the target's)."""
@@ -927,9 +1266,9 @@ class DecodeEngine:
         _, _, _, k_new, v_new = self.adapter.chunk_forward(
             tok_t, pos_t, kbuf, vbuf, model=self._draft_model)
         self._write_chunk_pages(self._dr_k, self._dr_v, k_new, v_new,
-                                pt_rows, position, active)
+                                pt_rows, pos_t, active)
 
-    def _draft(self, n_blocks, lengths, last_tokens, active,
+    def _draft(self, n_blocks, pt_full, pos, last, active,
                sampling: _Sampling):
         """Draft ``k+1`` tokens per slot with the sparse twin: ``k+1``
         single-token steps over the gathered float32 draft cache (the
@@ -938,26 +1277,24 @@ class DecodeEngine:
         chunk's K/V go into the draft pool.  Selection uses the verify's
         keys and positions, so a close draft samples the target's token.
         Returns the drafted tokens (S, k+1) on the device."""
-        pt = self._t(self._page_table, torch.long)[:, :n_blocks]
+        pt = pt_full[:, :n_blocks].long()
         kbuf = self._gather(self._dr_k, pt)
         vbuf = self._gather(self._dr_v, pt)
-        pos = self._t(lengths, torch.long)
-        last = self._t(last_tokens, torch.long)
+        p = pos
         toks, k_news, v_news = [], [], []
         for _ in range(self._spec.k + 1):
             logits, kbuf, vbuf, k_new, v_new = self.adapter.chunk_forward(
-                last[:, None], pos, kbuf, vbuf, model=self._draft_model)
-            last, _ = sampling.select(logits[:, 0], self._base_key, pos + 1)
+                last[:, None], p, kbuf, vbuf, model=self._draft_model)
+            last, _ = sampling.select(logits[:, 0], self._base_key, p + 1)
             toks.append(last)
             k_news.append(k_new)
             v_news.append(v_new)
-            pos = pos + 1
+            p = p + 1
         self._write_chunk_pages(self._dr_k, self._dr_v, torch.cat(k_news, 3),
-                                torch.cat(v_news, 3), self._page_table,
-                                lengths, active)
+                                torch.cat(v_news, 3), pt_full, pos, active)
         return torch.stack(toks, 1)
 
-    def _verify(self, n_blocks, lengths, last_tokens, d_toks, active,
+    def _verify(self, n_blocks, pt_full, pos, last, d_toks, active,
                 sampling: _Sampling, force_scan: bool):
         """ONE target call scoring the chunk ``[last_token, d_0 ..
         d_{k-1}]`` at positions ``lengths .. lengths+k``; returns the
@@ -970,43 +1307,32 @@ class DecodeEngine:
         slot); **chunk**, the chunk's K/V written into the pages and all
         k+1 queries attended in one ``paged_verify_attention`` call per
         layer."""
-        cfg = self.cfg
         C = self._spec.k + 1
-        page = cfg.page_size
         impl = self._spec.verify_impl
         chunk_mode = (not self._quant_kv and not force_scan and (
             self._use_flash() if impl == "auto" else impl == "chunk"))
-        tokens = torch.cat([self._t(last_tokens, torch.long)[:, None],
-                            d_toks[:, :C - 1]], dim=1)
-        lengths = np.asarray(lengths, np.int64)
-        pt_full = self._t(self._page_table, torch.int32)
+        tokens = torch.cat([last[:, None], d_toks[:, :C - 1]], dim=1)
         if not chunk_mode:
             toks, logps = [], []
             for j in range(C):
-                logits = self._decode_body(n_blocks, self._page_table,
-                                           pt_full, lengths + j,
+                logits = self._decode_body(n_blocks, pt_full, pos + j,
                                            tokens[:, j:j + 1], active)
-                t, lp = sampling.select(logits, self._base_key,
-                                        self._t(lengths + j + 1, torch.long))
+                t, lp = sampling.select(logits, self._base_key, pos + j + 1)
                 toks.append(t)
                 logps.append(lp)
             return torch.stack(toks, 1), torch.stack(logps, 1)
         S = tokens.shape[0]
         pt = pt_full[:, :n_blocks]
-        pos = self._t(lengths, torch.long)
         len32 = pos.int()
-        pos_c = lengths[:, None] + np.arange(C)[None, :]
-        b_idx, c_idx = np.nonzero(np.asarray(active, bool)[:, None]
-                                  & (pos_c < cfg.cap))
-        pc = pos_c[b_idx, c_idx]
-        pid = self._t(self._page_table[b_idx, pc // page], torch.long)
-        off = self._t(pc % page, torch.long)
-        bi, ci = self._t(b_idx, torch.long), self._t(c_idx, torch.long)
+        pos_c = pos[:, None] + torch.arange(C, device=self.device)[None, :]
+        pid = self._page_ids(pt_full, pos_c,
+                             active[:, None] & (pos_c < self.cfg.cap))
+        off = pos_c % self.cfg.page_size
 
         def self_attend(i, q, k_new, v_new):
             # the chunk's K/V into the pages first, then all C queries
-            self._kv_k[i][pid, :, off] = k_new[bi, :, ci]
-            self._kv_v[i][pid, :, off] = v_new[bi, :, ci]
+            self._kv_k[i][pid, :, off] = k_new.permute(0, 2, 1, 3)
+            self._kv_v[i][pid, :, off] = v_new.permute(0, 2, 1, 3)
             return paged_verify_attention(q.contiguous(), self._kv_k[i],
                                           self._kv_v[i], pt, len32)
 
@@ -1014,8 +1340,120 @@ class DecodeEngine:
                                             self_attend=self_attend)[0]
         tok, logp = sampling.repeat(C).select(
             logits.reshape(S * C, -1), self._base_key,
-            self._t((pos_c + 1).reshape(-1), torch.long))
+            (pos_c + 1).reshape(-1))
         return tok.reshape(S, C), logp.reshape(S, C)
+
+    # -- calls --------------------------------------------------------------
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._side
+
+    def _capture(self, key) -> _Graph:
+        """Capture one program of the closed set on idle inputs into a
+        CUDA graph in the engine's shared memory pool, after
+        ``WARM_RUNS`` eager runs on idle rows on the capture's side
+        stream.  A synchronizing call inside the program raises
+        (``set_sync_debug_mode("error")``) before it reaches the card,
+        so the capture ends cleanly and the error names the call;
+        nothing runs eagerly in its place."""
+        name, n_blocks, sampled = key
+        prog = self._programs[name]
+        w8 = self.adapter._w8
+        if w8 is not None and w8.held_here():
+            raise RuntimeError(
+                "a decode program cannot be captured inside an open "
+                "weights() view: the graph would read float32 weights "
+                "freed when the view closes; capture (warmup) outside it")
+        side = self._side_stream()
+        cur = torch.cuda.current_stream(self.device)
+        prog.dev_in.copy_(prog.idle)
+        side.wait_stream(cur)
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                for _ in range(self.WARM_RUNS):
+                    prog.run(n_blocks, sampled)
+            graph = torch.cuda.CUDAGraph()
+            mode = torch.cuda.get_sync_debug_mode()
+            with captured_launches() as launches:
+                try:
+                    # entering the capture synchronizes: the mode goes on
+                    # inside it
+                    with torch.cuda.graph(graph, pool=self._graph_pool,
+                                          stream=side):
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            prog.run(n_blocks, sampled)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(mode)
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"the decode engine's {name} program (bucket "
+                        f"{n_blocks} pages, "
+                        f"{'sampled' if sampled else 'greedy'}) cannot be "
+                        f"captured as a CUDA graph: {e}.  A program that "
+                        f"reads the card on the host (.item(), .cpu(), "
+                        f"bool of a tensor, a Python value copied to the "
+                        f"card, a mask of data-dependent shape) cannot be "
+                        f"replayed; serve it with "
+                        f"DecodeConfig(cuda_graphs=False)") from e
+        cur.wait_stream(side)
+        entry = self._graphs[key] = _Graph(graph, launches)
+        self.metrics.inc("serving.decode.graph_captures" if self._warming
+                         else "serving.decode.unexpected_captures")
+        return entry
+
+    def _call(self, name: str, n_blocks: int, sampled: bool
+              ) -> Dict[str, np.ndarray]:
+        """One engine call of a program whose inputs are written in its
+        host image: one copy of them to the card, a replay of the
+        program's graph (captured now if warmup did not, and counted as
+        unexpected) or, eagerly, the program itself, then one copy of
+        the outputs back, read after an event.  Returns the outputs."""
+        prog = self._programs[name]
+        key = (name, n_blocks, sampled)
+        self.calls[key] += 1
+        graph = None
+        if self._graphs_on:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._capture(key)
+        prog.dev_in.copy_(prog.host_in, non_blocking=True)
+        if graph is not None:
+            graph.graph.replay()
+            credit_launches(graph.launches)
+        else:
+            with torch.no_grad():
+                prog.run(n_blocks, sampled)
+        prog.host_out.copy_(prog.dev_out, non_blocking=True)
+        if prog.done is not None:
+            prog.done.record()
+            prog.done.synchronize()
+        return {k: v.copy() for k, v in prog.y.items()}
+
+    def _fill_decode(self, x) -> None:
+        """The slot boards into a decode-shaped program's inputs."""
+        x["pt"][:] = self._page_table
+        x["lengths"][:] = self._lengths
+        x["last"][:] = self._last_tokens
+        x["active"][:] = self._active_mask
+        x["seeds"][:] = self._seeds
+        x["temps"][:] = self._temps
+        x["top_ks"][:] = self._top_ks
+        x["top_ps"][:] = self._top_ps
+        self._fill_fresh(x)
+
+    def _fill_fresh(self, x) -> None:
+        """The pages popped off the free list since the last call into
+        the call's fixed-width ``fresh`` field, padded with the sink."""
+        fresh, self._fresh_pages = self._fresh_pages, []
+        slot = x["fresh"]
+        if len(fresh) > len(slot):
+            raise RuntimeError(f"{len(fresh)} pages taken for one call, "
+                               f"more than its {len(slot)} scale resets")
+        slot[:] = self._sink
+        slot[:len(fresh)] = fresh
 
     # -- engine loop --------------------------------------------------------
     def _run(self) -> None:
@@ -1024,23 +1462,27 @@ class DecodeEngine:
             while not self._stop.is_set():
                 occupied = any(s is not None for s in self._slots)
                 with self._cv:
-                    if not self._heap and not occupied:
+                    if not self._heap and not occupied \
+                            and not self._cancelled:
                         self._cv.wait(0.2)
                         continue
                 try:
-                    now = time.time()
-                    self._expire(now)
-                    self._admit()
-                    did = self._decode_step()
-                    # one prefill call per token a decode iteration can
-                    # emit: a speculative iteration advances a stream up
-                    # to k+1 tokens, and prefilling slots keep pace
-                    for _ in range(1 if self._spec is None
-                                   else self._spec.k + 1):
-                        pf = self._prefill_one()
-                        did = pf or did
-                        if not pf:
-                            break
+                    with self._iter_lock:
+                        now = time.time()
+                        self._sweep_cancelled()
+                        self._expire(now)
+                        self._admit()
+                        did = self._decode_step()
+                        # one prefill call per token a decode iteration
+                        # can emit: a speculative iteration advances a
+                        # stream up to k+1 tokens, and prefilling slots
+                        # keep pace
+                        for _ in range(1 if self._spec is None
+                                       else self._spec.k + 1):
+                            pf = self._prefill_one()
+                            did = pf or did
+                            if not pf:
+                                break
                     if not did:
                         # queued work blocked on slots/pages: wait for a
                         # release/submit notify instead of spinning
@@ -1051,10 +1493,49 @@ class DecodeEngine:
                     # with the error and keep serving
                     log.error("decode engine iteration failed: %s", e,
                               exc_info=True)
-                    for s, seq in enumerate(self._slots):
-                        if seq is not None:
-                            self._finish_error(seq.req, e)
-                            self._release_slot(s)
+                    with self._iter_lock:
+                        for s, seq in enumerate(self._slots):
+                            if seq is not None:
+                                self._finish_error(seq.req, e)
+                                self._release_slot(s)
+
+    def _sweep_cancelled(self) -> None:
+        """Apply the cancellations marked since the last iteration: a
+        queued request leaves the heap, an active slot is released (its
+        target and draft pages at once); each gets a
+        :class:`RequestCancelledError`, a stream with tokens out its
+        ``partial_tokens``."""
+        with self._cv:
+            if not self._cancelled:
+                return
+            marks, self._cancelled = self._cancelled, {}
+            dropped = [r for _, _, r in self._heap if r.rid in marks]
+            if dropped:
+                self._heap = [(d, q, r) for d, q, r in self._heap
+                              if r.rid not in marks]
+                heapq.heapify(self._heap)
+        for req in dropped:
+            self.events.append(("cancel_queued", req.rid, marks[req.rid]))
+            self._count_cancel(marks[req.rid])
+            self._finish_error(req, RequestCancelledError(req.rid,
+                                                          marks[req.rid]))
+        for s, seq in enumerate(self._slots):
+            if seq is not None and seq.req.rid in marks:
+                reason = marks[seq.req.rid]
+                self.events.append(("cancel", seq.req.rid, s, reason))
+                self._count_cancel(reason)
+                err = RequestCancelledError(seq.req.rid, reason)
+                if seq.generated:
+                    err.partial_tokens = np.asarray(seq.generated, np.int32)
+                if not seq.done:
+                    self._finish_error(seq.req, err)
+                self._release_slot(s)
+
+    def _count_cancel(self, reason: str) -> None:
+        self.stats["cancelled"] += 1
+        self.metrics.inc("serving.decode.cancelled")
+        if reason == "client_disconnect":
+            self.metrics.inc("serving.decode.client_disconnects")
 
     def _expire(self, now: float) -> None:
         """Queued requests past their deadline are dropped at pickup;
@@ -1064,10 +1545,12 @@ class DecodeEngine:
             while self._heap and self._heap[0][0] <= now:
                 expired_q.append(heapq.heappop(self._heap)[2])
         for req in expired_q:
+            self.events.append(("expire_queued", req.rid))
             self._finish_expired(req, now)
         for s, seq in enumerate(self._slots):
             if seq is not None and not seq.done \
                     and seq.req.deadline_t <= now:
+                self.events.append(("expire", seq.req.rid, s))
                 self._finish_expired(seq.req, now, seq=seq)
                 self._release_slot(s)
 
@@ -1120,6 +1603,8 @@ class DecodeEngine:
             self._top_ks[s] = np.int32(req.top_k)
             self._top_ps[s] = np.float32(req.top_p)
             self.stats["requests"] += 1
+            self.metrics.inc("serving.decode.requests")
+            self.events.append(("admit", req.rid, s))
 
     def _ensure_pages(self, s: int, upto_tokens: int) -> None:
         """Allocate pages for slot ``s`` covering cache positions
@@ -1144,6 +1629,7 @@ class DecodeEngine:
         self._slots[s] = None
         self._active_mask[s] = False
         self._lengths[s] = 0
+        self.events.append(("release", seq.req.rid, s))
         with self._cv:
             self._cv.notify_all()
 
@@ -1158,14 +1644,11 @@ class DecodeEngine:
         if not cand:
             return False
         picked = [s for _, s in cand[:cfg.prefill_batch]]
-        B, C = cfg.prefill_batch, cfg.prompt_chunk
-        tokens = np.zeros((B, C), np.int32)
-        position = np.zeros((B,), np.int32)
-        last_index = np.zeros((B,), np.int32)
-        active = np.zeros((B,), bool)
-        pt_rows = np.zeros((B, cfg.pages_per_slot), np.int32)
-        boards = [np.zeros((B,), np.int32), np.zeros((B,), np.float32),
-                  np.zeros((B,), np.int32), np.ones((B,), np.float32)]
+        C = cfg.prompt_chunk
+        prog = self._programs["prefill"]
+        t0 = time.time()
+        prog.reset()
+        x = prog.x
         rows = []              # (b, s, real, final)
         max_need = 1
         for b, s in enumerate(picked):
@@ -1173,30 +1656,35 @@ class DecodeEngine:
             p0 = seq.prefill_pos
             chunk = seq.prompt[p0:p0 + C]
             real = len(chunk)
-            tokens[b, :real] = chunk
-            position[b] = p0
-            last_index[b] = real - 1
-            active[b] = True
-            for board, src in zip(boards, (self._seeds, self._temps,
-                                           self._top_ks, self._top_ps)):
-                board[b] = src[s]
+            x["tokens"][b, :real] = chunk
+            x["position"][b] = p0
+            x["last_index"][b] = real - 1
+            x["active"][b] = 1
+            for name, src in (("seeds", self._seeds), ("temps", self._temps),
+                              ("top_ks", self._top_ks),
+                              ("top_ps", self._top_ps)):
+                x[name][b] = src[s]
             self._ensure_pages(s, min(p0 + C, cfg.cap))
-            pt_rows[b] = self._page_table[s]
+            x["pt"][b] = self._page_table[s]
             rows.append((b, s, real, (p0 + real) >= len(seq.prompt)))
             max_need = max(max_need, min(p0 + C, cfg.cap))
-        self._flush_fresh_scales()
-        toks, logps = self._prefill(cfg.bucket_pages(max_need), pt_rows,
-                                    tokens, position, last_index, active,
-                                    _Sampling(*boards))
+        self._fill_fresh(x)
+        sampled = bool(np.any(x["temps"][:len(picked)] > 0.0))
+        out = self._call("prefill", cfg.bucket_pages(max_need), sampled)
+        toks, logps = out["tok"], out["logp"]
         now = time.time()
         self.stats["prefill_chunks"] += len(rows)
         self.stats["prefill_calls"] += 1
+        self.metrics.inc("serving.decode.prefill_chunks", len(rows))
+        self.events.append(("prefill_chunk",
+                            [self._slots[s].req.rid for _, s, _, _ in rows]))
         for b, s, real, final in rows:
             seq = self._slots[s]
             seq.prefill_pos += real
             if final:
                 self._lengths[s] = len(seq.prompt)
                 self._emit_token(s, seq, int(toks[b]), logps[b], now)
+        self.metrics.observe("serving.decode.prefill_s", now - t0)
         return True
 
     # -- decode -------------------------------------------------------------
@@ -1221,17 +1709,29 @@ class DecodeEngine:
             self._ensure_pages(s, int(self._lengths[s]) + 1)
         ref = active if active else occupied
         nb = cfg.bucket_pages(int(self._lengths[ref].max()) + 1)
-        self._flush_fresh_scales()
-        toks, logps = self._step(nb, self._page_table, self._lengths,
-                                 self._last_tokens, self._active_mask,
-                                 self._sampling())
+        t0 = time.time()
+        self._fill_decode(self._programs["step"].x)
+        out = self._call("step", nb,
+                         bool(np.any(self._temps[active] > 0.0)))
+        toks, logps = out["tok"], out["logp"]
         now = time.time()
         self.stats["steps"] += 1
+        self.metrics.inc("serving.decode.steps")
+        self.events.append(("decode_step", len(active), nb))
+        if active and self._last_step_t:
+            # every active slot streams one token a step, so the step gap
+            # is every in-flight stream's inter-token latency
+            self.metrics.observe("serving.decode.inter_token_s",
+                                 now - self._last_step_t)
+        self._last_step_t = now
         for s in active:
             seq = self._slots[s]
             self._lengths[s] += 1          # last_token's K/V just landed
             self._emit_token(s, seq, int(toks[s]), logps[s], now)
+        self._tokens_window.append((now, len(active)))
         self.stats["tokens"] += len(active)
+        self.metrics.inc("serving.decode.tokens_total", len(active))
+        self.metrics.observe("serving.decode.step_s", now - t0)
         if not cfg.continuous:
             if self._wave_steps == 0:
                 # the wave's horizon: its longest member's request
@@ -1247,17 +1747,18 @@ class DecodeEngine:
                     if self._slots[s] is not None:
                         self._release_slot(s)
                 self._wave_steps = 0
+        self._export_gauges(now)
         return True
 
     def _spec_step(self) -> bool:
-        """One speculative iteration: draft k (+1 cache-filling) tokens
-        with the sparse twin, verify the chunk with ONE target call
-        enqueued behind the draft, then accept the longest agreeing
-        prefix on the host.  Emitted tokens are ALWAYS the verify's
-        target selections — the drafted token at index j only gates
-        whether the selection conditioned on it is usable — so the
-        stream is the spec-off stream; speculation changes how many
-        tokens one iteration yields (1 to k+1)."""
+        """One speculative iteration: one call drafts k (+1 cache-filling)
+        tokens with the sparse twin and verifies the chunk with ONE
+        target pass on the device, then the host accepts the longest
+        agreeing prefix.  Emitted tokens are ALWAYS the verify's target
+        selections — the drafted token at index j only gates whether the
+        selection conditioned on it is usable — so the stream is the
+        spec-off stream; speculation changes how many tokens one
+        iteration yields (1 to k+1)."""
         cfg = self.cfg
         k = self._spec.k
         active = [s for s in range(cfg.slots) if self._active_mask[s]]
@@ -1268,25 +1769,28 @@ class DecodeEngine:
                                       cfg.cap))
         nb = cfg.bucket_pages(
             min(int(self._lengths[active].max()) + 1 + k, cfg.cap))
-        self._flush_fresh_scales()
-        sampling = self._sampling()
-        lengths = self._lengths.copy()
-        last = self._last_tokens.copy()
-        act = self._active_mask.copy()
+        t0 = time.time()
+        self._fill_decode(self._programs["spec"].x)
         # any sampled slot routes the iteration to the scan verify: the
         # top-k/top-p thresholds are discontinuous in the chunk pass's
         # last-ulp logit drift
-        sampled = bool(np.any(self._temps[active] > 0.0))
-        with torch.no_grad(), self.adapter.weights():
-            d_toks = self._draft(nb, lengths, last, act, sampling)
-            g_toks, g_logps = self._verify(nb, lengths, last, d_toks, act,
-                                           sampling, force_scan=sampled)
-        d_host = d_toks.cpu().numpy()                      # (S, k+1)
-        g_toks = g_toks.cpu().numpy()
-        g_logps = g_logps.cpu().numpy()
+        out = self._call("spec", nb, bool(np.any(self._temps[active] > 0.0)))
+        d_host, g_toks, g_logps = out["d_toks"], out["g_toks"], out["g_logps"]
         now = time.time()
         self.stats["steps"] += 1
-        drafted = accepted = rejected = 0
+        self.metrics.inc("serving.decode.steps")
+        self.metrics.observe("serving.decode.spec_draft_step_s",
+                             self._marks.seconds(0, 1))
+        self.metrics.observe("serving.decode.spec_verify_step_s",
+                             self._marks.seconds(1, 2))
+        self.events.append(("spec_step", len(active), nb))
+        if self._last_step_t:
+            # under speculation the step gap covers up to k+1 tokens a
+            # stream: still the stream's stall
+            self.metrics.observe("serving.decode.inter_token_s",
+                                 now - self._last_step_t)
+        self._last_step_t = now
+        n_tok = drafted = accepted = rejected = 0
         for s in active:
             seq = self._slots[s]
             emitted = 0
@@ -1311,10 +1815,19 @@ class DecodeEngine:
             drafted += k
             accepted += min(max(emitted - 1, 0), k)
             rejected += 1 if mismatch else 0
-            self.stats["tokens"] += emitted
+            n_tok += emitted
+        self.stats["tokens"] += n_tok
         self.stats["spec_drafted"] += drafted
         self.stats["spec_accepted"] += accepted
         self.stats["spec_rejected"] += rejected
+        self.metrics.inc("serving.decode.tokens_total", n_tok)
+        self.metrics.inc("serving.decode.spec_drafted_tokens", drafted)
+        self.metrics.inc("serving.decode.spec_accepted_tokens", accepted)
+        self.metrics.inc("serving.decode.spec_rejected_tokens", rejected)
+        self._accept_window.append((now, accepted, accepted + rejected))
+        self._tokens_window.append((now, n_tok))
+        self.metrics.observe("serving.decode.step_s", now - t0)
+        self._export_gauges(now)
         return True
 
     def _emit_token(self, s: int, seq: _ActiveSeq, tok: int,
@@ -1322,6 +1835,7 @@ class DecodeEngine:
         req = seq.req
         if not seq.generated:
             seq.first_token_t = now
+            self.metrics.observe("serving.decode.ttft_s", now - req.admit_t)
         seq.generated.append(tok)
         seq.logp = np.float32(seq.logp + logp)
         if req.on_token is not None:
@@ -1344,6 +1858,7 @@ class DecodeEngine:
             logp=float(seq.logp), prompt_len=len(seq.prompt),
             ttft_s=seq.first_token_t - req.admit_t, finish_reason=reason)
         self.stats["completed"] += 1
+        self.metrics.inc("serving.decode.completed")
         if self.cfg.continuous:
             self._release_slot(s)
         else:
@@ -1370,6 +1885,7 @@ class DecodeEngine:
     def _finish_expired(self, req: DecodeRequest, now: float,
                         seq: Optional[_ActiveSeq] = None) -> None:
         self.stats["expired"] += 1
+        self.metrics.inc("serving.decode.expired")
         err = DeadlineExceededError(req.rid, now - req.admit_t)
         if seq is not None and seq.generated:
             # a streaming request that already produced tokens: the
@@ -1377,7 +1893,41 @@ class DecodeEngine:
             err.partial_tokens = np.asarray(seq.generated, np.int32)
         self._finish_error(req, err)
 
+    def _export_gauges(self, now: float) -> None:
+        """The engine's gauges, at most every 50 ms: slot occupancy, page
+        utilization, queue depth, page bytes, tokens/s over the last 2 s
+        and, under speculation, the acceptance rate."""
+        if now - self._gauge_t < 0.05:
+            return
+        self._gauge_t = now
+        cfg = self.cfg
+        self.metrics.gauge("serving.decode.slot_occupancy",
+                           float(sum(s is not None for s in self._slots))
+                           / cfg.slots)
+        used = cfg.total_pages - len(self._free_pages)
+        self.metrics.gauge("serving.decode.page_utilization",
+                           used / cfg.total_pages)
+        self.metrics.gauge("serving.decode.queue_depth", self.queue_depth())
+        self.metrics.gauge("serving.decode.kv_bytes_per_page",
+                           float(self.kv_bytes_per_page()))
+        window = [(t, n) for t, n in self._tokens_window if now - t <= 2.0]
+        if len(window) >= 2:
+            span = now - window[0][0]
+            if span > 0:
+                self.metrics.gauge("serving.decode.tokens_per_s",
+                                   sum(n for _, n in window) / span)
+        if self._spec is not None:
+            w = [(t, a, d) for t, a, d in self._accept_window
+                 if now - t <= 2.0]
+            total = sum(d for _, _, d in w)
+            if total:
+                self.metrics.gauge("serving.decode.spec_accept_rate",
+                                   sum(a for _, a, _ in w) / total)
+
     # -- the whole-sequence reference ---------------------------------------
+    def _t(self, a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
     def static_generate(self, requests: Sequence[DecodeRequest]
                         ) -> List[DecodeResult]:
         """The reference: each request decoded alone by the same chunked
@@ -1400,9 +1950,10 @@ class DecodeEngine:
         cfg = self.cfg
         a = self.adapter
         B = 2                                  # duplicated row
-        sampling = _Sampling([req.seed] * B, [req.temperature] * B,
-                             [req.top_k] * B, [req.top_p] * B)
-        kbuf = torch.zeros((B, a.num_layers, a.num_heads, cfg.cap,
+        sampling = _Sampling.from_host(
+            [req.seed] * B, [req.temperature] * B, [req.top_k] * B,
+            [req.top_p] * B, self.device)
+        kbuf = torch.zeros((B + 1, a.num_layers, a.num_heads, cfg.cap,
                             a.head_dim), device=self.device)
         vbuf = torch.zeros_like(kbuf)
         C = cfg.prompt_chunk

@@ -54,11 +54,14 @@ class InferenceModel:
     (``Int8Weights``): each call works on a dequantized view, and
     :meth:`weights` lends one to other callers; the caller's model keeps
     its weights.  A keras ``Model`` is refused: the JAX package swaps its
-    nodes' layers, which is not ported yet (ROADMAP item 7.1).
+    nodes' layers, which is not ported yet (ROADMAP A.6.1).
 
     A ``decode`` config serves an LM-mode Transformer's ``generate``
     through a :class:`DecodeEngine`; with ``speculative=SpecConfig(...)``
-    it also builds the weight-sharing block-sparse draft twin at load."""
+    it also builds the weight-sharing block-sparse draft twin at load.
+    On CUDA the engine's calls replay CUDA graphs that :meth:`warmup`
+    captures (``DecodeConfig.cuda_graphs``); without a warmup each graph
+    is captured at its first call."""
 
     def __init__(self, model, decode: Optional[DecodeConfig] = None,
                  device=None, weight_quant: Optional[str] = None,
@@ -128,7 +131,8 @@ class InferenceModel:
                  deadline_s: Optional[float] = None,
                  return_results: bool = False):
         """Generate continuations for ``prompts`` (a list of int token
-        sequences) through the continuous decode engine.  Greedy by
+        sequences) through the continuous decode engine, queued together
+        (one batch, the same schedule from run to run).  Greedy by
         default; ``temperature/top_k/top_p`` sample with the per-request
         ``seeds`` (default: the prompt index).  Returns a list of
         generated-token arrays (EOS included when hit), or the
@@ -137,12 +141,12 @@ class InferenceModel:
         engine = self._engine()
         deadline_t = (time.time() + deadline_s if deadline_s is not None
                       else math.inf)
-        reqs = [engine.submit(DecodeRequest(
+        reqs = engine.submit_many([DecodeRequest(
             tokens=np.asarray(p, np.int32), max_new_tokens=max_new_tokens,
             temperature=temperature, top_k=top_k, top_p=top_p,
             seed=int(seeds[i]) if seeds is not None else i,
-            deadline_t=deadline_t))
-            for i, p in enumerate(prompts)]
+            deadline_t=deadline_t)
+            for i, p in enumerate(prompts)])
         results: List[DecodeResult] = [r.wait(timeout=300.0) for r in reqs]
         return results if return_results else [r.tokens for r in results]
 
@@ -175,7 +179,7 @@ class InferenceModel:
     def warmup(self, sample=None) -> "InferenceModel":
         """Before traffic: one predict per bucket from ``sample`` (one
         example, with or without a batch dim), and the decode engine's
-        warm calls."""
+        closed program set (captured as CUDA graphs on the card)."""
         if sample is not None:
             row = np.asarray(sample)
             row = row[:1] if row.ndim >= 2 else row[None]

@@ -31,21 +31,31 @@ one JSON line:
    what the yardstick reads for a 4-byte memset;
 4. serve  — the GPT-2-small-class LM (12 layers, d=768, 12 heads, FFN
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
-   requests through ``InferenceModel.generate``; the launch counts show
-   the decode steps went through the kernels, and every generated token
-   is checked against a full (uncached) forward of the same model;
-5. profile — the same requests again under torch.profiler: the device's
-   busy share of the wall time and its time by kernel;
+   requests through ``InferenceModel.generate``, on an engine whose
+   calls replay CUDA graphs (``cuda_graphs=True``, captured by
+   ``warmup()``) beside one running the same programs eagerly, three
+   timed runs each, alternating (``serve_run`` lines: tokens/s,
+   ``serving.decode.step_s`` p50 and p99, launches a step, peak
+   memory); every run's tokens and log-probs equal to the bit across
+   the two; warmup seconds, graphs captured and the graph pool's bytes;
+   the launch counts show the decode steps went through the kernels,
+   and every generated token is checked against a full (uncached)
+   forward of the same model; then ``serve_profile`` of each engine:
+   the device's busy share of the wall time and its time by kernel;
 6. serve_spec — the same requests with ``speculative=SpecConfig(k=4,
-   sparsity=0.5)``: every token checked as in serve, every verify
-   through ``paged_verify_attention`` and every draft FFN through
-   ``block_sparse_matmul`` (launch counts), tokens/s beside serve's,
-   acceptance, agreement with serve's tokens; then spec_profile;
+   sparsity=0.5)``, graphs beside eager (two pairs): every token checked
+   as in serve, every verify through ``paged_verify_attention`` and
+   every draft FFN through ``block_sparse_matmul`` (launch counts),
+   tokens/s beside serve's, acceptance, agreement with serve's tokens;
+   then serve_sweep on the same warmed engines: a mixed stream reaching
+   every cache bucket, greedy and sampled, one request disconnecting
+   mid-stream — no capture after warmup, the cancel counted, every page
+   back, the graphs' tokens equal to the eager engine's;
 7. serve_int8 — int8 KV pages and int8 weights, once without and once
-   with speculation (the scan verify on the int8 decode kernel): every
-   token within the int8 tolerance of a full forward of the dequantized
-   weights, launch counts of the int8 kernel, agreement and log-prob
-   drift against serve, page bytes;
+   with speculation (the scan verify on the int8 decode kernel), graphs
+   beside eager: every token within the int8 tolerance of a full
+   forward of the dequantized weights, launch counts of the int8
+   kernel, agreement and log-prob drift against serve, page bytes;
 8. serve_resnet — ResNet-50 (random weights from seed 0, every BN
    redrawn) served through ``InferenceModel.predict`` in float32 and
    with ``weight_quant="int8"``: requests of 1, 3, 16 and 50 NHWC
@@ -256,6 +266,27 @@ BUNDLE = dict(k=4, steps=12, pairs=3, timed_from=4, sync_steps=8,
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
 SPEC = dict(k=4, sparsity=0.5)
+# the serving phases: an engine replaying CUDA graphs (cuda_graphs=True)
+# beside one running the same programs eagerly (cuda_graphs=False), over
+# one seeded LM, timed runs alternating eager, graphs, graphs, eager, ...:
+# serve 3 pairs, serve_spec 2, each serve_int8 configuration 1; then one
+# profiled run of each engine
+SERVE_PAIRS = dict(serve=3, spec=2, int8=1)
+# serve_sweep, on serve_spec's warmed engines: a stream reaching every
+# cache bucket, greedy and sampled requests alternating.  A call's bucket
+# is its longest row's, and one engine iteration runs up to k+1 prefill
+# calls, so the stream comes in stages of (prompt tokens, new tokens),
+# each stage submitted from the token stream of the stage before it (its
+# first request's SWEEP_TRIGGER[i]-th token): the short first stage runs
+# alone (buckets 1 and 2), then 4, 8, and the longest prompts 16 to 64 as
+# each finishes its prefill.  Request SWEEP_CANCEL[0] (in stream order)
+# disconnects at its SWEEP_CANCEL[1]-th token.
+SWEEP_STAGES = (((3, 24), (5, 24), (9, 24)), ((20, 16), (40, 16)),
+                ((90, 20),),
+                ((180, 12), (400, 16), (900, 8), (14, 24), (60, 12),
+                 (250, 8)))
+SWEEP_TRIGGER = (12, 4, 4)
+SWEEP_CANCEL = (7, 5)
 SPARSE_BLOCK = (8, 8)
 VERIFY_CHUNK = SPEC["k"] + 1
 
@@ -901,81 +932,6 @@ def check_flash(dev, flush):
     return rows
 
 
-def serve(dev):
-    """Drive the serving main path once and check what comes out."""
-    from bigdl_tpu_torch.nn import Transformer
-    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
-    from bigdl_tpu_torch.serving import (DecodeConfig, DecodeRequest,
-                                         InferenceModel)
-
-    t0 = time.perf_counter()
-    model = Transformer(**LM, dropout=0.0, seed=SEED)
-    im = InferenceModel(model, decode=DecodeConfig(**DECODE), device=dev)
-    try:
-        im.warmup()
-        setup_s = time.perf_counter() - t0
-        rs = np.random.RandomState(SEED)
-        prompts = [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
-                   for n in rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
-                                       N_REQUESTS)]
-        eng = im.decode_engine
-        steps0 = eng.stats["steps"]
-        torch.cuda.synchronize()
-        reset_launches()
-        t1 = time.perf_counter()
-        results = im.generate(prompts, return_results=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = dict(LAUNCHES)
-        steps = eng.stats["steps"] - steps0
-
-        if len(results) != N_REQUESTS or any(
-                r.finish_reason not in ("eos", "length") or len(r.tokens) < 1
-                for r in results):
-            raise AssertionError(f"not every request was answered: "
-                                 f"{[r.finish_reason for r in results]}")
-        if not all(np.isfinite(r.logp) for r in results):
-            raise AssertionError("a request's log-prob is not finite")
-        want = LM["num_layers"] * steps
-        if steps < 1 or launches.get("paged_decode_attention", 0) != want:
-            raise AssertionError(f"paged_decode_attention launched "
-                                 f"{launches} times over {steps} decode "
-                                 f"steps of {LM['num_layers']} layers")
-
-        # every generated token against a full uncached forward of the
-        # same model: finite logits, the token within 1e-3 of the top
-        # logit, and the request's summed log-prob within 1e-3
-        worst_gap, worst_logp = check_tokens(im, prompts, results, dev)
-        if worst_gap > 1e-3 or worst_logp > 1e-3:
-            raise AssertionError(f"served tokens disagree with the full "
-                                 f"forward: logit gap {worst_gap}, logp "
-                                 f"{worst_logp}")
-
-        # continuous vs static decoding on the card: reported, not assumed
-        static = eng.static_generate([DecodeRequest(tokens=p)
-                                      for p in prompts])
-        agree = sum(a.tokens.tolist() == b.tokens.tolist()
-                    for a, b in zip(results, static))
-        n_tok = int(sum(len(r.tokens) for r in results))
-        emit({"phase": "serve", "model": LM, "decode": DECODE,
-              "requests": len(results), "answered": len(results),
-              "finish_reasons": sorted({r.finish_reason for r in results}),
-              "prompt_tokens": int(sum(len(p) for p in prompts)),
-              "generated_tokens": n_tok, "decode_steps": steps,
-              "prefill_chunks": eng.stats["prefill_chunks"],
-              "launches": launches, "nan_logits": False,
-              "max_logit_gap": worst_gap, "max_logp_err": worst_logp,
-              "static_agree": f"{agree}/{len(results)}",
-              "kv_bytes_per_page": eng.kv_bytes_per_page(),
-              "wall_s": wall, "tokens_per_s": n_tok / wall,
-              "setup_s": setup_s,
-              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30})
-        emit({"phase": "profile", **profile_serving(im, prompts)})
-        return launches, prompts, results, n_tok / wall
-    finally:
-        im.stop()
-
-
 def check_tokens(im, prompts, results, dev, tol_fn=None):
     """Every generated token against a full uncached forward of the
     served model (its dequantized weights under ``weight_quant``).
@@ -1033,12 +989,64 @@ def _spec_launches_check(launches, steps, calls, k, name):
     return want_bs
 
 
+def _sample_metrics():
+    """A metrics registry for one serving run that also keeps every
+    observed sample, for exact percentiles of the run."""
+    from bigdl_tpu_torch.optim.metrics import Metrics
+
+    class Samples(Metrics):
+        def __init__(self):
+            super().__init__()
+            self.samples = {}
+
+        def observe(self, name, value, labels=None):
+            super().observe(name, value, labels)
+            self.samples.setdefault(name, []).append(float(value))
+
+    return Samples()
+
+
+def _lm_pair(dev, weight_quant=None, **cfg):
+    """Two InferenceModels of the seeded LM, one whose engine replays CUDA
+    graphs (``cuda_graphs=True``) and one whose engine runs the same
+    programs eagerly (``cuda_graphs=False``), each warmed up: ({mode: im},
+    {mode: warmup row})."""
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.serving import DecodeConfig, InferenceModel
+
+    model = Transformer(**LM, dropout=0.0, seed=SEED)
+    pair, rows = {}, {}
+    for mode in ("graphs", "eager"):
+        im = InferenceModel(model, decode=DecodeConfig(
+            **DECODE, cuda_graphs=mode == "graphs", **cfg), device=dev,
+            weight_quant=weight_quant)
+        pair[mode] = im
+        eng = im.decode_engine
+        eng.metrics = _sample_metrics()
+        torch.cuda.synchronize()
+        im.warmup()
+        pool = eng.graph_pool_bytes()
+        rows[mode] = {
+            "warmup_s": eng.warmup_s, "graphs_captured": eng.graphs_captured,
+            "graph_captures_counted": eng.metrics.counter(
+                "serving.decode.graph_captures"),
+            "graph_pool_gb": None if pool is None else pool / 2**30,
+            "closed_set": len(eng.closed_set())}
+    return pair, rows
+
+
+def _percentile_ms(samples, q):
+    return 1e3 * float(np.percentile(samples, q)) if samples else None
+
+
 def _serve_run(im, prompts):
-    """One timed generate of ``prompts`` on ``im``: (results, wall s,
-    launches, engine stats delta)."""
+    """One timed ``generate`` of ``prompts`` on ``im``, its engine on a
+    fresh metrics registry: a dict of the results, wall s, launches, the
+    engine's stats delta and the run's row."""
     from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
 
     eng = im.decode_engine
+    eng.metrics = _sample_metrics()
     before = dict(eng.stats)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1054,24 +1062,177 @@ def _serve_run(im, prompts):
             or not np.isfinite(r.logp) for r in results):
         raise AssertionError(f"not every request was answered: "
                              f"{[r.finish_reason for r in results]}")
-    return results, wall, launches, delta
+    steps = max(delta["steps"], 1)
+    n_tok = int(sum(len(r.tokens) for r in results))
+    samples = eng.metrics.samples
+    step_s = samples.get("serving.decode.step_s", [])
+    row = {"tokens_per_s": n_tok / wall, "wall_s": wall,
+           "generated_tokens": n_tok, "steps": delta["steps"],
+           "prefill_calls": delta["prefill_calls"],
+           "step_ms_p50": _percentile_ms(step_s, 50),
+           "step_ms_p99": _percentile_ms(step_s, 99),
+           "prefill_ms_p50": _percentile_ms(
+               samples.get("serving.decode.prefill_s", []), 50),
+           "inter_token_ms_p50": _percentile_ms(
+               samples.get("serving.decode.inter_token_s", []), 50),
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    for name in ("spec_draft_step_s", "spec_verify_step_s"):
+        got = samples.get(f"serving.decode.{name}")
+        if got:
+            row[name[:-2] + "_ms_p50"] = _percentile_ms(got, 50)
+    return {"results": results, "wall": wall, "launches": launches,
+            "delta": delta, "row": row}
+
+
+def _replay_host_ms(eng, reps=5) -> dict:
+    """The host's time to launch one replay of each program's greedy
+    graph at the largest bucket onto an idle card, median of ``reps``
+    (idle inputs: every write goes to the sink; not counted as
+    launches)."""
+    nb = eng.cfg.len_buckets()[-1]
+    out = {}
+    for (name, b, sampled), entry in eng._graphs.items():
+        if b != nb or sampled:
+            continue
+        eng._programs[name].dev_in.copy_(eng._programs[name].idle)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry.graph.replay()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out[name] = 1e3 * float(np.median(times))
+    return out
+
+
+def _same_bits(name, want, got) -> None:
+    """Graphs against eager: every token and summed log-prob to the bit."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a.tokens.tolist() != b.tokens.tolist() \
+                or np.float32(a.logp).tobytes() != np.float32(b.logp).tobytes():
+            raise AssertionError(
+                f"{name}: request {i} differs between the runs: tokens "
+                f"{a.tokens.tolist()[:8]}... vs {b.tokens.tolist()[:8]}..., "
+                f"logp {a.logp!r} vs {b.logp!r}")
+
+
+def _serve_pairs(pair, prompts, n_pairs, name, busy=True):
+    """``n_pairs`` timed runs of each engine, alternating eager, graphs,
+    graphs, eager, ...: every run's tokens and log-probs equal to the
+    first eager run's to the bit, and every run's launches equal (a
+    replay credits its capture's counts); then, with ``busy``, one
+    profiled run of each engine for the device's busy share.  Returns
+    {mode: summary} and the first graphs run."""
+    order = []
+    for i in range(n_pairs):
+        order += ["eager", "graphs"] if i % 2 == 0 else ["graphs", "eager"]
+    runs = {"graphs": [], "eager": []}
+    for mode in order:
+        run = _serve_run(pair[mode], prompts)
+        emit({"phase": f"{name}_run", "mode": mode,
+              "run": len(runs[mode]), **run["row"]})
+        runs[mode].append(run)
+    ref = runs["eager"][0]
+    for mode, rs in runs.items():
+        for run in rs:
+            _same_bits(name, ref["results"], run["results"])
+            if run["launches"] != ref["launches"]:
+                raise AssertionError(f"{name}: launches {run['launches']} "
+                                     f"({mode}) against {ref['launches']}")
+    summary = {}
+    for mode, rs in runs.items():
+        rows = [r["row"] for r in rs]
+        summary[mode] = {
+            "tokens_per_s": [r["tokens_per_s"] for r in rows],
+            "step_ms_p50": [r["step_ms_p50"] for r in rows],
+            "step_ms_p99": [r["step_ms_p99"] for r in rows],
+            "launches_per_step": rows[0]["launches_per_step"],
+            "peak_mem_gb": max(r["peak_mem_gb"] for r in rows)}
+        if mode == "graphs":
+            summary[mode]["replay_host_ms"] = _replay_host_ms(
+                pair[mode].decode_engine)
+        if busy:
+            prof = _profile(lambda im=pair[mode]: im.generate(prompts))
+            summary[mode]["device_busy_share"] = prof["device_busy_share"]
+            emit({"phase": f"{name}_profile", "mode": mode, **prof})
+    summary["bits_equal"] = True
+    return summary, runs["graphs"][0]
+
+
+def serve(dev):
+    """Drive the serving main path: the seeded LM answers the requests
+    through ``InferenceModel.generate``, an engine replaying CUDA graphs
+    beside one running the same programs eagerly, and check what comes
+    out."""
+    t0 = time.perf_counter()
+    pair, setup = _lm_pair(dev)
+    try:
+        setup_s = time.perf_counter() - t0
+        rs = np.random.RandomState(SEED)
+        prompts = [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
+                   for n in rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                       N_REQUESTS)]
+        modes, run = _serve_pairs(pair, prompts, SERVE_PAIRS["serve"],
+                                  "serve")
+        results, launches = run["results"], run["launches"]
+        steps = run["delta"]["steps"]
+        want = LM["num_layers"] * steps
+        if steps < 1 or launches.get("paged_decode_attention", 0) != want:
+            raise AssertionError(f"paged_decode_attention launched "
+                                 f"{launches} times over {steps} decode "
+                                 f"steps of {LM['num_layers']} layers")
+        im = pair["graphs"]
+        # every generated token against a full uncached forward of the
+        # same model: finite logits, the token within 1e-3 of the top
+        # logit, and the request's summed log-prob within 1e-3
+        worst_gap, worst_logp = check_tokens(im, prompts, results, dev)
+        if worst_gap > 1e-3 or worst_logp > 1e-3:
+            raise AssertionError(f"served tokens disagree with the full "
+                                 f"forward: logit gap {worst_gap}, logp "
+                                 f"{worst_logp}")
+        # continuous vs static decoding on the card: reported, not assumed
+        eng = im.decode_engine
+        from bigdl_tpu_torch.serving import DecodeRequest
+
+        static = eng.static_generate([DecodeRequest(tokens=p)
+                                      for p in prompts])
+        agree = sum(a.tokens.tolist() == b.tokens.tolist()
+                    for a, b in zip(results, static))
+        n_tok = int(sum(len(r.tokens) for r in results))
+        tps = float(np.median(modes["graphs"]["tokens_per_s"]))
+        emit({"phase": "serve", "model": LM, "decode": DECODE,
+              "requests": len(results), "answered": len(results),
+              "finish_reasons": sorted({r.finish_reason for r in results}),
+              "prompt_tokens": int(sum(len(p) for p in prompts)),
+              "generated_tokens": n_tok, "decode_steps": steps,
+              "prefill_calls": run["delta"]["prefill_calls"],
+              "launches": launches, "nan_logits": False,
+              "max_logit_gap": worst_gap, "max_logp_err": worst_logp,
+              "static_agree": f"{agree}/{len(results)}",
+              "kv_bytes_per_page": eng.kv_bytes_per_page(),
+              "tokens_per_s": tps, "setup_s": setup_s, "warmup": setup,
+              "modes": modes})
+        return launches, prompts, results, tps
+    finally:
+        for im in pair.values():
+            im.stop()
 
 
 def serve_spec(dev, prompts, ref_results, ref_tps):
-    """Drive the speculative serving path once and check what comes
-    out; then profile it."""
-    from bigdl_tpu_torch.nn import Transformer
-    from bigdl_tpu_torch.serving import (DecodeConfig, InferenceModel,
-                                         SpecConfig)
+    """Drive the speculative serving path, graphs beside eager, and check
+    what comes out.  Returns its launches and the pair (serve_sweep runs
+    on it next)."""
+    from bigdl_tpu_torch.serving import SpecConfig
 
     t0 = time.perf_counter()
-    model = Transformer(**LM, dropout=0.0, seed=SEED)
-    im = InferenceModel(model, decode=DecodeConfig(
-        **DECODE, speculative=SpecConfig(**SPEC)), device=dev)
+    pair, setup = _lm_pair(dev, speculative=SpecConfig(**SPEC))
     try:
-        im.warmup()
         setup_s = time.perf_counter() - t0
-        results, wall, launches, d = _serve_run(im, prompts)
+        modes, run = _serve_pairs(pair, prompts, SERVE_PAIRS["spec"],
+                                  "serve_spec")
+        results, launches, d = run["results"], run["launches"], run["delta"]
         steps, calls = d["steps"], d["prefill_calls"]
         L = LM["num_layers"]
         if steps < 1 or launches.get("paged_verify_attention", 0) \
@@ -1081,6 +1242,7 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
                                  f"iterations of {L} layers")
         _spec_launches_check(launches, steps, calls, SPEC["k"],
                              "serve_spec")
+        im = pair["graphs"]
         gap, dlogp = check_tokens(im, prompts, results, dev)
         if gap > 1e-3:
             raise AssertionError(f"speculative tokens disagree with the full "
@@ -1099,34 +1261,35 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
               "accept_rate": d["spec_accepted"] / max(d["spec_drafted"], 1),
               "tokens_per_iteration": n_tok / max(steps, 1),
               "spec_off_agree": f"{agree}/{len(results)}",
-              "wall_s": wall, "tokens_per_s": n_tok / wall,
+              "tokens_per_s": float(np.median(
+                  modes["graphs"]["tokens_per_s"])),
               "spec_off_tokens_per_s": ref_tps, "setup_s": setup_s,
+              "warmup": setup,
               "kv_bytes_per_page": im.decode_engine.kv_bytes_per_page(),
-              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30})
-        emit({"phase": "spec_profile",
-              **_profile(lambda: im.generate(prompts))})
-        return launches
-    finally:
-        im.stop()
+              "modes": modes})
+        return launches, pair
+    except BaseException:
+        for im in pair.values():
+            im.stop()
+        raise
 
 
 def serve_int8(dev, prompts, ref_results):
-    """Int8 KV pages and int8 weights, spec off then on."""
-    from bigdl_tpu_torch.nn import Transformer
-    from bigdl_tpu_torch.serving import (DecodeConfig, InferenceModel,
-                                         SpecConfig)
+    """Int8 KV pages and int8 weights, spec off then on, graphs beside
+    eager."""
+    from bigdl_tpu_torch.serving import SpecConfig
 
     out = {}
     L = LM["num_layers"]
     for spec in (None, SpecConfig(**SPEC)):
-        # the float32 model is not kept: the engine serves its int8 copy
-        im = InferenceModel(Transformer(**LM, dropout=0.0, seed=SEED),
-                            decode=DecodeConfig(**DECODE, kv_dtype="int8",
-                                                speculative=spec),
-                            device=dev, weight_quant="int8")
+        # the engines serve their int8 copies of one float32 model
+        pair, setup = _lm_pair(dev, weight_quant="int8", kv_dtype="int8",
+                               speculative=spec)
         try:
-            im.warmup()
-            results, wall, launches, d = _serve_run(im, prompts)
+            modes, run = _serve_pairs(pair, prompts, SERVE_PAIRS["int8"],
+                                      "serve_int8")
+            results, launches, d = (run["results"], run["launches"],
+                                    run["delta"])
             steps = d["steps"]
             # spec off: one int8 decode launch per layer and step; spec on:
             # the scan verify runs k+1 decode-step bodies per iteration
@@ -1139,6 +1302,7 @@ def serve_int8(dev, prompts, ref_results):
             if spec is not None:
                 _spec_launches_check(launches, steps, d["prefill_calls"],
                                      SPEC["k"], "serve_int8 spec")
+            im = pair["graphs"]
             gap, dlogp = check_tokens(im, prompts, results, dev,
                                       int8_gap_tolerance)
             n_tok = int(sum(len(r.tokens) for r in results))
@@ -1161,9 +1325,9 @@ def serve_int8(dev, prompts, ref_results):
                    else None,
                    "kv_bytes_per_page": im.decode_engine.kv_bytes_per_page(),
                    "weight_bytes_at_rest": w8.nbytes(),
-                   "wall_s": wall, "tokens_per_s": n_tok / wall,
-                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
-                   / 2**30}
+                   "tokens_per_s": float(np.median(
+                       modes["graphs"]["tokens_per_s"])),
+                   "warmup": setup, "modes": modes}
             if spec is not None:
                 row.update(drafted=d["spec_drafted"],
                            accepted=d["spec_accepted"],
@@ -1172,14 +1336,126 @@ def serve_int8(dev, prompts, ref_results):
             emit(row)
             out[tag] = launches
         finally:
-            im.stop()
+            for im in pair.values():
+                im.stop()
     return out
 
 
-def profile_serving(im, prompts) -> dict:
-    """The same requests once more under torch.profiler.  The counts of
-    the main run were read before this."""
-    return _profile(lambda: im.generate(prompts))
+def serve_sweep(dev, pair):
+    """After warmup(), on both engines of the serve_spec pair: a mixed
+    stream whose prompts reach every cache bucket (``SWEEP_STAGES``, each
+    stage submitted from the token stream of the one before),
+    greedy and sampled requests alternating, speculation on, one request
+    cancelled from its own token stream (``reason="client_disconnect"``).
+    Both engines see the same schedule.  Holds: zero unexpected
+    captures, the cancel counted once as a client disconnect, every page
+    back on the free list, and every token and log-prob of the graphs'
+    stream (the cancelled request's partial tokens too) equal to the
+    eager stream's."""
+    from bigdl_tpu_torch.serving import DecodeRequest, RequestCancelledError
+
+    rs = np.random.RandomState(SEED + 1)
+    shape = [r for stage in SWEEP_STAGES for r in stage]
+    prompts = [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
+               for n, _ in shape]
+    starts = np.cumsum([0] + [len(st) for st in SWEEP_STAGES])
+    victim, at = SWEEP_CANCEL
+    out = {}
+    for mode in ("graphs", "eager"):
+        eng = pair[mode].decode_engine
+        eng.metrics = _sample_metrics()
+        eng.calls.clear()
+        reqs = [DecodeRequest(tokens=p, max_new_tokens=new,
+                              temperature=1.1 if i % 2 else 0.0, top_k=50,
+                              top_p=0.95, seed=i)
+                for i, (p, (_, new)) in enumerate(zip(prompts, shape))]
+
+        submitted = set()
+
+        def submit_stage(st, eng=eng, reqs=reqs, submitted=submitted):
+            # on the engine thread, once: at the trigger token, or when
+            # the triggering request ends first
+            if st not in submitted:
+                submitted.add(st)
+                eng.submit_many(reqs[starts[st]:starts[st + 1]])
+
+        def next_stage(rid, tok, idx, reqs=reqs):
+            st = int(np.searchsorted(starts, reqs.index(
+                next(r for r in reqs if r.rid == rid)), side="right"))
+            if idx + 1 == SWEEP_TRIGGER[st - 1]:
+                submit_stage(st)
+
+        def disconnect(rid, tok, idx, eng=eng):
+            if idx + 1 == at:
+                eng.cancel(rid, reason="client_disconnect")
+
+        for st in range(len(SWEEP_STAGES) - 1):
+            reqs[starts[st]].on_token = next_stage
+            reqs[starts[st]].on_done = \
+                lambda r, st=st: submit_stage(st + 1)
+        reqs[victim].on_token = disconnect
+        t0 = time.perf_counter()
+        eng.submit_many(reqs[:starts[1]])
+        results, partial = [], None
+        for i, r in enumerate(reqs):
+            deadline = time.time() + 300
+            while not r.rid and time.time() < deadline:
+                time.sleep(0.01)     # submitted from the engine thread
+            try:
+                results.append(r.wait(timeout=300))
+            except RequestCancelledError as e:
+                if i != victim or e.reason != "client_disconnect":
+                    raise
+                partial = e.partial_tokens.tolist()
+                results.append(None)
+        wall = time.perf_counter() - t0
+        deadline = time.time() + 30
+        while len(eng._free_pages) != eng.cfg.total_pages \
+                or eng._reserved_pages:
+            if time.time() > deadline:
+                raise AssertionError(
+                    f"serve_sweep ({mode}): "
+                    f"{eng.cfg.total_pages - len(eng._free_pages)} pages "
+                    f"never came back")
+            time.sleep(0.01)
+        m = eng.metrics
+        out[mode] = {
+            "results": results, "partial": partial,
+            "unexpected_captures": m.counter(
+                "serving.decode.unexpected_captures"),
+            "cancelled": m.counter("serving.decode.cancelled"),
+            "client_disconnects": m.counter(
+                "serving.decode.client_disconnects"),
+            "free_pages": len(eng._free_pages),
+            "calls": {f"{n}@{nb}{'s' if smp else 'g'}": c
+                      for (n, nb, smp), c in sorted(eng.calls.items())},
+            "wall_s": wall}
+    g, e = out["graphs"], out["eager"]
+    if g["unexpected_captures"] != 0 or g["cancelled"] != 1 \
+            or g["client_disconnects"] != 1 or e["cancelled"] != 1:
+        raise AssertionError(f"serve_sweep: {g}")
+    if g["partial"] is None or g["partial"] != e["partial"] \
+            or len(g["partial"]) < at:
+        raise AssertionError(f"serve_sweep: cancelled stream {g['partial']} "
+                             f"vs {e['partial']}")
+    _same_bits("serve_sweep", [r for r in e["results"] if r is not None],
+               [r for r in g["results"] if r is not None])
+    cfg = pair["graphs"].decode_engine.cfg
+    buckets = sorted({nb for n, nb, _ in pair["graphs"].decode_engine.calls
+                      if n == "spec"})
+    if buckets != list(cfg.len_buckets()):
+        raise AssertionError(f"serve_sweep reached the speculative "
+                             f"program at buckets {buckets} only")
+    emit({"phase": "serve_sweep", "requests": len(prompts),
+          "prompt_lens": [n for n, _ in shape],
+          "unexpected_captures": g["unexpected_captures"],
+          "cancelled": g["cancelled"],
+          "client_disconnects": g["client_disconnects"],
+          "partial_tokens": len(g["partial"]),
+          "free_pages": g["free_pages"], "total_pages": cfg.total_pages,
+          "spec_buckets": buckets, "calls": g["calls"],
+          "graphs_equal_eager": True,
+          "wall_s": {"graphs": g["wall_s"], "eager": e["wall_s"]}})
 
 
 def _device_kernels(events) -> list:
@@ -3480,9 +3756,15 @@ def main() -> int:
     launches, prompts, results, tps = serve(dev)
     decode_row["launches"] = launches.get(decode_row["name"], 0)
     torch.cuda.empty_cache()
-    launches = serve_spec(dev, prompts, results, tps)
+    launches, spec_pair = serve_spec(dev, prompts, results, tps)
     verify_row["launches"] = launches.get(verify_row["name"], 0)
     sparse_row["launches"] = launches.get(sparse_row["name"], 0)
+    try:
+        serve_sweep(dev, spec_pair)
+    finally:
+        for im in spec_pair.values():
+            im.stop()
+    del spec_pair
     torch.cuda.empty_cache()
     launches = serve_int8(dev, prompts, results)
     int8_row["launches"] = launches["plain"].get(int8_row["name"], 0)

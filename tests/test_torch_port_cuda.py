@@ -7,6 +7,8 @@ only the port is installed; on the card:
 
 Tolerance: float32 sums in another order, rtol and atol 1e-4."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1085,3 +1087,207 @@ def test_bundles_from_a_depth_2_ring_equal_the_serial_feed(card, tmp_path):
     assert bundled.losses == serial.losses and len(serial.losses) == 12
     assert bundled.metrics.counter("data.dispatch_overlapped_total") > 0
     ds.close()
+
+
+# ---- the decode engine's closed program set as CUDA graphs ---------------------
+
+LM_SERVE = dict(vocab_size=256, hidden_size=128, num_heads=2, ffn_size=256,
+                num_layers=2)
+SERVE_GEOMETRY = dict(slots=4, page_size=16, pages_per_slot=8,
+                      prompt_chunk=16, prefill_batch=2, max_new_tokens=12,
+                      eos_id=1)
+
+
+def _serve_prompts(n=6, seed=0, hi=60):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(2, 256, int(k)).astype(np.int32)
+            for k in rs.randint(3, hi, n)]
+
+
+def _serve_engine(card, graphs, int8=False, spec=False, **over):
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.optim.metrics import Metrics
+    from bigdl_tpu_torch.serving import (DecodeConfig, DecodeEngine,
+                                         LMAdapter, SpecConfig)
+
+    cfg = DecodeConfig(**dict(SERVE_GEOMETRY, **over), cuda_graphs=graphs,
+                       kv_dtype="int8" if int8 else "float32",
+                       speculative=SpecConfig(k=3, sparsity=0.5)
+                       if spec else None)
+    model = Transformer(**LM_SERVE, dropout=0.0, seed=0).to(card).eval()
+    return DecodeEngine(LMAdapter(model, cfg.cap,
+                                  weight_quant="int8" if int8 else None),
+                        cfg, metrics=Metrics())
+
+
+def _serve_waves(eng, prompts):
+    """A greedy wave, then a sampled one (seeded), through the engine:
+    the results and the launch counts of the whole run."""
+    from bigdl_tpu_torch.serving import DecodeRequest
+
+    out = []
+    for temp in (0.0, 1.1):
+        reqs = [eng.submit(DecodeRequest(tokens=p, temperature=temp,
+                                         top_k=20, top_p=0.9, seed=7 + i))
+                for i, p in enumerate(prompts)]
+        out += [r.wait(timeout=120) for r in reqs]
+    return out
+
+
+@pytest.mark.parametrize("flash", [True, False])
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_graphs_equal_eager_to_the_bit(card, int8, spec, flash):
+    """Every program of the closed set replayed from its graph against
+    the same functions run eagerly: tokens, summed log-probs and every
+    live page (and int8 scale) equal to the bit, the launches of each
+    kernel the same, greedy and sampled waves, the chunk verify (greedy
+    float32 on the paged kernel) and the scan verify."""
+    from bigdl_tpu_torch.ops import reset_launches
+
+    prompts = _serve_prompts()
+    runs = []
+    for graphs in (False, True):
+        eng = _serve_engine(card, graphs, int8, spec,
+                            use_flash_decode=flash).warmup()
+        try:
+            reset_launches()
+            res = _serve_waves(eng, prompts)
+            torch.cuda.synchronize()
+            runs.append((eng, res, dict(LAUNCHES)))
+        finally:
+            eng.stop()
+    (e0, r0, n0), (e1, r1, n1) = runs
+    assert e0.graphs_captured == 0 and e1.graphs_captured == len(
+        e1.closed_set()) == 16
+    assert e1.metrics.counter("serving.decode.graph_captures") == 16
+    for a, b in zip(r0, r1):
+        assert a.tokens.tolist() == b.tokens.tolist()
+        assert np.float32(a.logp).tobytes() == np.float32(b.logp).tobytes()
+    P = e0.cfg.total_pages
+    pools = ["_kv_k", "_kv_v"] + (["_kv_sk", "_kv_sv"] if int8 else []) \
+        + (["_dr_k", "_dr_v"] if spec else [])
+    for name in pools:
+        assert torch.equal(getattr(e0, name)[:, :P],
+                           getattr(e1, name)[:, :P]), name
+    assert n0 == n1 and (bool(n1) == (flash or spec))
+    assert e1.stats["steps"] == e0.stats["steps"]
+
+
+def test_decode_sweep_after_warmup_captures_nothing(card):
+    """A mixed stream after warmup(): prompt lengths reaching every
+    bucket, greedy and sampled, speculation on — zero unexpected
+    captures; then every page back on the free list."""
+    from bigdl_tpu_torch.serving import DecodeRequest
+
+    eng = _serve_engine(card, True, spec=True).warmup()
+    try:
+        rs = np.random.RandomState(3)
+        reqs = [eng.submit(DecodeRequest(
+            tokens=rs.randint(2, 256, int(n)).astype(np.int32),
+            max_new_tokens=int(rs.randint(1, 12)),
+            temperature=float(i % 2) * 1.2, seed=i))
+            for i, n in enumerate([3, 12, 20, 40, 70, 100, 115, 8, 33, 60])]
+        res = [r.wait(timeout=120) for r in reqs]
+        assert all(len(r.tokens) >= 1 for r in res)
+        assert eng.metrics.counter("serving.decode.unexpected_captures") == 0
+        assert eng.graphs_captured == len(eng.closed_set())
+        deadline = time.time() + 30
+        while len(eng._free_pages) != eng.cfg.total_pages:
+            assert time.time() < deadline
+            time.sleep(0.01)
+    finally:
+        eng.stop()
+
+
+def test_decode_program_with_a_host_read_refuses_capture(card):
+    """A program that reads the card on the host cannot be captured:
+    warmup raises naming the program, and no graph is kept."""
+    eng = _serve_engine(card, True)
+    prog = eng._programs["step"]
+    body = prog.fn
+
+    def reads_the_card(n_blocks, sampled, x):
+        if int(x["lengths"].sum()) > 10 ** 9:
+            pass
+        return body(n_blocks, sampled, x)
+
+    prog.fn = reads_the_card
+    try:
+        with pytest.raises(RuntimeError,
+                           match="step program .* cannot be captured"):
+            eng.warmup()
+        assert ("step", 1, False) not in eng._graphs
+    finally:
+        eng.stop()
+
+
+def test_decode_replays_credit_their_launches(card):
+    """Each replay of a step graph credits the capture's launches: 2
+    paged-decode launches (one a layer) per step, as eagerly."""
+    from bigdl_tpu_torch.ops import reset_launches
+
+    eng = _serve_engine(card, True).warmup()
+    try:
+        reset_launches()
+        steps0 = eng.stats["steps"]
+        _serve_waves(eng, _serve_prompts(4))
+        steps = eng.stats["steps"] - steps0
+        assert steps > 0
+        assert LAUNCHES["paged_decode_attention"] == 2 * steps
+    finally:
+        eng.stop()
+
+
+def _iterate(eng):
+    """One engine iteration on the calling thread (the engine's own
+    thread never started)."""
+    with eng._iter_lock:
+        eng._sweep_cancelled()
+        eng._expire(time.time())
+        eng._admit()
+        eng._decode_step()
+        eng._prefill_one()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_cancelled_slot_writes_only_the_sink(card, int8):
+    """A slot cancelled between two replays is inactive in the next one:
+    its freed pages (those no other slot took since) keep their bytes
+    while the other stream advances, and the cancel frees every page."""
+    from bigdl_tpu_torch.serving import DecodeRequest, RequestCancelledError
+
+    eng = _serve_engine(card, True, int8, max_new_tokens=60,
+                        eos_id=-1).warmup()
+    eng._ensure_thread = lambda: None
+    try:
+        a, b = (eng.submit(DecodeRequest(tokens=p, max_new_tokens=60,
+                                         on_token=lambda *_: None))
+                for p in _serve_prompts(2, seed=5, hi=20))
+        while not (eng._slots[0] and len(eng._slots[0].generated) >= 3):
+            _iterate(eng)
+        pages = list(eng._slots[0].pages)
+        eng.cancel(a.rid, reason="client_disconnect")
+        pools = [eng._kv_k, eng._kv_v] + ([eng._kv_sk, eng._kv_sv]
+                                          if int8 else [])
+        snap = [t[:, pages].clone() for t in pools]
+        before = len(eng._slots[1].generated)
+        for _ in range(4):
+            _iterate(eng)
+        torch.cuda.synchronize()
+        with pytest.raises(RequestCancelledError):
+            a.wait(timeout=1)
+        assert len(a.error.partial_tokens) >= 3
+        assert len(eng._slots[1].generated) == before + 4
+        kept = [i for i, p in enumerate(pages)
+                if p not in eng._slots[1].pages]
+        assert kept
+        for t, old in zip(pools, snap):
+            assert torch.equal(t[:, pages][:, kept], old[:, kept])
+        assert eng.stats["cancelled"] == 1
+        assert eng.metrics.counter("serving.decode.client_disconnects") == 1
+        eng.cancel(b.rid)
+        _iterate(eng)
+        assert len(eng._free_pages) == eng.cfg.total_pages
+    finally:
+        eng.stop()

@@ -357,5 +357,5 @@ def test_keras_models_refuse_int8():
                                         weight_quant="int8"),
                  lambda: quantize(model),
                  lambda: calibrate(model, [np.zeros((2, 4), np.float32)])):
-        with pytest.raises(ValueError, match="keras Model .*item 7.1"):
+        with pytest.raises(ValueError, match="keras Model .*A\\.6\\.1"):
             call()
