@@ -8,6 +8,16 @@ from bigdl_tpu_torch.nn.criterion import (
     CosineEmbeddingCriterion, Criterion, CrossEntropyCriterion,
     KLDivCriterion, MarginRankingCriterion, MSECriterion, ParallelCriterion,
     SmoothL1Criterion, TimeDistributedCriterion)
+from bigdl_tpu_torch.nn.criterion_extra import (
+    CategoricalCrossEntropy, CosineDistanceCriterion,
+    CosineProximityCriterion, DiceCoefficientCriterion, DistKLDivCriterion,
+    GaussianCriterion, HingeEmbeddingCriterion, KLDCriterion,
+    KullbackLeiblerDivergenceCriterion, L1Cost, L1HingeEmbeddingCriterion,
+    MarginCriterion, MeanAbsolutePercentageCriterion,
+    MeanSquaredLogarithmicCriterion, MultiCriterion,
+    MultiLabelSoftMarginCriterion, MultiMarginCriterion, PGCriterion,
+    PoissonCriterion, RankHingeCriterion, SoftMarginCriterion,
+    TimeDistributedMaskCriterion, TransformerCriterion)
 from bigdl_tpu_torch.nn.freeze import has_frozen, trainable_mask_for
 from bigdl_tpu_torch.nn.layers import (
     ELU, GELU, AvgPool2D, BatchNorm, BatchNormalization, Conv1D, Conv2D,
@@ -31,6 +41,16 @@ from bigdl_tpu_torch.nn.quantized import (QuantizedConv2D, QuantizedLinear,
                                           calibrate, quantize)
 
 __all__ = [
+    "CategoricalCrossEntropy", "CosineDistanceCriterion",
+    "CosineProximityCriterion", "DiceCoefficientCriterion",
+    "DistKLDivCriterion", "GaussianCriterion", "HingeEmbeddingCriterion",
+    "KLDCriterion", "KullbackLeiblerDivergenceCriterion", "L1Cost",
+    "L1HingeEmbeddingCriterion", "MarginCriterion",
+    "MeanAbsolutePercentageCriterion", "MeanSquaredLogarithmicCriterion",
+    "MultiCriterion", "MultiLabelSoftMarginCriterion",
+    "MultiMarginCriterion", "PGCriterion", "PoissonCriterion",
+    "RankHingeCriterion", "SoftMarginCriterion",
+    "TimeDistributedMaskCriterion", "TransformerCriterion",
     "AbsCriterion", "AvgPool2D", "BCECriterion", "BCEWithLogitsCriterion",
     "CosineEmbeddingCriterion", "KLDivCriterion", "MSECriterion",
     "MarginRankingCriterion", "ParallelCriterion", "SmoothL1Criterion",

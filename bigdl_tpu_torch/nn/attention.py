@@ -30,7 +30,7 @@ from bigdl_tpu_torch.nn import init
 from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
-from bigdl_tpu_torch.tensor.policy import cast_compute
+from bigdl_tpu_torch.tensor.policy import matmul_f32
 from bigdl_tpu_torch.utils import prng
 
 
@@ -58,8 +58,7 @@ def dot_product_attention(q, k, v, mask=None, dropout_p: float = 0.0,
     the attention weights are dropped with ``key``'s mask and rescaled
     by 1 / (1 - dropout_p)."""
     d = q.shape[-1]
-    qc, kc = cast_compute(q, k)
-    logits = torch.einsum("bhqd,bhkd->bhqk", qc, kc).float() / math.sqrt(d)
+    logits = matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(d)
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     w = torch.softmax(logits, dim=-1)
@@ -69,14 +68,13 @@ def dot_product_attention(q, k, v, mask=None, dropout_p: float = 0.0,
                              "with dropout_p > 0")
         keep = 1.0 - dropout_p
         w = w * prng.bernoulli(key, keep, w.shape) / keep
-    wc, vc = cast_compute(w, v)
-    return torch.einsum("bhqk,bhkd->bhqd", wc, vc).float().to(q.dtype)
+    return matmul_f32(w, v).to(q.dtype)
 
 
 def _attn_project(attn, x, w, b):
     """``x @ attn.<w> + attn.<b>`` — one of the q/k/v projections."""
-    y = torch.matmul(cast_compute(x), cast_compute(getattr(attn, w)))
-    return (y.float() + getattr(attn, b)).to(x.dtype)
+    y = matmul_f32(x, getattr(attn, w))
+    return (y + getattr(attn, b)).to(x.dtype)
 
 
 class MultiHeadAttention(Module):
@@ -272,6 +270,4 @@ class Transformer(Module):
         for i, layer in enumerate(self.decoder):
             h = layer(h, key=None if rs is None else rs[i + 1])
         h = self.ln_out(h)
-        logits = torch.matmul(cast_compute(h),
-                              cast_compute(self.embedding).T)
-        return logits.float()
+        return matmul_f32(h, self.embedding.T)

@@ -11,7 +11,10 @@ Layouts and numerics follow the JAX package:
   before (torch's ``padding=`` is symmetric).  Pads are computed here
   and applied with ``F.pad``.
 - Matmuls and convs take their inputs in the compute dtype
-  (``tensor.policy``) and add the bias in float32.
+  (``tensor.policy``) and add the bias in float32.  A matmul's result
+  is float32 unrounded (``policy.matmul_f32``); a bfloat16 conv's
+  output rounds to bfloat16 and is widened before the bias, as the JAX
+  ``_conv_accum`` leaves it.
 - BatchNorm keeps ``running_mean`` / ``running_var`` as buffers and
   updates them in place in training mode (the JAX package returns them
   as new state), with the JAX single-pass shifted statistics.
@@ -31,7 +34,7 @@ from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from bigdl_tpu_torch.nn import init as init_mod
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.tensor.policy import cast_compute
+from bigdl_tpu_torch.tensor.policy import cast_compute, matmul_f32
 from bigdl_tpu_torch.utils import prng
 
 PadLike = Union[str, int, Tuple[int, int]]
@@ -120,8 +123,7 @@ class Linear(_LazyWidth, Module):
             _materialize(self.bias, b, device)
 
     def forward(self, x):
-        xc, wc = cast_compute(x, self.weight)
-        y = torch.matmul(xc, wc).float()
+        y = matmul_f32(x, self.weight)
         if self.bias is not None:
             y = y + self.bias          # added in the float32 accumulation
         return y.to(x.dtype)
@@ -174,7 +176,9 @@ def _pad_nchw(x, pads, value=0.0):
 
 def conv2d_nhwc(x, w, bias, stride, pads, dilation, groups):
     """NHWC conv with an HWIO kernel ``w`` and explicit (before, after)
-    ``pads`` per spatial dim; the bias is added in float32."""
+    ``pads`` per spatial dim; the bias is added in float32.  In the
+    compute dtype bfloat16 the conv's output is bfloat16 (float32 sums
+    inside, one rounding out), widened before the bias."""
     xc, wc = cast_compute(x, w)
     xn = _pad_nchw(xc.permute(0, 3, 1, 2), pads)
     y = F.conv2d(xn, wc.permute(3, 2, 0, 1), None, stride, 0, dilation,

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.nn.layers import Conv2D, Linear, conv2d_nhwc, conv_pads
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.quantized import quantize_int8, quantized_linear
-from bigdl_tpu_torch.tensor.policy import cast_compute, get_compute_dtype
+from bigdl_tpu_torch.tensor.policy import get_compute_dtype, matmul_f32
 
 _Q8_KEY = "__w8__"
 
@@ -322,7 +322,9 @@ class QuantizedConv2D(_ConvConfig):
 
 
 def _weight_only(w: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    dt = get_compute_dtype()
+    """The int8 weight dequantized in the compute dtype: both factors
+    cast to it and multiplied there (one rounding in bfloat16)."""
+    dt = get_compute_dtype(w.device)
     return w.to(dt) * scales.to(dt)
 
 
@@ -346,8 +348,7 @@ class WeightOnlyLinear(Module):
                                 name=layer.name)
 
     def forward(self, x):
-        y = torch.matmul(cast_compute(x),
-                         _weight_only(self.weight_q, self.scales)).float()
+        y = matmul_f32(x, _weight_only(self.weight_q, self.scales))
         if self.bias is not None:
             y = y + self.bias
         return y.to(x.dtype)

@@ -31,10 +31,16 @@ from bigdl_tpu_torch.ops.common import cdiv, launch
 from bigdl_tpu_torch.tensor.policy import cast_compute
 
 KERNEL = "block_sparse_matmul"
+KERNEL_BF16 = "block_sparse_matmul_bf16"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, counts, idx, max_count, out, M, K, N, block_k, block_n
-_SIGNATURE = (KERNEL, "block_sparse_matmul_f32",
-              [_P] * 4 + [_I, _P] + [_I] * 5)
+_ARGS = [_P] * 4 + [_I, _P] + [_I] * 5
+# the kernel and its entry point, by operand dtype
+_SIGNATURES = {
+    torch.float32: (KERNEL, (KERNEL, "block_sparse_matmul_f32", _ARGS)),
+    torch.bfloat16: (KERNEL_BF16, (KERNEL, "block_sparse_matmul_bf16",
+                                   _ARGS)),
+}
 
 
 class StaticMask:
@@ -119,11 +125,14 @@ class ColumnPlan:
 
 
 def block_sparse_matmul_ref(x, w, plan: ColumnPlan) -> torch.Tensor:
-    """Plain version: ``x (M, K) @ (w masked to the kept blocks)`` in
-    float32 (the masked dense product)."""
+    """Plain version: ``x (M, K) @ (w masked to the kept blocks)``, the
+    masked dense product of the operands widened to float32, in x's
+    dtype (bfloat16 operands: one rounding of the float32 product, as
+    the Pallas kernel writes ``x.dtype``)."""
     k, n = w.shape
     em = plan.on(x.device, k, n)[2]
-    return torch.matmul(x.float(), torch.where(em, w.float(), 0.0))
+    y = torch.matmul(x.float(), torch.where(em, w.float(), 0.0))
+    return y.to(x.dtype)
 
 
 def _bs_raw(x, w, plan: ColumnPlan) -> torch.Tensor:
@@ -142,20 +151,22 @@ def _bs_raw(x, w, plan: ColumnPlan) -> torch.Tensor:
             f"mask {plan.mask.shape} does not tile ({k}, {n}) in "
             f"({plan.block_k}, {plan.block_n}) blocks: want "
             f"({cdiv(k, plan.block_k)}, {cdiv(n, plan.block_n)})")
+    if x.dtype != w.dtype or x.dtype not in _SIGNATURES:
+        raise ValueError(f"block_sparse_matmul takes float32 or bfloat16 "
+                         f"operands of one dtype, got {x.dtype} and "
+                         f"{w.dtype}")
     if x.device.type == "cpu":
         return block_sparse_matmul_ref(x, w, plan)
     if x.device.type != "cuda":
         raise ValueError(f"block_sparse_matmul runs on CUDA tensors "
                          f"(kernel) or CPU tensors (plain version), got "
                          f"{x.device}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"the kernel takes float32, got {x.dtype} and "
-                         f"{w.dtype}")
     x = x.contiguous()
     w = w.contiguous()
     counts, idx, _ = plan.on(x.device, k, n)
     out = x.new_empty((m, n))
-    launch(KERNEL, _SIGNATURE, x.device, x.data_ptr(), w.data_ptr(),
+    kernel, signature = _SIGNATURES[x.dtype]
+    launch(kernel, signature, x.device, x.data_ptr(), w.data_ptr(),
            counts.data_ptr(), idx.data_ptr(), idx.shape[1], out.data_ptr(),
            m, k, n, plan.block_k, plan.block_n)
     return out
@@ -163,8 +174,9 @@ def _bs_raw(x, w, plan: ColumnPlan) -> torch.Tensor:
 
 class _BlockSparseMatmul(torch.autograd.Function):
     """The block-sparse product with its own backward, as the JAX
-    package's ``custom_vjp``: dx = g @ (w ⊙ mask)ᵀ through the kernel on
-    the transposed plan, dw = (xᵀ g) ⊙ mask dense."""
+    package's ``custom_vjp``: dx = g @ (w ⊙ mask)ᵀ through the float32
+    kernel on the transposed plan, dw = (xᵀ g) ⊙ mask dense in float32,
+    each rounded to its operand's dtype."""
 
     @staticmethod
     def forward(ctx, x, w, plan):
@@ -195,8 +207,9 @@ def block_sparse_matmul(x, w, mask=None, *, block_k: int = 0,
 
     ``mask`` is a host bool array (ceil(K/block_k), ceil(N/block_n)) or a
     :class:`StaticMask`; or pass a prepared ``plan`` instead (its device
-    copy is reused across calls).  Differentiable.  Returns float32
-    (…, N)."""
+    copy is reused across calls).  ``x`` and ``w`` are both float32 or
+    both bfloat16 (float32 sums either way).  Differentiable.  Returns
+    (…, N) in x's dtype."""
     if plan is None:
         if mask is None or not block_k or not block_n:
             raise ValueError("block_sparse_matmul needs a plan, or a mask "

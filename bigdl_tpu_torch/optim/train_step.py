@@ -60,8 +60,10 @@ then one step is captured (a capture runs nothing) and replayed: no
 step runs twice.  A step that cannot be captured (one that reads the
 card on the host: ``.item()``, ``.cpu()``, ``bool`` of a tensor) raises
 at the capture, with the offending call named; it never falls back to
-eager steps.  On the CPU there are no graphs: the bundle runs the same
-step K times, the plain version of the graph."""
+eager steps.  A graph replays the products it captured, so the compute
+dtype (``tensor.policy``) is pinned at the first capture: a later bundle
+in another dtype raises.  On the CPU there are no graphs: the bundle
+runs the same step K times, the plain version of the graph."""
 
 import functools
 from collections import Counter
@@ -79,6 +81,7 @@ from bigdl_tpu_torch.optim.optim_method import OptimMethod
 from bigdl_tpu_torch.optim.validation import (StatsAccumulator,
                                               ValidationMethod,
                                               ValidationResult)
+from bigdl_tpu_torch.tensor.policy import get_compute_dtype
 from bigdl_tpu_torch.utils import prng
 from bigdl_tpu_torch.utils.convert import (flat_order, jax_path, nest,
                                            ravel, unravel_into)
@@ -138,6 +141,9 @@ def _dots_policy():
         aten = torch.ops.aten
         saved = {aten.convolution.default, aten.mm.default,
                  aten.addmm.default, aten.bmm.default}
+        # bfloat16 products with a float32 result (tensor.policy)
+        saved |= {op.dtype for op in (aten.mm, aten.bmm)
+                  if hasattr(op, "dtype")}
 
         def policy(ctx, op, *args, **kwargs):
             return (CheckpointPolicy.MUST_SAVE if op in saved
@@ -269,6 +275,8 @@ class TrainStep:
         # step bundles on the card: batch signature -> _Captured, and the
         # eager steps each signature has run so far
         self._graphs: Dict[tuple, "_Captured"] = {}
+        # the compute dtype of the captured graphs (pinned at the first)
+        self.graph_dtype: Optional[torch.dtype] = None
         self._warm: Counter = Counter()
         self._side: Optional[torch.cuda.Stream] = None
 
@@ -408,6 +416,12 @@ class TrainStep:
     def _graph_step(self, x, y, scalars):
         """One step of a bundle on the card: eager on the side stream
         while the signature warms up, then captured once and replayed."""
+        dt = get_compute_dtype(self.device)
+        if self.graph_dtype is not None and dt != self.graph_dtype:
+            raise RuntimeError(
+                f"this step's CUDA graphs were captured in compute dtype "
+                f"{self.graph_dtype} and a bundle runs in {dt}: train each "
+                f"dtype with its own Optimizer")
         sig = tuple((tuple(t.shape), t.dtype) for t in _as_tuple(x) + (y,))
         entry = self._graphs.get(sig)
         if entry is None and self._warm[sig] < self.WARM_STEPS:
@@ -423,6 +437,7 @@ class TrainStep:
             return loss, gnorm
         if entry is None:
             entry = self._graphs[sig] = self._capture(x, y, scalars)
+            self.graph_dtype = dt
         for static, t in zip(entry.xs, _as_tuple(x)):
             static.copy_(t)
         entry.y.copy_(y)

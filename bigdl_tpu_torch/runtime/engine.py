@@ -22,8 +22,10 @@ from bigdl_tpu_torch.resilience.retry import (FailureCause, FailurePolicy,
 
 @dataclass
 class EngineConfig:
-    # numerics: the port pins float32 with TF32 off (tensor/policy.py)
-    compute_dtype: str = "float32"
+    # numerics.  compute_dtype is the JAX field, read nowhere there or
+    # here (ROADMAP C.15): the device and tensor.policy's
+    # set_compute_dtype decide.  Params live in float32 only.
+    compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     # the driver's in-run retry: at most failure_retry_times recoveries
     # from the newest checkpoint, failure_retry_interval_s apart;
@@ -52,12 +54,9 @@ class EngineConfig:
     def check(self) -> None:
         """Raise on a field this port does not run yet, naming the
         ROADMAP item that brings it."""
-        if (self.compute_dtype, self.param_dtype) != ("float32",
-                                                      "float32"):
-            raise ValueError(
-                f"compute_dtype {self.compute_dtype!r} / param_dtype "
-                f"{self.param_dtype!r}: the port computes in float32 only "
-                "until ROADMAP A.1.9 (the compute dtype on the card)")
+        if self.param_dtype != "float32":
+            raise ValueError(f"param_dtype {self.param_dtype!r}: params "
+                             f"live in float32")
         later = {"coordinator_address": ("A.2", None),
                  "num_processes": ("A.2", None),
                  "process_id": ("A.2", None), "mesh": ("A.2", {}),

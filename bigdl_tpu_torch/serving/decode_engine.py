@@ -99,7 +99,9 @@ from bigdl_tpu_torch.ops.flash_attention import (_gather_pages,
                                                  paged_decode_attention,
                                                  paged_verify_attention)
 from bigdl_tpu_torch.ops.quantized import quantize_pages
-from bigdl_tpu_torch.tensor.policy import apply_precision_policy, cast_compute
+from bigdl_tpu_torch.tensor.policy import (apply_precision_policy,
+                                           get_compute_dtype, matmul_f32,
+                                           matmul_promote)
 from bigdl_tpu_torch.utils import prng
 
 log = logging.getLogger("bigdl_tpu_torch.serving.decode")
@@ -465,13 +467,13 @@ class LMAdapter:
     def _merge(self, a, x, attn):
         B, _, C, _ = a.shape
         a = a.transpose(1, 2).reshape(B, C, self.num_heads * self.head_dim)
-        return (torch.matmul(a.to(x.dtype), cast_compute(attn.wo)).float()
-                + attn.bo).to(x.dtype)
+        # float32 attention against the cast wo: JAX promotes the
+        # product to float32
+        return (matmul_promote(a, attn.wo) + attn.bo).to(x.dtype)
 
     def _logits(self, x):
         h = self.model.ln_out(x)
-        emb = cast_compute(self.model.embedding)
-        return torch.matmul(cast_compute(h), emb.T).float()
+        return matmul_f32(h, self.model.embedding.T)
 
     def prepare(self, tokens) -> np.ndarray:
         """LM: the prompt IS the decoder prompt."""
@@ -763,6 +765,9 @@ class DecodeEngine:
         self._programs = self._build_programs()
         self._marks = _Marks(3, self.device)
         self._graphs: Dict[Tuple[str, int, bool], _Graph] = {}
+        # the compute dtype the graphs were captured in: a call in
+        # another raises (check_compute_dtype)
+        self.graph_dtype: Optional[torch.dtype] = None
         # calls by (program, bucket, sampled), graphs or not
         self.calls: Counter = Counter()
         self._graph_pool = None
@@ -964,6 +969,17 @@ class DecodeEngine:
                 torch.cuda.synchronize(self.device)
         self.warmup_s = time.perf_counter() - t0
         return self
+
+    def check_compute_dtype(self) -> None:
+        """Raise if the compute dtype (``tensor.policy``) is not the one
+        the engine's graphs were captured in: a graph replays the
+        products it captured, so a later dtype would not reach them."""
+        dt = get_compute_dtype(self.device)
+        if self.graph_dtype is not None and dt != self.graph_dtype:
+            raise RuntimeError(
+                f"the decode engine's CUDA graphs were captured in compute "
+                f"dtype {self.graph_dtype} and a call runs in {dt}: serve "
+                f"each dtype from an engine warmed up in it")
 
     @property
     def graphs_captured(self) -> int:
@@ -1359,6 +1375,9 @@ class DecodeEngine:
         so the capture ends cleanly and the error names the call;
         nothing runs eagerly in its place."""
         name, n_blocks, sampled = key
+        self.check_compute_dtype()
+        if self.graph_dtype is None:
+            self.graph_dtype = get_compute_dtype(self.device)
         prog = self._programs[name]
         w8 = self.adapter._w8
         if w8 is not None and w8.held_here():
@@ -1416,6 +1435,7 @@ class DecodeEngine:
         self.calls[key] += 1
         graph = None
         if self._graphs_on:
+            self.check_compute_dtype()
             graph = self._graphs.get(key)
             if graph is None:
                 graph = self._capture(key)

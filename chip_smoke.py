@@ -33,8 +33,9 @@ one JSON line:
    3072, vocab 32768; random weights from seed 0) answers 16 greedy
    requests through ``InferenceModel.generate``, on an engine whose
    calls replay CUDA graphs (``cuda_graphs=True``, captured by
-   ``warmup()``) beside one running the same programs eagerly, three
-   timed runs each, alternating (``serve_run`` lines: tokens/s,
+   ``warmup()``) beside one running the same programs eagerly and one
+   replaying graphs captured in float32 products, two timed runs each,
+   alternating (``serve_run`` lines: tokens/s,
    ``serving.decode.step_s`` p50 and p99, launches a step, peak
    memory); every run's tokens and log-probs equal to the bit across
    the two; warmup seconds, graphs captured and the graph pool's bytes;
@@ -43,9 +44,11 @@ one JSON line:
    forward of the same model; then ``serve_profile`` of each engine:
    the device's busy share of the wall time and its time by kernel;
 6. serve_spec — the same requests with ``speculative=SpecConfig(k=4,
-   sparsity=0.5)``, graphs beside eager (two pairs): every token checked
-   as in serve, every verify through ``paged_verify_attention`` and
-   every draft FFN through ``block_sparse_matmul`` (launch counts),
+   sparsity=0.5)``, graphs beside eager and float32 graphs (two pairs):
+   every token checked as in serve, every verify through
+   ``paged_verify_attention`` and every draft FFN through the
+   block-sparse kernel, its bfloat16 instance in bfloat16 products
+   (launch counts),
    tokens/s beside serve's, acceptance, agreement with serve's tokens;
    then serve_sweep on the same warmed engines: a mixed stream reaching
    every cache bucket, greedy and sampled, one request disconnecting
@@ -148,6 +151,24 @@ one JSON line:
    The ResNet phases pin cuDNN to deterministic algorithms; train_resnet
    also times 6 steps with cuDNN's default choice.
 
+Compute dtypes.  On the card the port's default compute dtype is
+bfloat16 (``tensor.policy``: bfloat16 products with float32 sums, the
+JAX package's accelerator policy), so every phase runs in it unless it
+says otherwise.  The checks whose reference is float32 semantics run
+under ``compute_dtype(torch.float32)`` at their tolerances: gradcheck,
+evaluate_lm, resnet_fused, serve_bert_fused's answers, the float32
+serve_resnet answers, and the float32 engines' tokens.  Float32 runs
+stand beside the bfloat16 ones, alternating in the call: serve and
+serve_spec add a float32 graphs engine (``graphs_f32``; two pairs now,
+three before), serve_resnet a float32 model, serve_bert_fused and the
+two bundle phases float32 runs (``dtype_pairs``), each with its peak
+memory.  bfloat16 adds: the block-sparse kernel's bfloat16 instance
+(``kernel`` rows ``block_sparse_matmul_bf16``, held within one bfloat16
+ulp of its plain version), every served bfloat16 token within
+``bf16_gap_tolerance`` of a bfloat16 full forward, graphs equal to eager
+and K = 4 to K = 1 to the bit in bfloat16, and the bfloat16 losses
+finite and falling beside the float32 run's.
+
 Then the kernel table, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -181,10 +202,11 @@ import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores, TF32 and int8 tensor-core rates
+# the tensor cores, TF32, bfloat16 and int8 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 INT8_OPS = 1.979e15
 
 # the model of both main paths (bench_lm.py's), and the serving geometry
@@ -269,9 +291,14 @@ SPEC = dict(k=4, sparsity=0.5)
 # the serving phases: an engine replaying CUDA graphs (cuda_graphs=True)
 # beside one running the same programs eagerly (cuda_graphs=False), over
 # one seeded LM, timed runs alternating eager, graphs, graphs, eager, ...:
-# serve 3 pairs, serve_spec 2, each serve_int8 configuration 1; then one
-# profiled run of each engine
-SERVE_PAIRS = dict(serve=3, spec=2, int8=1)
+# serve 2 pairs, serve_spec 2, each serve_int8 configuration 1; serve and
+# serve_spec add a float32 graphs engine to each pair (eager, graphs,
+# graphs_f32, then graphs_f32, graphs, eager); then one profiled run of
+# each engine
+SERVE_PAIRS = dict(serve=2, spec=2, int8=1)
+# the engines of a serving phase, and the compute dtype each runs in
+# (None: the card's default, bfloat16)
+MODE_DTYPE = {"graphs": None, "eager": None, "graphs_f32": torch.float32}
 # serve_sweep, on serve_spec's warmed engines: a stream reaching every
 # cache bucket, greedy and sampled requests alternating.  A call's bucket
 # is its longest row's, and one engine iteration runs up to k+1 prefill
@@ -301,6 +328,14 @@ BWD_ATOL = 1e-4
 # magnitude ~40, float32 rounding of ~1536 * 6e-8 * 40 / sqrt(1536)
 # apart; atol 1e-3
 BS_ATOL = 1e-3
+# the block-sparse product's bfloat16 instance against its plain version
+# (the float32 masked product of the widened operands, rounded once to
+# bfloat16): each element within one bfloat16 step of the larger
+# magnitude, a float32 sum in another order rounding to the neighbour;
+# the step floored at the float32 sums' own noise, sqrt(K) 2^-24 of the
+# largest |value|, where an element cancels to near zero
+BF16_ULP_TOLERANCE = ("one bf16 ulp elementwise, floored at "
+                      "sqrt(K) 2^-24 max|out|")
 # on-card gradient check: per parameter, ||g_flash - g_plain|| over
 # ||g_plain|| + 1e-4 ||g||.  The floor, relative to the whole gradient,
 # holds the attention key bias to rounding noise: its exact gradient is
@@ -368,6 +403,16 @@ BERT_LOGP_RTOL = 1e-4
 # 1e-4
 LN_RTOL = LN_ATOL = 1e-5
 LN_BWD_ATOL = 1e-4
+# bfloat16 against float32 ResNet-50 answers, max |log-prob difference|
+# over max |log-prob|.  Derived before the first run: each of the 54
+# products rounds three operands to bfloat16 (the activation, the weight
+# and, for a conv, its output), each an independent relative error
+# within +-2^-8, RMS 2^-8 / sqrt(3) = 2.3e-3: 3.9e-3 a layer; over 54
+# layers in quadrature, undamped, 0.029 of the logits' spread; the
+# largest of 134 x 1000 log-probs sits within 4.5 RMS (a Gaussian's tail
+# at 1 / 134000): 0.13, and max |log-prob| bounds the spread.  Budget
+# 0.15.
+BF16_LOGP_RTOL = 0.15
 # the fold of a BatchNorm into the conv before it rounds the folded weights
 # to float32 once: fused ResNet-50 predict within 1e-4 of max |log-prob|
 # of the unfused model's
@@ -466,6 +511,16 @@ def _bound_3xtf32(nbytes: float, flops: float) -> dict:
           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     return {**tc, "bounds": {"tensor_core_3xtf32": tc,
                              "cuda_core_f32": _bound(nbytes, flops)}}
+
+
+def _bound_bf16(nbytes: float, flops: float) -> dict:
+    """The bound of a product on bfloat16 operands: the bytes over HBM's
+    rate or the operations over the bfloat16 tensor-core peak, whichever
+    is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _share(row: dict) -> dict:
@@ -815,6 +870,96 @@ def check_block_sparse(dev, flush):
                                              "library_ms", "dx")}}
 
 
+def _bf16_ulp_excess(got, want, terms) -> float:
+    """The largest amount by which ``got`` sits past one bfloat16 ulp of
+    ``want`` (of the larger magnitude), elementwise: <= 0 when every
+    element is within one ulp.  The ulp is floored at the float32 sum's
+    own noise, sqrt(terms) 2^-24 of the largest |value|: where a sum of
+    ``terms`` products cancels to near zero, its bfloat16 step is finer
+    than two float32 sums in different orders stand apart."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp(
+        min=terms ** 0.5 * 2.0 ** -24 * float(want.abs().max()))
+    return float(((got - want).abs() - ulp).max())
+
+
+def check_block_sparse_bf16(dev, flush):
+    """The block-sparse product's bfloat16 instance at the draft FFN's
+    shapes in bfloat16 products — M = 16 (a decode step of 16 slots) and
+    256 (a prefill call), K/N = 768/3072 (l1) and 3072/768 (l2), the
+    draft's (8, 8) blocks, half of them kept — against the plain version
+    (the float32 masked product of the widened operands, rounded once):
+    every element within one bfloat16 ulp (``BF16_ULP_TOLERANCE``), twice
+    on the same inputs and
+    inside a captured graph for the same bits.  The yardstick is
+    ``torch.matmul`` of the bfloat16 operands with the masked weight;
+    the bound is the bytes at 2 bytes a value or the bfloat16
+    tensor-core rate.  The row reports the draft step's l1."""
+    from bigdl_tpu_torch.ops.block_sparse import (ColumnPlan, _bs_raw,
+                                                  block_sparse_matmul_ref)
+
+    d, f = LM["hidden_size"], LM["ffn_size"]
+    rs = np.random.RandomState(SEED + 3)
+    blk = SPARSE_BLOCK
+    rows, worst = [], 0.0
+    for k, n in ((d, f), (f, d)):
+        nkb, nnb = -(-k // blk[0]), -(-n // blk[1])
+        mask = np.zeros(nkb * nnb, bool)
+        mask[rs.permutation(nkb * nnb)[: nkb * nnb // 2]] = True
+        plan = ColumnPlan(mask.reshape(nkb, nnb), *blk)
+        g = torch.Generator().manual_seed(SEED)
+        w = torch.randn(k, n, generator=g).to(dev).bfloat16()
+        wm = torch.where(plan.on(w.device, k, n)[2], w, 0.0)
+        kept = int(mask.sum()) * blk[0] * blk[1]
+        for m in (16, 256):
+            x = torch.randn(m, k, generator=g).to(dev).bfloat16()
+            out = _bs_raw(x, w, plan)
+            again = _bs_raw(x, w, plan)
+            ref = block_sparse_matmul_ref(x, w, plan)
+            torch.cuda.synchronize()
+            shape = {"m": m, "k": k, "n": n, "block": list(blk),
+                     "density": float(mask.mean()), "dtype": "bfloat16"}
+            _assert_bit_equal(f"block_sparse_matmul_bf16 {shape}", [out],
+                              [again])
+            excess = _bf16_ulp_excess(out, ref, k)
+            if out.dtype != torch.bfloat16 or excess > 0:
+                raise AssertionError(
+                    f"block_sparse_matmul_bf16 {shape}: {out.dtype}, "
+                    f"{excess} past one bf16 ulp of the plain version")
+            err = float((out.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            graph = _in_graph(lambda: _bs_raw(x, w, plan), out)
+            if not graph["in_graph"]:
+                raise AssertionError(f"block_sparse_matmul_bf16 {shape} in "
+                                     f"a graph: {graph}")
+            r = _share({
+                "shape": shape, "max_abs_err": err,
+                "within_one_bf16_ulp": True, "bit_equal": True,
+                "ms": time_cold(lambda: _bs_raw(x, w, plan), flush),
+                "plain_ms": time_cold(
+                    lambda: block_sparse_matmul_ref(x, w, plan), flush),
+                "library_ms": time_cold(lambda: torch.matmul(x, wm), flush),
+                **_bound_bf16(2 * (m * k + kept + m * n), 2 * m * kept),
+                **graph})
+            emit({"phase": "kernel", "name": "block_sparse_matmul_bf16",
+                  "tolerance": BF16_ULP_TOLERANCE, **r})
+            rows.append(r)
+    main = rows[0]          # M = 16, l1 (768 -> 3072)
+    return {"name": "block_sparse_matmul_bf16", "route": "cuda",
+            "source": "bigdl_tpu_torch/ops/csrc/block_sparse_matmul.cu",
+            "replaces": "bigdl_tpu/ops/block_sparse.py:148",
+            "launches": None, "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "share": main["share"], "shape": main["shape"],
+            "in_graph": main["in_graph"],
+            "tolerance": BF16_ULP_TOLERANCE,
+            "other_shapes": [{k: r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share",
+                "library_ms")} for r in rows[1:]]}
+
+
 def _visible_pairs(sq: int, skv: int, causal: bool) -> int:
     """(query, key) pairs the attention computes for one (batch, head)."""
     if not causal:
@@ -976,14 +1121,33 @@ def int8_gap_tolerance(rows):
     return 2 * LM["num_layers"] / 254.0 * rows.abs().amax(dim=1)
 
 
-def _spec_launches_check(launches, steps, calls, k, name):
+def bf16_gap_tolerance(rows):
+    """How far below the top logit a bfloat16 token may sit, per row of
+    the reference logits, derived from bfloat16's rounding step: a value
+    rounded to bfloat16 (8 significant bits) moves by at most 2^-8 of
+    itself.  The served run and the full forward round the same bfloat16
+    weights, so only their rounded activations can differ: a layer
+    rounds four product inputs (the LayerNorm output feeding q/k/v, the
+    attention output feeding wo, the LayerNorm output feeding the FFN,
+    the FFN's hidden state) and the head one (the final hidden state).
+    Counting each once, undamped, the logits of the two runs differ by
+    at most (4 num_layers + 1) 2^-8 of the row's largest |logit|.  The
+    served token maximised its own run's logits, so its reference logit
+    sits at most twice that below the top one:
+    2 (4 num_layers + 1) / 256 * max|logit| of the row."""
+    return 2 * (4 * LM["num_layers"] + 1) / 256.0 * rows.abs().amax(dim=1)
+
+
+def _spec_launches_check(launches, steps, calls, k, name,
+                         kernel="block_sparse_matmul"):
     """Hard check of a speculative run: every draft FFN of every draft
-    step and draft prefill call went through the block-sparse kernel."""
+    step and draft prefill call went through the block-sparse kernel
+    (``kernel``: its float32 or bfloat16 instance)."""
     L = LM["num_layers"]
     want_bs = 2 * L * (k + 1) * steps + 2 * L * calls
-    if launches.get("block_sparse_matmul", 0) != want_bs:
-        raise AssertionError(f"{name}: block_sparse_matmul launched "
-                             f"{launches.get('block_sparse_matmul', 0)} "
+    if launches.get(kernel, 0) != want_bs:
+        raise AssertionError(f"{name}: {kernel} launched "
+                             f"{launches.get(kernel, 0)} "
                              f"times, want {want_bs} (24 x {k + 1} x {steps} "
                              f"iterations + 24 x {calls} prefill calls)")
     return want_bs
@@ -1006,31 +1170,42 @@ def _sample_metrics():
     return Samples()
 
 
-def _lm_pair(dev, weight_quant=None, **cfg):
-    """Two InferenceModels of the seeded LM, one whose engine replays CUDA
-    graphs (``cuda_graphs=True``) and one whose engine runs the same
-    programs eagerly (``cuda_graphs=False``), each warmed up: ({mode: im},
-    {mode: warmup row})."""
+def _dtype(mode):
+    """The compute-dtype context a serving mode runs in."""
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    dt = MODE_DTYPE[mode]
+    return compute_dtype(dt) if dt is not None else contextlib.nullcontext()
+
+
+def _lm_pair(dev, weight_quant=None, modes=("graphs", "eager"), **cfg):
+    """InferenceModels of the seeded LM, one a mode: ``graphs`` replays
+    CUDA graphs (``cuda_graphs=True``), ``eager`` runs the same programs
+    eagerly (``cuda_graphs=False``), ``graphs_f32`` replays graphs
+    captured in float32 products; each warmed up in its compute dtype:
+    ({mode: im}, {mode: warmup row})."""
     from bigdl_tpu_torch.nn import Transformer
     from bigdl_tpu_torch.serving import DecodeConfig, InferenceModel
 
     model = Transformer(**LM, dropout=0.0, seed=SEED)
     pair, rows = {}, {}
-    for mode in ("graphs", "eager"):
+    for mode in modes:
         im = InferenceModel(model, decode=DecodeConfig(
-            **DECODE, cuda_graphs=mode == "graphs", **cfg), device=dev,
+            **DECODE, cuda_graphs=mode != "eager", **cfg), device=dev,
             weight_quant=weight_quant)
         pair[mode] = im
         eng = im.decode_engine
         eng.metrics = _sample_metrics()
         torch.cuda.synchronize()
-        im.warmup()
+        with _dtype(mode):
+            im.warmup()
         pool = eng.graph_pool_bytes()
         rows[mode] = {
             "warmup_s": eng.warmup_s, "graphs_captured": eng.graphs_captured,
             "graph_captures_counted": eng.metrics.counter(
                 "serving.decode.graph_captures"),
             "graph_pool_gb": None if pool is None else pool / 2**30,
+            "graph_dtype": str(eng.graph_dtype),
             "closed_set": len(eng.closed_set())}
     return pair, rows
 
@@ -1039,10 +1214,11 @@ def _percentile_ms(samples, q):
     return 1e3 * float(np.percentile(samples, q)) if samples else None
 
 
-def _serve_run(im, prompts):
-    """One timed ``generate`` of ``prompts`` on ``im``, its engine on a
-    fresh metrics registry: a dict of the results, wall s, launches, the
-    engine's stats delta and the run's row."""
+def _serve_run(im, prompts, mode="graphs"):
+    """One timed ``generate`` of ``prompts`` on ``im`` in ``mode``'s
+    compute dtype, its engine on a fresh metrics registry: a dict of the
+    results, wall s, launches, the engine's stats delta and the run's
+    row."""
     from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
 
     eng = im.decode_engine
@@ -1052,7 +1228,8 @@ def _serve_run(im, prompts):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t1 = time.perf_counter()
-    results = im.generate(prompts, return_results=True)
+    with _dtype(mode):
+        results = im.generate(prompts, return_results=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = dict(LAUNCHES)
@@ -1119,23 +1296,30 @@ def _same_bits(name, want, got) -> None:
 
 
 def _serve_pairs(pair, prompts, n_pairs, name, busy=True):
-    """``n_pairs`` timed runs of each engine, alternating eager, graphs,
-    graphs, eager, ...: every run's tokens and log-probs equal to the
-    first eager run's to the bit, and every run's launches equal (a
-    replay credits its capture's counts); then, with ``busy``, one
-    profiled run of each engine for the device's busy share.  Returns
-    {mode: summary} and the first graphs run."""
+    """``n_pairs`` timed runs of each engine, alternating eager, graphs
+    (graphs_f32 where the pair has it), then graphs_f32, graphs, eager,
+    ...: every run's tokens and log-probs equal to the bit to the first
+    run of its compute dtype (eager's for bfloat16), and every run's
+    launches equal to that run's (a replay credits its capture's
+    counts); then, with ``busy``, one profiled run of each engine for the
+    device's busy share.  Returns {mode: summary} and the first run of
+    each mode."""
+    first = [m for m in ("eager", "graphs", "graphs_f32") if m in pair]
     order = []
     for i in range(n_pairs):
-        order += ["eager", "graphs"] if i % 2 == 0 else ["graphs", "eager"]
-    runs = {"graphs": [], "eager": []}
+        order += first if i % 2 == 0 else first[::-1]
+    runs = {mode: [] for mode in first}
     for mode in order:
-        run = _serve_run(pair[mode], prompts)
+        run = _serve_run(pair[mode], prompts, mode)
         emit({"phase": f"{name}_run", "mode": mode,
+              "compute_dtype": str(MODE_DTYPE[mode] or torch.bfloat16)[6:],
               "run": len(runs[mode]), **run["row"]})
         runs[mode].append(run)
-    ref = runs["eager"][0]
+    refs = {}
+    for mode in order:     # the first run of each dtype is its reference
+        refs.setdefault(MODE_DTYPE[mode], runs[mode][0])
     for mode, rs in runs.items():
+        ref = refs[MODE_DTYPE[mode]]
         for run in rs:
             _same_bits(name, ref["results"], run["results"])
             if run["launches"] != ref["launches"]:
@@ -1150,48 +1334,65 @@ def _serve_pairs(pair, prompts, n_pairs, name, busy=True):
             "step_ms_p99": [r["step_ms_p99"] for r in rows],
             "launches_per_step": rows[0]["launches_per_step"],
             "peak_mem_gb": max(r["peak_mem_gb"] for r in rows)}
-        if mode == "graphs":
+        if mode != "eager":
             summary[mode]["replay_host_ms"] = _replay_host_ms(
                 pair[mode].decode_engine)
         if busy:
-            prof = _profile(lambda im=pair[mode]: im.generate(prompts))
+            with _dtype(mode):
+                prof = _profile(lambda im=pair[mode]: im.generate(prompts))
             summary[mode]["device_busy_share"] = prof["device_busy_share"]
             emit({"phase": f"{name}_profile", "mode": mode, **prof})
     summary["bits_equal"] = True
-    return summary, runs["graphs"][0]
+    return summary, {mode: rs[0] for mode, rs in runs.items()}
 
 
 def serve(dev):
     """Drive the serving main path: the seeded LM answers the requests
     through ``InferenceModel.generate``, an engine replaying CUDA graphs
-    beside one running the same programs eagerly, and check what comes
-    out."""
+    beside one running the same programs eagerly (bfloat16 products, the
+    card's default) and one replaying graphs captured in float32, and
+    check what comes out."""
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
     t0 = time.perf_counter()
-    pair, setup = _lm_pair(dev)
+    pair, setup = _lm_pair(dev, modes=("graphs", "eager", "graphs_f32"))
     try:
         setup_s = time.perf_counter() - t0
         rs = np.random.RandomState(SEED)
         prompts = [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
                    for n in rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
                                        N_REQUESTS)]
-        modes, run = _serve_pairs(pair, prompts, SERVE_PAIRS["serve"],
-                                  "serve")
+        modes, first = _serve_pairs(pair, prompts, SERVE_PAIRS["serve"],
+                                    "serve")
+        run = first["graphs"]
         results, launches = run["results"], run["launches"]
         steps = run["delta"]["steps"]
         want = LM["num_layers"] * steps
-        if steps < 1 or launches.get("paged_decode_attention", 0) != want:
-            raise AssertionError(f"paged_decode_attention launched "
-                                 f"{launches} times over {steps} decode "
-                                 f"steps of {LM['num_layers']} layers")
+        for mode, r in first.items():
+            n = r["launches"].get("paged_decode_attention", 0)
+            if r["delta"]["steps"] < 1 or n != want \
+                    or r["delta"]["steps"] != steps:
+                raise AssertionError(f"{mode}: paged_decode_attention "
+                                     f"launched {r['launches']} times over "
+                                     f"{r['delta']['steps']} decode steps "
+                                     f"of {LM['num_layers']} layers")
         im = pair["graphs"]
-        # every generated token against a full uncached forward of the
-        # same model: finite logits, the token within 1e-3 of the top
-        # logit, and the request's summed log-prob within 1e-3
-        worst_gap, worst_logp = check_tokens(im, prompts, results, dev)
-        if worst_gap > 1e-3 or worst_logp > 1e-3:
-            raise AssertionError(f"served tokens disagree with the full "
-                                 f"forward: logit gap {worst_gap}, logp "
-                                 f"{worst_logp}")
+        # every bfloat16 token against a bfloat16 full uncached forward of
+        # the same model: finite logits, each token within
+        # bf16_gap_tolerance of its row's top logit
+        worst_gap, worst_logp = check_tokens(im, prompts, results, dev,
+                                             bf16_gap_tolerance)
+        # the float32 engine's tokens against a float32 full forward: the
+        # token within 1e-3 of the top logit, the request's summed
+        # log-prob within 1e-3
+        f32 = first["graphs_f32"]["results"]
+        with compute_dtype(torch.float32):
+            f32_gap, f32_logp = check_tokens(pair["graphs_f32"], prompts,
+                                             f32, dev)
+        if f32_gap > 1e-3 or f32_logp > 1e-3:
+            raise AssertionError(f"float32 served tokens disagree with the "
+                                 f"full forward: logit gap {f32_gap}, logp "
+                                 f"{f32_logp}")
         # continuous vs static decoding on the card: reported, not assumed
         eng = im.decode_engine
         from bigdl_tpu_torch.serving import DecodeRequest
@@ -1200,20 +1401,30 @@ def serve(dev):
                                       for p in prompts])
         agree = sum(a.tokens.tolist() == b.tokens.tolist()
                     for a, b in zip(results, static))
+        f32_agree = sum(a.tokens.tolist() == b.tokens.tolist()
+                        for a, b in zip(results, f32))
         n_tok = int(sum(len(r.tokens) for r in results))
         tps = float(np.median(modes["graphs"]["tokens_per_s"]))
         emit({"phase": "serve", "model": LM, "decode": DECODE,
+              "compute_dtype": "bfloat16",
               "requests": len(results), "answered": len(results),
               "finish_reasons": sorted({r.finish_reason for r in results}),
               "prompt_tokens": int(sum(len(p) for p in prompts)),
               "generated_tokens": n_tok, "decode_steps": steps,
               "prefill_calls": run["delta"]["prefill_calls"],
               "launches": launches, "nan_logits": False,
-              "max_logit_gap": worst_gap, "max_logp_err": worst_logp,
+              "max_logit_gap": worst_gap,
+              "gap_tolerance": f"2 * (4 * {LM['num_layers']} + 1) / 256 * "
+                               f"max|logit| of the row",
+              "max_logp_err": worst_logp,
+              "f32_max_logit_gap": f32_gap, "f32_max_logp_err": f32_logp,
+              "f32_agree": f"{f32_agree}/{len(results)}",
               "static_agree": f"{agree}/{len(results)}",
               "kv_bytes_per_page": eng.kv_bytes_per_page(),
-              "tokens_per_s": tps, "setup_s": setup_s, "warmup": setup,
-              "modes": modes})
+              "tokens_per_s": tps,
+              "f32_tokens_per_s": float(np.median(
+                  modes["graphs_f32"]["tokens_per_s"])),
+              "setup_s": setup_s, "warmup": setup, "modes": modes})
         return launches, prompts, results, tps
     finally:
         for im in pair.values():
@@ -1221,32 +1432,52 @@ def serve(dev):
 
 
 def serve_spec(dev, prompts, ref_results, ref_tps):
-    """Drive the speculative serving path, graphs beside eager, and check
-    what comes out.  Returns its launches and the pair (serve_sweep runs
-    on it next)."""
+    """Drive the speculative serving path, graphs beside eager (bfloat16)
+    and a float32 graphs engine, and check what comes out: the bfloat16
+    draft FFNs on the bfloat16 block-sparse kernel, the float32 ones on
+    the float32 kernel.  Returns the bfloat16 graphs run's launches and
+    the engines (serve_sweep runs on them next)."""
     from bigdl_tpu_torch.serving import SpecConfig
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
 
     t0 = time.perf_counter()
-    pair, setup = _lm_pair(dev, speculative=SpecConfig(**SPEC))
+    pair, setup = _lm_pair(dev, modes=("graphs", "eager", "graphs_f32"),
+                           speculative=SpecConfig(**SPEC))
     try:
         setup_s = time.perf_counter() - t0
-        modes, run = _serve_pairs(pair, prompts, SERVE_PAIRS["spec"],
-                                  "serve_spec")
+        modes, first = _serve_pairs(pair, prompts, SERVE_PAIRS["spec"],
+                                    "serve_spec")
+        run = first["graphs"]
         results, launches, d = run["results"], run["launches"], run["delta"]
         steps, calls = d["steps"], d["prefill_calls"]
         L = LM["num_layers"]
-        if steps < 1 or launches.get("paged_verify_attention", 0) \
-                != L * steps:
-            raise AssertionError(f"paged_verify_attention launched "
-                                 f"{launches} times over {steps} speculative "
-                                 f"iterations of {L} layers")
-        _spec_launches_check(launches, steps, calls, SPEC["k"],
-                             "serve_spec")
+        for mode, r in first.items():
+            n, dm = r["launches"], r["delta"]
+            if dm["steps"] < 1 or n.get("paged_verify_attention", 0) \
+                    != L * dm["steps"]:
+                raise AssertionError(f"{mode}: paged_verify_attention "
+                                     f"launched {n} times over "
+                                     f"{dm['steps']} speculative iterations "
+                                     f"of {L} layers")
+            f32 = MODE_DTYPE[mode] == torch.float32
+            kernel, other = ("block_sparse_matmul", "block_sparse_matmul_bf16")
+            if not f32:
+                kernel, other = other, kernel
+            _spec_launches_check(n, dm["steps"], dm["prefill_calls"],
+                                 SPEC["k"], f"serve_spec {mode}", kernel)
+            if n.get(other):
+                raise AssertionError(f"serve_spec {mode}: {other} launched "
+                                     f"{n[other]} times")
         im = pair["graphs"]
-        gap, dlogp = check_tokens(im, prompts, results, dev)
-        if gap > 1e-3:
-            raise AssertionError(f"speculative tokens disagree with the full "
-                                 f"forward: logit gap {gap}")
+        gap, dlogp = check_tokens(im, prompts, results, dev,
+                                  bf16_gap_tolerance)
+        with compute_dtype(torch.float32):
+            f32_gap, f32_logp = check_tokens(
+                pair["graphs_f32"], prompts,
+                first["graphs_f32"]["results"], dev)
+        if f32_gap > 1e-3:
+            raise AssertionError(f"float32 speculative tokens disagree with "
+                                 f"the full forward: logit gap {f32_gap}")
         n_tok = int(sum(len(r.tokens) for r in results))
         agree = sum(a.tokens.tolist() == b.tokens.tolist()
                     for a, b in zip(results, ref_results))
@@ -1254,8 +1485,13 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
               "sparse_block": list(SPARSE_BLOCK), "requests": len(results),
               "answered": len(results), "generated_tokens": n_tok,
               "spec_iterations": steps, "prefill_calls": calls,
-              "launches": launches, "max_logit_gap": gap,
-              "max_logp_err": dlogp,
+              "launches": launches, "compute_dtype": "bfloat16",
+              "max_logit_gap": gap,
+              "gap_tolerance": f"2 * (4 * {L} + 1) / 256 * max|logit| of "
+                               f"the row",
+              "max_logp_err": dlogp, "f32_max_logit_gap": f32_gap,
+              "f32_max_logp_err": f32_logp,
+              "f32_launches": first["graphs_f32"]["launches"],
               "drafted": d["spec_drafted"], "accepted": d["spec_accepted"],
               "rejected": d["spec_rejected"],
               "accept_rate": d["spec_accepted"] / max(d["spec_drafted"], 1),
@@ -1263,11 +1499,13 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
               "spec_off_agree": f"{agree}/{len(results)}",
               "tokens_per_s": float(np.median(
                   modes["graphs"]["tokens_per_s"])),
+              "f32_tokens_per_s": float(np.median(
+                  modes["graphs_f32"]["tokens_per_s"])),
               "spec_off_tokens_per_s": ref_tps, "setup_s": setup_s,
               "warmup": setup,
               "kv_bytes_per_page": im.decode_engine.kv_bytes_per_page(),
               "modes": modes})
-        return launches, pair
+        return {m: r["launches"] for m, r in first.items()}, pair
     except BaseException:
         for im in pair.values():
             im.stop()
@@ -1286,8 +1524,9 @@ def serve_int8(dev, prompts, ref_results):
         pair, setup = _lm_pair(dev, weight_quant="int8", kv_dtype="int8",
                                speculative=spec)
         try:
-            modes, run = _serve_pairs(pair, prompts, SERVE_PAIRS["int8"],
-                                      "serve_int8")
+            modes, first = _serve_pairs(pair, prompts,
+                                        SERVE_PAIRS["int8"], "serve_int8")
+            run = first["graphs"]
             results, launches, d = (run["results"], run["launches"],
                                     run["delta"])
             steps = d["steps"]
@@ -1301,10 +1540,15 @@ def serve_int8(dev, prompts, ref_results):
                                      f"{L} layers")
             if spec is not None:
                 _spec_launches_check(launches, steps, d["prefill_calls"],
-                                     SPEC["k"], "serve_int8 spec")
+                                     SPEC["k"], "serve_int8 spec",
+                                     "block_sparse_matmul_bf16")
             im = pair["graphs"]
-            gap, dlogp = check_tokens(im, prompts, results, dev,
-                                      int8_gap_tolerance)
+            # int8 pages and weights in bfloat16 products: the two
+            # tolerances add
+            gap, dlogp = check_tokens(
+                im, prompts, results, dev,
+                lambda rows: int8_gap_tolerance(rows)
+                + bf16_gap_tolerance(rows))
             n_tok = int(sum(len(r.tokens) for r in results))
             agree = sum(a.tokens.tolist() == b.tokens.tolist()
                         for a, b in zip(results, ref_results))
@@ -1317,9 +1561,11 @@ def serve_int8(dev, prompts, ref_results):
                    "requests": len(results), "answered": len(results),
                    "generated_tokens": n_tok, "iterations": steps,
                    "launches": launches, "max_logit_gap": gap,
-                   "gap_tolerance": f"2 * {L} / 254 * max|logit| of the row",
+                   "compute_dtype": "bfloat16",
+                   "gap_tolerance": f"(2 * {L} / 254 + 2 * (4 * {L} + 1) / "
+                                    f"256) * max|logit| of the row",
                    "max_logp_err_vs_forward": dlogp,
-                   "f32_agree": f"{agree}/{len(results)}",
+                   "serve_agree": f"{agree}/{len(results)}",
                    "logp_drift_max": max(drift) if drift else None,
                    "logp_drift_mean": float(np.mean(drift)) if drift
                    else None,
@@ -1473,6 +1719,14 @@ def _device_kernels(events) -> list:
             and e.key not in host]
 
 
+def _copy_ms(kernels) -> float:
+    """Device ms of the kernels named for copies: torch's dtype casts
+    (the bfloat16 casts of weights and activations at every product) run
+    as its copy kernels, beside the other copies."""
+    return sum(e.self_device_time_total for e in kernels
+               if "copy" in e.key.lower()) / 1e3
+
+
 def _profile(fn, named=()) -> dict:
     """``fn()`` under torch.profiler: the device's busy share of the wall
     time and its time by kernel; for each substring in ``named``, the
@@ -1491,6 +1745,7 @@ def _profile(fn, named=()) -> dict:
     out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / wall,
            "device_kernels": len(kernels),
+           "copy_kernels_ms": _copy_ms(kernels),
            "top": [{"kernel": e.key[:80], "calls": e.count,
                     "device_ms": e.self_device_time_total / 1e3}
                    for e in top]}
@@ -1571,10 +1826,14 @@ def train(dev):
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
     from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
     from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
 
     ids, tgt = _train_data()
     model = Transformer(**LM, dropout=0.0, seed=SEED)
-    grad_check(model, ids, tgt, dev)
+    # flash against plain attention is a float32 check: plain attention
+    # rounds q and k in bfloat16 products, the flash kernel does not
+    with compute_dtype(torch.float32):
+        grad_check(model, ids, tgt, dev)
 
     events = {}
     steps = TRAIN["steps"]
@@ -1598,7 +1857,7 @@ def train(dev):
     tokens = TRAIN["batch"] * TRAIN["seq"]
     want = LM["num_layers"] * steps
     out = {"phase": "train", "model": LM, "train": TRAIN,
-           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "compute_dtype": "bfloat16", "losses": losses, "step_ms": step_ms, "median_step_ms": med,
            "tokens_per_s": tokens / med * 1e3, "wall_s": wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
            "launches": launches}
@@ -1961,8 +2220,12 @@ def train_resnet(dev, data):
     busy = prof["device_busy_s"] * 1e3 / 2 / med
     tail = full[c["first"]:]
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, tail))
-    bound_ms = RESNET_TRAIN_FLOPS / F32_FLOPS * 1e3
+    # the convs run in bfloat16 on the tensor cores (the card's default);
+    # the float32 CUDA-core bound stands beside it
+    bound_ms = RESNET_TRAIN_FLOPS / BF16_FLOPS * 1e3
     out = {"phase": "train_resnet", "config": c,
+           "compute_dtype": "bfloat16",
+           "f32_cuda_core_bound_ms": RESNET_TRAIN_FLOPS / F32_FLOPS * 1e3,
            "cudnn_deterministic": torch.backends.cudnn.deterministic,
            "losses": full, "resumed_losses": resumed,
            "resume_max_rel_err": rel, "resume_rtol": RESUME_RTOL,
@@ -2636,32 +2899,43 @@ def _profile_groups(fn) -> dict:
     return {"wall_s": wall, "device_busy_s": busy_ms / 1e3,
             "device_busy_share": busy_ms / 1e3 / wall,
             "device_ms_by_group": groups,
+            "copy_kernels_ms": _copy_ms(kernels),
             "top": [{"kernel": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
                     for e in top]}
 
 
 def serve_resnet(dev, model):
-    """Serve ResNet-50 through ``InferenceModel.predict``, float32 and
-    int8: requests of 1, 3, 16 and 50 images (buckets 1, 4, 16, 64), then
-    20 requests of 64.  Float32 answers are held to a direct forward of
-    the same rows, int8 answers to the float32 ones; every int8 bucket
-    call goes through 54 launches of the int8 kernel and the plain
+    """Serve ResNet-50 through ``InferenceModel.predict`` in bfloat16
+    products (the card's default), in float32 products and int8: requests
+    of 1, 3, 16 and 50 images (buckets 1, 4, 16, 64), then 20 requests of
+    64, and the throughput again in the reverse order (float32, then
+    bfloat16).  Float32 answers are held to a direct forward of the same
+    rows, bfloat16 and int8 answers to the float32 ones; every int8
+    bucket call goes through 54 launches of the int8 kernel and the plain
     version never runs.  Then a profile of each."""
     from bigdl_tpu_torch.nn import Conv2D, Linear
     from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
     from bigdl_tpu_torch.ops import quantized as q8
     from bigdl_tpu_torch.serving import InferenceModel
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    def in_dtype(tag):
+        return (compute_dtype(torch.float32) if tag == "float32"
+                else contextlib.nullcontext())
 
     t0 = time.perf_counter()
     ims = {"float32": InferenceModel(model, device=dev,
                                      batch_buckets=RESNET_BUCKETS),
+           "bfloat16": InferenceModel(model, device=dev,
+                                      batch_buckets=RESNET_BUCKETS),
            "int8": InferenceModel(model, device=dev, weight_quant="int8",
                                   batch_buckets=RESNET_BUCKETS)}
     rs = np.random.RandomState(SEED)
     sample = rs.randn(1, *IMAGE).astype(np.float32)
-    for im in ims.values():
-        im.warmup(sample)
+    for tag, im in ims.items():
+        with in_dtype(tag):
+            im.warmup(sample)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     requests = [rs.randn(n, *IMAGE).astype(np.float32)
@@ -2687,15 +2961,16 @@ def serve_resnet(dev, model):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             reset_launches()
-            t1 = time.perf_counter()
-            outs = [im.predict(x) for x in requests]
-            torch.cuda.synchronize()
-            req_s = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            for _ in range(n_tp):
-                last = im.predict(burst)
-            torch.cuda.synchronize()
-            tp_s = time.perf_counter() - t1
+            with in_dtype(tag):
+                t1 = time.perf_counter()
+                outs = [im.predict(x) for x in requests]
+                torch.cuda.synchronize()
+                req_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                for _ in range(n_tp):
+                    last = im.predict(burst)
+                torch.cuda.synchronize()
+                tp_s = time.perf_counter() - t1
             launches = dict(LAUNCHES)
         finally:
             q8.int8_matmul_plain = plain_fn
@@ -2724,52 +2999,72 @@ def serve_resnet(dev, model):
         else:
             wq = weights_f32
         rows[tag] = {"phase": "serve_resnet", "precision": tag,
+                     "compute_dtype": ("float32" if tag == "float32"
+                                       else "bfloat16"),
                      "requests": [int(x.shape[0]) for x in requests],
                      "answered": len(requests), "bucket_calls": calls,
                      "launches": launches, "plain_calls": plain[0],
                      "requests_wall_s": req_s,
                      "throughput": {"requests": n_tp, "images": b_tp},
                      "throughput_wall_s": tp_s,
-                     "images_per_s": n_tp * b_tp / tp_s,
+                     "images_per_s": [n_tp * b_tp / tp_s],
                      "matmul_weight_bytes_at_rest": wq,
                      "peak_mem_gb": peak}
+
+    # the throughput again, float32 then bfloat16: the two alternate
+    for tag in ("float32", "bfloat16"):
+        with in_dtype(tag):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(n_tp):
+                ims[tag].predict(burst)
+            torch.cuda.synchronize()
+        rows[tag]["images_per_s"].append(
+            n_tp * b_tp / (time.perf_counter() - t1))
 
     # float32 predict against a direct forward of the same rows
     f32 = ims["float32"]
     worst_f32 = 0.0
-    with torch.no_grad():
+    with torch.no_grad(), compute_dtype(torch.float32):
         for x, y in zip(requests, results["float32"]):
             direct = f32.model(torch.from_numpy(x).to(dev)).cpu().numpy()
             worst_f32 = max(worst_f32, float(np.abs(y - direct).max()
                                              / np.abs(direct).max()))
-    # int8 against float32: top-1 agreement and log-prob drift
-    agree = total = 0
-    worst = 0.0
-    for a, b in zip(results["int8"], results["float32"]):
-        agree += int((a.argmax(1) == b.argmax(1)).sum())
-        total += a.shape[0]
-        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    # bfloat16 and int8 against float32: top-1 agreement and log-prob
+    # drift
+    drift = {}
+    for tag in ("bfloat16", "int8"):
+        agree = total = 0
+        worst = 0.0
+        for a, b in zip(results[tag], results["float32"]):
+            agree += int((a.argmax(1) == b.argmax(1)).sum())
+            total += a.shape[0]
+            worst = max(worst, float(np.abs(a - b).max()
+                                     / np.abs(b).max()))
+        drift[tag] = worst
+        rows[tag].update(top1_agree=f"{agree}/{total}",
+                         max_logp_rel_err_vs_f32=worst,
+                         rtol=(INT8_LOGP_RTOL if tag == "int8"
+                               else BF16_LOGP_RTOL))
     rows["float32"].update(max_rel_err_vs_direct=worst_f32,
                            rtol=RESNET_F32_RTOL)
-    rows["int8"].update(top1_agree=f"{agree}/{total}",
-                        max_logp_rel_err_vs_f32=worst,
-                        rtol=INT8_LOGP_RTOL,
-                        f32_matmul_weight_bytes=weights_f32)
+    rows["int8"].update(f32_matmul_weight_bytes=weights_f32)
     for tag in ims:
         rows[tag]["setup_s"] = setup_s
         emit(rows[tag])
     if worst_f32 > RESNET_F32_RTOL:
         raise AssertionError(f"float32 predict disagrees with a direct "
                              f"forward: {worst_f32}")
-    if worst > INT8_LOGP_RTOL:
-        raise AssertionError(f"int8 log-probs drift {worst} of max "
-                             f"|log-prob| from float32's, past "
-                             f"{INT8_LOGP_RTOL}")
+    for tag, rtol in (("int8", INT8_LOGP_RTOL), ("bfloat16", BF16_LOGP_RTOL)):
+        if drift[tag] > rtol:
+            raise AssertionError(f"{tag} log-probs drift {drift[tag]} of max "
+                                 f"|log-prob| from float32's, past {rtol}")
     for tag, im in ims.items():
-        emit({"phase": "resnet_profile", "precision": tag,
-              "requests": 3, "images": b_tp,
-              **_profile_groups(lambda: [im.predict(burst)
-                                         for _ in range(3)])})
+        with in_dtype(tag):
+            emit({"phase": "resnet_profile", "precision": tag,
+                  "requests": 3, "images": b_tp,
+                  **_profile_groups(lambda: [im.predict(burst)
+                                             for _ in range(3)])})
     return rows["int8"]["launches"]
 
 
@@ -3071,10 +3366,61 @@ def serve_bert_fused(dev, model, cfg=BERT, buckets=BERT_BUCKETS,
         raise AssertionError(f"fused predict disagrees with the unfused "
                              f"plain forward: {worst} of max |log-prob|, "
                              f"past {BERT_LOGP_RTOL}")
+    # the throughput in bfloat16 and float32 products, alternating; the
+    # kernels' launches a bucket call the same in both
+    pairs = _predict_dtype_pairs(im, burst, n_tp)
+    for dt, row in pairs.items():
+        want = {"fused_layernorm": want_ln // len(calls) * n_tp,
+                "flash_attention_fwd": want_flash // len(calls) * n_tp}
+        if row["launches"] != want or not np.isfinite(row["out"]).all():
+            raise AssertionError(f"serve_bert_fused {dt}: launches "
+                                 f"{row['launches']} (want {want}), finite "
+                                 f"{np.isfinite(row['out']).all()}")
+    bf, f32 = pairs["bfloat16"]["out"], pairs["float32"]["out"]
+    emit({"phase": "serve_bert_dtypes", "sequences": b_tp, "requests": n_tp,
+          "order": ["bfloat16", "float32", "float32", "bfloat16"],
+          "bf16_top1_agree_vs_f32":
+              f"{int((bf.argmax(1) == f32.argmax(1)).sum())}/{len(bf)}",
+          "bf16_max_logp_rel_err_vs_f32": float(
+              np.abs(bf - f32).max() / np.abs(f32).max()),
+          **{dt: {"sequences_per_s": row["per_s"],
+                  "peak_mem_gb": row["peak_mem_gb"],
+                  "launches": row["launches"]}
+             for dt, row in pairs.items()}})
     emit({"phase": "bert_profile", "requests": 3, "sequences": b_tp,
           **_profile(lambda: [im.predict(burst) for _ in range(3)],
                      named=("fused_layernorm_kernel", "flash_fwd_kernel"))})
     return launches
+
+
+def _predict_dtype_pairs(im, batch, n):
+    """``n`` predicts of ``batch`` in bfloat16 and in float32 products,
+    alternating bfloat16, float32, float32, bfloat16: {dtype: rows a
+    second of each run, peak memory, the launches of the last run, its
+    last output}."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float32, torch.float32,
+               torch.bfloat16):
+        with compute_dtype(dt):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t1 = time.perf_counter()
+            for _ in range(n):
+                y = im.predict(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        row = out.setdefault(str(dt).split(".")[-1],
+                             {"per_s": [], "peak_mem_gb": 0.0})
+        row["per_s"].append(n * len(batch) / wall)
+        row["peak_mem_gb"] = max(row["peak_mem_gb"],
+                                 torch.cuda.max_memory_allocated() / 2**30)
+        row["launches"] = dict(LAUNCHES)
+        row["out"] = y
+    return out
 
 
 def resnet_fused(dev, model):
@@ -3227,6 +3573,7 @@ class _BusyWindow:
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)
             self.out = {"steps": it - self.start, "wall_s": wall,
                         "device_busy_s": busy, "busy_share": busy / wall,
+                        "copy_kernels_ms": _copy_ms(kernels),
                         "top": [{"kernel": e.key[:60], "calls": e.count,
                                  "device_ms": e.self_device_time_total
                                  / 1e3} for e in top[:4]],
@@ -3392,6 +3739,45 @@ def _bundle_pairs(make_opt, steps, pairs, name, extra=None):
     return out, equal
 
 
+def _dtype_pairs(make_opt, steps):
+    """K = 4 runs in float32 and in bfloat16 products, alternating
+    (float32, bfloat16, bfloat16, float32), then one profiled run of each
+    over [4, 8): step ms, busy share, peak memory and the losses of each
+    dtype, its two runs' losses equal to the bit.  The bfloat16 losses
+    must be finite and falling."""
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    k = BUNDLE["k"]
+    runs = {"float32": [], "bfloat16": []}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        with compute_dtype(dt):
+            runs[dt].append(_bundle_run(make_opt, k, steps))
+    out = {}
+    for dt, rs in runs.items():
+        with compute_dtype(dt):
+            prof = _bundle_run(make_opt, k, BUNDLE["sync_steps"],
+                               busy=_BusyWindow(BUNDLE["timed_from"],
+                                                BUNDLE["sync_steps"]))
+        losses = rs[0]["losses"]
+        out[dt] = {"step_ms": [r["step_ms"] for r in rs],
+                   "median_step_ms": float(np.median(
+                       [r["step_ms"] for r in rs])),
+                   "busy_share": prof["busy"]["busy_share"],
+                   "copy_kernels_ms": prof["busy"]["copy_kernels_ms"],
+                   "peak_mem_gb": max(r["peak_mem_gb"] for r in rs),
+                   "launches_per_step": rs[0]["launches_per_step"],
+                   "losses": losses,
+                   "losses_bit_equal": all(r["losses"] == losses
+                                           for r in rs)}
+    bf = out["bfloat16"]
+    if not (bf["losses_bit_equal"] and out["float32"]["losses_bit_equal"]
+            and np.all(np.isfinite(bf["losses"]))
+            and bf["losses"][-1] < bf["losses"][0]):
+        raise AssertionError(f"bfloat16 / float32 bundles: {out}")
+    return {"k": k, "order": ["float32", "bfloat16", "bfloat16", "float32"],
+            **out}
+
+
 def train_resnet_bundles(dev, data):
     """ResNet-50 at batch 64 from memory, K = 1 (eager) and K = 4 (one
     captured step replayed) alternating: step ms, the host's dispatch
@@ -3412,6 +3798,8 @@ def train_resnet_bundles(dev, data):
 
     out, equal = _bundle_pairs(make, steps, BUNDLE["pairs"],
                                "train_resnet_bundles")
+    out["compute_dtype"] = "bfloat16"
+    out["dtype_pairs"] = _dtype_pairs(make, steps)
     ref = out["losses_k1"]
     tmp = tempfile.mkdtemp(prefix="bundle_ckpt_")
     try:
@@ -3505,8 +3893,12 @@ def train_lm_bundles(dev):
                 .set_end_when(end))
 
     out, equal = _bundle_pairs(make, BUNDLE["steps"], 1, "train_lm_bundles")
+    out["compute_dtype"] = "bfloat16"
+    out["dtype_pairs"] = _dtype_pairs(make, BUNDLE["steps"])
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    for summary in out["summary"].values():
+    for summary in (*out["summary"].values(),
+                    out["dtype_pairs"]["float32"],
+                    out["dtype_pairs"]["bfloat16"]):
         summary["tokens_per_s"] = tokens / summary["median_step_ms"] * 1e3
     emit(out)
     want = {n: float(LM["num_layers"]) for n in (
@@ -3712,7 +4104,9 @@ def main() -> int:
     # result is printed
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops.common import resolve_device
-    from bigdl_tpu_torch.tensor.policy import apply_precision_policy
+    from bigdl_tpu_torch.tensor.policy import (apply_precision_policy,
+                                               compute_dtype,
+                                               get_compute_dtype)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3723,7 +4117,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "compute_dtype": str(get_compute_dtype(dev))})
     if sys.argv[1:] == ["--feed-ab"]:
         torch.backends.cudnn.deterministic = True
         feed_ab(dev)
@@ -3745,6 +4140,7 @@ def main() -> int:
     int8_row = check_paged_decode_int8(dev, flush)
     verify_row = check_paged_verify(dev, flush)
     sparse_row = check_block_sparse(dev, flush)
+    sparse_bf16_row = check_block_sparse_bf16(dev, flush)
     fwd_row, bwd_row = check_flash(dev, flush)
     fwd_nc_row = check_flash_noncausal(dev, flush)
     ln_row = check_fused_layernorm(dev, flush)
@@ -3756,9 +4152,16 @@ def main() -> int:
     launches, prompts, results, tps = serve(dev)
     decode_row["launches"] = launches.get(decode_row["name"], 0)
     torch.cuda.empty_cache()
-    launches, spec_pair = serve_spec(dev, prompts, results, tps)
-    verify_row["launches"] = launches.get(verify_row["name"], 0)
-    sparse_row["launches"] = launches.get(sparse_row["name"], 0)
+    spec_launches, spec_pair = serve_spec(dev, prompts, results, tps)
+    verify_row["launches"] = spec_launches["graphs"].get(
+        verify_row["name"], 0)
+    sparse_bf16_row["launches"] = spec_launches["graphs"].get(
+        sparse_bf16_row["name"], 0)
+    # in bfloat16 products the float32 instance runs the draft of the
+    # float32 engine (and every dx of a bfloat16 product's backward)
+    sparse_row["launches"] = spec_launches["graphs_f32"].get(
+        sparse_row["name"], 0)
+    sparse_row["launches_path"] = "serve_spec graphs_f32"
     try:
         serve_sweep(dev, spec_pair)
     finally:
@@ -3772,10 +4175,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = serve_resnet(dev, resnet)
     int8mm_row["launches"] = launches.get(int8mm_row["name"], 0)
-    resnet_fused(dev, resnet)
+    with compute_dtype(torch.float32):   # the fold's check is float32
+        resnet_fused(dev, resnet)
     del resnet
     torch.cuda.empty_cache()
-    launches = serve_bert_fused(dev, bert_model())
+    # its answers held to the unfused plain model in float32 products;
+    # the bfloat16 throughput beside the float32 one inside
+    with compute_dtype(torch.float32):
+        launches = serve_bert_fused(dev, bert_model())
     ln_row["launches"] = launches.get(ln_row["name"], 0)
     fwd_nc_row["launches"] = launches.get(fwd_nc_row["name"], 0)
     torch.cuda.empty_cache()
@@ -3786,7 +4193,8 @@ def main() -> int:
     # one backward call launches both entry points
     bwd_row["launches"] = min(bwd_entries.values())
     bwd_row["launches_by_entry"] = bwd_entries
-    eval_launches = evaluate_lm(dev, trained)
+    with compute_dtype(torch.float32):   # flash against plain attention
+        eval_launches = evaluate_lm(dev, trained)
     fwd_row["launches_evaluate_lm"] = eval_launches.get(
         "flash_attention_fwd", 0)
     del trained
@@ -3824,7 +4232,8 @@ def main() -> int:
     finally:
         torch.backends.cudnn.deterministic = False
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
-                      verify_row, int8mm_row, sparse_row, ln_row]})
+                      verify_row, int8mm_row, sparse_row, sparse_bf16_row,
+                      ln_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

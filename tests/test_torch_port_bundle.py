@@ -277,8 +277,19 @@ def test_env_and_config_wiring(monkeypatch, tmp_path, init):
     # EngineConfig.profile_dir armed the profiler (window from 10: the
     # run ended before it opened)
     assert opt._profiler is not None and opt._profiler.path is None
-    for field, value, item in (("compute_dtype", "bfloat16", "A.1.9"),
-                               ("grad_comm", "int8", "A.2"),
+    # compute_dtype is accepted and read nowhere, as in the JAX package
+    # (ROADMAP C.15): the device and tensor.policy decide
+    from bigdl_tpu.runtime.engine import EngineConfig as JEngineConfig
+    from bigdl_tpu_torch.tensor.policy import get_compute_dtype
+    assert EngineConfig().compute_dtype == JEngineConfig().compute_dtype \
+        == "bfloat16"
+    for value in ("bfloat16", "float32"):
+        Engine(EngineConfig(compute_dtype=value))
+        assert get_compute_dtype(torch.device("cpu")) == torch.float32
+        assert get_compute_dtype(torch.device("cuda")) == torch.bfloat16
+    with pytest.raises(ValueError, match="param_dtype"):
+        Engine(EngineConfig(param_dtype="bfloat16"))
+    for field, value, item in (("grad_comm", "int8", "A.2"),
                                ("metrics_port", 9090, "A.6.7"),
                                ("mesh", {"data": 2}, "A.2")):
         with pytest.raises(ValueError, match=item):

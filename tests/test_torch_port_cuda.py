@@ -5,7 +5,10 @@ only the port is installed; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerance: float32 sums in another order, rtol and atol 1e-4."""
+Tolerance: float32 sums in another order, rtol and atol 1e-4.  The
+tests hold float32 semantics and pin ``compute_dtype(torch.float32)``
+(the ``card`` fixture); those of the card's default, bfloat16 products
+(``tensor.policy``), take ``card_bf16`` and state their own tolerances."""
 
 import time
 
@@ -25,17 +28,34 @@ from bigdl_tpu_torch.ops.flash_attention import (
     paged_decode_attention_ref, paged_verify_attention,
     paged_verify_attention_ref)
 from bigdl_tpu_torch.ops.quantized import quantize_pages
-from bigdl_tpu_torch.tensor.policy import apply_precision_policy
+from bigdl_tpu_torch.tensor.policy import (apply_precision_policy,
+                                           compute_dtype, get_compute_dtype,
+                                           matmul_f32)
 
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture
-def card():
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels run only there")
     apply_precision_policy()
     return torch.device("cuda")
+
+
+@pytest.fixture
+def card():
+    """The card, in float32 products."""
+    dev = _card()
+    with compute_dtype(torch.float32):
+        yield dev
+
+
+@pytest.fixture
+def card_bf16():
+    """The card in its default compute dtype, bfloat16."""
+    dev = _card()
+    assert get_compute_dtype(dev) == torch.bfloat16
+    return dev
 
 
 def _close(got, want):
@@ -181,6 +201,119 @@ def test_block_sparse_kernel_matches_plain(card, m, k, n, blk):
     _close(dx, wdx)
     _close(dw, wdw)
     assert LAUNCHES["block_sparse_matmul"] == before + 2   # forward, dx
+
+
+def _within_one_bf16_ulp(got, want, terms):
+    """Elementwise within one bfloat16 step of the larger magnitude: a
+    float32 sum in another order can round to the neighbouring value.
+    The step is floored at the float32 sum's own noise, sqrt(terms) 2^-24
+    of the largest |value|: an element that cancels to near zero has a
+    bfloat16 step finer than that, and two float32 sums of ``terms``
+    products in different orders differ there by more than it."""
+    got, want = got.detach().float(), want.detach().float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp(
+        min=terms ** 0.5 * 2.0 ** -24 * float(want.abs().max()))
+    excess = (got - want).abs() - ulp
+    i = int(excess.argmax())
+    assert float(excess.max()) <= 0, (
+        f"{int((excess > 0).sum())} elements past one ulp, worst "
+        f"{got.flatten()[i].item()} against {want.flatten()[i].item()}")
+
+
+@pytest.mark.parametrize("m,k,n,blk", [(16, 768, 3072, (8, 8)),
+                                       (16, 3072, 768, (8, 8)),
+                                       (37, 100, 70, (8, 16)),
+                                       (256, 3072, 768, (64, 64)),
+                                       (256, 768, 3072, (8, 8)),
+                                       (256, 770, 384, (8, 8)),
+                                       (45, 130, 93, (12, 6)),
+                                       (20, 300, 40, (100, 8))])
+def test_block_sparse_bf16_kernel_matches_plain(card_bf16, m, k, n, blk):
+    """The bfloat16 kernel against its plain version (the float32 masked
+    product of the widened operands, rounded once): every element within
+    one bfloat16 ulp (floored at the float32 sum's noise); the backward
+    (dx through the float32 kernel, dw dense, each rounded to bfloat16)
+    likewise."""
+    rs = np.random.RandomState(1)
+    mask = rs.rand(-(-k // blk[0]), -(-n // blk[1])) < 0.5
+    plan = ColumnPlan(mask, *blk)
+    x = torch.randn(m, k, device=card_bf16).bfloat16().requires_grad_()
+    w = torch.randn(k, n, device=card_bf16).bfloat16().requires_grad_()
+    g = torch.randn(m, n, device=card_bf16).bfloat16()
+    before = dict(LAUNCHES)
+    out = block_sparse_matmul(x, w, plan=plan)
+    assert out.dtype == torch.bfloat16
+    dx, dw = torch.autograd.grad(out, (x, w), g)
+    want = block_sparse_matmul_ref(x, w, plan)
+    wdx, wdw = torch.autograd.grad(want, (x, w), g)
+    torch.cuda.synchronize()
+    for a, b, terms in ((out, want, k), (dx, wdx, n), (dw, wdw, m)):
+        _within_one_bf16_ulp(a, b, terms)
+    assert LAUNCHES["block_sparse_matmul_bf16"] == before.get(
+        "block_sparse_matmul_bf16", 0) + 1
+    assert LAUNCHES["block_sparse_matmul"] == before.get(
+        "block_sparse_matmul", 0) + 1                        # dx
+
+
+def test_block_sparse_bf16_repeats_its_bits_in_a_graph(card_bf16):
+    """Two launches give the same bits, and a captured graph's replay the
+    eager launch's; mixed dtypes are refused."""
+    rs = np.random.RandomState(3)
+    for m, k, n in ((16, 768, 3072), (256, 3072, 768)):
+        plan = ColumnPlan(rs.rand(k // 8, n // 8) < 0.5, 8, 8)
+        x = torch.randn(m, k, device=card_bf16).bfloat16()
+        w = torch.randn(k, n, device=card_bf16).bfloat16()
+        first = block_sparse_matmul(x, w, plan=plan)
+        assert torch.equal(first, block_sparse_matmul(x, w, plan=plan))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = block_sparse_matmul(x, w, plan=plan)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+        with pytest.raises(ValueError, match="one dtype"):
+            block_sparse_matmul(x, w.float(), plan=plan)
+
+
+def test_matmul_f32_on_the_card_against_the_cpu_emulation(card_bf16):
+    """The product helper: ``out_dtype=float32`` cuBLAS products equal to
+    the CPU's widened float32 product to 1e-5 of the largest |value|.
+    Its gradients round the cotangent to bfloat16 on the card (ROADMAP
+    C.15): each sits within one bfloat16 step of the CPU's plus the
+    rounded cotangent's error, 2^-9 of sum |g| |w| (or |x| |g|)."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(4, 64, 768, generator=g)
+    w = torch.randn(768, 3072, generator=g) * 0.03
+    go = torch.randn(4, 64, 3072, generator=g)
+    grads = {}
+    for dev in ("cpu", card_bf16):
+        xi = x.detach().to(dev, copy=True).requires_grad_()
+        wi = w.detach().to(dev, copy=True).requires_grad_()
+        with compute_dtype(torch.bfloat16):
+            y = matmul_f32(xi, wi)
+        assert y.dtype == torch.float32
+        y.backward(go.to(dev))
+        grads[str(dev)] = [t.detach().cpu() for t in (y, xi.grad, wi.grad)]
+    (y0, dx0, dw0), (y1, dx1, dw1) = grads["cpu"], grads[str(card_bf16)]
+    assert float((y1 - y0).abs().max() / y0.abs().max()) <= 1e-5
+    xb, wb = x.bfloat16().float(), w.bfloat16().float()
+    for got, want, bound in (
+            (dx1, dx0, go.abs() @ wb.abs().T),
+            (dw1, dw0, (xb.abs().reshape(-1, 768).T
+                        @ go.abs().reshape(-1, 3072)))):
+        mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        excess = (got - want).abs() - ulp - 2.0 ** -9 * bound
+        assert float(excess.max()) <= 0.0, float(excess.max())
+    # bf16 x bf16 -> float32 in one cuBLAS call on this torch
+    a = x[0].to(card_bf16).bfloat16()
+    b = w.to(card_bf16).bfloat16()
+    full = torch.mm(a, b, out_dtype=torch.float32)
+    ref = a.float() @ b.float()
+    assert float((full - ref).abs().max() / ref.abs().max()) <= 1e-5
 
 
 def test_block_sparse_and_flash_backward_repeat_their_bits(card):
@@ -894,6 +1027,19 @@ def test_graph_bundles_equal_eager_steps(card, option):
     captured graph, against K = 1's eager steps: the same losses and
     parameters to the bit, with each TrainStep option the JAX bundle
     takes; two eager warm steps, then every step a replay."""
+    _graph_bundles_equal_eager(card, option)
+
+
+@pytest.mark.parametrize("option", [{}, {"remat": True,
+                                         "remat_policy": "dots"},
+                                    {"bn": True}])
+def test_graph_bundles_equal_eager_steps_bf16(card_bf16, option):
+    """As test_graph_bundles_equal_eager_steps, in bfloat16 products:
+    the graphs replay the eager bfloat16 steps to the bit."""
+    _graph_bundles_equal_eager(card_bf16, option)
+
+
+def _graph_bundles_equal_eager(card, option):
     from bigdl_tpu_torch.optim import GradientClipping, Trigger
 
     x, y = _bundle_data()
@@ -922,6 +1068,36 @@ def test_graph_bundles_lm_on_the_flash_kernels(card):
     """A 2-layer LM whose attention runs the flash kernels: K = 4 replays
     equal K = 1's eager steps to the bit, and the wrappers' launch counts
     are credited at every replay (12 steps x 2 layers each way)."""
+    _graph_bundles_lm(card)
+
+
+def test_graph_bundles_lm_on_the_flash_kernels_bf16(card_bf16):
+    """The same in bfloat16 products, the losses falling."""
+    losses = _graph_bundles_lm(card_bf16)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_bundle_graphs_refuse_another_compute_dtype(card_bf16):
+    """A TrainStep pins the compute dtype of its graphs at the first
+    capture: a bundle in another dtype raises, naming both."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, TrainStep
+
+    x, y = _bundle_data()
+    step = TrainStep(_bundle_mlp(dropout=0.0).to(card_bf16),
+                     ClassNLLCriterion(), SGD(learning_rate=0.1))
+    xs = [torch.from_numpy(x[:32]).to(card_bf16)] * 3
+    ys = [torch.from_numpy(y[:32]).to(card_bf16)] * 3
+    step.train_bundle(0, xs, ys)
+    assert step.graphs_captured == 1
+    assert step.graph_dtype == torch.bfloat16
+    with compute_dtype(torch.float32):
+        with pytest.raises(RuntimeError, match="compute dtype"):
+            step.train_bundle(3, xs, ys)
+    step.train_bundle(3, xs, ys)     # back in bfloat16: replays
+
+
+def _graph_bundles_lm(card):
     from bigdl_tpu_torch.data import DataSet
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
     from bigdl_tpu_torch.ops import reset_launches
@@ -950,6 +1126,7 @@ def test_graph_bundles_lm_on_the_flash_kernels(card):
                  "flash_attention_bwd_dkdv"):
         assert n1[name] == n4[name] == 24, (n1, n4)
     assert t4._step.graphs_captured == 1
+    return np.asarray(l1)
 
 
 def test_one_graph_per_batch_shape(card):
@@ -1143,6 +1320,37 @@ def test_decode_graphs_equal_eager_to_the_bit(card, int8, spec, flash):
     live page (and int8 scale) equal to the bit, the launches of each
     kernel the same, greedy and sampled waves, the chunk verify (greedy
     float32 on the paged kernel) and the scan verify."""
+    _decode_graphs_equal_eager(card, int8, spec, flash)
+
+
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_graphs_equal_eager_to_the_bit_bf16(card_bf16, int8, spec):
+    """The same in bfloat16 products (the draft's FFNs on the bfloat16
+    block-sparse kernel under speculation)."""
+    n = _decode_graphs_equal_eager(card_bf16, int8, spec, True)
+    assert (n.get("block_sparse_matmul_bf16", 0) > 0) == spec
+    assert not n.get("block_sparse_matmul")
+
+
+def test_decode_graphs_refuse_another_compute_dtype(card_bf16):
+    """An engine pins the compute dtype of its graphs at warmup: a call in
+    another dtype fails its requests, naming both; back in the warmup's
+    dtype the engine serves again."""
+    eng = _serve_engine(card_bf16, True).warmup()
+    try:
+        assert eng.graph_dtype == torch.bfloat16
+        with compute_dtype(torch.float32):
+            with pytest.raises(RuntimeError, match="compute dtype"):
+                eng.check_compute_dtype()
+            with pytest.raises(Exception, match="compute dtype"):
+                _serve_waves(eng, _serve_prompts(n=2))
+        assert len(_serve_waves(eng, _serve_prompts(n=2))) == 4
+    finally:
+        eng.stop()
+
+
+def _decode_graphs_equal_eager(card, int8, spec, flash):
     from bigdl_tpu_torch.ops import reset_launches
 
     prompts = _serve_prompts()
@@ -1172,6 +1380,7 @@ def test_decode_graphs_equal_eager_to_the_bit(card, int8, spec, flash):
                            getattr(e1, name)[:, :P]), name
     assert n0 == n1 and (bool(n1) == (flash or spec))
     assert e1.stats["steps"] == e0.stats["steps"]
+    return n1
 
 
 def test_decode_sweep_after_warmup_captures_nothing(card):
