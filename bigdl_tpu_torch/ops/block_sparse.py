@@ -11,8 +11,11 @@ the same kernel on the transposed plan, dw the dense product masked on
 the way out, as the JAX VJP splits it.
 
 The column plan is built on the host from the mask and uploaded to a
-device once: :class:`ColumnPlan` keeps it per device, and
-:class:`BlockSparseLinear` keeps its plan until its mask changes.
+device once: :class:`ColumnPlan` keeps it per device, with the 64-bit
+row mask of every (64-row chunk, column block) pair that the bfloat16
+kernel reads, and :class:`BlockSparseLinear` keeps its plan until its
+mask changes.  :func:`bf16_plan` picks the bfloat16 kernel's path, tile
+and split of K from the shape.
 
 Mask derivation (``prune_to``) stays in numpy, the JAX package's own
 code, so the masks are the JAX ones.  A torch module owns its weight, so
@@ -20,7 +23,7 @@ pruning reads the module's parameter itself: there is no params tree to
 bind by order."""
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +37,80 @@ KERNEL = "block_sparse_matmul"
 KERNEL_BF16 = "block_sparse_matmul_bf16"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, counts, idx, max_count, out, M, K, N, block_k, block_n
-_ARGS = [_P] * 4 + [_I, _P] + [_I] * 5
-# the kernel and its entry point, by operand dtype
-_SIGNATURES = {
-    torch.float32: (KERNEL, (KERNEL, "block_sparse_matmul_f32", _ARGS)),
-    torch.bfloat16: (KERNEL_BF16, (KERNEL, "block_sparse_matmul_bf16",
-                                   _ARGS)),
-}
+_F32 = (KERNEL, "block_sparse_matmul_f32", [_P] * 4 + [_I, _P] + [_I] * 5)
+# x, w, counts, idx, max_count, masks, out, ws, counters, M, K, N, block_k,
+# block_n, tile_m, chunks_per_split
+_BF16 = (KERNEL, "block_sparse_matmul_bf16",
+         [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# the bfloat16 kernel's geometry (csrc/block_sparse_matmul.cu, namespace
+# wg): K walked in chunks of 64 rows, 64 output columns a tile
+CHUNK = 64
+TILE_N = 64
+# streaming multiprocessors of an H100 SXM: the blocks a split aims to fill
+SMS = 132
+# at most 16 splits a tile, and (where more splits remain) at most 12
+# chunks a split: the ring of the 16-row tiles holds 12, and on the card
+# 12 chunks a split beat 16 at the prefill's (256, 3072, 768)
+MAX_SPLITS = 16
+MAX_CHUNKS = 12
+
+
+class Bf16Plan(NamedTuple):
+    """How the bfloat16 kernel runs one product: ``path`` "wgmma" (tiles
+    of ``TILE_N`` output columns x ``tile_m`` rows of x, K split into
+    ``splits`` runs of ``chunks_per_split`` 64-row chunks, ``blocks``
+    blocks) or "mma_sync" (the general kernel, for shapes wgmma's copies
+    cannot take)."""
+    path: str
+    tile_m: int
+    chunks_per_split: int
+    splits: int
+    blocks: int
+
+
+def bf16_plan(m: int, k: int, n: int, block_n: int, aligned: bool = True,
+              sms: int = SMS) -> Bf16Plan:
+    """The bfloat16 kernel's path, tile and split of K for ``x (m, k) @ w
+    (k, n)`` in column blocks of ``block_n`` (``aligned``: x and w start
+    on 16 bytes).  wgmma takes K, N and block_n multiples of 8 (16-byte
+    copies of whole rows, 8 columns in one block) and a nonzero K; the
+    C entry makes the same choice.  Its tile is 64 columns by the fewest
+    of 16, 32 or 64 rows that holds m.  A product of fewer than ``sms``
+    tiles splits K into runs of whole chunks, as even as they go: the
+    fewest runs (at most 16) that give ``sms`` blocks of at most 12
+    chunks, so that it still fills the card."""
+    if not (k > 0 and k % 8 == 0 and n % 8 == 0 and block_n % 8 == 0
+            and aligned):
+        return Bf16Plan("mma_sync", 0, 0, 1, 0)
+    tile_m = 16 if m <= 16 else 32 if m <= 32 else 64
+    tiles = cdiv(m, tile_m) * cdiv(n, TILE_N)
+    nchunks = cdiv(k, CHUNK)
+    if tiles >= sms:
+        return Bf16Plan("wgmma", tile_m, nchunks, 1, tiles)
+    for want in range(1, min(nchunks, MAX_SPLITS) + 1):
+        cps = cdiv(nchunks, want)
+        splits = cdiv(nchunks, cps)
+        if tiles * splits >= sms and cps <= MAX_CHUNKS:
+            break
+    return Bf16Plan("wgmma", tile_m, cps, splits, tiles * splits)
+
+
+_sm_counts: Dict[torch.device, int] = {}
+# the split kernel's per-tile arrival counters, by (device, stream): zeroed
+# once, and set back to 0 by the last split of each tile at every launch,
+# so a captured graph's replays find them clean.  Launches that share a
+# stream are ordered; two streams get two sets.
+_COUNTERS = 1024
+_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _sms(device: torch.device) -> int:
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device]
 
 
 class StaticMask:
@@ -82,6 +152,20 @@ def expand_mask(mask, k: int, n: int, block_k: int,
     return full[:k, :n]
 
 
+def row_masks(arr: np.ndarray, k: int, block_k: int) -> np.ndarray:
+    """Which rows each column block keeps, a 64-bit mask per (64-row
+    chunk, column block): int64 (ceil(k / 64), column blocks), bit r of
+    [c, j] set where row 64 c + r < k lies in a kept block of column
+    block j."""
+    nnb = arr.shape[1]
+    nch = cdiv(k, CHUNK)
+    rows = np.zeros((nch * CHUNK, nnb), bool)
+    rows[:k] = np.repeat(arr, block_k, 0)[:k]
+    bits = (rows.reshape(nch, CHUNK, nnb).astype(np.uint64)
+            << np.arange(CHUNK, dtype=np.uint64)[None, :, None])
+    return np.bitwise_or.reduce(bits, axis=1).view(np.int64)
+
+
 def _column_plan(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Per output-column block: its kept k-block count and the padded
     list of their indices, in increasing order."""
@@ -113,14 +197,17 @@ class ColumnPlan:
         return self._t
 
     def on(self, device: torch.device, k: int, n: int):
-        """(counts, idx, elementwise mask) as tensors on ``device``."""
+        """(counts, idx, elementwise mask, row masks) as tensors on
+        ``device``, each uploaded once."""
         key = (device, k, n)
         if key not in self._dev:
             self._dev[key] = (
                 torch.from_numpy(self.counts).to(device),
                 torch.from_numpy(self.idx).to(device),
                 torch.from_numpy(expand_mask(self.mask, k, n, self.block_k,
-                                             self.block_n)).to(device))
+                                             self.block_n)).to(device),
+                torch.from_numpy(row_masks(self.mask.arr, k,
+                                           self.block_k)).to(device))
         return self._dev[key]
 
 
@@ -151,7 +238,7 @@ def _bs_raw(x, w, plan: ColumnPlan) -> torch.Tensor:
             f"mask {plan.mask.shape} does not tile ({k}, {n}) in "
             f"({plan.block_k}, {plan.block_n}) blocks: want "
             f"({cdiv(k, plan.block_k)}, {cdiv(n, plan.block_n)})")
-    if x.dtype != w.dtype or x.dtype not in _SIGNATURES:
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
         raise ValueError(f"block_sparse_matmul takes float32 or bfloat16 "
                          f"operands of one dtype, got {x.dtype} and "
                          f"{w.dtype}")
@@ -163,12 +250,42 @@ def _bs_raw(x, w, plan: ColumnPlan) -> torch.Tensor:
                          f"{x.device}")
     x = x.contiguous()
     w = w.contiguous()
-    counts, idx, _ = plan.on(x.device, k, n)
+    if x.dtype == torch.bfloat16:
+        return _bs_bf16(x, w, plan, bf16_plan(
+            m, k, n, plan.block_n, _aligned(x, w), _sms(x.device)))
+    counts, idx, _, _ = plan.on(x.device, k, n)
     out = x.new_empty((m, n))
-    kernel, signature = _SIGNATURES[x.dtype]
-    launch(kernel, signature, x.device, x.data_ptr(), w.data_ptr(),
+    launch(KERNEL, _F32, x.device, x.data_ptr(), w.data_ptr(),
            counts.data_ptr(), idx.data_ptr(), idx.shape[1], out.data_ptr(),
            m, k, n, plan.block_k, plan.block_n)
+    return out
+
+
+def _aligned(x, w) -> bool:
+    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+
+
+def _bs_bf16(x, w, plan: ColumnPlan, tp: Bf16Plan) -> torch.Tensor:
+    """The bfloat16 kernel on contiguous CUDA operands under the tile plan
+    ``tp`` (``bf16_plan``'s), with its float32 workspace of split sums."""
+    m, k = x.shape
+    n = w.shape[1]
+    counts, idx, _, masks = plan.on(x.device, k, n)
+    out = x.new_empty((m, n))
+    ws = counters = None
+    if tp.splits > 1:
+        ws = torch.empty((tp.splits, m, n), dtype=torch.float32,
+                         device=x.device)
+        key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
+        if key not in _counters:
+            _counters[key] = torch.zeros(_COUNTERS, dtype=torch.int32,
+                                         device=x.device)
+        counters = _counters[key].data_ptr()
+    launch(KERNEL_BF16, _BF16, x.device, x.data_ptr(), w.data_ptr(),
+           counts.data_ptr(), idx.data_ptr(), idx.shape[1], masks.data_ptr(),
+           out.data_ptr(), None if ws is None else ws.data_ptr(), counters,
+           m, k, n, plan.block_k, plan.block_n, tp.tile_m,
+           tp.chunks_per_split)
     return out
 
 

@@ -11,18 +11,55 @@
 // k-blocks of column block j, and idx[j, 0 .. counts[j]), their indices in
 // increasing order.  Pruned blocks are never read and never multiplied.
 // The backward's dx is this kernel on the transposed problem (the caller
-// passes w^T and the plan of the transposed mask).  The bfloat16 instance
-// (block_sparse_matmul_bf16, at the end) is the Pallas kernel on bfloat16
-// operands under the JAX package's compute dtype: float32 sums, the output
-// written as bfloat16 (_bsmm's astype(x.dtype)); it is bound by the same
-// bytes at half the size, 2 (M K + K N density + M N), and by flops over
-// the 989 TFLOP/s bf16 peak.
+// passes w^T and the plan of the transposed mask).
 //
-// What bounds it, by both peaks (2 M K N density flops, 4 (M K + K N
-// density + M N) bytes): at the draft's decode shapes (M = 16) the bytes of
-// the kept weight blocks over HBM's 3.35 TB/s; at M = 256 the operations,
-// which on the tensor cores in 3xTF32 cost three TF32 products each, 3 x
-// flops over 495 TFLOP/s (against flops over 67 TFLOP/s on CUDA cores).
+// The bfloat16 instance (block_sparse_matmul_bf16; namespace wg, after the
+// float32 kernel) is the Pallas kernel on the bfloat16 operands that
+// BlockSparseLinear casts under the JAX package's compute dtype
+// (bigdl_tpu/ops/block_sparse.py:314-318): float32 sums, each output
+// rounded once to bfloat16 (_bsmm's astype(x.dtype), :157-158).  It is
+// bound by the bytes of the kept blocks, 2 (M K + K N density + M N) over
+// HBM's 3.35 TB/s, at the draft's shapes both ways: the dense product of
+// the zero-filled tiles that it computes, 2 M K N flops over 989 TFLOP/s,
+// takes 1.2 us at M = 256, under the 1.29 us of the bytes.  What its
+// design does about that:
+// - wgmma with the output columns as the 64-row side: out^T = (w masked)^T
+//   x^T, so a decode step (M <= 16) is wgmma n = 16, not a 64-row tile
+//   three quarters empty.  w's chunk is the MN-major A operand (the
+//   transpose bit), x's the K-major B; both in the 128-byte swizzle.
+// - Only the kept bytes of w are read: a producer warpgroup copies w 16
+//   bytes at a time with cp.async straight into the swizzled layout,
+//   source size 0 (zeros, no read) where the row mask drops the row.  The
+//   row masks, one 64-bit word per (64-row chunk, column block), are built
+//   once on the host with the column plan (ColumnPlan.on), not by every
+//   block at every launch; a block loads its words together, once, while
+//   its first chunks of x are already in flight.
+// - Few serial steps: a split's chunks each get a stage of their own where
+//   they fit (up to 12 for a decode step's 16-row tile), so every copy goes
+//   out at once and the wgmmas follow the chunks as they land, summing in
+//   the wgmma accumulator (at most 768 terms); longer walks run a ring,
+//   each chunk's tensor-core sum added into a float32 total.  The wgmmas
+//   sit in a warp-uniform branch with the barrier waits' loops in the PTX,
+//   and nothing touches the accumulator while they run: otherwise ptxas
+//   serialises them (C7518, C7514).
+// - Split K to fill the card: a product of fewer tiles than SMs (the
+//   draft's l2 at M = 16 has 12) splits K into runs of whole chunks
+//   (ops.block_sparse.bf16_plan).  Each split writes float32 partials to a
+//   workspace; the tile's last split to arrive (a counter per tile, set
+//   back to 0 by that split) adds them in split order and rounds once:
+//   one launch, no float atomics, the same bits every launch and replay.
+// - 16-byte stores from a staged tile.
+// Shapes whose rows wgmma's copies cannot take whole (K, N or block_n not
+// a multiple of 8, x or w not 16-byte aligned) run the mma.sync kernel
+// below the float32 one: m16n8k16 bf16 mma.sync on the float32 kernel's
+// walk, row masks built in the block from the kept lists.
+//
+// The float32 kernel.  What bounds it, by both peaks (2 M K N density
+// flops, 4 (M K + K N density + M N) bytes): at the draft's decode shapes
+// (M = 16) the bytes of the kept weight blocks over HBM's 3.35 TB/s; at
+// M = 256 the operations, which on the tensor cores in 3xTF32 cost three
+// TF32 products each, 3 x flops over 495 TFLOP/s (against flops over 67
+// TFLOP/s on CUDA cores).
 //
 // What the design does about it:
 // - Tensor cores.  Every product is mma.sync.m16n8k8 in TF32 with the
@@ -719,6 +756,459 @@ int dispatch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                                out, M, K, N, bk, bn, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// The bfloat16 instance on Hopper's warpgroup MMA (block_sparse_matmul_bf16
+// where K, N and block_n are multiples of 8 and x and w are 16-byte
+// aligned).  Block (split, row tile, column tile) computes
+//
+//   out^T (64 columns x MT rows) = (w tile masked)^T (64 x K) . x^T (K x MT)
+//
+// over its split's chunks [split cps, (split + 1) cps) with
+// wgmma.m64nMTk16.  A is the w chunk (64 k-rows of 128 bytes, 64 columns:
+// MN-major), B the x chunk (MT rows of 64 k: K-major); 16-byte piece p of
+// 128-byte row r sits at p ^ (r % 8) (the 128-byte swizzle), in a stage
+// aligned to 1024 bytes.  Warp roles: a producer warpgroup (threads 128 ..
+// 255) copies x and w with cp.async, each thread's arrival on a chunk's
+// full barrier firing when its copies land; the consumer warpgroup
+// (threads 0 .. 127) waits on it, runs the chunk's four wgmma k-steps, and
+// frees the stage on its empty barrier (one lane a warp).
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kKC = 64;            // K rows a chunk: one 128-byte x row
+constexpr int kNT = 64;            // output columns a tile
+constexpr int kConsumers = 128;    // one warpgroup
+constexpr int kProducers = 128;    // one warpgroup of copies
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kRowStep = kProducers / 8;   // k-rows apart, a producer's copies
+constexpr int kWBytes = kKC * kNT * 2;     // a w chunk: 8 KB
+constexpr int kPitch = kNT + 4;            // staging row pitch (floats)
+constexpr int kMaskBatch = 32;             // chunks of mask words loaded at once
+constexpr int kCounters = 1024;            // tiles a split product may have
+constexpr int kMaxSplits = 16;
+
+template <int MT>
+struct Smem {
+  static_assert(MT % 16 == 0 && MT <= 64, "wgmma n");
+  static constexpr int kXBytes = MT * kKC * 2;
+  static constexpr int kStage = kWBytes + kXBytes;   // a multiple of 1024
+  static constexpr int kStaging = MT * kPitch * 4;
+  // the ring's chunks: up to 12 for a 16-row tile, 4 for 64 rows, where two
+  // blocks must fit an SM
+  static constexpr int kMaxStages = MT <= 16 ? 12 : MT <= 32 ? 8 : 4;
+  // 1024 bytes of slack align the ring to the swizzle's 1024-byte period;
+  // then the staging tile, the mask words, the full and empty barriers
+  static size_t bytes(int stages) {
+    return 1024 + (size_t)stages * kStage + kStaging + kMaskBatch * 8 * 8 +
+           2 * stages * 8;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// 16 bytes global -> shared, zeros where !ok (source size 0: no read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed.  The loop is in the
+// PTX, so the compiler sees no divergence around the wgmmas that follow.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// mbar_arrive where `pred` holds, the predicate in the PTX
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
+// generic-proxy writes (cp.async) before async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A shared-memory matrix descriptor in the 128-byte swizzle: start
+// address, leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// two floats rounded to bfloat16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x MT, f32) = scale_d ? D : 0, + A (64 x 16, bf16, MN-major) .
+// B (16 x MT, bf16, K-major)
+template <int MT>
+__device__ __forceinline__ void wgmma_tile(float (&d)[MT / 2], uint64_t a,
+                                           uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tile<16>(float (&d)[8], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<32>(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<64>(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+__device__ __forceinline__ uint4 pack8(const float4& lo, const float4& hi) {
+  uint4 v;
+  v.x = pack_bf16(lo.x, lo.y);
+  v.y = pack_bf16(lo.z, lo.w);
+  v.z = pack_bf16(hi.x, hi.y);
+  v.w = pack_bf16(hi.z, hi.w);
+  return v;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+bs_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const unsigned long long* __restrict__ masks,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                     int* __restrict__ counters, int M, int K, int N, int bn,
+                     int row_tiles, int splits, int cps, int stages) {
+  using S = Smem<MT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  float* staging = reinterpret_cast<float*>(ring + stages * S::kStage);
+  unsigned long long* mw =
+      reinterpret_cast<unsigned long long*>(staging + MT * kPitch);
+  const uint32_t full0 = smem_u32(mw + kMaskBatch * 8);
+  const uint32_t empty0 = full0 + stages * 8;
+  const uint32_t ring0 = smem_u32(ring);
+
+  // block = split + splits (row tile + row_tiles column tile)
+  const int tid = threadIdx.x;
+  int b = blockIdx.x;
+  const int sp = b % splits;
+  b /= splits;
+  const int rt = b % row_tiles, ct = b / row_tiles;
+  const int m0 = rt * MT, n0 = ct * kNT;
+  const int nchunks = (K + kKC - 1) / kKC;
+  const int c_begin = sp * cps, nck = min(nchunks, c_begin + cps) - c_begin;
+  const int nnb = (N + bn - 1) / bn;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, kProducers);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);     // a lane a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role, warp-uniform for the compiler (a shuffle)
+  if (__shfl_sync(0xffffffffu, tid / kConsumers, 0) == 1) {
+    // The producer warpgroup.  Thread p copies the 16-byte piece jn = p % 8
+    // of k-rows p / 8 + kRowStep q; its 8 columns lie in one column block,
+    // whose mask words come kMaskBatch chunks at a time into mw, loaded
+    // together ahead of the copies that read them.  Each thread's arrival
+    // on a chunk's full barrier fires when its copies have landed.
+    const int p = tid - kConsumers, jn = p & 7, kr0 = p >> 3;
+    const int n = n0 + 8 * jn;
+    const bool n_ok = n < N;
+    const unsigned long long* mrow =
+        masks + (size_t)c_begin * nnb + (n_ok ? n / bn : 0);
+    const __nv_bfloat16* wsrc = w + (n_ok ? n : 0);
+    // x needs no mask: the ring's first chunks of it go out at once, ahead
+    // of the mask words that the w copies wait for.  Piece e of a chunk is
+    // 16 bytes (8 k) of x row e / 8; rows past M and k past K are zeros.
+    auto load_x = [&](int i) {
+      const uint32_t st = ring0 + (i % stages) * S::kStage + kWBytes;
+      const int k0 = (c_begin + i) * kKC;
+#pragma unroll
+      for (int u = 0; u < MT * 8 / kProducers; ++u) {
+        const int e = p + kProducers * u, r = e >> 3, j = e & 7;
+        const bool ok = m0 + r < M && k0 + 8 * j < K;
+        const void* src = ok ? x + (size_t)(m0 + r) * K + k0 + 8 * j : x;
+        cp_async16(st + r * 128 + ((j ^ (r & 7)) << 4), src, ok);
+      }
+    };
+    for (int i = 0; i < min(nck, stages); ++i) load_x(i);
+    for (int i = 0; i < nck; ++i) {
+      const int s = i % stages, c = c_begin + i;
+      if (i % kMaskBatch == 0) {
+        asm volatile("bar.sync 2, %0;\n" ::"n"(kProducers) : "memory");
+#pragma unroll
+        for (int u = 0; u < kMaskBatch / kRowStep; ++u) {
+          const int bi = kr0 + kRowStep * u;
+          mw[bi * 8 + jn] =
+              n_ok && i + bi < nck ? mrow[(size_t)(i + bi) * nnb] : 0ull;
+        }
+        asm volatile("bar.sync 2, %0;\n" ::"n"(kProducers) : "memory");
+      }
+      if (i >= stages) {
+        mbar_wait(empty0 + 8 * s, ((i / stages) - 1) & 1);
+        load_x(i);
+      }
+      const uint32_t st = ring0 + s * S::kStage;
+      const unsigned long long mk = mw[(i % kMaskBatch) * 8 + jn];
+#pragma unroll
+      for (int q = 0; q < kKC / kRowStep; ++q) {
+        const int kr = kr0 + kRowStep * q;
+        const uint32_t dst = st + kr * 128 + ((jn ^ (kr & 7)) << 4);
+        const bool ok = (mk >> kr) & 1ull;
+        const void* src = ok ? wsrc + (size_t)(c * kKC + kr) * N : w;
+        cp_async16(dst, src, ok);
+      }
+      cp_async_arrive(full0 + 8 * s);
+    }
+  } else {
+    const int lane = tid & 31;
+    float acc[MT / 2], total[MT / 2];
+#pragma unroll
+    for (int r = 0; r < MT / 2; ++r) acc[r] = total[r] = 0.f;
+    // chunk i's four wgmma k-steps into acc, from zero (fresh) or onto it
+    auto issue = [&](int i, bool fresh) {
+      const int s = i % stages;
+      mbar_wait(full0 + 8 * s, (i / stages) & 1);
+      fence_proxy_async();   // the cp.async bytes, for wgmma's reads
+      const uint32_t wa = ring0 + s * S::kStage, xa = wa + kWBytes;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < kKC / 16; ++ks) {
+        // A: 16 k-rows of 128 bytes a k-step, 8-row groups 1024 bytes
+        // apart (the one 64-column swizzle atom makes the leading offset
+        // unused: it is given the same 1024); B: 32 bytes along each
+        // 128-byte x row, 8-row groups 1024 bytes apart
+        wgmma_tile<MT>(acc, desc_sw128(wa + ks * 2048, 1024, 1024),
+                       desc_sw128(xa + ks * 32, 16, 1024), !fresh || ks > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    };
+    if (nck <= stages) {
+      // Every chunk has a stage of its own: each chunk's wgmmas go out as
+      // it lands, onto one accumulator, and the warpgroup waits once
+      for (int i = 0; i < nck; ++i) issue(i, i == 0);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_operands(acc);
+#pragma unroll
+      for (int r = 0; r < MT / 2; ++r) total[r] = acc[r];
+    } else {
+      // A ring: each chunk's wgmmas from zero, then the sum added into the
+      // float32 total and the stage freed
+      for (int i = 0; i < nck; ++i) {
+        issue(i, true);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operands(acc);
+        __syncwarp();
+        mbar_arrive_if(empty0 + 8 * (i % stages), lane == 0);
+#pragma unroll
+        for (int r = 0; r < MT / 2; ++r) total[r] += acc[r];
+      }
+    }
+    // Stage the tile as [MT rows][64 columns]: element (row g, col c) of
+    // the wgmma accumulator is output (m0 + c, n0 + row)
+    const int warp = tid >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < MT / 8; ++j) {
+      const int row = 16 * warp + g, col = 8 * j + 2 * t;
+      staging[col * kPitch + row] = total[4 * j];
+      staging[(col + 1) * kPitch + row] = total[4 * j + 1];
+      staging[col * kPitch + row + 8] = total[4 * j + 2];
+      staging[(col + 1) * kPitch + row + 8] = total[4 * j + 3];
+    }
+  }
+  __syncthreads();
+
+  if (splits == 1) {
+    // 8 outputs (16 bytes) a thread
+    for (int e = tid; e < MT * (kNT / 8); e += kThreads) {
+      const int r = e / (kNT / 8), c8 = (e % (kNT / 8)) * 8;
+      const int m = m0 + r, n = n0 + c8;
+      if (m >= M || n >= N) continue;
+      const float* st = staging + r * kPitch + c8;
+      *reinterpret_cast<uint4*>(out + (size_t)m * N + n) =
+          pack8(*reinterpret_cast<const float4*>(st),
+                *reinterpret_cast<const float4*>(st + 4));
+    }
+    return;
+  }
+  // Each split's tile of float32 sums into the workspace (splits, M, N)
+  float* part = ws + (size_t)sp * M * N;
+  for (int e = tid; e < MT * (kNT / 4); e += kThreads) {
+    const int r = e / (kNT / 4), c4 = (e % (kNT / 4)) * 4;
+    const int m = m0 + r, n = n0 + c4;
+    if (m >= M || n >= N) continue;
+    *reinterpret_cast<float4*>(part + (size_t)m * N + n) =
+        *reinterpret_cast<const float4*>(staging + r * kPitch + c4);
+  }
+  // The last of the tile's splits to arrive adds the splits' sums in split
+  // order (its own read back like the others), rounds once, and sets the
+  // tile's counter back to 0 for the next launch
+  __syncthreads();
+  int* last = reinterpret_cast<int*>(mw);
+  const int tile = ct * row_tiles + rt;
+  if (tid == 0) {
+    __threadfence();   // the block's partial sums, before its arrival
+    *last = atomicAdd(counters + tile, 1) == splits - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!*last) return;
+  // 4 outputs a thread, the splits' values loaded kBatch at a time
+  constexpr int kBatch = 8;
+  for (int e = tid; e < MT * (kNT / 4); e += kThreads) {
+    const int r = e / (kNT / 4), c4 = (e % (kNT / 4)) * 4;
+    const int m = m0 + r, n = n0 + c4;
+    if (m >= M || n >= N) continue;
+    const float* src = ws + (size_t)m * N + n;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q0 = 0; q0 < splits; q0 += kBatch) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (q0 + u < splits)
+          v[u] = __ldcg(reinterpret_cast<const float4*>(
+              src + (size_t)(q0 + u) * M * N));
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (q0 + u >= splits) break;
+        if (q0 + u == 0)
+          sum = v[0];
+        else
+          add4(sum, v[u]);
+      }
+    }
+    uint2 o;
+    o.x = pack_bf16(sum.x, sum.y);
+    o.y = pack_bf16(sum.z, sum.w);
+    *reinterpret_cast<uint2*>(out + (size_t)m * N + n) = o;
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <int MT>
+int launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
+           const unsigned long long* masks, __nv_bfloat16* out, float* ws,
+           int* counters, int M, int K, int N, int bn, int cps,
+           cudaStream_t stream) {
+  using S = Smem<MT>;
+  auto* kernel = bs_bf16_wgmma_kernel<MT>;
+  const int nchunks = (K + kKC - 1) / kKC;
+  const int splits = (nchunks + cps - 1) / cps;
+  // a stage for each chunk of a split where they fit, else the ring
+  const int stages = max(2, min(cps, S::kMaxStages));
+  const size_t smem = S::bytes(stages);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long row_tiles = (M + MT - 1) / MT;
+  const long long tiles = row_tiles * ((N + kNT - 1) / kNT);
+  if (splits > kMaxSplits ||
+      (splits > 1 && (ws == nullptr || counters == nullptr ||
+                      tiles > kCounters)))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = row_tiles * splits * ((N + kNT - 1) / kNT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      x, w, masks, out, ws, counters, M, K, N, bn, (int)row_tiles, splits,
+      cps, stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // x (M, K), w (K, N) and out (M, N) are contiguous float32; counts (ceil(N /
@@ -744,12 +1234,23 @@ extern "C" int block_sparse_matmul_f32(const float* x, const float* w,
 }
 
 // As block_sparse_matmul_f32, with x, w and out bfloat16 (float32 sums,
-// one rounding of each output).
+// one rounding of each output).  Where K, N and block_n are multiples of 8
+// and x and w are 16-byte aligned it runs on wgmma (namespace wg): masks
+// (ceil(K / 64), ceil(N / block_n)) are the column plan's 64-bit row masks
+// of each (64-row chunk, column block), tile_m (16, 32 or 64) the x rows a
+// tile, chunks_per_split the 64-row chunks a split walks; where there is
+// more than one split (ceil(ceil(K / 64) / chunks_per_split)), ws is a
+// float32 (splits, M, N) workspace and counters the tiles' zeroed arrival
+// counters (ops.block_sparse.bf16_plan makes the same choice of path, and
+// the wrapper allocates both).  Other shapes, and tile_m 0, run the
+// mma.sync kernel above from counts and idx.
 extern "C" int block_sparse_matmul_bf16(const void* x, const void* w,
                                         const int* counts, const int* idx,
-                                        int max_count, void* out, int M,
-                                        int K, int N, int block_k,
-                                        int block_n, void* stream) {
+                                        int max_count, const void* masks,
+                                        void* out, void* ws, int* counters,
+                                        int M, int K, int N, int block_k,
+                                        int block_n, int tile_m,
+                                        int chunks_per_split, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (K < 0 || block_k <= 0 || block_n <= 0)
     return (int)cudaErrorInvalidValue;
@@ -760,6 +1261,24 @@ extern "C" int block_sparse_matmul_bf16(const void* x, const void* w,
   const bool vec = K % 8 == 0 && N % 8 == 0 && block_n % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (vec && K > 0 && tile_m > 0) {
+    if (chunks_per_split <= 0) return (int)cudaErrorInvalidValue;
+    const auto* mk = static_cast<const unsigned long long*>(masks);
+    float* wsf = static_cast<float*>(ws);
+    switch (tile_m) {
+      case 16:
+        return wg::launch<16>(xh, wh, mk, oh, wsf, counters, M, K, N, block_n,
+                              chunks_per_split, s);
+      case 32:
+        return wg::launch<32>(xh, wh, mk, oh, wsf, counters, M, K, N, block_n,
+                              chunks_per_split, s);
+      case 64:
+        return wg::launch<64>(xh, wh, mk, oh, wsf, counters, M, K, N, block_n,
+                              chunks_per_split, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   return vec ? dispatch_bf16<true>(xh, wh, counts, idx, max_count, oh, M, K,
                                    N, block_k, block_n, s)
              : dispatch_bf16<false>(xh, wh, counts, idx, max_count, oh, M, K,

@@ -176,6 +176,12 @@ Each kernel row also says whether the kernel runs inside a captured
 CUDA graph (``in_graph``: one call captured, replayed and held to the
 eager call's bits).
 
+``python3 chip_smoke.py --serve-spec`` runs only ``serve`` and
+``serve_spec`` (the speculative phase needs serve's spec-off answers):
+copied into a checkout of another commit, it runs that commit's port the
+same way, for an A/B of the draft's block-sparse kernel in one call
+(run parent, change, change, parent).
+
 ``python3 chip_smoke.py --feed-ab`` runs only ``feed_ab``: where the
 record path's ResNet-50 step time goes (in memory against records with
 the tuned decode pool, one decode worker, and a train summary, each at
@@ -315,6 +321,10 @@ SWEEP_STAGES = (((3, 24), (5, 24), (9, 24)), ((20, 16), (40, 16)),
 SWEEP_TRIGGER = (12, 4, 4)
 SWEEP_CANCEL = (7, 5)
 SPARSE_BLOCK = (8, 8)
+# the block-sparse kernels by the names the profiler gives them: the
+# bfloat16 product on wgmma, and the float32 kernel and the bfloat16
+# mma.sync one ("block_sparse_matmul_kernel", "..._bf16_kernel")
+SPARSE_KERNELS = ("bs_bf16_wgmma_kernel", "block_sparse_matmul")
 VERIFY_CHUNK = SPEC["k"] + 1
 
 # kernel check tolerance: f32 sums taken in another order over up to
@@ -891,19 +901,37 @@ def check_block_sparse_bf16(dev, flush):
     draft's (8, 8) blocks, half of them kept — against the plain version
     (the float32 masked product of the widened operands, rounded once):
     every element within one bfloat16 ulp (``BF16_ULP_TOLERANCE``), twice
-    on the same inputs and
-    inside a captured graph for the same bits.  The yardstick is
-    ``torch.matmul`` of the bfloat16 operands with the masked weight;
-    the bound is the bytes at 2 bytes a value or the bfloat16
-    tensor-core rate.  The row reports the draft step's l1."""
-    from bigdl_tpu_torch.ops.block_sparse import (ColumnPlan, _bs_raw,
+    on the same inputs and inside a captured graph for the same bits.
+    Each shape's row names the path the kernel took (``bf16_plan``: wgmma
+    tiles and splits of K) and times it beside the mma.sync kernel on the
+    same inputs (the path of shapes wgmma cannot take, the whole kernel
+    before its wgmma path), held to the same tolerance.  A shape with K
+    not a multiple of 8 takes the mma.sync path by itself and is held the
+    same way.  The yardstick is ``torch.matmul`` of the bfloat16 operands
+    with the masked weight; the bound is the bytes at 2 bytes a value or
+    the bfloat16 tensor-core rate.  The row reports the draft step's
+    l1."""
+    from bigdl_tpu_torch.ops.block_sparse import (Bf16Plan, ColumnPlan,
+                                                  _bs_bf16, _bs_raw,
+                                                  bf16_plan,
                                                   block_sparse_matmul_ref)
 
     d, f = LM["hidden_size"], LM["ffn_size"]
     rs = np.random.RandomState(SEED + 3)
-    blk = SPARSE_BLOCK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mma_sync = Bf16Plan("mma_sync", 0, 0, 1, 0)
+
+    def held(name, out, ref, k):
+        excess = _bf16_ulp_excess(out, ref, k)
+        if out.dtype != torch.bfloat16 or excess > 0:
+            raise AssertionError(f"{name}: {out.dtype}, {excess} past one "
+                                 f"bf16 ulp of the plain version")
+        return float((out.float() - ref.float()).abs().max())
+
     rows, worst = [], 0.0
-    for k, n in ((d, f), (f, d)):
+    shapes = [(m, k, n, SPARSE_BLOCK) for k, n in ((d, f), (f, d))
+              for m in (16, 256)] + [(16, 772, 384, (4, 8))]
+    for m, k, n, blk in shapes:
         nkb, nnb = -(-k // blk[0]), -(-n // blk[1])
         mask = np.zeros(nkb * nnb, bool)
         mask[rs.permutation(nkb * nnb)[: nkb * nnb // 2]] = True
@@ -912,40 +940,44 @@ def check_block_sparse_bf16(dev, flush):
         w = torch.randn(k, n, generator=g).to(dev).bfloat16()
         wm = torch.where(plan.on(w.device, k, n)[2], w, 0.0)
         kept = int(mask.sum()) * blk[0] * blk[1]
-        for m in (16, 256):
-            x = torch.randn(m, k, generator=g).to(dev).bfloat16()
-            out = _bs_raw(x, w, plan)
-            again = _bs_raw(x, w, plan)
-            ref = block_sparse_matmul_ref(x, w, plan)
-            torch.cuda.synchronize()
-            shape = {"m": m, "k": k, "n": n, "block": list(blk),
-                     "density": float(mask.mean()), "dtype": "bfloat16"}
-            _assert_bit_equal(f"block_sparse_matmul_bf16 {shape}", [out],
-                              [again])
-            excess = _bf16_ulp_excess(out, ref, k)
-            if out.dtype != torch.bfloat16 or excess > 0:
-                raise AssertionError(
-                    f"block_sparse_matmul_bf16 {shape}: {out.dtype}, "
-                    f"{excess} past one bf16 ulp of the plain version")
-            err = float((out.float() - ref.float()).abs().max())
-            worst = max(worst, err)
-            graph = _in_graph(lambda: _bs_raw(x, w, plan), out)
-            if not graph["in_graph"]:
-                raise AssertionError(f"block_sparse_matmul_bf16 {shape} in "
-                                     f"a graph: {graph}")
-            r = _share({
-                "shape": shape, "max_abs_err": err,
-                "within_one_bf16_ulp": True, "bit_equal": True,
-                "ms": time_cold(lambda: _bs_raw(x, w, plan), flush),
-                "plain_ms": time_cold(
-                    lambda: block_sparse_matmul_ref(x, w, plan), flush),
-                "library_ms": time_cold(lambda: torch.matmul(x, wm), flush),
-                **_bound_bf16(2 * (m * k + kept + m * n), 2 * m * kept),
-                **graph})
-            emit({"phase": "kernel", "name": "block_sparse_matmul_bf16",
-                  "tolerance": BF16_ULP_TOLERANCE, **r})
-            rows.append(r)
+        x = torch.randn(m, k, generator=g).to(dev).bfloat16()
+        tp = bf16_plan(m, k, n, blk[1], True, sms)
+        out = _bs_raw(x, w, plan)
+        again = _bs_raw(x, w, plan)
+        ref = block_sparse_matmul_ref(x, w, plan)
+        old = _bs_bf16(x, w, plan, mma_sync)
+        torch.cuda.synchronize()
+        shape = {"m": m, "k": k, "n": n, "block": list(blk),
+                 "density": float(mask.mean()), "dtype": "bfloat16"}
+        _assert_bit_equal(f"block_sparse_matmul_bf16 {shape}", [out],
+                          [again])
+        err = held(f"block_sparse_matmul_bf16 {shape}", out, ref, k)
+        held(f"block_sparse_matmul_bf16 mma.sync {shape}", old, ref, k)
+        worst = max(worst, err)
+        graph = _in_graph(lambda: _bs_raw(x, w, plan), out)
+        if not graph["in_graph"]:
+            raise AssertionError(f"block_sparse_matmul_bf16 {shape} in "
+                                 f"a graph: {graph}")
+        r = _share({
+            "shape": shape, "path": tp.path, "tile_m": tp.tile_m,
+            "splits": tp.splits, "chunks_per_split": tp.chunks_per_split,
+            "blocks": tp.blocks, "max_abs_err": err,
+            "within_one_bf16_ulp": True, "bit_equal": True,
+            "ms": time_cold(lambda: _bs_raw(x, w, plan), flush),
+            "mma_sync_ms": time_cold(lambda: _bs_bf16(x, w, plan, mma_sync),
+                                     flush),
+            "plain_ms": time_cold(
+                lambda: block_sparse_matmul_ref(x, w, plan), flush),
+            "library_ms": time_cold(lambda: torch.matmul(x, wm), flush),
+            **_bound_bf16(2 * (m * k + kept + m * n), 2 * m * kept),
+            **graph})
+        emit({"phase": "kernel", "name": "block_sparse_matmul_bf16",
+              "tolerance": BF16_ULP_TOLERANCE, **r})
+        rows.append(r)
     main = rows[0]          # M = 16, l1 (768 -> 3072)
+    keys = ("shape", "path", "tile_m", "splits", "blocks", "ms",
+            "mma_sync_ms", "plain_ms", "bound_ms", "bound_by", "share",
+            "library_ms")
     return {"name": "block_sparse_matmul_bf16", "route": "cuda",
             "source": "bigdl_tpu_torch/ops/csrc/block_sparse_matmul.cu",
             "replaces": "bigdl_tpu/ops/block_sparse.py:148",
@@ -953,11 +985,11 @@ def check_block_sparse_bf16(dev, flush):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "share": main["share"], "shape": main["shape"],
+            "path": main["path"], "tile_m": main["tile_m"],
+            "splits": main["splits"], "mma_sync_ms": main["mma_sync_ms"],
             "in_graph": main["in_graph"],
             "tolerance": BF16_ULP_TOLERANCE,
-            "other_shapes": [{k: r[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "share",
-                "library_ms")} for r in rows[1:]]}
+            "other_shapes": [{k: r[k] for k in keys} for r in rows[1:]]}
 
 
 def _visible_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -1295,15 +1327,16 @@ def _same_bits(name, want, got) -> None:
                 f"logp {a.logp!r} vs {b.logp!r}")
 
 
-def _serve_pairs(pair, prompts, n_pairs, name, busy=True):
+def _serve_pairs(pair, prompts, n_pairs, name, busy=True, named=()):
     """``n_pairs`` timed runs of each engine, alternating eager, graphs
     (graphs_f32 where the pair has it), then graphs_f32, graphs, eager,
     ...: every run's tokens and log-probs equal to the bit to the first
     run of its compute dtype (eager's for bfloat16), and every run's
     launches equal to that run's (a replay credits its capture's
     counts); then, with ``busy``, one profiled run of each engine for the
-    device's busy share.  Returns {mode: summary} and the first run of
-    each mode."""
+    device's busy share (and the device time of the kernels whose names
+    hold a substring of ``named``).  Returns {mode: summary} and the
+    first run of each mode."""
     first = [m for m in ("eager", "graphs", "graphs_f32") if m in pair]
     order = []
     for i in range(n_pairs):
@@ -1334,13 +1367,19 @@ def _serve_pairs(pair, prompts, n_pairs, name, busy=True):
             "step_ms_p99": [r["step_ms_p99"] for r in rows],
             "launches_per_step": rows[0]["launches_per_step"],
             "peak_mem_gb": max(r["peak_mem_gb"] for r in rows)}
+        if "spec_draft_step_ms_p50" in rows[0]:
+            summary[mode]["spec_draft_step_ms_p50"] = [
+                r["spec_draft_step_ms_p50"] for r in rows]
         if mode != "eager":
             summary[mode]["replay_host_ms"] = _replay_host_ms(
                 pair[mode].decode_engine)
         if busy:
             with _dtype(mode):
-                prof = _profile(lambda im=pair[mode]: im.generate(prompts))
+                prof = _profile(lambda im=pair[mode]: im.generate(prompts),
+                                named)
             summary[mode]["device_busy_share"] = prof["device_busy_share"]
+            if named:
+                summary[mode]["named"] = prof["named"]
             emit({"phase": f"{name}_profile", "mode": mode, **prof})
     summary["bits_equal"] = True
     return summary, {mode: rs[0] for mode, rs in runs.items()}
@@ -1446,7 +1485,7 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
     try:
         setup_s = time.perf_counter() - t0
         modes, first = _serve_pairs(pair, prompts, SERVE_PAIRS["spec"],
-                                    "serve_spec")
+                                    "serve_spec", named=SPARSE_KERNELS)
         run = first["graphs"]
         results, launches, d = run["results"], run["launches"], run["delta"]
         steps, calls = d["steps"], d["prefill_calls"]
@@ -1502,6 +1541,11 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
               "f32_tokens_per_s": float(np.median(
                   modes["graphs_f32"]["tokens_per_s"])),
               "spec_off_tokens_per_s": ref_tps, "setup_s": setup_s,
+              "block_sparse": {
+                  "device_ms": modes["graphs"]["named"],
+                  "spec_draft_step_ms_p50": modes["graphs"].get(
+                      "spec_draft_step_ms_p50"),
+                  "tokens_per_s": modes["graphs"]["tokens_per_s"]},
               "warmup": setup,
               "kv_bytes_per_page": im.decode_engine.kv_bytes_per_page(),
               "modes": modes})
@@ -4122,6 +4166,15 @@ def main() -> int:
     if sys.argv[1:] == ["--feed-ab"]:
         torch.backends.cudnn.deterministic = True
         feed_ab(dev)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--serve-spec"]:
+        _build.build_all()
+        _, prompts, results, tps = serve(dev)
+        torch.cuda.empty_cache()
+        _, pair = serve_spec(dev, prompts, results, tps)
+        for im in pair.values():
+            im.stop()
         print(smi, flush=True)
         return 0
 

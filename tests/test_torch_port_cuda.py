@@ -221,23 +221,40 @@ def _within_one_bf16_ulp(got, want, terms):
         f"{got.flatten()[i].item()} against {want.flatten()[i].item()}")
 
 
-@pytest.mark.parametrize("m,k,n,blk", [(16, 768, 3072, (8, 8)),
-                                       (16, 3072, 768, (8, 8)),
-                                       (37, 100, 70, (8, 16)),
-                                       (256, 3072, 768, (64, 64)),
-                                       (256, 768, 3072, (8, 8)),
-                                       (256, 770, 384, (8, 8)),
-                                       (45, 130, 93, (12, 6)),
-                                       (20, 300, 40, (100, 8))])
-def test_block_sparse_bf16_kernel_matches_plain(card_bf16, m, k, n, blk):
+@pytest.mark.parametrize("m,k,n,blk,density", [
+    (16, 768, 3072, (8, 8), 0.5),
+    (16, 3072, 768, (8, 8), 0.5),
+    (37, 100, 70, (8, 16), 0.5),
+    (256, 3072, 768, (64, 64), 0.5),
+    (256, 768, 3072, (8, 8), 0.5),
+    (256, 770, 384, (8, 8), 0.5),
+    (45, 130, 93, (12, 6), 0.5),
+    (20, 300, 40, (100, 8), 0.5),
+    # wgmma tiles of 16, 32 and 64 rows, split and not
+    (1, 768, 3072, (8, 8), 0.5),
+    (5, 3072, 768, (8, 8), 0.5),
+    (17, 776, 136, (12, 8), 0.5),
+    (300, 768, 384, (64, 64), 0.5),
+    (16, 3072, 768, (8, 8), 1.0),          # an all-ones mask
+    (5, 104, 72, (8, 24), 0.3),            # block_n 24: 3 pieces a block
+    # K or N not a multiple of 8: the mma.sync kernel
+    (16, 772, 384, (4, 8), 0.5),
+    (300, 768, 388, (8, 4), 0.5)])
+def test_block_sparse_bf16_kernel_matches_plain(card_bf16, m, k, n, blk,
+                                                density):
     """The bfloat16 kernel against its plain version (the float32 masked
     product of the widened operands, rounded once): every element within
-    one bfloat16 ulp (floored at the float32 sum's noise); the backward
+    one bfloat16 ulp (floored at the float32 sum's noise), on both its
+    paths (wgmma where K, N and block_n are multiples of 8, mma.sync
+    elsewhere), with a column block that keeps no block; the backward
     (dx through the float32 kernel, dw dense, each rounded to bfloat16)
-    likewise."""
+    likewise.  One launch is credited whatever the split of K."""
     rs = np.random.RandomState(1)
-    mask = rs.rand(-(-k // blk[0]), -(-n // blk[1])) < 0.5
+    mask = rs.rand(-(-k // blk[0]), -(-n // blk[1])) < density
+    if density < 1:
+        mask[:, 1] = False       # column block 1 keeps nothing: count 0
     plan = ColumnPlan(mask, *blk)
+    assert (plan.counts == 0).any() == (density < 1)
     x = torch.randn(m, k, device=card_bf16).bfloat16().requires_grad_()
     w = torch.randn(k, n, device=card_bf16).bfloat16().requires_grad_()
     g = torch.randn(m, n, device=card_bf16).bfloat16()
@@ -258,9 +275,11 @@ def test_block_sparse_bf16_kernel_matches_plain(card_bf16, m, k, n, blk):
 
 def test_block_sparse_bf16_repeats_its_bits_in_a_graph(card_bf16):
     """Two launches give the same bits, and a captured graph's replay the
-    eager launch's; mixed dtypes are refused."""
+    eager launch's, at the draft's four shapes (split K and not); mixed
+    dtypes are refused."""
     rs = np.random.RandomState(3)
-    for m, k, n in ((16, 768, 3072), (256, 3072, 768)):
+    for m, k, n in ((16, 768, 3072), (16, 3072, 768), (256, 768, 3072),
+                    (256, 3072, 768)):
         plan = ColumnPlan(rs.rand(k // 8, n // 8) < 0.5, 8, 8)
         x = torch.randn(m, k, device=card_bf16).bfloat16()
         w = torch.randn(k, n, device=card_bf16).bfloat16()
@@ -271,9 +290,11 @@ def test_block_sparse_bf16_repeats_its_bits_in_a_graph(card_bf16):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             out = block_sparse_matmul(x, w, plan=plan)
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, first)
+        for _ in range(2):      # the workspace of split sums is reused
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
         with pytest.raises(ValueError, match="one dtype"):
             block_sparse_matmul(x, w.float(), plan=plan)
 
