@@ -5,11 +5,10 @@ package).
 The batch plan is the JAX package's, index for index: one shared
 permutation per (seed, epoch), each process takes its stride slice, the
 step count comes from global sizes, and short tails are cyclic-padded
-with a ``weight`` row mask.  The port's Optimizer runs one process, but the
-plan keeps the multi-process arguments so the two packages stay
-comparable batch for batch.  ``resharded_batch_index_plan`` is the
-elastic mid-epoch resume plan; the driver branch that uses it comes with
-multi-process training."""
+with a ``weight`` row mask.  Across processes the port's Optimizer
+reads rank ``r``'s plan (``process_id=r``); ``resharded_batch_index_plan``
+is the elastic mid-epoch resume plan it runs after a checkpoint of
+another process count."""
 
 import math
 from typing import Iterator, List, Optional, Sequence

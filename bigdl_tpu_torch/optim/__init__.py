@@ -11,7 +11,9 @@ from bigdl_tpu_torch.optim.schedules import (
     Cosine, Default, EpochDecay, EpochSchedule, EpochStep, Exponential,
     LearningRateSchedule, MultiStep, NaturalExp, Plateau, Poly,
     SequentialSchedule, Step, Warmup)
-from bigdl_tpu_torch.optim.train_step import GradientClipping, TrainStep
+from bigdl_tpu_torch.optim.train_step import (GradientClipping,
+                                              ShardedParameterStep,
+                                              TrainStep)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (
     AUC, MAE, MSE, NDCG, HitRatio, Loss, Precision, Recall, Top1Accuracy,
@@ -23,6 +25,6 @@ __all__ = ["AUC", "Adadelta", "Adagrad", "Adam", "AdamWeightDecay",
            "HitRatio", "LBFGS", "LarsSGD", "LearningRateSchedule", "Loss",
            "MAE", "MSE", "MultiStep", "NDCG", "NaturalExp", "OptimMethod",
            "Optimizer", "Plateau", "Poly", "Precision", "RMSprop", "Recall",
-           "SGD", "SequentialSchedule", "Step", "Top1Accuracy",
+           "SGD", "SequentialSchedule", "ShardedParameterStep", "Step", "Top1Accuracy",
            "Top5Accuracy", "TrainStep", "TrainedModel", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup", "checkpoint"]

@@ -1,5 +1,6 @@
-"""Optimizer — the port of the single-device training loop of
-``bigdl_tpu.optim.optimizer``.
+"""Optimizer — the port of the training loop of
+``bigdl_tpu.optim.optimizer``, on one process or across the processes
+of ``Engine.get().mesh``.
 
 The setters and ``optimize()``'s loop are the JAX ``Optimizer``'s: each
 epoch walks the batch plan of ``(seed, epoch)``, so the same (dataset,
@@ -75,31 +76,61 @@ bundle shrunk to one step) and stops.  ``set_profile`` (or
 ``EngineConfig.profile_dir``) traces a window of iterations with
 ``torch.profiler`` (``utils.profiling``).
 
-``set_checkpoint`` writes the single-writer format of
-``optim.checkpoint``; ``optimize()`` first resumes from the newest
-checkpoint under the path (parameters, optimizer slots, BatchNorm
-buffers, EMA, the loop's state and a ``Plateau``'s state) and goes on
-with the epoch's batch order from ``epoch_batch``.  The step's knobs
-``accum_steps``, ``remat``, ``remat_policy``, ``ema_decay`` and
-``trainable_mask`` are attributes, as on the JAX Optimizer.  A model with
-lazy widths (``Linear(out)``, ``BatchNorm()``, ``PReLU()``) is built
-from one sample row before its parameters are collected.
+``set_checkpoint`` writes the format of ``optim.checkpoint``;
+``optimize()`` first resumes from the newest complete checkpoint under
+the path (parameters, optimizer slots, BatchNorm buffers, EMA, the
+loop's state and a ``Plateau``'s state) and goes on with the epoch's
+batch order from ``epoch_batch``.  The step's knobs ``accum_steps``,
+``remat``, ``remat_policy``, ``ema_decay`` and ``trainable_mask`` are
+attributes, as on the JAX Optimizer.  A model with lazy widths
+(``Linear(out)``, ``BatchNorm()``, ``PReLU()``) is built from one sample
+row before its parameters are collected.
+
+Across processes (an engine that joined a process group,
+``runtime.engine``): the step is ``ShardedParameterStep``, the ZeRO-1
+cycle, with the wire attributes ``grad_comm`` (else
+``EngineConfig.grad_comm``; the deprecated ``bf16_grads=True`` warns and
+means ``"bf16"``), ``param_comm``, ``comm_bucket_bytes`` (else the
+engine's) and ``quant_block``; its byte ledger is published as the
+``train.collective_*`` gauges.  ``batch_size`` is the global batch:
+rank ``r`` of ``n`` trains on its plan ``(process_id=r,
+process_count=n)``, ``batch_size / n`` rows a step, and the losses are
+the ranks' mean.  Checkpoints: ``set_checkpoint(sharded="auto")`` writes
+one optimizer-state shard a process when there is more than one (rank
+0 writes the rest and the manifest; a synchronous save barriers, an
+asynchronous one names its files by an attempt token that rank 0
+broadcasts on the main thread), ``sharded=False`` gathers the state to
+rank 0, ``mirror=`` copies every save to a second root.  A checkpoint
+loads at any process count; one written by another count mid-epoch
+(the manifest's ``process_count``) is an elastic resume: the epoch's
+remaining examples are re-sharded over the new processes (the dataset's
+``resharded_batches``; nothing replays, nothing is dropped), or the
+epoch replays from its start when the dataset cannot re-shard
+(``elastic_resumes_total``, ``elastic_resharded_total``).  Every rank
+validates on its own plan and the sums are reduced; rank 0 alone writes
+summaries and histograms.  A process at world 1 keeps ``TrainStep``
+unless a process group is up, and ``ShardedParameterStep`` on one rank
+is ``TrainStep``'s step to the bit.
 
 Not ported: the cluster hooks (``set_cluster``, gang recovery,
-cluster-wide preemption notices), the multi-device ZeRO-1 step,
-sharded checkpoints and mirrors, and the elastic re-sharded resume
-(ROADMAP A.2); the attribution and MFU accounting and the Prometheus
-export (A.6.7)."""
+membership, cluster-wide preemption notices; ROADMAP A.6.9): the
+preemption path and the in-run retry are per process; the overlap audit
+(``BIGDL_TPU_MEASURE_OVERLAP``) and the attribution, MFU accounting and
+Prometheus export (A.6.7)."""
 
 import itertools
 import logging
+import os
 import signal
 import time
+import uuid
+import warnings
 from collections import Counter
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from bigdl_tpu_torch.data.dataset import DataSet
@@ -111,8 +142,9 @@ from bigdl_tpu_torch.ops.common import resolve_device
 from bigdl_tpu_torch.optim import checkpoint as ckpt
 from bigdl_tpu_torch.optim.metrics import Metrics, SummaryWriter, Timer
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
-from bigdl_tpu_torch.optim.train_step import (GradientClipping, TrainStep,
-                                              evaluate, to_device)
+from bigdl_tpu_torch.optim.train_step import (GradientClipping,
+                                              ShardedParameterStep,
+                                              TrainStep, evaluate, to_device)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
@@ -176,8 +208,9 @@ class TrainedModel:
 
 
 class Optimizer:
-    """Sets up and runs one device's training.  ``device=None``
-    is ``cuda``; without CUDA the caller must pass ``device="cpu"``."""
+    """Sets up and runs training on this process's device, alone or as
+    one rank of the engine's process group.  ``device=None`` is ``cuda``;
+    without CUDA the caller must pass ``device="cpu"``."""
 
     def __init__(self, model: torch.nn.Module, dataset: DataSet, criterion,
                  batch_size: int = 32, seed: int = 42, device=None):
@@ -196,6 +229,12 @@ class Optimizer:
         self.remat_policy: Optional[str] = None   # None|'nothing'|'dots'
         self.ema_decay = 0.0      # weight EMA (0 = off)
         self.trainable_mask = None  # JAX-keyed bool tree over params
+        # the ZeRO-1 wire across processes (None: the engine's / fp32)
+        self.grad_comm: Optional[str] = None   # "fp32" | "bf16" | "int8"
+        self.bf16_grads = False   # deprecated spelling of grad_comm="bf16"
+        self.param_comm: Optional[str] = None  # "fp32" | "int8"
+        self.comm_bucket_bytes: Optional[int] = None
+        self.quant_block: Optional[int] = None  # int8 elements a scale
         # the input side (the JAX Optimizer's attributes and defaults)
         self.prefetch = 2         # device-copy lookahead (1 = no overlap)
         self.host_prefetch = 2    # batches the host producer runs ahead
@@ -230,6 +269,11 @@ class Optimizer:
         self._ckpt_path: Optional[str] = None
         self._ckpt_trigger: Optional[Trigger] = None
         self._ckpt_async: Optional[ckpt.AsyncCheckpointer] = None
+        self._ckpt_sharded: Any = "auto"
+        self._ckpt_mirror: Optional[str] = None
+        # this process's place in the engine's process group
+        self._group = None
+        self._rank, self._world = 0, 1
         self._val_trigger: Optional[Trigger] = None
         self._val_dataset: Optional[DataSet] = None
         self._val_methods: List[ValidationMethod] = []
@@ -263,18 +307,20 @@ class Optimizer:
     def set_checkpoint(self, path: str, trigger: Trigger,
                        async_write: bool = False, sharded="auto",
                        mirror: Optional[str] = None) -> "Optimizer":
-        """Checkpoint into the local directory ``path`` whenever
-        ``trigger`` fires; ``async_write`` snapshots the tensors to the
-        host at the trigger and writes on a background thread, one write
-        in flight.  Sharded checkpoints and mirrors come with
-        multi-device training (ROADMAP A.2)."""
-        if sharded is True or mirror is not None:
-            raise ValueError(
-                "sharded checkpoints and mirrors need the multi-device "
-                "port (ROADMAP A.2); this Optimizer writes the single-writer "
-                "format")
+        """Checkpoint into ``path`` (local, or a ``utils.storage`` URI
+        every process sees) whenever ``trigger`` fires; ``async_write``
+        snapshots the tensors to the host at the trigger and writes on a
+        background thread, one write in flight.  ``sharded``: ``"auto"``
+        writes the optimizer state as one shard a process when there is
+        more than one, ``True`` always, ``False`` never (gathered to rank
+        0); a layer-wise method's replicated state is never sharded.
+        ``mirror``: a second root every completed save is copied to."""
+        if sharded not in ("auto", True, False):
+            raise ValueError(f"sharded {sharded!r}: 'auto', True or False")
         self._ckpt_path = path
         self._ckpt_trigger = trigger
+        self._ckpt_sharded = sharded
+        self._ckpt_mirror = mirror
         self._ckpt_async = ckpt.AsyncCheckpointer() if async_write else None
         return self
 
@@ -334,6 +380,23 @@ class Optimizer:
         self._preempt_signals = signals or (signal.SIGTERM,)
         return self
 
+    def _resolved_grad_comm(self, config) -> str:
+        """The run's gradient wire: ``grad_comm``, else the deprecated
+        ``bf16_grads=True`` (warned) as ``"bf16"``, else the engine's."""
+        if self.grad_comm is not None:
+            mode = str(self.grad_comm).strip().lower()
+            if self.bf16_grads and mode != "bf16":
+                warnings.warn("both grad_comm and the deprecated bf16_grads "
+                              f"are set; grad_comm={mode!r} wins",
+                              DeprecationWarning, stacklevel=2)
+            return mode
+        if self.bf16_grads:
+            warnings.warn("Optimizer.bf16_grads is deprecated: set "
+                          "grad_comm='bf16'", DeprecationWarning,
+                          stacklevel=2)
+            return "bf16"
+        return getattr(config, "grad_comm", "fp32") or "fp32"
+
     @property
     def final_state(self) -> Optional[Dict[str, Any]]:
         """The loop's state at the end of the last ``optimize()``."""
@@ -353,7 +416,13 @@ class Optimizer:
         return model
 
     def optimize(self) -> TrainedModel:
-        config = Engine.get().config
+        engine = Engine.get()
+        config, mesh = engine.config, engine.mesh
+        if os.environ.get("BIGDL_TPU_MEASURE_OVERLAP", "0") in ("1", "true"):
+            raise ValueError("BIGDL_TPU_MEASURE_OVERLAP: the overlap audit "
+                             "is not ported yet (ROADMAP A.6.7)")
+        self._group = mesh.group
+        self._rank, self._world = mesh.rank, mesh.world_size
         if self._profiler is None and config.profile_dir:
             self.set_profile(config.profile_dir)
         spc = (self.steps_per_call if self.steps_per_call is not None
@@ -375,12 +444,28 @@ class Optimizer:
         mask = self.trainable_mask
         if mask is None and has_frozen(model):
             mask = trainable_mask_for(model)
-        step = TrainStep(model, self.criterion, self.optim_method,
-                         clip=self.clip, seed=self.seed,
-                         accum_steps=self.accum_steps,
-                         ema_decay=self.ema_decay, remat=self.remat,
-                         remat_policy=self.remat_policy,
-                         trainable_mask=mask)
+        kw = dict(clip=self.clip, seed=self.seed,
+                  accum_steps=self.accum_steps, ema_decay=self.ema_decay,
+                  remat=self.remat, remat_policy=self.remat_policy,
+                  trainable_mask=mask)
+        if mesh.distributed:
+            if self.quant_block is not None:
+                kw["quant_block"] = int(self.quant_block)
+            step = ShardedParameterStep(
+                model, self.criterion, self.optim_method, mesh,
+                grad_comm=self._resolved_grad_comm(config),
+                param_comm=self.param_comm,
+                comm_bucket_bytes=(self.comm_bucket_bytes
+                                   if self.comm_bucket_bytes is not None
+                                   else config.comm_bucket_bytes), **kw)
+            if self._rank == 0:
+                log.info("%s parameters; %d ranks; ZeRO-1 shard %s; "
+                         "grad_comm %s", f"{step.n_real:,}", step.ndev,
+                         f"{step.shard_size:,}", step.grad_comm)
+        else:
+            step = TrainStep(model, self.criterion, self.optim_method,
+                             **kw)
+        self._publish_ledger(step)
         state: Dict[str, Any] = {
             "epoch": 1, "iteration": 0, "epoch_batch": 0,
             "epoch_finished": False, "loss": float("nan"),
@@ -416,6 +501,20 @@ class Optimizer:
             state["loss"] = self.losses[-1]
         self._final_state = dict(state)
         return TrainedModel(model, self.device, step)
+
+    def _publish_ledger(self, step: TrainStep) -> None:
+        """The step's collective bytes a step as the JAX driver's gauges
+        (0 on one process; no cross-slice hop)."""
+        grad = getattr(step, "grad_sync_ici_bytes_per_step", 0)
+        param = getattr(step, "param_sync_ici_bytes_per_step", 0)
+        self.metrics.gauge("train.collective_ici_bytes_per_step",
+                           grad + param)
+        self.metrics.gauge("train.collective_dcn_bytes_per_step", 0)
+        self.metrics.gauge("train.collective_grad_ici_bytes_per_step", grad)
+        self.metrics.gauge("train.collective_param_ici_bytes_per_step",
+                           param)
+        self.metrics.gauge("train.grad_comm_buckets",
+                           getattr(step, "comm_buckets", 1))
 
     def _loop(self, step: TrainStep, state) -> None:
         """``_train`` under the in-run retry loop (the JAX driver's): a
@@ -478,11 +577,16 @@ class Optimizer:
                 break
             state["epoch_finished"] = False
             skip = int(state.pop("_resume_skip", 0) or 0)
-            state["epoch_batch"] = skip
+            # an elastic resume: the epoch's remaining examples over the
+            # new process set; epoch_batch keeps counting global steps
+            reshard = state.pop("_resume_reshard", None)
+            state["epoch_batch"] = (int(reshard["trained"])
+                                    + int(reshard.get("skip", 0) or 0)
+                                    if reshard else skip)
             ran_any = False
             bundles = bundle_batches(
-                self._traced_data(self._epoch_batch_iter(state["epoch"],
-                                                         skip)),
+                self._traced_data(self._epoch_batch_iter(
+                    state["epoch"], skip, reshard)),
                 lambda: self._bundle_span(state))
             try:
                 for mbs in bundles:
@@ -501,16 +605,18 @@ class Optimizer:
                     if self.end_when(state):
                         break
                 else:
-                    if not ran_any and skip == 0:
+                    if not ran_any and skip == 0 and reshard is None:
                         raise ValueError(
                             f"the dataset's {self.dataset.size()} rows "
                             f"give no batch of {self.batch_size}")
                     # a resume whose skip used up the epoch already fired
                     # this boundary's triggers before it was written
-                    if ran_any or skip == 0:
+                    if ran_any or skip == 0 or reshard is not None:
                         state["epoch_finished"] = True
                         self._fire_triggers(step, state)
                     state["epoch"] += 1
+                    # a re-sharded plan ends with its epoch
+                    state.pop("reshard_origin", None)
             finally:
                 bundles.close()
         if self._needs_reads():
@@ -582,28 +688,40 @@ class Optimizer:
         ratio = disp / step_s if step_s > 0 else 0.0
         k = 1 if ratio < 0.02 else int(min(32, max(2, np.ceil(ratio
                                                               / 0.02))))
-        log.info("steps_per_call=auto: dispatch %.3f ms a step against a "
-                 "%.3f ms step: bundles of %d", disp * 1e3, step_s * 1e3, k)
+        if self._rank == 0:
+            log.info("steps_per_call=auto: dispatch %.3f ms a step against "
+                     "a %.3f ms step: bundles of %d", disp * 1e3,
+                     step_s * 1e3, k)
         self._bundle_k = k
 
-    def _epoch_batch_iter(self, epoch: int, skip: int):
-        """One epoch's device batches, ``(input, target)``: the streaming
-        pipeline when the dataset has one (and ``streaming`` and
-        ``host_prefetch > 0``), else ``batches()`` behind
-        ``thread_prefetch``, both through the device feed.  A resumed
-        epoch skips its first ``skip`` batches."""
-        kw = dict(shuffle=True, seed=self.seed, epoch=epoch)
+    def _epoch_batch_iter(self, epoch: int, skip: int, reshard=None):
+        """One epoch's device batches of this process, ``(input,
+        target)``: the streaming pipeline when the dataset has one (and
+        ``streaming`` and ``host_prefetch > 0``), else ``batches()``
+        behind ``thread_prefetch``, both through the device feed.  A
+        resumed epoch skips its first ``skip`` batches; ``reshard`` (an
+        elastic resume's ``{"process_count", "trained", "skip"}``) runs
+        the epoch's re-sharded remainder plan instead."""
+        kw = dict(shuffle=True, seed=self.seed, epoch=epoch,
+                  process_id=self._rank, process_count=self._world)
+        prefix = ""
+        if reshard is not None:
+            kw.update(trained_batches=int(reshard["trained"]),
+                      old_process_count=int(reshard["process_count"]))
+            prefix = "resharded_"
+            skip = int(reshard.get("skip", 0) or 0)
         stream = (self.streaming and self.host_prefetch > 0
-                  and hasattr(self.dataset, "stream_batches"))
+                  and hasattr(self.dataset, prefix + "stream_batches"))
         if stream:
             # the pipeline's own threads are the host lookahead;
             # EngineConfig.data_workers sizes its decode pool (None:
             # autotune_workers)
-            batch_iter = self.dataset.stream_batches(
+            batch_iter = getattr(self.dataset, prefix + "stream_batches")(
                 self.batch_size, metrics=self.metrics,
                 workers=Engine.get().config.data_workers, **kw)
         else:
-            batch_iter = self.dataset.batches(self.batch_size, **kw)
+            batch_iter = getattr(self.dataset, prefix + "batches")(
+                self.batch_size, **kw)
         if skip:
             batch_iter = _skip_closing(batch_iter, skip)
         if self.host_prefetch and not stream:
@@ -674,7 +792,7 @@ class Optimizer:
             if gv is not None:
                 for g in gv.tolist():
                     self.metrics.observe("train.grad_norm", g)
-            if self._train_summary is not None:
+            if self._train_summary is not None and self._rank == 0:
                 for j, value in enumerate(values):
                     it = it0 + j + 1
                     lr = float(np.asarray(
@@ -706,6 +824,8 @@ class Optimizer:
         if (hist_trigger is not None and self._train_summary is not None
                 and hist_trigger(state) and self._last_hist_iter != it):
             self._last_hist_iter = it
+            if self._rank != 0:
+                return
             # the JAX tree's leaf order: paths in sorted order
             for name, p in sorted(step.model.named_parameters(),
                                   key=lambda kv: jax_path(kv[0])):
@@ -714,12 +834,15 @@ class Optimizer:
                     p.detach().cpu().numpy(), it)
 
     def _run_validation(self, step: TrainStep, state) -> None:
+        # every rank its own plan; the sums are reduced over the ranks
         results = evaluate(step.model, self._val_methods,
                            self._val_dataset.batches(
                                self._val_batch, shuffle=False,
-                               drop_last=False), self.device)
+                               drop_last=False, process_id=self._rank,
+                               process_count=self._world), self.device,
+                           group=self._group)
         self.validations.append((state["iteration"], results))
-        if self._val_summary is not None:
+        if self._val_summary is not None and self._rank == 0:
             for r in results:
                 self._val_summary.add_scalar(r.name, r.result,
                                              state["iteration"])
@@ -749,24 +872,58 @@ class Optimizer:
             self._save_checkpoint(step, state)
 
     def _save_checkpoint(self, step: TrainStep, state) -> None:
+        """Every rank calls this at the same iteration: the sharded format
+        writes a shard a rank; the gathered one gathers (a collective)
+        and rank 0 writes."""
         # every step up to here is read (and passed by the watchdog)
         # before it is persisted
         self._read_losses(keep=0)
         state["loss"] = float(state["loss"])
         snapshot = dict(state)
+        # the batch plan is keyed by the process count: a resume under
+        # another count re-shards the epoch (_try_resume)
+        snapshot["process_count"] = self._world
         schedule = getattr(self.optim_method, "schedule", None)
         if schedule is not None and hasattr(schedule, "state_dict"):
             snapshot["schedule_state"] = schedule.state_dict()
-        kw = dict(step.checkpoint_arrays(), driver_state=snapshot)
+        sharded = self.optim_method.elementwise and (
+            self._world > 1 if self._ckpt_sharded == "auto"
+            else bool(self._ckpt_sharded))
+        kw = dict(step.checkpoint_arrays(opt=not sharded),
+                  driver_state=snapshot, mirror=self._ckpt_mirror)
+        if sharded:
+            shards, offset, whole = step.opt_shard()
+            kw.update(opt_shards=ckpt.local_opt_shards(shards, offset, whole),
+                      shard_index=self._rank, shard_count=self._world,
+                      attempt=self._attempt_token())
+            # a barrier on the writer thread could interleave with the
+            # step's collectives: asynchronous saves go without, and the
+            # reader checks every shard of the attempt instead
+            if self._ckpt_async is None and self._world > 1:
+                kw["barrier"] = lambda: dist.barrier(group=self._group)
+        elif self._rank != 0:
+            return
         if self._ckpt_async is not None:
             self._ckpt_async.submit(self._ckpt_path, state["iteration"],
                                     **kw)
         else:
             ckpt.save_checkpoint(self._ckpt_path, state["iteration"], **kw)
 
+    def _attempt_token(self) -> str:
+        """One token a save, the same on every rank: rank 0's, broadcast
+        on the main thread."""
+        tok = [uuid.uuid4().hex[:8] if self._rank == 0 else None]
+        if self._world > 1:
+            dist.broadcast_object_list(tok, src=0, group=self._group)
+        return tok[0]
+
     def _try_resume(self, step: TrainStep, state) -> None:
-        """Restore the newest checkpoint under the path, if any, and
-        skip the batches of its epoch that it had already trained."""
+        """Restore the newest complete checkpoint under the path, if any,
+        and skip the batches of its epoch that it had already trained.
+        A checkpoint of another process count mid-epoch re-shards the
+        epoch's remaining examples over this process set (or replays the
+        epoch when the dataset cannot re-shard, or the set changed twice
+        within it)."""
         latest = ckpt.latest_checkpoint(self._ckpt_path)
         if latest is None:
             return
@@ -786,6 +943,61 @@ class Optimizer:
         self._last_hist_iter = min(self._last_hist_iter, it)
         state["epoch_batch"] = int(saved.get("epoch_batch", 0) or 0)
         state["_resume_skip"] = state["epoch_batch"]
+        saved_pc = saved.get("process_count")
+        state["process_count"] = self._world
+        origin = saved.get("reshard_origin")
+        pc_changed = saved_pc is not None and int(saved_pc) != self._world
+        can_reshard = hasattr(self.dataset, "resharded_batches")
+        if origin is not None and state["_resume_skip"]:
+            # into an epoch already on a re-sharded plan: the same plan,
+            # past the batches trained on it
+            if pc_changed or not can_reshard:
+                self._replay_epoch(state, saved_pc, "the process set "
+                                   "changed again mid-epoch")
+            else:
+                base = int(origin["trained"])
+                state["_resume_reshard"] = {
+                    "process_count": int(origin["process_count"]),
+                    "trained": base,
+                    "skip": max(0, state["epoch_batch"] - base)}
+                state["_resume_skip"] = 0
+        elif pc_changed and state["_resume_skip"]:
+            if can_reshard:
+                if self._rank == 0:
+                    log.warning(
+                        "elastic resume: checkpoint written at "
+                        "process_count=%d, resuming at %d — epoch %d "
+                        "continues on a re-sharded batch plan (the %d "
+                        "already-trained global batches are excluded; "
+                        "nothing replays, nothing is dropped)",
+                        int(saved_pc), self._world, state["epoch"],
+                        state["epoch_batch"])
+                state["_resume_reshard"] = {
+                    "process_count": int(saved_pc),
+                    "trained": state["epoch_batch"], "skip": 0}
+                state["reshard_origin"] = {
+                    "process_count": int(saved_pc),
+                    "trained": state["epoch_batch"]}
+                state["_resume_skip"] = 0
+                self.metrics.inc("elastic_resumes_total")
+                self.metrics.inc("elastic_resharded_total")
+            else:
+                self._replay_epoch(state, saved_pc,
+                                   "the per-process batch plan differs and "
+                                   "this dataset cannot reshard mid-epoch")
+
+    def _replay_epoch(self, state, saved_pc, why: str) -> None:
+        if self._rank == 0:
+            log.warning(
+                "elastic resume: checkpoint written at process_count=%s, "
+                "resuming at %d — %s, so epoch %d REPLAYS from its start "
+                "(%d mid-epoch batches re-trained rather than silently "
+                "dropped)", saved_pc, self._world, why, state["epoch"],
+                state["_resume_skip"])
+        state["epoch_batch"] = 0
+        state["_resume_skip"] = 0
+        state.pop("reshard_origin", None)
+        self.metrics.inc("elastic_resumes_total")
 
 
 def _skip_closing(inner, n):

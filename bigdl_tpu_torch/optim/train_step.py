@@ -1,5 +1,7 @@
-"""The train step — the single-device case of
-``bigdl_tpu.optim.train_step.ShardedParameterStep``.
+"""The train step — the port of
+``bigdl_tpu.optim.train_step.ShardedParameterStep``: ``TrainStep`` on one
+process, ``ShardedParameterStep`` (below) across the processes of a
+``runtime.mesh.Mesh``, the ZeRO-1 cycle.
 
 One step is the forward in training mode, the criterion, autograd's
 backward, the trainable mask, optional gradient clipping (constant,
@@ -7,7 +9,7 @@ then global L2 norm, as the JAX step clips; a layer-wise method such as
 ``LarsSGD`` gets only the norm clip, as on the JAX replicated path), the
 optimizer's in-place update, and the EMA of the parameters.  With one
 rank the JAX step's reduce-scatter / all-gather cycle is the identity,
-so nothing of it is here.
+so ``TrainStep`` has nothing of it.
 
 - ``accum_steps``: the batch is cut into that many contiguous
   microbatches; BatchNorm buffers move through them in order, the
@@ -66,21 +68,25 @@ in another dtype raises.  On the CPU there are no graphs: the bundle
 runs the same step K times, the plain version of the graph."""
 
 import functools
+import warnings
 from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from bigdl_tpu_torch.nn.layers import BatchNorm, Dropout
 from bigdl_tpu_torch.nn.module import Module, Sequential, _as_tuple
-from bigdl_tpu_torch.ops.common import captured_launches, credit_launches
+from bigdl_tpu_torch.ops.common import (captured_launches, credit_launches,
+                                        round_up)
 from bigdl_tpu_torch.optim.optim_method import OptimMethod
 from bigdl_tpu_torch.optim.validation import (StatsAccumulator,
                                               ValidationMethod,
                                               ValidationResult)
+from bigdl_tpu_torch.parallel import collectives
 from bigdl_tpu_torch.tensor.policy import get_compute_dtype
 from bigdl_tpu_torch.utils import prng
 from bigdl_tpu_torch.utils.convert import (flat_order, jax_path, nest,
@@ -196,12 +202,13 @@ def _leaf_mask(tree, path):
 
 @torch.no_grad()
 def evaluate(model: torch.nn.Module, methods: Sequence[ValidationMethod],
-             batches: Iterable, device: torch.device
+             batches: Iterable, device: torch.device, group=None
              ) -> List[ValidationResult]:
     """Every method over host ``batches`` (a ``drop_last=False`` plan),
     ``model`` in eval mode; a padded last batch counts its real rows
     only.  The sums stay on the device until the end (the JAX
-    ``_build_eval``)."""
+    ``_build_eval``); with a process ``group`` each rank passes its own
+    plan and the sums are added over the ranks (every rank calls it)."""
     model.train(False)
     acc = StatsAccumulator()
     for mb in batches:
@@ -212,6 +219,13 @@ def evaluate(model: torch.nn.Module, methods: Sequence[ValidationMethod],
         out = model(*xs)
         yd = to_device(y[:n], device)
         acc.add([m.batch_stats(out, yd) for m in methods])
+    if group is not None:
+        flat = (torch.stack([t for pair in acc.totals for t in pair])
+                if acc.totals is not None
+                else torch.zeros(2 * len(methods), device=device))
+        dist.all_reduce(flat, group=group)
+        acc.totals = [(flat[2 * i], flat[2 * i + 1])
+                      for i in range(len(methods))]
     totals = acc.fetch() or []
     return [m.fold(s, c) for m, (s, c) in zip(methods, totals)]
 
@@ -250,9 +264,9 @@ class TrainStep:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self._order = flat_order(self.names)
-        self.opt_state = optim_method.init_state(self.params)
-        self.ema = ([p.detach().clone() for p in self.params]
-                    if self.ema_decay else None)
+        self.device = (self.params[0].device if self.params
+                       else torch.device("cpu"))
+        self.opt_state, self.ema = self._init_state()
         self.masks: Optional[List[Optional[torch.Tensor]]] = None
         if trainable_mask is not None:
             self.masks = []
@@ -263,8 +277,6 @@ class TrainStep:
                 self.masks.append(None if bool(m.all()) else m)
             if all(m is None for m in self.masks):
                 self.masks = None
-        self.device = (self.params[0].device if self.params
-                       else torch.device("cpu"))
         self._base_key = None
         if any(isinstance(m, Dropout) and m.p > 0.0
                for m in model.modules()):
@@ -279,6 +291,12 @@ class TrainStep:
         self.graph_dtype: Optional[torch.dtype] = None
         self._warm: Counter = Counter()
         self._side: Optional[torch.cuda.Stream] = None
+
+    def _init_state(self):
+        """The optimizer's slots and the EMA (None without one)."""
+        ema = ([p.detach().clone() for p in self.params]
+               if self.ema_decay else None)
+        return self.optim_method.init_state(self.params), ema
 
     def step_key(self, step) -> Optional[torch.Tensor]:
         """Replica 0's dropout key of iteration ``step`` (an int, or the
@@ -326,8 +344,7 @@ class TrainStep:
         holds.  Returns the loss and, with ``want_gnorm``, the global L2
         norm of the (masked, averaged) gradient before clipping."""
         self.model.train(True)
-        for p in self.params:
-            p.grad = None
+        self._zero_grads()
         key = self.step_key(self._step_t)
         accum = self.accum_steps
         if accum == 1:
@@ -348,6 +365,10 @@ class TrainStep:
                 total = lk if total is None else total + lk
             loss = total / accum
         return loss, self._apply(scalars, accum, want_gnorm)
+
+    def _zero_grads(self) -> None:
+        for p in self.params:
+            p.grad = None
 
     def __call__(self, step: int, x, y) -> torch.Tensor:
         return self._run(x, y, self._set_step(step))[0]
@@ -496,9 +517,38 @@ class TrainStep:
         return [(n, b) for n, b in self.model.named_buffers()
                 if n in persistent]
 
-    def checkpoint_arrays(self) -> Dict[str, Any]:
+    def checkpoint_arrays(self, opt: bool = True) -> Dict[str, Any]:
         """The step's tensors as the host arrays of a checkpoint
-        (``optim.checkpoint`` names them)."""
+        (``optim.checkpoint`` names them); ``opt=False`` leaves the
+        optimizer state out (a sharded save writes ``opt_shard``)."""
+        host = lambda t: t.detach().cpu().numpy()
+        flat, ema = self._flat_vectors()
+        out = {"flat_params": host(flat),
+               "ema_flat": None if ema is None else host(ema),
+               "model_state": {"/".join(jax_path(n)): host(b)
+                               for n, b in self._buffers()}}
+        if opt:
+            out["opt_state"] = self._opt_arrays()
+        return out
+
+    def _flat_vectors(self):
+        """The parameters and the EMA (or None) raveled."""
+        return (ravel(self._ordered(self.params)),
+                None if self.ema is None else ravel(self._ordered(self.ema)))
+
+    def opt_shard(self) -> Tuple[Dict[str, np.ndarray], int,
+                                 Dict[str, np.ndarray]]:
+        """This process's part of an elementwise method's state, as a
+        sharded checkpoint writes it: (each slot's vector, its offset in
+        the flat vector, the tensor slots whole); one process holds it
+        all, at offset 0."""
+        arrays = self._opt_arrays()
+        whole = {k: arrays[k] for k, v in self.opt_state.items()
+                 if isinstance(v, torch.Tensor)}
+        return ({k: a for k, a in arrays.items() if k not in whole}, 0,
+                whole)
+
+    def _opt_arrays(self) -> Dict[str, np.ndarray]:
         host = lambda t: t.detach().cpu().numpy()
         opt: Dict[str, np.ndarray] = {}
         for slot, val in self.opt_state.items():
@@ -509,12 +559,7 @@ class TrainStep:
             else:
                 for n, t in zip(self.names, val):
                     opt["/".join((slot,) + jax_path(n))] = host(t)
-        return {"flat_params": host(ravel(self._ordered(self.params))),
-                "ema_flat": (None if self.ema is None
-                             else host(ravel(self._ordered(self.ema)))),
-                "opt_state": opt,
-                "model_state": {"/".join(jax_path(n)): host(b)
-                                for n, b in self._buffers()}}
+        return opt
 
     @torch.no_grad()
     def restore(self, flat, opt_state: Dict[str, np.ndarray],
@@ -524,6 +569,15 @@ class TrainStep:
         the buffers and the EMA; without a saved EMA it restarts from
         the restored parameters."""
         unravel_into(flat, self._ordered(self.params))
+        self._restore_opt(opt_state)
+        for n, b in self._buffers():
+            b.copy_(torch.as_tensor(model_state["/".join(jax_path(n))]
+                                    ).reshape(b.shape))
+        if self.ema is not None:
+            unravel_into(flat if ema is None else ema,
+                         self._ordered(self.ema))
+
+    def _restore_opt(self, opt_state: Dict[str, np.ndarray]) -> None:
         for slot, val in self.opt_state.items():
             if isinstance(val, torch.Tensor):
                 val.copy_(torch.as_tensor(opt_state[slot]).reshape(
@@ -534,12 +588,354 @@ class TrainStep:
                 for n, t in zip(self.names, val):
                     t.copy_(torch.as_tensor(opt_state[
                         "/".join((slot,) + jax_path(n))]).reshape(t.shape))
-        for n, b in self._buffers():
-            b.copy_(torch.as_tensor(model_state["/".join(jax_path(n))]
-                                    ).reshape(b.shape))
-        if self.ema is not None:
-            unravel_into(flat if ema is None else ema,
-                         self._ordered(self.ema))
+
+
+class ShardedParameterStep(TrainStep):
+    """``TrainStep`` across the ranks of ``mesh``'s data axis: the ZeRO-1
+    cycle of the JAX ``ShardedParameterStep``.  Every rank runs the
+    forward and backward on its own rows of the global batch; then the
+    flat gradient is reduce-scattered (``grad_comm``: ``"fp32"``,
+    ``"bf16"`` or ``"int8"``, one collective a bucket of
+    ``comm_bucket_bytes``), each rank updates its shard of the
+    parameters with the optimizer state of that shard alone, and the
+    updated shards are all-gathered back (``param_comm``: ``"fp32"``, or
+    ``"int8"``: the update's delta, blockwise quantized by
+    ``quant_block``).
+
+    The parameters (in the JAX ravel order, ``utils.convert.
+    flat_order``), their gradients and the EMA are views into one
+    float32 buffer each (``flat_params``, ``flat_grads``), padded to
+    ``n_pad``, a multiple of the ranks, and allocated once: autograd
+    accumulates into ``flat_grads`` in place, the reduce-scatter reads it
+    as it is, and the all-gather writes ``flat_params`` in place.  An
+    elementwise method keeps its slots for this rank's
+    ``shard_size`` entries only; a layer-wise one (``LarsSGD``) averages
+    the whole gradient with one ``all_reduce`` and updates replicated.
+    Clipping and ``gnorm`` sum the shards' squares with one
+    ``all_reduce``; the trainable mask zeroes frozen gradients and puts
+    frozen entries back bit for bit after the gather; the EMA runs over
+    the gathered parameters.  Rank ``r`` draws its dropout masks from
+    ``fold_in(step_key, r)`` (microbatch ``k`` from ``fold_in(., k)``),
+    and after the step the loss and every floating buffer (BatchNorm's
+    running statistics) are averaged over the ranks.
+
+    On one rank there is no wire: the step is ``TrainStep``'s, to the
+    bit, on the flat buffers.  On the card a bundle is a captured CUDA
+    graph of one step with its NCCL collectives inside; the eager warm
+    steps before the capture run every collective once, so NCCL sets up
+    its communicator outside the capture.  ``bf16_grads=True`` is the
+    deprecated spelling of ``grad_comm="bf16"``."""
+
+    def __init__(self, model: torch.nn.Module, criterion,
+                 optim_method: OptimMethod, mesh, *,
+                 clip: Optional[GradientClipping] = None, seed: int = 42,
+                 accum_steps: int = 1, ema_decay: float = 0.0,
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 trainable_mask: Optional[Dict[str, Any]] = None,
+                 grad_comm: Optional[str] = None,
+                 comm_bucket_bytes: Optional[int] = None,
+                 quant_block: int = collectives.DEFAULT_QUANT_BLOCK,
+                 param_comm: Optional[str] = None,
+                 bf16_grads: bool = False):
+        if grad_comm is not None:
+            grad_comm = str(grad_comm).strip().lower()
+        if bf16_grads:
+            warnings.warn("bf16_grads is deprecated: use grad_comm='bf16'",
+                          DeprecationWarning, stacklevel=2)
+            if grad_comm is None:
+                grad_comm = "bf16"
+        grad_comm = grad_comm or "fp32"
+        if grad_comm not in collectives.GRAD_COMM_MODES:
+            raise ValueError(f"grad_comm {grad_comm!r}: one of "
+                             f"{collectives.GRAD_COMM_MODES}")
+        param_comm = str(param_comm or "fp32").strip().lower()
+        if param_comm not in collectives.PARAM_COMM_MODES:
+            raise ValueError(f"param_comm {param_comm!r}: one of "
+                             f"{collectives.PARAM_COMM_MODES}")
+        self.grad_comm, self.param_comm = grad_comm, param_comm
+        self.bf16_grads = grad_comm == "bf16"
+        self.quant_block = int(quant_block)
+        self.comm_bucket_bytes = comm_bucket_bytes
+        self.mesh = mesh
+        self.group = mesh.group
+        self.rank = mesh.rank
+        self.ndev = mesh.data_size
+        super().__init__(model, criterion, optim_method, clip=clip,
+                         seed=seed, accum_steps=accum_steps,
+                         ema_decay=ema_decay, remat=remat,
+                         remat_policy=remat_policy,
+                         trainable_mask=trainable_mask)
+        if (self.group is not None and self.device.type != "cuda"
+                and dist.get_backend(self.group) == "nccl"):
+            raise ValueError(f"the process group runs NCCL and the model "
+                             f"lives on {self.device}: NCCL takes CUDA "
+                             f"tensors only")
+        self._mask_flat = None
+        if self.masks is not None:
+            mf = torch.zeros(self.n_pad, dtype=torch.bool,
+                             device=self.device)
+            for (lo, hi), i in zip(self._spans, self._order):
+                m = self.masks[i]
+                mf[lo:hi] = True if m is None else m.reshape(-1)
+            self._mask_flat = mf
+
+    # ---- the flat layout ------------------------------------------------------
+    def _init_state(self):
+        """Move the parameters into ``flat_params`` (views in the ravel
+        order), give each a gradient view into ``flat_grads``, and build
+        the optimizer's slots (this rank's shard for an elementwise method
+        across ranks) and the EMA's buffer."""
+        dev = self.device
+        sizes = [self.params[i].numel() for i in self._order]
+        self.n_real = sum(sizes)
+        self.n_pad = round_up(max(self.n_real, 1), self.ndev)
+        self.shard_size = self.n_pad // self.ndev
+        self._cols = collectives.bucket_columns(
+            self.shard_size, self.ndev, self.comm_bucket_bytes,
+            collectives.wire_itemsize(self.grad_comm),
+            self.quant_block if self.grad_comm == "int8" else None)
+        self.flat_params = torch.zeros(self.n_pad, device=dev)
+        self.flat_grads = torch.zeros(self.n_pad, device=dev)
+        self._ema_flat = (torch.zeros(self.n_pad, device=dev)
+                          if self.ema_decay else None)
+        self._spans = []
+        self._grad_views = [None] * len(self.params)
+        ema = [None] * len(self.params) if self.ema_decay else None
+        off = 0
+        with torch.no_grad():
+            for i, n in zip(self._order, sizes):
+                p = self.params[i]
+                if p.dtype != torch.float32:
+                    raise ValueError(f"{self.names[i]}: parameters live in "
+                                     f"float32, got {p.dtype}")
+                view = self.flat_params[off:off + n].view(p.shape)
+                view.copy_(p)
+                p.data = view
+                self._grad_views[i] = self.flat_grads[off:off + n].view(
+                    p.shape)
+                p.grad = self._grad_views[i]
+                if ema is not None:
+                    ema[i] = self._ema_flat[off:off + n].view(p.shape)
+                    ema[i].copy_(view)
+                self._spans.append((off, off + n))
+                off += n
+        if not self._zero1:
+            return self.optim_method.init_state(self.params), ema
+        lo = self.rank * self.shard_size
+        state = self.optim_method.init_state(
+            [self.flat_params[lo:lo + self.shard_size]])
+        if len(self._cols) > 1:
+            # a bucket's update slices every slot like the parameters; a
+            # slot that is not one per element would be fed whole to
+            # every bucket and drift from the monolithic update
+            bad = {k: (tuple(v.shape) if isinstance(v, torch.Tensor)
+                       else [tuple(t.shape) for t in v])
+                   for k, v in state.items()
+                   if isinstance(v, torch.Tensor) or len(v) != 1
+                   or tuple(v[0].shape) != (self.shard_size,)}
+            if bad:
+                raise ValueError(
+                    f"comm_bucket_bytes requires per-element optimizer "
+                    f"state (every slot shaped ({self.shard_size},)); "
+                    f"{type(self.optim_method).__name__} has {bad}: use "
+                    f"comm_bucket_bytes=None with this OptimMethod")
+        return state, ema
+
+    @property
+    def _zero1(self) -> bool:
+        """Whether the optimizer state is sharded: an elementwise method
+        on more than one rank."""
+        return self.ndev > 1 and self.optim_method.elementwise
+
+    def _zero_grads(self) -> None:
+        self.flat_grads.zero_()
+        for p, g in zip(self.params, self._grad_views):
+            if p.grad is not g:
+                p.grad = g
+
+    def step_key(self, step) -> Optional[torch.Tensor]:
+        """This rank's dropout key of iteration ``step``."""
+        if self._base_key is None:
+            return None
+        return prng.fold_in(prng.fold_in(self._base_key, step), self.rank)
+
+    # ---- the step ---------------------------------------------------------------
+    def _pmean(self, t: torch.Tensor) -> torch.Tensor:
+        s = t.detach().float().reshape(1).clone()
+        dist.all_reduce(s, group=self.group)
+        return (s / self.ndev).reshape(t.shape)
+
+    def _run(self, x, y, scalars, want_gnorm: bool = False):
+        loss, gnorm = super()._run(x, y, scalars, want_gnorm)
+        if self.ndev > 1:
+            with torch.no_grad():
+                loss = self._pmean(loss)
+                bufs = [b for _, b in self._buffers()
+                        if b.is_floating_point()]
+                if bufs:
+                    flat = torch.cat([b.reshape(-1) for b in bufs])
+                    dist.all_reduce(flat, group=self.group)
+                    flat.div_(self.ndev)
+                    off = 0
+                    for b in bufs:
+                        b.copy_(flat[off:off + b.numel()].view(b.shape))
+                        off += b.numel()
+        return loss, gnorm
+
+    @torch.no_grad()
+    def _apply(self, scalars, accum: int, want_gnorm: bool
+               ) -> Optional[torch.Tensor]:
+        if self.ndev == 1:
+            return super()._apply(scalars, accum, want_gnorm)
+        g, n = self.flat_grads, self.ndev
+        if accum > 1:
+            g.div_(accum)
+        if self._mask_flat is not None:
+            g.mul_(self._mask_flat)
+        if not self.optim_method.elementwise:
+            # layer-wise (LARS): the whole mean gradient, replicated update
+            with record_function("train_step/grad_sync"):
+                dist.all_reduce(g, group=self.group)
+                g.div_(n)
+            return super()._apply(scalars, 1, want_gnorm)
+        group, block = self.group, self.quant_block
+        g2d = g.view(n, self.shard_size)
+        with record_function("train_step/grad_sync"):
+            slices = [collectives.reduce_scatter_wire(
+                g2d[:, c0:c1], group, self.grad_comm, block=block).float()
+                / n for c0, c1 in self._cols]
+        gnorm = None
+        if want_gnorm:
+            gnorm = self._global_sq(slices).sqrt()
+        with record_function("train_step/update"):
+            clip = self.clip
+            if clip is not None:
+                if (clip.constant_min is not None
+                        or clip.constant_max is not None):
+                    for sb in slices:
+                        sb.clamp_(clip.constant_min, clip.constant_max)
+                if clip.l2_norm is not None:
+                    scale = torch.clamp(clip.l2_norm / (
+                        self._global_sq(slices).sqrt() + 1e-12), max=1.0)
+                    for sb in slices:
+                        sb.mul_(scale)
+            flat = self.flat_params
+            old = flat.clone() if self._mask_flat is not None else None
+            flat2d = flat.view(n, self.shard_size)
+            lo = self.rank * self.shard_size
+            for (c0, c1), sb in zip(self._cols, slices):
+                p_b = flat[lo + c0:lo + c1]
+                o_b = (self.opt_state if len(self._cols) == 1 else
+                       {k: [v[0][c0:c1]] for k, v in self.opt_state.items()})
+                prev = p_b.clone() if self.param_comm == "int8" else None
+                self.optim_method.apply(scalars, [sb], [p_b], o_b)
+                rows = flat2d[:, c0:c1]
+                if prev is not None:
+                    # the delta on the wire; every rank adds the same
+                    # dequantized bytes to its replicated base
+                    delta = p_b - prev
+                    p_b.copy_(prev)
+                    collectives.all_gather_delta_quantized(
+                        delta, rows, group, block=block, out=rows)
+                elif len(self._cols) == 1:
+                    collectives.all_gather(flat, p_b, group)
+                else:
+                    gathered = flat.new_empty((n, c1 - c0))
+                    collectives.all_gather(gathered, p_b, group)
+                    rows.copy_(gathered)
+            if old is not None:
+                torch.where(self._mask_flat, flat, old, out=flat)
+            if self._ema_flat is not None:
+                d = self.ema_decay
+                self._ema_flat.mul_(d).add_(flat, alpha=1.0 - d)
+        return gnorm
+
+    def _global_sq(self, slices) -> torch.Tensor:
+        """The sum over ranks of the shards' squared entries."""
+        sq = sum(torch.sum(sb * sb) for sb in slices).reshape(1)
+        dist.all_reduce(sq, group=self.group)
+        return sq.reshape(())
+
+    # ---- the byte ledger -----------------------------------------------------
+    @property
+    def comm_buckets(self) -> int:
+        """Gradient-sync buckets (1: one collective)."""
+        return len(self._cols)
+
+    @property
+    def grad_sync_ici_bytes_per_step(self) -> int:
+        """Wire bytes a step of the gradient reduce-scatter in its wire
+        dtype (int8: payload, scales and block padding); 0 on one rank.
+        "ici" keeps the JAX name: the link between the cards."""
+        if self.ndev <= 1:
+            return 0
+        return sum(collectives.rs_wire_bytes(
+            c1 - c0, self.ndev, self.grad_comm, self.quant_block)
+            for c0, c1 in self._cols)
+
+    @property
+    def param_sync_ici_bytes_per_step(self) -> int:
+        """Wire bytes a step of the updated-parameter all-gather in the
+        ``param_comm`` wire dtype; 0 on one rank."""
+        if self.ndev <= 1:
+            return 0
+        return sum(collectives.ag_wire_bytes(
+            c1 - c0, self.ndev, self.param_comm, self.quant_block)
+            for c0, c1 in self._cols)
+
+    @property
+    def collective_bytes_per_step(self) -> int:
+        return (self.grad_sync_ici_bytes_per_step
+                + self.param_sync_ici_bytes_per_step)
+
+    # ---- checkpoints --------------------------------------------------------------
+    def opt_shard(self) -> Tuple[Dict[str, np.ndarray], int,
+                                 Dict[str, np.ndarray]]:
+        """This rank's part of the optimizer state: (its shard of each
+        elementwise slot, the shard's offset in the flat vector, the
+        tensor slots whole)."""
+        if not self._zero1:
+            return super().opt_shard()
+        shards, whole = {}, {}
+        for slot, val in self.opt_state.items():
+            if isinstance(val, torch.Tensor):
+                whole[slot] = val.detach().cpu().numpy()
+            else:
+                shards[slot] = val[0].detach().cpu().numpy()
+        return shards, self.rank * self.shard_size, whole
+
+    def _flat_vectors(self):
+        """The flat buffers at ``n_pad``, as the JAX step writes them."""
+        return self.flat_params, self._ema_flat
+
+    def _opt_arrays(self) -> Dict[str, np.ndarray]:
+        """Across ranks the optimizer's shards are gathered first (a
+        collective: every rank calls ``checkpoint_arrays``)."""
+        if not self._zero1:
+            return super()._opt_arrays()
+        opt = {}
+        for slot, val in self.opt_state.items():
+            if isinstance(val, torch.Tensor):
+                opt[slot] = val.detach().cpu().numpy()
+                continue
+            full = val[0].new_empty(self.n_pad)
+            collectives.all_gather(full, val[0], self.group)
+            opt[slot] = full.cpu().numpy()
+        return opt
+
+    def _restore_opt(self, opt_state: Dict[str, np.ndarray]) -> None:
+        if not self._zero1:
+            return super()._restore_opt(opt_state)
+        lo = self.rank * self.shard_size
+        for slot, val in self.opt_state.items():
+            src = np.asarray(opt_state[slot])
+            if isinstance(val, torch.Tensor):
+                val.copy_(torch.as_tensor(src).reshape(val.shape))
+                continue
+            part = np.zeros(self.shard_size, np.float32)
+            got = src.reshape(-1)[lo:lo + self.shard_size]
+            part[:len(got)] = got
+            val[0].copy_(torch.as_tensor(part))
 
 
 @dataclass

@@ -49,8 +49,9 @@ class PoisonedStepError(RuntimeError):
 
 
 class TopologyChangedError(RuntimeError):
-    """The process set changed.  Kept for the name: nothing on one
-    process raises it until multi-GPU training (ROADMAP A.2)."""
+    """The process set changed.  Kept for the name: nothing raises it
+    until the cluster control plane (``set_cluster``, ROADMAP A.2 and
+    A.6.9)."""
 
 
 def classify(exc: BaseException) -> FailureCause:

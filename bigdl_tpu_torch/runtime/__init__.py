@@ -1,6 +1,8 @@
-"""The process's runtime configuration — the single-process part of
-``bigdl_tpu.runtime``."""
+"""The process's runtime configuration and its process mesh — the port
+of ``bigdl_tpu.runtime``."""
 
 from bigdl_tpu_torch.runtime.engine import Engine, EngineConfig, init_engine
+from bigdl_tpu_torch.runtime.mesh import Mesh, MeshSpec, build_mesh
 
-__all__ = ["Engine", "EngineConfig", "init_engine"]
+__all__ = ["Engine", "EngineConfig", "init_engine", "Mesh", "MeshSpec",
+           "build_mesh"]

@@ -12,8 +12,8 @@ key prefixes, creation is a no-op, and there is no atomic rename, so
 writers order their files (data first, sidecar or manifest last).
 
 ``open_file`` is the fault-injection seam (``storage_io_fail``,
-``resilience.faults``).  Not here yet: ``mirror_tree`` (checkpoint
-mirrors come with multi-device training)."""
+``resilience.faults``); ``mirror_tree`` copies a checkpoint to its
+mirror."""
 
 import json
 import logging
@@ -30,6 +30,7 @@ __all__ = [
     "is_remote", "join", "basename", "open_file", "exists", "isdir",
     "isfile", "listdir", "list_files", "makedirs", "remove_tree",
     "read_json", "write_json", "load_npz", "glob", "fingerprint",
+    "mirror_tree",
 ]
 
 
@@ -227,6 +228,64 @@ def fingerprint(path: str) -> Optional[dict]:
         return {"size": str(st.st_size), "mtime": str(st.st_mtime)}
     except (OSError, ImportError, KeyError):
         return None
+
+
+def mirror_tree(src: str, dst: str, policy=None, metrics=None,
+                sleep=None) -> int:
+    """Copy every file under ``src`` (recursively) to ``dst``, the
+    checkpoint's mirror, and return the bytes copied.  Each file gets a
+    bounded retry with backoff (``policy``: 3 retries from 0.2 s by
+    default), every retry counted as ``retries_by_cause.
+    transient_storage`` in ``metrics`` (the process registry by
+    default); exhausted retries raise and the caller decides.  A
+    ``manifest.json`` is copied last, so a mirror cut short is no
+    checkpoint to a reader."""
+    import time
+
+    from bigdl_tpu_torch.optim.metrics import global_metrics
+    from bigdl_tpu_torch.resilience.retry import RetryPolicy
+
+    policy = policy or RetryPolicy(max_retries=3, base_s=0.2, max_s=5.0)
+    metrics = metrics if metrics is not None else global_metrics()
+    sleep = sleep or time.sleep
+
+    def walk(rel: str):
+        base = join(src, rel) if rel else src
+        for name in listdir(base):
+            p = f"{rel}/{name}" if rel else name
+            if isdir(join(src, p)):
+                yield from walk(p)
+            else:
+                yield p
+
+    files = sorted(walk(""),
+                   key=lambda p: (p.split("/")[-1] == "manifest.json", p))
+    makedirs(dst)
+    total = 0
+    for p in files:
+        target = join(dst, *p.split("/"))
+        if "/" in p:
+            makedirs(join(dst, *p.split("/")[:-1]))
+        attempt = 0
+        while True:
+            try:
+                with open_file(join(src, *p.split("/")), "rb") as f:
+                    data = f.read()
+                with open_file(target, "wb") as g:
+                    g.write(data)
+                total += len(data)
+                break
+            except Exception as e:       # storage errors of any backend
+                attempt += 1
+                if attempt > policy.max_retries:
+                    raise
+                metrics.inc("retries_by_cause.transient_storage")
+                delay = policy.backoff(attempt)
+                log.warning("mirror %s -> %s failed (%s: %s); retry %d/%d "
+                            "in %.2fs", p, dst, type(e).__name__, e,
+                            attempt, policy.max_retries, delay)
+                sleep(delay)
+    return total
 
 
 def read_json(path: str):

@@ -150,6 +150,29 @@ one JSON line:
    libjpeg the line says why.
    The ResNet phases pin cuDNN to deterministic algorithms; train_resnet
    also times 6 steps with cuDNN's default choice.
+20. train_zero1 — ZeRO-1 data parallelism over ``torch.distributed``:
+   (a) ``train_zero1_collectives``: NCCL at world 1 on the card, the
+   wire collectives (``reduce_scatter_wire`` fp32, bf16 and int8, the
+   int8 delta gather, the fp32 all-gather) on the LM's flat gradient
+   (110,221,824 elements), each eager and then captured in a CUDA graph
+   and replayed, every result equal to the bit to the same call over gloo
+   on the CPU at world 1, each call's device ms and the int8 codec's
+   quantize, dequantize and sum; (b) ``train_zero1_driver``: one process
+   a card (world = the card count) trains the LM through
+   ``Optimizer.optimize()`` in bundles of 4 (train_lm_bundles' 48 rows,
+   12 steps): at world 1 its losses equal the single-process run's to
+   the bit; with two or more cards, world min(count, 4) with grad_comm
+   fp32 and int8 within 2e-3 of world 1's last loss; step ms, peak
+   memory a rank, the byte ledger; (c) ``train_zero1_checkpoint``: two
+   gloo processes on the CPU train test_grad_comm's MLP and write a
+   sharded checkpoint mid-epoch with a mirror; the card resumes it at
+   world 1 (float32 products) on the re-sharded epoch, its losses within
+   1e-5 of a CPU resume of the same checkpoint, the mirror equal to the
+   primary; (d) ``train_zero1_gloo_card``: two processes on the one card
+   try gloo's reduce-scatter, all-to-all and all-gather on CUDA tensors
+   (what each did is reported), and when all three run right they train
+   the LM run of (b) at K = 1 over gloo, its last loss within 2e-3 of
+   the single-process run's.
 
 Compute dtypes.  On the card the port's default compute dtype is
 bfloat16 (``tensor.policy``: bfloat16 products with float32 sums, the
@@ -182,6 +205,9 @@ copied into a checkout of another commit, it runs that commit's port the
 same way, for an A/B of the draft's block-sparse kernel in one call
 (run parent, change, change, parent).
 
+``python3 chip_smoke.py --zero1`` builds the kernels and runs only
+``train_zero1`` (its single-process reference run included).
+
 ``python3 chip_smoke.py --feed-ab`` runs only ``feed_ab``: where the
 record path's ResNet-50 step time goes (in memory against records with
 the tuned decode pool, one decode worker, and a train summary, each at
@@ -195,13 +221,17 @@ no result."""
 import contextlib
 import gc
 import json
+import multiprocessing as mp
 import os
 import re
+import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from collections import Counter
 
 import numpy as np
@@ -290,6 +320,18 @@ IMAGENET_STD = tuple(v * 255 for v in (0.229, 0.224, 0.225))
 # 4 (every 6)
 BUNDLE = dict(k=4, steps=12, pairs=3, timed_from=4, sync_steps=8,
               ckpt_every=6, records_pairs=2, lm_batches=6)
+
+# train_zero1: the int8 wire's block, timing repetitions, the update
+# delta's scale against the gradient for the delta gather, the rows of
+# the batch whose gradient the collectives carry; the sharded run's ranks at
+# most 4 a run, their last loss within 2e-3 of world 1's (the gate of
+# tests/test_distri_optimizer.py); the checkpoint handed from 2 CPU
+# ranks: test_grad_comm's MLP on 64 rows, global batch 16, checkpoint at
+# 3 (mid-epoch), resumed to 8, the card's losses within 1e-5 of the
+# CPU's (float32 products; the sums differ only in order)
+ZERO1 = dict(block=1024, reps=10, delta_scale=1e-4, grad_rows=2,
+             world_max=4, rel=2e-3, rows=64, batch=16, ckpt_every=3,
+             resume_to=8, atol=1e-5, wait_s=900)
 
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
@@ -3914,12 +3956,9 @@ def train_resnet_records_bundles(dev, path):
     return out
 
 
-def train_lm_bundles(dev):
-    """The LM (12 layers, d 768, batch 8 x 1024) at K = 1 and K = 4: the
-    flash forward and backward launch counts a step the same under replay
-    as eager (credited at each replay), the losses equal to the bit, step
-    ms, tokens/s, the host's dispatch, busy share and peak memory.  48
-    seeded rows: 6 steps an epoch."""
+def _lm_bundle_maker(dev):
+    """``make(end)``: the LM's Optimizer on train_lm_bundles' 48 seeded
+    rows (batch 8 x 1024, Adam 1e-4), ending at ``end``."""
     from bigdl_tpu_torch.data import DataSet
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
     from bigdl_tpu_torch.optim import Adam, Optimizer
@@ -3936,6 +3975,16 @@ def train_lm_bundles(dev):
                 .set_optim_method(Adam(learning_rate=TRAIN["lr"]))
                 .set_end_when(end))
 
+    return make
+
+
+def train_lm_bundles(dev):
+    """The LM (12 layers, d 768, batch 8 x 1024) at K = 1 and K = 4: the
+    flash forward and backward launch counts a step the same under replay
+    as eager (credited at each replay), the losses equal to the bit, step
+    ms, tokens/s, the host's dispatch, busy share and peak memory.  48
+    seeded rows: 6 steps an epoch."""
+    make = _lm_bundle_maker(dev)
     out, equal = _bundle_pairs(make, BUNDLE["steps"], 1, "train_lm_bundles")
     out["compute_dtype"] = "bfloat16"
     out["dtype_pairs"] = _dtype_pairs(make, BUNDLE["steps"])
@@ -4143,6 +4192,489 @@ def profile_window(dev, data):
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_zero1: ZeRO-1 data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _device_ms(fn, reps) -> float:
+    """Median device ms of ``fn()`` over ``reps`` calls, CUDA events around
+    each, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _lm_flat_grad(dev):
+    """The LM's flat gradient of one batch and its flat parameters, in
+    the JAX ravel order (the ZeRO-1 layout's)."""
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.utils.convert import flat_order
+
+    model = Transformer(**LM, dropout=0.0, seed=SEED).to(dev)
+    rs = np.random.RandomState(SEED + 5)
+    shape = (ZERO1["grad_rows"], TRAIN["seq"])
+    ids, tgt = (torch.as_tensor(rs.randint(0, LM["vocab_size"], shape)
+                                ).to(dev) for _ in range(2))
+    CrossEntropyCriterion()(model(ids), tgt).backward()
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    order = flat_order([n for n, _ in named])
+    g = torch.cat([named[i][1].grad.reshape(-1) for i in order]).float()
+    w = torch.cat([named[i][1].detach().reshape(-1) for i in order])
+    del model, named
+    return g, w
+
+
+def _zero1_collectives(dev):
+    """NCCL at world 1: each wire collective on the LM's flat gradient,
+    eager and replayed from a captured graph, held to the same call over
+    gloo on the CPU to the bit; device ms of each and of the int8 codec.
+    Leaves no process group behind."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.ops.quantized import (dequantize_blockwise,
+                                               quantize_blockwise)
+    from bigdl_tpu_torch.parallel import collectives as pc
+    from bigdl_tpu_torch.runtime import Engine, EngineConfig, init_engine
+
+    block, reps = ZERO1["block"], ZERO1["reps"]
+    eng = init_engine(EngineConfig(
+        coordinator_address=f"127.0.0.1:{_free_port()}", num_processes=1,
+        process_id=0, timeout_s=ZERO1["wait_s"]))
+    try:
+        nccl = eng.mesh.group
+        if dist.get_backend(nccl) != "nccl":
+            raise AssertionError(f"the card's group runs "
+                                 f"{dist.get_backend(nccl)}, not NCCL")
+        gloo = dist.new_group(ranks=[0], backend="gloo")
+        g, w = _lm_flat_grad(dev)
+        n = g.numel()
+        delta = g * ZERO1["delta_scale"]
+
+        def gather(t, grp):
+            out = torch.empty_like(t)
+            pc.all_gather(out, t, grp)
+            return out
+
+        ops = {
+            "reduce_scatter_fp32": ((g,), lambda a, grp: pc.reduce_scatter_wire(
+                a[0].view(1, -1), grp, "fp32")),
+            "reduce_scatter_bf16": ((g,), lambda a, grp: pc.reduce_scatter_wire(
+                a[0].view(1, -1), grp, "bf16")),
+            "reduce_scatter_int8": ((g,), lambda a, grp: pc.reduce_scatter_wire(
+                a[0].view(1, -1), grp, "int8", block=block)),
+            "delta_gather_int8": ((delta, w), lambda a, grp:
+                                  pc.all_gather_delta_quantized(
+                                      a[0], a[1].view(1, -1), grp,
+                                      block=block)),
+            "all_gather_fp32": ((w,), lambda a, grp: gather(a[0], grp)),
+        }
+        rows = {}
+        side = torch.cuda.Stream(dev)
+        for name, (inputs, fn) in ops.items():
+            want = fn(tuple(t.cpu() for t in inputs), gloo)
+            got = fn(inputs, nccl)
+            torch.cuda.synchronize()
+            equal = torch.equal(got.cpu(), want)
+            row = {"bit_equal_to_gloo_cpu": equal,
+                   "ms": _device_ms(lambda: fn(inputs, nccl), reps)}
+            if not equal:
+                # the int8 codec's scale is amax / 127: the card's
+                # division by a Python scalar multiplies by its float32
+                # reciprocal, the CPU's divides, so a scale may differ
+                # in its last bit and an element by one quantization
+                # step of its block (plus, for the delta gather, one
+                # float32 rounding of the sum with its base row)
+                src = inputs[0].view(1, -1).cpu()
+                pad = (-n) % block
+                bmax = torch.nn.functional.pad(src.abs(), (0, pad)).view(
+                    1, -1, block).amax(-1) / 127.0
+                # a byte apart, and 127 bytes of a scale an ulp apart
+                eps = torch.finfo(torch.float32).eps
+                step = bmax.repeat_interleave(block, -1)[:, :n].reshape(
+                    got.shape) * (1 + 127 * eps)
+                if name == "delta_gather_int8":
+                    step = step + eps * want.abs()
+                diff = (got.cpu().float() - want.float()).abs()
+                excess = float((diff / step.clamp_min(1e-30)).max())
+                row["max_diff_in_quantization_steps"] = excess
+                row["elements_differing"] = int((diff > 0).sum())
+                if "int8" not in name or excess > 1.0:
+                    raise AssertionError(f"{name}: card and CPU differ: "
+                                         f"{row}")
+            # captured: the communicator exists (the eager calls made it)
+            graph = torch.cuda.CUDAGraph()
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.graph(graph, stream=side):
+                out = fn(inputs, nccl)
+            graph.replay()
+            torch.cuda.synchronize()
+            row["graph_bit_equal_to_eager"] = torch.equal(out, got)
+            row["graph_ms"] = _device_ms(graph.replay, reps)
+            if not row["graph_bit_equal_to_eager"]:
+                raise AssertionError(f"{name}: replay differs from eager")
+            del graph, out, got, want
+            rows[name] = row
+            print(json.dumps({name: row}), flush=True)
+        g2d = pc._pad_last(g.view(1, -1), block)
+        q, sc = quantize_blockwise(g2d, block)
+        deq = dequantize_blockwise(q, sc)
+        codec = {"quantize_ms": _device_ms(
+                     lambda: quantize_blockwise(g2d, block), reps),
+                 "dequantize_ms": _device_ms(
+                     lambda: dequantize_blockwise(q, sc), reps),
+                 "sum_ms": _device_ms(lambda: deq[0].clone(), reps)}
+        out = {"phase": "train_zero1_collectives", "world": 1,
+               "backend": "nccl", "n_real": n, "block": block,
+               "bytes_fp32": 4 * n, "collectives": rows,
+               "int8_codec": codec,
+               "ledger_by_world": {
+                   k: pc.layout_ledger(n, k, mode=mode, block=block)
+                   for k in (2, 4, 8) for mode in ("fp32",)},
+               "ledger_int8_by_world": {
+                   k: pc.layout_ledger(n, k, mode="int8", block=block,
+                                       param_comm="int8")
+                   for k in (2, 4, 8)}}
+        emit(out)
+        return out
+    finally:
+        dist.destroy_process_group()
+        Engine.reset()
+        _release()
+
+
+def _zero1_lm_rank(rank, world, port, grad_comm, q):
+    """One rank of the sharded LM driver: NCCL over ``world`` processes,
+    one card each; train_lm_bundles' run at K = 4."""
+    import torch.distributed as dist
+
+    try:
+        from bigdl_tpu_torch.runtime import EngineConfig, init_engine
+        from bigdl_tpu_torch.tensor.policy import apply_precision_policy
+
+        eng = init_engine(EngineConfig(
+            coordinator_address=f"127.0.0.1:{port}", num_processes=world,
+            process_id=rank, grad_comm=grad_comm,
+            timeout_s=ZERO1["wait_s"]))
+        apply_precision_policy()
+
+        def ledger(opt):
+            snap = opt.metrics.snapshot()["gauges"]
+            return {"gauges": {k: v for k, v in snap.items()
+                               if "collective" in k or "buckets" in k},
+                    "device": str(eng.device),
+                    "backend": dist.get_backend()}
+
+        out = _bundle_run(_lm_bundle_maker(eng.device), BUNDLE["k"],
+                          BUNDLE["steps"], extra=ledger)
+        q.put((rank, True, out))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_ranks(target, world, args):
+    """``target(rank, world, *args, queue)`` in ``world`` spawned
+    processes; their results in rank order.  Raises if a rank raised or
+    hung; every process is stopped before it returns."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, world, *args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    try:
+        for _ in range(world):
+            rank, ok, val = q.get(timeout=ZERO1["wait_s"])
+            (out.__setitem__(rank, val) if ok
+             else errors.append(f"rank {rank}: {val}"))
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    if errors or len(out) != world:
+        raise AssertionError("ranks failed:\n" + "\n".join(errors))
+    return [out[r] for r in range(world)]
+
+
+def _zero1_driver(dev, ref):
+    """The sharded driver at world = the card count: world 1's losses
+    equal the single-process run's (``ref``) to the bit; with more cards,
+    fp32 and int8 wires at world min(count, 4) within 2e-3 of world 1."""
+    count = torch.cuda.device_count()
+    runs = {}
+    ranks = _run_ranks(_zero1_lm_rank, count, (_free_port(), "fp32"))
+    runs[f"world{count}_fp32"] = ranks
+    one = ranks[0] if count == 1 else None
+    if count >= 2:
+        one = _run_ranks(_zero1_lm_rank, 1, (_free_port(), "fp32"))[0]
+        runs["world1_fp32"] = [one]
+        world = min(count, ZERO1["world_max"])
+        for wire in ("fp32", "int8"):
+            runs[f"world{world}_{wire}"] = _run_ranks(
+                _zero1_lm_rank, world, (_free_port(), wire))
+    if one["losses"] != ref:
+        raise AssertionError(f"world 1's losses differ from the single-"
+                             f"process run's: {one['losses']} vs {ref}")
+    want = {nm: float(LM["num_layers"]) for nm in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+    summary = {}
+    for key, ranks in runs.items():
+        r0 = ranks[0]
+        got = {nm: r0["launches_per_step"].get(nm) for nm in want}
+        if got != want:
+            raise AssertionError(f"{key}: flash launches a step {got}")
+        last = r0["losses"][-1]
+        rel = abs(last - one["losses"][-1]) / abs(one["losses"][-1])
+        if rel > ZERO1["rel"] or not np.all(np.isfinite(r0["losses"])):
+            raise AssertionError(f"{key}: last loss {last} against world "
+                                 f"1's {one['losses'][-1]}")
+        summary[key] = {
+            "world": len(ranks), "step_ms": [r["step_ms"] for r in ranks],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+            "graphs_captured": r0["graphs_captured"],
+            "devices": [r["device"] for r in ranks],
+            "backend": r0["backend"], "gauges": r0["gauges"],
+            "losses": r0["losses"], "last_loss_rel_to_world1": rel,
+            "launches_per_step": {nm: r0["launches_per_step"].get(nm)
+                                  for nm in want}}
+    out = {"phase": "train_zero1_driver", "device_count": count,
+           "worlds_run": sorted({len(r) for r in runs.values()}),
+           "world1_losses_bit_equal_to_single_process": True,
+           "runs": summary}
+    emit(out)
+    return out
+
+
+def _zero1_mlp(ckpt_dir, dev, end, mirror=None):
+    """test_grad_comm's MLP and data through the Optimizer: global batch
+    16, SGD 0.2 with momentum, checkpoints every 3 (a mirror beside)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(ZERO1["rows"], 8).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.int32)
+    torch.manual_seed(SEED)
+    opt = Optimizer(nn.Sequential([nn.Linear(8, 16), nn.ReLU(),
+                                   nn.Linear(16, 2)]),
+                    DataSet.array(x, y), nn.CrossEntropyCriterion(),
+                    batch_size=ZERO1["batch"], seed=3, device=dev)
+    opt.set_optim_method(SGD(learning_rate=0.2, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(end))
+    opt.set_checkpoint(ckpt_dir, Trigger.several_iteration(
+        ZERO1["ckpt_every"]), mirror=mirror)
+    opt.optimize()
+    return opt
+
+
+def _zero1_cpu_rank(rank, world, rdv, ckpt_dir, mirror, q):
+    """One of the CPU gloo ranks that write the sharded checkpoint."""
+    import torch.distributed as dist
+
+    try:
+        from bigdl_tpu_torch.runtime import EngineConfig, init_engine
+
+        torch.set_num_threads(1)
+        init_engine(EngineConfig(coordinator_address=rdv,
+                                 num_processes=world, process_id=rank,
+                                 timeout_s=ZERO1["wait_s"]), device="cpu")
+        opt = _zero1_mlp(ckpt_dir, "cpu", ZERO1["ckpt_every"], mirror)
+        q.put((rank, True, opt.losses))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _tree_bytes(root):
+    out = {}
+    for base, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(base, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def _zero1_checkpoint(dev):
+    """Two CPU gloo ranks write a sharded checkpoint mid-epoch with a
+    mirror; the card resumes it at world 1 (re-sharded epoch) and its
+    losses are held to a CPU resume of the same checkpoint."""
+    from bigdl_tpu_torch.optim import checkpoint as ckpt
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    with tempfile.TemporaryDirectory(prefix="zero1_ckpt_") as d:
+        primary, mirror = os.path.join(d, "ck"), os.path.join(d, "mirror")
+        written = _run_ranks(_zero1_cpu_rank, 2, (
+            f"file://{d}/rendezvous", primary, mirror))
+        latest = ckpt.latest_checkpoint(primary)
+        names = sorted(os.listdir(latest))
+        with open(os.path.join(latest, "manifest.json")) as f:
+            manifest = json.load(f)
+        shards = [nm for nm in names if nm.startswith("opt_state.shard")]
+        mirror_equal = all(
+            _tree_bytes(os.path.join(mirror, c))
+            == _tree_bytes(os.path.join(primary, c))
+            for c in os.listdir(primary)) and \
+            sorted(os.listdir(mirror)) == sorted(os.listdir(primary))
+        if len(shards) != 2 or manifest["opt_shards"] != 2 \
+                or manifest["driver_state"]["process_count"] != 2 \
+                or not mirror_equal:
+            raise AssertionError(f"sharded checkpoint: {names} {manifest} "
+                                 f"mirror equal {mirror_equal}")
+        resumed = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            copy = os.path.join(d, where)
+            shutil.copytree(primary, copy)
+            with compute_dtype(torch.float32):
+                opt = _zero1_mlp(copy, device, ZERO1["resume_to"])
+            resumed[where] = {
+                "losses": opt.losses,
+                "elastic_resharded": opt.metrics.counter(
+                    "elastic_resharded_total"),
+                "final_iteration": opt.final_state["iteration"]}
+    diff = float(np.max(np.abs(np.asarray(resumed["card"]["losses"])
+                               - np.asarray(resumed["cpu"]["losses"]))))
+    out = {"phase": "train_zero1_checkpoint", "writer_world": 2,
+           "writer_backend": "gloo", "checkpoint": os.path.basename(latest),
+           "shard_files": shards, "mirror_equal_to_primary": mirror_equal,
+           "writer_losses": written[0], "resumed": resumed,
+           "max_abs_loss_diff_card_cpu": diff, "atol": ZERO1["atol"]}
+    emit(out)
+    steps = ZERO1["resume_to"] - ZERO1["ckpt_every"]
+    for r in resumed.values():
+        if (r["elastic_resharded"] != 1 or len(r["losses"]) != steps
+                or r["final_iteration"] != ZERO1["resume_to"]):
+            raise AssertionError(f"resume: {out}")
+    if not diff <= ZERO1["atol"]:
+        raise AssertionError(f"card resume against CPU resume: {out}")
+    return out
+
+
+def _zero1_gloo_rank(rank, world, rdv, q):
+    """gloo on CUDA tensors of the one card: each wire collective once,
+    its result checked; when all three run, the LM run of the sharded
+    phase at K = 1 (gloo cannot run inside a captured graph) over the two
+    ranks, each on the same card."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import collectives as pc
+
+    try:
+        dist.init_process_group("gloo", init_method=rdv, world_size=world,
+                                rank=rank)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        x = torch.arange(world * 8, dtype=torch.float32, device=dev)
+        grp = dist.group.WORLD
+
+        def gather():
+            out = torch.empty(world * 8, device=dev)
+            pc.all_gather(out, x[:8].contiguous(), grp)
+            return out
+
+        tries = {
+            "reduce_scatter": (lambda: pc.reduce_scatter_wire(
+                x.view(world, -1), grp, "fp32"),
+                world * x.view(world, -1)[rank]),
+            "all_to_all": (lambda: pc.reduce_scatter_wire(
+                x.view(world, -1), grp, "int8", block=8),
+                world * x.view(world, -1)[rank]),
+            "all_gather": (gather, x[:8].repeat(world)),
+        }
+        res = {}
+        for name, (fn, want) in tries.items():
+            try:
+                got = fn()
+                torch.cuda.synchronize()
+                # the int8 wire: one quantization step a source
+                tol = world * float(x.abs().max()) / 127.0 \
+                    if name == "all_to_all" else 0.0
+                res[name] = ("ran, right" if got.device == dev and float(
+                    (got - want).abs().max()) <= tol else "ran, WRONG")
+            except Exception as e:       # what gloo says, reported
+                res[name] = f"{type(e).__name__}: {str(e)[:200]}"
+        out = {"collectives": res}
+        if all(v == "ran, right" for v in res.values()):
+            from bigdl_tpu_torch.runtime import init_engine
+
+            init_engine()                # joins the gloo group
+            out["lm"] = _bundle_run(_lm_bundle_maker(dev), 1,
+                                    BUNDLE["steps"])
+        q.put((rank, True, out))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _zero1_gloo_card(ref):
+    """Two ranks on the one card over gloo: what each collective did,
+    and, when all ran right, the LM's last loss against the single-process
+    run's (``ref``) within 2e-3."""
+    with tempfile.TemporaryDirectory(prefix="zero1_gloo_") as d:
+        res = _run_ranks(_zero1_gloo_rank, 2, (f"file://{d}/rendezvous",))
+    out = {"phase": "train_zero1_gloo_card", "world": 2, "devices": "cuda:0",
+           "backend": "gloo",
+           "what_each_collective_did": res[0]["collectives"]}
+    if "lm" in res[0]:
+        lm = res[0]["lm"]
+        rel = abs(lm["losses"][-1] - ref[-1]) / abs(ref[-1])
+        out.update(trained=True, k=1, step_ms=[r["lm"]["step_ms"]
+                                               for r in res],
+                   peak_mem_gb=[r["lm"]["peak_mem_gb"] for r in res],
+                   losses=lm["losses"], last_loss_rel_to_world1=rel,
+                   launches_per_step=lm["launches_per_step"])
+        emit(out)
+        if not (rel <= ZERO1["rel"] and res[1]["lm"]["losses"]
+                == lm["losses"]):
+            raise AssertionError(f"two ranks on one card over gloo: {out}")
+    else:
+        out["trained"] = False
+        emit(out)
+    return out
+
+
+def train_zero1(dev, ref=None):
+    """train_zero1's four parts (the module docstring, 20).  ``ref``: the
+    single-process run's losses (train_lm_bundles'); without it the same
+    run is made here first."""
+    if ref is None:
+        ref = _bundle_run(_lm_bundle_maker(dev), BUNDLE["k"],
+                          BUNDLE["steps"])["losses"]
+    _release()
+    out = {"collectives": _zero1_collectives(dev)}
+    out["driver"] = _zero1_driver(dev, ref)
+    out["checkpoint"] = _zero1_checkpoint(dev)
+    out["gloo_card"] = _zero1_gloo_card(ref)
+    return out
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -4167,6 +4699,14 @@ def main() -> int:
         torch.backends.cudnn.deterministic = True
         feed_ab(dev)
         print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--zero1"]:
+        _build.build_all()
+        train_zero1(dev)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
     if sys.argv[1:] == ["--serve-spec"]:
         _build.build_all()
@@ -4284,6 +4824,7 @@ def main() -> int:
         stream_jpeg(dev)
     finally:
         torch.backends.cudnn.deterministic = False
+    train_zero1(dev, lm_bundles["losses_k1"])
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
                       verify_row, int8mm_row, sparse_row, sparse_bf16_row,
                       ln_row]})

@@ -1521,3 +1521,163 @@ def test_cancelled_slot_writes_only_the_sink(card, int8):
         assert len(eng._free_pages) == eng.cfg.total_pages
     finally:
         eng.stop()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 on the card: NCCL at world 1 (one card a process; more cards are
+# not on the machines these tests run on)
+# ---------------------------------------------------------------------------
+
+class _NcclWorld1:
+    """An engine over NCCL at world 1 on the card and a gloo group of the
+    same rank for the CPU; the process group is gone after the block."""
+
+    def __enter__(self):
+        import socket
+
+        import torch.distributed as dist
+
+        from bigdl_tpu_torch.runtime import EngineConfig, init_engine
+
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        self.engine = init_engine(EngineConfig(
+            coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+            process_id=0, timeout_s=300))
+        self.nccl = self.engine.mesh.group
+        assert dist.get_backend(self.nccl) == "nccl"
+        self.gloo = dist.new_group(ranks=[0], backend="gloo")
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        from bigdl_tpu_torch.runtime import Engine
+
+        dist.destroy_process_group()
+        Engine.reset()
+
+
+def _quant_step(x, block):
+    """One int8 quantization step (blockmax / 127) of each entry of the
+    rows of ``x`` (the last dim cut in blocks)."""
+    n = x.shape[-1]
+    pad = torch.nn.functional.pad(x.abs(), (0, (-n) % block))
+    bmax = pad.reshape(*x.shape[:-1], -1, block).amax(-1) / 127.0
+    return bmax.repeat_interleave(block, -1)[..., :n]
+
+
+def test_nccl_world1_collectives_equal_gloo_on_the_cpu(card):
+    """Each wire collective over NCCL at world 1, eager and replayed from
+    a captured graph, equals the same call over gloo on the CPU to the
+    bit (the int8 codec within one quantization step a block)."""
+    from bigdl_tpu_torch.parallel import collectives as pc
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(1, 5003, generator=g)
+         * torch.logspace(-3, 1, 5003)).to(card)
+    base = torch.randn(1, 5003, generator=g).to(card)
+    with _NcclWorld1() as w:
+        ops = {
+            "fp32": lambda a, grp: pc.reduce_scatter_wire(a[0], grp, "fp32"),
+            "bf16": lambda a, grp: pc.reduce_scatter_wire(a[0], grp, "bf16"),
+            "int8": lambda a, grp: pc.reduce_scatter_wire(
+                a[0], grp, "int8", block=64),
+            "delta": lambda a, grp: pc.all_gather_delta_quantized(
+                a[0][0] * 1e-3, a[1], grp, block=64),
+        }
+        side = torch.cuda.Stream()
+        for name, fn in ops.items():
+            want = fn((x.cpu(), base.cpu()), w.gloo)
+            got = fn((x, base), w.nccl)
+            torch.cuda.synchronize()
+            if name in ("int8", "delta"):
+                # the card's scales may sit an ulp from the CPU's (it
+                # divides by 127 as a multiply by the reciprocal): one
+                # quantization step a block, and for the delta gather one
+                # float32 rounding of the sum with its base row
+                eps = torch.finfo(torch.float32).eps
+                src = x if name == "int8" else x * 1e-3
+                step = _quant_step(src.cpu(), 64).reshape(want.shape) \
+                    * (1 + 127 * eps)
+                if name == "delta":
+                    step = step + eps * want.abs()
+                assert torch.all((got.cpu() - want).abs() <= step), name
+            else:
+                assert torch.equal(got.cpu(), want), name
+            graph = torch.cuda.CUDAGraph()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.graph(graph, stream=side):
+                out = fn((x, base), w.nccl)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, got), name
+        flat = torch.randn(5003, generator=g).to(card)
+        before = flat.clone()
+        pc.all_gather(flat, flat, w.nccl)       # in place, one rank
+        assert torch.equal(flat, before)
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_int8_codec_on_the_card_against_the_cpu(card):
+    """The blockwise int8 codec of the int8 wire on CUDA tensors against
+    the CPU's.  A scale is amax / 127, and the card divides by a Python
+    scalar as a multiply by its float32 reciprocal: each scale within one
+    float32 ulp of the CPU's, each byte within 1, each dequantized value
+    within one quantization step of its block; the dequantize alone (a
+    product) equal to the bit on the same bytes and scales."""
+    from bigdl_tpu_torch.ops.quantized import (dequantize_blockwise,
+                                               quantize_blockwise)
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 4096, generator=g) * torch.tensor(
+        [[1e-4], [1.0], [300.0]])
+    x[1, :64] = 0.0                            # an all-zero block
+    for block in (1, 64, 1024):
+        qc, sc = quantize_blockwise(x, block)
+        qg, sg = quantize_blockwise(x.to(card), block)
+        ulp = torch.finfo(torch.float32).eps * sc.abs()
+        assert torch.all((sg.cpu() - sc).abs() <= ulp), block
+        assert torch.all((qg.cpu().int() - qc.int()).abs() <= 1), block
+        step = sc.repeat_interleave(block, -1)
+        dg = dequantize_blockwise(qg, sg).cpu()
+        # a byte apart, and 127 bytes of a scale an ulp apart
+        slack = 1 + 127 * torch.finfo(torch.float32).eps
+        assert torch.all((dg - dequantize_blockwise(qc, sc)).abs()
+                         <= step * slack), block
+        assert torch.equal(dequantize_blockwise(qc.to(card), sc.to(card))
+                           .cpu(), dequantize_blockwise(qc, sc)), block
+
+
+@pytest.mark.parametrize("option", [{}, {"clip": "l2", "ema_decay": 0.9},
+                                    {"trainable_mask": "first"}])
+def test_sharded_step_at_world1_equals_train_step(card, option):
+    """Through the Optimizer at K = 4 (captured graphs): with an NCCL
+    process group of one rank the step is ShardedParameterStep on its
+    flat buffers, and its losses and parameters equal TrainStep's (no
+    process group) to the bit."""
+    from bigdl_tpu_torch.optim import (GradientClipping,
+                                       ShardedParameterStep, Trigger)
+
+    x, y = _bundle_data()
+    option = dict(option)
+    if option.get("clip") == "l2":
+        option["clip"] = GradientClipping(l2_norm=0.5)
+    if option.get("trainable_mask") == "first":
+        option["trainable_mask"] = {
+            "0_Linear": {"weight": np.arange(12 * 32).reshape(12, 32) % 2
+                         == 0, "bias": False}, "3_Linear": True}
+    ref_opt, ref = _bundle_run(card, 4, _bundle_mlp(), x, y,
+                               Trigger.max_epoch(2), **option)
+    with _NcclWorld1():
+        opt, got = _bundle_run(card, 4, _bundle_mlp(), x, y,
+                               Trigger.max_epoch(2), **option)
+        assert isinstance(got._step, ShardedParameterStep)
+        assert got._step.graphs_captured == 1
+        assert opt.losses == ref_opt.losses and len(opt.losses) == 20
+        for a, b in zip(ref.model.parameters(), got.model.parameters()):
+            assert torch.equal(a, b)
+        assert opt.metrics.snapshot()["gauges"][
+            "train.collective_ici_bytes_per_step"] == 0

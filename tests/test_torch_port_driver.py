@@ -294,12 +294,35 @@ def test_async_checkpoint_matches_sync_and_wait_raises(tmp_path):
 
 
 def test_sharded_and_mirrored_checkpoints_are_refused(tmp_path):
-    opt = optim.Optimizer(mlp(), DataSet.array(*synthetic_classification(
-        n=64)), nn.ClassNLLCriterion(), device=CPU)
+    """Sharded checkpoints and mirrors are ported (ROADMAP A.2; across
+    processes in tests/test_torch_port_zero1.py): on one process
+    ``sharded=True`` writes one shard of the whole state and the mirror
+    the same tree, read back as the single-writer format reads; only a
+    ``sharded`` that is none of "auto", True and False is refused."""
+    x, y = synthetic_classification(n=64)
     every = optim.Trigger.several_iteration(1)
-    for kw in (dict(sharded=True), dict(mirror=str(tmp_path / "m"))):
-        with pytest.raises(ValueError, match="A.2"):
-            opt.set_checkpoint(str(tmp_path), every, **kw)
+    got = {}
+    for name, kw in (("plain", {}), ("sharded", dict(sharded=True)),
+                     ("mirrored", dict(mirror=str(tmp_path / "m")))):
+        torch.manual_seed(0)
+        opt = optim.Optimizer(mlp(), DataSet.array(x, y),
+                              nn.ClassNLLCriterion(), batch_size=32,
+                              device=CPU)
+        opt.set_end_when(optim.Trigger.max_iteration(2))
+        opt.set_checkpoint(str(tmp_path / name), every, **kw)
+        opt.optimize()
+        got[name] = ckpt_mod.load_checkpoint(
+            ckpt_mod.latest_checkpoint(str(tmp_path / name)))
+    for name in ("sharded", "mirrored"):
+        np.testing.assert_array_equal(got[name][0], got["plain"][0])
+        for k, v in got["plain"][1].items():
+            np.testing.assert_array_equal(got[name][1][k], v)
+    assert any(n.startswith("opt_state.shard00000-of-00001")
+               for n in os.listdir(tmp_path / "sharded" / "ckpt-2"))
+    mirrored = ckpt_mod.load_checkpoint(str(tmp_path / "m" / "ckpt-2"))
+    np.testing.assert_array_equal(mirrored[0], got["plain"][0])
+    with pytest.raises(ValueError, match="sharded"):
+        opt.set_checkpoint(str(tmp_path), every, sharded="always")
 
 
 # ---------------------------------------------------------------------------
