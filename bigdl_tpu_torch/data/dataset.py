@@ -154,17 +154,32 @@ def steps_in_epoch(n: int, batch_size: int, process_count: int = 1,
 
 
 class ArrayDataSet(DataSet):
-    """In-memory dataset over a numpy array and its labels."""
+    """In-memory dataset over a numpy array and its labels.  As in the
+    JAX package, a pair ``(data, labels)`` given without labels is read
+    as the two; otherwise a tuple of arrays (one a model input, equal
+    lengths) is a multi-input dataset, whose batches' ``input`` is the
+    tuple of their rows, and a list keeps its meaning of a list of
+    samples, one stacked array."""
 
     def __init__(self, data, labels=None):
-        self.data = np.asarray(data)
+        if isinstance(data, (tuple, list)) and labels is None \
+                and len(data) == 2:
+            data, labels = data
+        self.multi = isinstance(data, tuple)
+        if self.multi:
+            self.data = tuple(np.asarray(a) for a in data)
+            if len({len(a) for a in self.data}) > 1:
+                raise ValueError("multi-input arrays differ in length: "
+                                 f"{[len(a) for a in self.data]}")
+        else:
+            self.data = np.asarray(data)
         self.labels = None if labels is None else np.asarray(labels)
         if self.labels is not None and len(self.labels) != self.size():
             raise ValueError(f"data/labels length mismatch: {self.size()} "
                              f"vs {len(self.labels)}")
 
     def size(self) -> int:
-        return len(self.data)
+        return len(self.data[0]) if self.multi else len(self.data)
 
     def batches(self, batch_size, *, shuffle=True, seed=0, epoch=0,
                 drop_last=True, process_id=0, process_count=1):
@@ -191,7 +206,8 @@ class ArrayDataSet(DataSet):
 
     def _emit(self, plan):
         for sel, n_real in plan:
-            mb = MiniBatch(input=self.data[sel])
+            mb = MiniBatch(input=tuple(a[sel] for a in self.data)
+                           if self.multi else self.data[sel])
             if self.labels is not None:
                 mb["target"] = self.labels[sel]
             if len(sel) != n_real:

@@ -1,17 +1,19 @@
 """Keras-style API — the port of ``bigdl_tpu.keras``: keras-1 layer names
 over the port's nn layers, and functional ``Model(inputs, outputs)`` /
-``Sequential`` graphs.  Only names whose layers the port has are here;
-the keras training surface (``compile`` / ``fit`` / ...) is not ported
-yet."""
+``Sequential`` graphs with the keras training surface (``compile``,
+``fit``, ``evaluate``, ``predict``, ``get_weights`` / ``set_weights``,
+``summary``).  Only names whose layers the port has are here."""
 
 from bigdl_tpu_torch import nn as _nn
 from bigdl_tpu_torch.keras.engine import Input, Model, Node, Sequential
 from bigdl_tpu_torch.keras.layers import (AtrousConvolution1D,
-                                          AtrousConvolution2D, Merge)
-from bigdl_tpu_torch.nn import (ELU, GELU, Dense, Dropout, Embedding,
-                                Flatten, HardSigmoid, LayerNorm, LeakyReLU,
-                                LogSoftMax, MultiHeadAttention, ReLU, Reshape,
-                                Sigmoid, SoftMax, SoftPlus, SoftSign, Tanh,
+                                          AtrousConvolution2D, Bidirectional,
+                                          MaxoutDense, Merge)
+from bigdl_tpu_torch.nn import (ELU, GELU, GRU, LSTM, Dense, Dropout,
+                                Embedding, Flatten, HardSigmoid, LayerNorm,
+                                LeakyReLU, LogSoftMax, MultiHeadAttention,
+                                ReLU, Reshape, Sigmoid, SimpleRNN, SoftMax,
+                                SoftPlus, SoftSign, Tanh, TimeDistributed,
                                 TransformerLayer, ZeroPadding2D)
 from bigdl_tpu_torch.nn.layers import AvgPool2D
 from bigdl_tpu_torch.nn.layers import AvgPool2D as AveragePooling2D
@@ -47,11 +49,13 @@ def Activation(name: str):
 
 __all__ = [
     "Activation", "AtrousConvolution1D", "AtrousConvolution2D",
-    "AveragePooling2D", "AvgPool2D", "BatchNormalization", "Conv1D",
+    "AveragePooling2D", "AvgPool2D", "BatchNormalization", "Bidirectional",
+    "Conv1D",
     "Conv2D", "Convolution1D", "Convolution2D", "Dense", "Dropout", "ELU",
-    "Embedding", "Flatten", "GELU", "GlobalAveragePooling2D", "HardSigmoid",
-    "Input", "InputLayer", "LayerNorm", "LeakyReLU", "LogSoftMax",
-    "MaxPool2D", "MaxPooling2D", "Merge", "Model", "MultiHeadAttention",
-    "Node", "ReLU", "Reshape", "Sequential", "Sigmoid", "SoftMax",
-    "SoftPlus", "SoftSign", "Tanh", "TransformerLayer", "ZeroPadding2D",
+    "Embedding", "Flatten", "GELU", "GRU", "GlobalAveragePooling2D",
+    "HardSigmoid", "Input", "InputLayer", "LSTM", "LayerNorm", "LeakyReLU",
+    "LogSoftMax", "MaxPool2D", "MaxPooling2D", "MaxoutDense", "Merge",
+    "Model", "MultiHeadAttention", "Node", "ReLU", "Reshape", "Sequential",
+    "Sigmoid", "SimpleRNN", "SoftMax", "SoftPlus", "SoftSign", "Tanh",
+    "TimeDistributed", "TransformerLayer", "ZeroPadding2D",
 ]

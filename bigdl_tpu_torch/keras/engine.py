@@ -15,11 +15,17 @@ as a child under the node's name, so ``.to()``, ``.eval()`` and
 ``named_parameters()`` cover the graph, and whose ``forward`` runs the
 nodes in topological order.  The JAX package keys each node's variables
 by the node's name; here the layer owns its weights, so a layer used at
-two nodes is one module with one set of weights at both.  The keras
-training surface (``compile`` / ``fit`` / ``evaluate`` / ``predict`` /
-``set_weights``) is not ported yet."""
+two nodes is one module with one set of weights at both (ROADMAP C.7).
 
-from typing import List, Optional, Sequence, Tuple, Union
+The keras training surface is the JAX package's: ``compile`` resolves
+keras strings (``keras.training``), ``fit`` runs the port's
+``Optimizer`` (on ``device``, default ``cuda``), ``predict`` and
+``evaluate`` go through the ``TrainedModel`` it returns, and
+``get_weights`` / ``set_weights`` trade ``{"params", "state"}`` trees
+keyed by node name, as the JAX package keys a keras model's
+variables."""
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 from torch import nn
@@ -121,6 +127,96 @@ class Model(Module):
                 del values[nid]
         outs = [values[o.id] for o in self.outputs]
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+    # ---- keras training API ----------------------------------------------
+    def compile(self, optimizer, loss, metrics: Sequence = ()) -> "Model":
+        """keras ``compile(optimizer, loss, metrics)``; strings resolve as
+        in the JAX package (``keras.training.resolve_compile``)."""
+        from bigdl_tpu_torch.keras.training import resolve_compile
+
+        self._compiled = resolve_compile(optimizer, loss, metrics)
+        return self
+
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
+            validation_data=None, checkpoint_path: Optional[str] = None,
+            log_every: int = 10, device=None, **kw):
+        """keras ``fit``: one ``Optimizer`` run (``keras.training.
+        fit_module``) on ``device`` (None is ``cuda``); ``epochs`` is
+        the keras-2 spelling of ``nb_epoch``.  Returns the
+        ``TrainedModel``, whose ``losses`` are the run's."""
+        from bigdl_tpu_torch.keras.training import fit_module
+
+        if getattr(self, "_compiled", None) is None:
+            raise RuntimeError("call compile(...) before fit(...)")
+        if "epochs" in kw:
+            nb_epoch = kw.pop("epochs")
+        self._trained = fit_module(
+            self, self._compiled, x, y, batch_size=batch_size,
+            nb_epoch=nb_epoch, validation_data=validation_data,
+            checkpoint_path=checkpoint_path, log_every=log_every,
+            device=device, **kw)
+        return self._trained
+
+    def predict(self, x, batch_size: int = 0) -> np.ndarray:
+        self._require_trained()
+        return self._trained.predict(self._pack_inputs(x),
+                                     batch_size=batch_size)
+
+    def _pack_inputs(self, x):
+        """A list or tuple is a multi-input pack only for a multi-input
+        model; on a single-input model a plain list of samples keeps its
+        keras meaning of one stacked array."""
+        if isinstance(x, (list, tuple)) and len(self.inputs) > 1:
+            return tuple(np.asarray(a) for a in x)
+        return np.asarray(x)
+
+    def evaluate(self, x, y=None, batch_size: int = 32):
+        """The compiled metrics (else the compiled loss, else MSE as the
+        JAX ``set_weights`` path has it) over ``(x, y)``."""
+        from bigdl_tpu_torch.keras.training import _dataset
+        from bigdl_tpu_torch.nn.criterion import MSECriterion
+        from bigdl_tpu_torch.optim.validation import Loss
+
+        self._require_trained()
+        ds = _dataset(self._pack_inputs, x, y, " for evaluate",
+                      len(self.inputs))
+        compiled = getattr(self, "_compiled", None) or {}
+        methods = compiled.get("metrics") or [
+            Loss(compiled.get("loss") or MSECriterion())]
+        return self._trained.evaluate(ds, methods, batch_size=batch_size)
+
+    def set_weights(self, variables: Dict[str, Any], device=None) -> None:
+        """Install node-keyed variables (``get_weights``' trees) on
+        ``device`` (None is ``cuda``) for predict / evaluate without
+        fit."""
+        from bigdl_tpu_torch.keras.training import make_trained
+
+        self._trained = make_trained(self, variables, device)
+
+    def _require_trained(self):
+        if getattr(self, "_trained", None) is None:
+            raise RuntimeError("model has no weights yet: fit() or "
+                               "set_weights() first")
+
+    def get_weights(self) -> Dict[str, Any]:
+        """The ``{"params", "state"}`` trees keyed by node name (float32
+        numpy arrays)."""
+        from bigdl_tpu_torch.utils.convert import export_keras_variables
+
+        self._require_trained()
+        return export_keras_variables(self)
+
+    def summary(self, variables=None) -> str:
+        """One line a node: an input's shape, or the node and the nodes
+        it reads (the JAX package's text)."""
+        lines = [f"Model '{self.name}':"]
+        for node in self.order:
+            if node.layer is None:
+                lines.append(f"  Input {node.shape}")
+            else:
+                lines.append(f"  {node.name} <- "
+                             f"{[p.name for p in node.parents]}")
+        return "\n".join(lines)
 
 
 class Sequential(Model):

@@ -1,11 +1,13 @@
 """Keras-1 layers that need more than a re-export — the port of
-``bigdl_tpu.keras.layers``: ``Merge`` and the atrous (dilated)
-convolutions.  ``Bidirectional`` and ``MaxoutDense`` wait for the
-recurrent layers and ``Maxout``."""
+``bigdl_tpu.keras.layers``: ``Merge``, ``Bidirectional``,
+``MaxoutDense`` and the atrous (dilated) convolutions."""
+
+from typing import Optional
 
 from bigdl_tpu_torch.nn import layers_extra as LX
 from bigdl_tpu_torch.nn.layers import Conv1D, Conv2D
 from bigdl_tpu_torch.nn.module import CAddTable, CMulTable, JoinTable, Module
+from bigdl_tpu_torch.nn.rnn import BiRecurrent, _RNNBase
 
 
 class Merge(Module):
@@ -33,6 +35,19 @@ class Merge(Module):
     def forward(self, *xs):
         y = self._op(*xs)
         return y[..., None] if self.mode in ("dot", "cosine") else y
+
+
+def Bidirectional(layer: _RNNBase, merge_mode: str = "concat",
+                  name: Optional[str] = None) -> BiRecurrent:
+    """keras ``Bidirectional(LSTM(...))``: the nn ``BiRecurrent``."""
+    return BiRecurrent(layer, merge=merge_mode, name=name)
+
+
+def MaxoutDense(in_features: int, out_features: int, nb_feature: int = 4,
+                name=None) -> LX.Maxout:
+    """keras-1 ``MaxoutDense``: the nn ``Maxout`` with keras names."""
+    return LX.Maxout(in_features, out_features, pool_size=nb_feature,
+                     name=name)
 
 
 def AtrousConvolution2D(in_channels, out_channels, kernel_size,

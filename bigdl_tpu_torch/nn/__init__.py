@@ -1,8 +1,13 @@
 from bigdl_tpu_torch.nn import init
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
                                           PositionwiseFFN, Transformer,
+                                          TransformerDecoderLayer,
                                           TransformerLayer,
-                                          positional_encoding)
+                                          positional_encoding,
+                                          transformer_decode,
+                                          transformer_decode_cached)
+from bigdl_tpu_torch.nn.decode import (DecodeResult, beam_search,
+                                       greedy_decode, sample_decode)
 from bigdl_tpu_torch.nn.criterion import (
     AbsCriterion, BCECriterion, BCEWithLogitsCriterion, ClassNLLCriterion,
     CosineEmbeddingCriterion, Criterion, CrossEntropyCriterion,
@@ -30,12 +35,16 @@ from bigdl_tpu_torch.nn.layers import (
     ZeroPadding2D)
 from bigdl_tpu_torch.nn.layers_extra import (CAdd, CAveTable, CMaxTable,
                                              CosineDistance, DotProduct,
-                                             Select)
+                                             Maxout, Select)
 from bigdl_tpu_torch.nn.module import (CAddTable, CMulTable, Concat,
                                        ConcatTable, Container, Identity,
                                        JoinTable, Lambda, Module,
                                        ParallelTable, SelectTable,
                                        Sequential)
+from bigdl_tpu_torch.nn.rnn import (GRU, LSTM, BiRecurrent, LSTMPeephole,
+                                    MultiRNNCell, Recurrent,
+                                    RecurrentDecoder, RnnCell, SimpleRNN,
+                                    TimeDistributed)
 from bigdl_tpu_torch.nn.quantized import (QuantizedConv2D, QuantizedLinear,
                                           WeightOnlyConv2D, WeightOnlyLinear,
                                           calibrate, quantize)
@@ -69,4 +78,9 @@ __all__ = [
     "Squeeze", "Swish", "Tanh", "TemporalConvolution", "Transformer",
     "TransformerLayer", "Transpose", "Unsqueeze", "View", "WeightOnlyConv2D",
     "WeightOnlyLinear", "ZeroPadding2D", "calibrate", "init",
-    "positional_encoding", "quantize"]
+    "positional_encoding", "quantize",
+    "BiRecurrent", "DecodeResult", "GRU", "LSTM", "LSTMPeephole", "Maxout",
+    "MultiRNNCell", "Recurrent", "RecurrentDecoder", "RnnCell", "SimpleRNN",
+    "TimeDistributed", "TransformerDecoderLayer", "beam_search",
+    "greedy_decode", "sample_decode", "transformer_decode",
+    "transformer_decode_cached"]

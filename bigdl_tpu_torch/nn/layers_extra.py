@@ -1,14 +1,15 @@
 """Extra layers — the part of ``bigdl_tpu.nn.layers_extra`` that the
-keras encoder and keras ``Merge`` use: the learnable broadcast bias
-``CAdd``, ``Select``, and the table ops ``CMaxTable``, ``CAveTable``,
-``DotProduct`` and ``CosineDistance``.  The rest of that module is not
-ported yet."""
+keras encoder, keras ``Merge`` and keras ``MaxoutDense`` use: the
+learnable broadcast bias ``CAdd``, ``Select``, the table ops
+``CMaxTable``, ``CAveTable``, ``DotProduct`` and ``CosineDistance``,
+and ``Maxout``.  The rest of that module is not ported yet."""
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from bigdl_tpu_torch.nn import init as init_mod
 from bigdl_tpu_torch.nn.module import Module, _table
 
 
@@ -82,3 +83,26 @@ class CosineDistance(Module):
         den = (torch.linalg.vector_norm(a, dim=-1)
                * torch.linalg.vector_norm(b, dim=-1))
         return num / torch.clamp(den, min=self.eps)
+
+
+class Maxout(Module):
+    """A Linear to ``out_features * pool_size`` units (``weight`` (in,
+    out * pool), ``bias``), then the max over each run of ``pool_size``
+    (the JAX layer's plain float32 product)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 pool_size: int = 2,
+                 generator: Optional[torch.Generator] = None, name=None):
+        super().__init__(name)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.pool_size = pool_size
+        total = out_features * pool_size
+        self.weight = nn.Parameter(init_mod.xavier(
+            generator, (in_features, total), in_features, total))
+        self.bias = nn.Parameter(torch.zeros(total))
+
+    def forward(self, x):
+        y = x @ self.weight + self.bias
+        y = y.reshape(*y.shape[:-1], self.out_features, self.pool_size)
+        return y.amax(dim=-1)

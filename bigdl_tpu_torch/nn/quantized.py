@@ -40,7 +40,8 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.layers import Conv2D, Linear, conv2d_nhwc, conv_pads
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.ops.quantized import quantize_int8, quantized_linear
+from bigdl_tpu_torch.ops.quantized import (div127, quantize_int8,
+                                          quantized_linear)
 from bigdl_tpu_torch.tensor.policy import get_compute_dtype, matmul_f32
 
 _Q8_KEY = "__w8__"
@@ -367,7 +368,7 @@ class WeightOnlyConv2D(_ConvConfig):
     @staticmethod
     def from_conv(layer: Conv2D) -> "WeightOnlyConv2D":
         w = layer.weight.detach().float()
-        scales = torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-8) / 127.0
+        scales = div127(torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-8))
         w_q = torch.clamp(torch.round(w / scales), -127, 127).to(torch.int8)
         return WeightOnlyConv2D(layer, w_q, scales, _detached(layer.bias),
                                 name=layer.name)

@@ -40,11 +40,20 @@ _SMS = 132
 _MIN_SPLIT_TILES = 4
 
 
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127``, correctly rounded on every device, as JAX divides.
+    PyTorch's CUDA division by a Python scalar multiplies by the float32
+    reciprocal, one ulp off the quotient for some values; a 0-dim
+    tensor on ``t``'s device is divided by.  It is made by a fill on
+    the device, so a captured CUDA graph may run this."""
+    return t / t.new_full((), 127.0)
+
+
 def abs_max_scales(x: torch.Tensor, axis) -> torch.Tensor:
     """Symmetric abs-max calibration: the scale that fits ``x / scale``
     into int8, floored at 1e-8 / 127."""
     amax = x.abs().amax(dim=axis)
-    return torch.clamp(amax, min=1e-8) / 127.0
+    return div127(torch.clamp(amax, min=1e-8))
 
 
 def quantize_int8(w: torch.Tensor, axis: int = 0
@@ -107,7 +116,7 @@ def quantize_pages(pages: torch.Tensor,
         q, scales = quantize_blockwise(flat, flat.shape[-1])
         return q.reshape(pages.shape), scales[..., 0]
     amax = flat.abs().amax(dim=-1)
-    scales = torch.maximum(amax / 127.0, floor_scales.float())
+    scales = torch.maximum(div127(amax), floor_scales.float())
     safe = torch.clamp(scales, min=1e-12)[..., None]
     q = torch.clamp(torch.round(flat / safe), -127, 127).to(torch.int8)
     return q.reshape(pages.shape), scales.float()

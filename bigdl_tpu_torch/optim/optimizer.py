@@ -162,13 +162,15 @@ log = logging.getLogger("bigdl_tpu_torch.optim")
 class TrainedModel:
     """What ``optimize()`` returns: the trained module, its variables as
     JAX-keyed ``{"params", "state"}`` trees, batched prediction and
-    evaluation."""
+    evaluation, and ``losses``, the loss of every step of the run."""
 
     def __init__(self, model: torch.nn.Module, device: torch.device,
-                 step: Optional[TrainStep] = None):
+                 step: Optional[TrainStep] = None,
+                 losses: Sequence[float] = ()):
         self.model = model
         self.device = device
         self._step = step
+        self.losses = list(losses)
 
     @property
     def variables(self) -> Dict[str, Any]:
@@ -189,13 +191,16 @@ class TrainedModel:
 
     @torch.no_grad()
     def predict(self, x, batch_size: int = 0) -> np.ndarray:
-        """The model's outputs for the host array ``x``, in batches of
-        ``batch_size`` rows (all at once for 0)."""
+        """The model's outputs for the host array ``x`` (a tuple of
+        arrays for a multi-input model), in batches of ``batch_size``
+        rows (all at once for 0)."""
         self.model.train(False)
-        n = len(x)
+        xs = x if isinstance(x, tuple) else (x,)
+        n = len(xs[0])
         step = batch_size if batch_size > 0 else max(n, 1)
         return np.concatenate([
-            self.model(to_device(x[i:i + step], self.device)).cpu().numpy()
+            self.model(*(to_device(a[i:i + step], self.device)
+                         for a in xs)).cpu().numpy()
             for i in range(0, n, step)])
 
     def evaluate(self, dataset: DataSet,
@@ -410,7 +415,9 @@ class Optimizer:
                 self.batch_size, shuffle=False)))["input"]
             with torch.no_grad():
                 model.train(False)
-                model(to_device(sample[:1], self.device))
+                model(*(to_device(a[:1], self.device)
+                        for a in (sample if isinstance(sample, tuple)
+                                  else (sample,))))
         if self._initial_variables is not None:
             load_jax_variables(model, self._initial_variables)
         return model
@@ -500,7 +507,7 @@ class Optimizer:
         if self.losses:
             state["loss"] = self.losses[-1]
         self._final_state = dict(state)
-        return TrainedModel(model, self.device, step)
+        return TrainedModel(model, self.device, step, self.losses)
 
     def _publish_ledger(self, step: TrainStep) -> None:
         """The step's collective bytes a step as the JAX driver's gauges

@@ -9,6 +9,11 @@ Transformer::
      "attn": {"wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"},
      "ffn": {"l1": {"weight", "bias"}, "l2": ...}}, ..., "ln_out": ...}
 
+A translation Transformer's ``enc{i}`` is ``encoder[i]``.  A wrapper
+whose JAX variables are its wrapped layer's own (``TimeDistributed``,
+``Recurrent``) holds that layer as its child ``inlined``, a name the
+JAX paths leave out.
+
 A container's child is the key ``f"{i}_{name}"`` in both packages, and
 BatchNorm's running statistics are the ``state`` tree's leaves and the
 port's buffers::
@@ -33,13 +38,18 @@ import numpy as np
 import torch
 from torch import nn
 
-_DEC = re.compile(r"dec(\d+)$")
+_LISTS = {"dec": "decoder", "enc": "encoder"}
+_LISTED = re.compile(r"(dec|enc)(\d+)$")
+# the child of a wrapper whose JAX variables are that child's own
+INLINED = "inlined"
 
 
 def _child(module: nn.Module, key: str):
-    m = _DEC.match(key)
-    if m:
-        return module.decoder[int(m.group(1))]
+    m = _LISTED.match(key)
+    if m and hasattr(module, _LISTS[m.group(1)]):
+        return getattr(module, _LISTS[m.group(1)])[int(m.group(2))]
+    if not hasattr(module, key) and hasattr(module, INLINED):
+        return _child(getattr(module, INLINED), key)
     if not hasattr(module, key):
         raise KeyError(f"{type(module).__name__} has no {key!r}")
     return getattr(module, key)
@@ -79,9 +89,9 @@ def load_jax_variables(model: nn.Module,
 def jax_path(name: str) -> Tuple[str, ...]:
     """The JAX tree path of the port's dotted parameter or buffer
     name."""
-    parts = name.split(".")
-    if parts[0] == "decoder":
-        parts = [f"dec{parts[1]}"] + parts[2:]
+    parts = [p for p in name.split(".") if p != INLINED]
+    if parts[0] in ("decoder", "encoder"):
+        parts = [f"{parts[0][:3]}{parts[1]}"] + parts[2:]
     return tuple(parts)
 
 
@@ -162,6 +172,53 @@ def _same_tree(a, b) -> bool:
                     for (ka, va), (kb, vb) in zip(la, lb)))
 
 
+def export_keras_variables(model: nn.Module) -> Dict[str, Any]:
+    """``{"params", "state"}`` of a keras ``Model`` keyed by its node
+    names, as the JAX package keys a keras model's variables: each node
+    that holds a layer with tensors gets that layer's tree (a layer at
+    two nodes, the same tree under both names)."""
+    out: Dict[str, Any] = {"params": {}, "state": {}}
+    for node in model.order:
+        if node.layer is None:
+            continue
+        tree = export_variables(node.layer)
+        for kind in ("params", "state"):
+            if tree[kind]:
+                out[kind][node.name] = tree[kind]
+    return out
+
+
+def load_keras_variables(model: nn.Module,
+                         variables: Dict[str, Any]) -> nn.Module:
+    """Copy a node-keyed ``{"params", "state"}`` (the keys of
+    :func:`export_keras_variables`) into a keras ``Model``.  A layer
+    used at two nodes has one set of weights here, so the variables of
+    its nodes must be equal (ROADMAP C.7); a layer with parameters whose
+    node has none in ``variables`` raises.  Returns ``model``."""
+    params = variables.get("params", {}) or {}
+    state = variables.get("state", {}) or {}
+    loaded: Dict[int, Dict[str, Any]] = {}
+    for i, node in enumerate(model.order):
+        if node.layer is None:
+            continue
+        tree = {"params": params.get(node.name, {}),
+                "state": state.get(node.name, {})}
+        if not tree["params"] and any(True for _ in
+                                      node.layer.parameters()):
+            raise KeyError(f"node {node.name}: no variables for its "
+                           f"{type(node.layer).__name__}")
+        seen = loaded.get(id(node.layer))
+        if seen is not None:
+            if not _same_tree(seen, tree):
+                raise ValueError(f"node {i} ({node.name}): its layer is "
+                                 f"shared with an earlier node, whose "
+                                 f"variables differ from this one's")
+            continue
+        load_jax_variables(node.layer, tree)
+        loaded[id(node.layer)] = tree
+    return model
+
+
 def load_jax_keras_variables(model: nn.Module, jax_model,
                              variables: Dict[str, Any]) -> nn.Module:
     """Copy the ``{"params", "state"}`` of a JAX keras ``Model`` (or keras
@@ -171,18 +228,16 @@ def load_jax_keras_variables(model: nn.Module, jax_model,
     a global counter, so the names differ between the packages.  The two
     graphs' topological orders are walked together instead: each pair of
     nodes must hold the same layer type and read the same positions, and
-    the JAX node's variables go into the port node's layer.  A layer used
-    at two nodes has one set of weights here, so the JAX variables of
-    its nodes must be equal.  Returns ``model``."""
+    the JAX node's variables go into the port node's layer
+    (:func:`load_keras_variables` under the port's names).  Returns
+    ``model``."""
     jorder, porder = list(jax_model.order), list(model.order)
     if len(jorder) != len(porder):
         raise ValueError(f"the JAX graph has {len(jorder)} nodes, the "
                          f"port's {len(porder)}")
     jpos = {n.id: i for i, n in enumerate(jorder)}
     ppos = {n.id: i for i, n in enumerate(porder)}
-    params = variables.get("params", {}) or {}
-    state = variables.get("state", {}) or {}
-    loaded: Dict[int, Dict[str, Any]] = {}
+    renamed: Dict[str, Any] = {"params": {}, "state": {}}
     for i, (jn, pn) in enumerate(zip(jorder, porder)):
         jt = "Input" if jn.layer is None else type(jn.layer).__name__
         pt = "Input" if pn.layer is None else type(pn.layer).__name__
@@ -193,17 +248,8 @@ def load_jax_keras_variables(model: nn.Module, jax_model,
                 != [ppos[p.id] for p in pn.parents]):
             raise ValueError(f"node {i} ({pt}) reads other nodes in the "
                              f"two graphs")
-        if pn.layer is None:
-            continue
-        tree = {"params": params.get(jn.name, {}),
-                "state": state.get(jn.name, {})}
-        seen = loaded.get(id(pn.layer))
-        if seen is not None:
-            if not _same_tree(seen, tree):
-                raise ValueError(f"node {i}: the port's {pt} is shared "
-                                 f"with an earlier node, whose JAX "
-                                 f"variables differ from this one's")
-            continue
-        load_jax_variables(pn.layer, tree)
-        loaded[id(pn.layer)] = tree
-    return model
+        for kind in ("params", "state"):
+            tree = (variables.get(kind) or {}).get(jn.name)
+            if tree:
+                renamed[kind][pn.name] = tree
+    return load_keras_variables(model, renamed)

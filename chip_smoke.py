@@ -125,6 +125,17 @@ one JSON line:
    recovers or resumes, the steps after it equal the clean run's to the
    bit; profile_window — ``set_profile`` over iterations [2, 4) of a
    K = 2 run writes a trace;
+17c. keras_inception — Inception-v1 (1000 classes, dropout 0.4) as
+   ``keras.Model(inp, inception_v1()(inp))``, ``compile`` (SGD 0.001,
+   momentum 0.9, "nll", top-1 and top-5) and ``fit`` at batch 64 for one
+   epoch of train_resnet's 640 images with its 128 for validation: step
+   ms, images/s, peak memory, the loss a step, equal to the bit to a
+   hand-built ``Optimizer`` on the same Model from the same weights;
+   ``predict`` and ``evaluate`` through keras, and ``get_weights`` ->
+   ``set_weights`` -> ``predict`` equal to the bit; keras_resnet —
+   ResNet-50 (resnet_model()) through keras ``fit`` for 4 steps of
+   train_resnet's recipe, its losses equal to the bit to the
+   ``Optimizer`` on the bare module;
 18. the record-file input pipeline: record_file writes 1,280 seeded
    uint8 images of 300x300x3 and their labels with ``write_records``
    (345.6 MB) and opens them as ``AugmentedRecordImages`` (resize 256^2,
@@ -172,7 +183,25 @@ one JSON line:
    try gloo's reduce-scatter, all-to-all and all-gather on CUDA tensors
    (what each did is reported), and when all three run right they train
    the LM run of (b) at K = 1 over gloo, its last loss within 2e-3 of
-   the single-process run's.
+   the single-process run's;
+19b. train_translation — ``Transformer(mode="translation")`` at
+   Transformer-base width (6 + 6 layers, d 512, 8 heads, d_ff 2048,
+   vocabulary 37,000), dropout 0, batch 32 x source 256 x target 256
+   seeded tokens on the reverse task, Adam 5e-4, through the
+   ``Optimizer`` at K = 1 and K = 4 (8 steps each) and a profiled K = 4
+   run: losses equal to the bit, finite and falling, 18 flash-forward
+   and 18 + 18 flash-backward launches a step (encoder, decoder
+   self-attention, cross-attention; credited at replay), step ms,
+   tokens/s, busy share, peak memory; a float32 gradient check of flash
+   against plain attention (translation_gradcheck); greedy and beam (4)
+   ``transformer_decode`` and the cached greedy decode of 8 sources to
+   64 tokens in float32, the cached tokens held to the uncached ones
+   (each first difference a near tie within ``DECODE_GAP_RTOL``);
+19c. train_ptb_lstm — ``char_rnn(10000, 650, 650, layers=2)``, PTB's
+   medium LM (35 steps, batch 20, SGD 1.0, L2 clipping 5) through the
+   ``Optimizer`` at K = 1 and K = 4: the losses equal to the bit,
+   tokens/s, step ms, peak memory.
+   (train_translation and train_ptb_lstm run before train_zero1.)
 
 Compute dtypes.  On the card the port's default compute dtype is
 bfloat16 (``tensor.policy``: bfloat16 products with float32 sums, the
@@ -204,6 +233,10 @@ eager call's bits).
 copied into a checkout of another commit, it runs that commit's port the
 same way, for an A/B of the draft's block-sparse kernel in one call
 (run parent, change, change, parent).
+
+``python3 chip_smoke.py --phase NAME [NAME ...]`` builds the kernels and
+runs only the named phases of keras_inception, keras_resnet,
+train_translation and train_ptb_lstm.
 
 ``python3 chip_smoke.py --zero1`` builds the kernels and runs only
 ``train_zero1`` (its single-process reference run included).
@@ -332,6 +365,45 @@ BUNDLE = dict(k=4, steps=12, pairs=3, timed_from=4, sync_steps=8,
 ZERO1 = dict(block=1024, reps=10, delta_scale=1e-4, grad_rows=2,
              world_max=4, rel=2e-3, rows=64, batch=16, ckpt_every=3,
              resume_to=8, atol=1e-5, wait_s=900)
+
+# keras_inception: Inception-v1 (1000 classes, dropout 0.4; NHWC 224^2)
+# as keras.Model(inp, inception_v1()(inp)), compiled with SGD (lr 0.001,
+# momentum 0.9: random 224^2 images through the v1 tower, which has no
+# normalization, start at losses of a few hundred, and 0.01 took a
+# CPU probe of 4 steps to NaN), "nll", top-1 and top-5, fit at batch 64
+# for one epoch of 640 seeded random images (resnet_train_data's) with
+# 128 for validation; then the same run through a hand-built Optimizer
+# on the same Model from the same weights, losses equal to the bit.
+# keras_resnet: ResNet-50 (resnet_model()) through keras fit for 4 steps
+# of train_resnet's recipe against the Optimizer on the bare module.
+KERAS = dict(batch=64, lr=0.001, momentum=0.9, dropout=0.4, resnet_steps=4)
+# train_translation: Transformer(mode="translation") at Transformer-base
+# width (Vaswani et al. 2017, Table 3 "base": 6 + 6 layers, d_model 512,
+# 8 heads, d_ff 2048; a shared vocabulary of 37,000 as its WMT En-De
+# BPE), dropout 0 (the flash path), batch 32 x source 256 x target 256
+# seeded tokens on the reverse task of examples/transformer_translation.py
+# (target = the source reversed, teacher-forced after BOS), Adam 5e-4,
+# K = 1 then K = 4 for 8 steps each (8 batches an epoch), then a
+# profiled K = 4 run; the decoders on 8 sources to max_len 64
+TRANSLATION = dict(vocab=37000, d=512, heads=8, ffn=2048, layers=6,
+                   batch=32, src=256, tgt=256, lr=5e-4, steps=8,
+                   decode_sources=8, max_len=64, beam=4, bos=1, eos=2)
+# cached against uncached greedy decoding in float32: the memory is the
+# same bits in both; the decoder's 6 layers run ~8 summing stages each
+# (self q, k, v, out; cross q, out; the two FFN products), each summing
+# up to 2048 float32 terms in another order, a relative error of about
+# sqrt(2048 / 2) 2^-24 = 1.9e-6; 48 stages in quadrature give 1.3e-5 of
+# the logits' scale, twice that for a gap of two logits: 2.6e-5.  Where
+# the tokens differ, the uncached logits' top-two gap at the first
+# differing step must be within 1e-4 of max(1, max |logit|) (a factor 4
+# of headroom): a near tie, not a fault.
+DECODE_GAP_RTOL = 1e-4
+# train_ptb_lstm: char_rnn(10000, 650, 650, layers=2), the PTB "medium"
+# LM of Zaremba et al. 2014 (35 unrolled steps, batch 20), SGD(1.0) with
+# L2 gradient clipping at 5, on seeded random tokens (8 batches an
+# epoch), K = 1 then K = 4 for 8 steps each
+PTB = dict(vocab=10000, embed=650, hidden=650, layers=2, steps_t=35,
+           batch=20, lr=1.0, clip=5.0, steps=8)
 
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
@@ -1852,14 +1924,16 @@ def _train_data():
     return ids, tgt
 
 
-def grad_check(model, ids, tgt, dev) -> dict:
+def grad_check(model, ids, tgt, dev, phase="gradcheck") -> dict:
     """One batch's gradients of every parameter with the flash kernels
     (``use_flash=None``, auto on CUDA) against plain attention
-    (``use_flash=False``), on the same weights."""
+    (``use_flash=False``), on the same weights; ``ids`` an array or a
+    tuple of the model's inputs."""
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, MultiHeadAttention
 
     mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
-    x = torch.from_numpy(ids).to(dev)
+    xs = tuple(torch.from_numpy(a).to(dev)
+               for a in (ids if isinstance(ids, tuple) else (ids,)))
     y = torch.from_numpy(tgt).to(dev)
     model.to(dev).train(True)
 
@@ -1867,7 +1941,7 @@ def grad_check(model, ids, tgt, dev) -> dict:
         for m in mhas:
             m.use_flash = use_flash
         model.zero_grad(set_to_none=True)
-        loss = CrossEntropyCriterion()(model(x), y)
+        loss = CrossEntropyCriterion()(model(*xs), y)
         loss.backward()
         return loss.item(), {n: p.grad.detach().clone()
                              for n, p in model.named_parameters()}
@@ -1898,7 +1972,7 @@ def grad_check(model, ids, tgt, dev) -> dict:
                                        if n.endswith("attn.bk")),
            "worst_other_param": worst_other,
            "worst_other_rel_err": others[worst_other]}
-    emit({"phase": "gradcheck", **out})
+    emit({"phase": phase, **out})
     if floored[worst] > GRAD_RTOL or abs(loss_f - loss_p) > 1e-5 * abs(
             loss_p):
         raise AssertionError(f"flash gradients disagree with plain "
@@ -4291,29 +4365,11 @@ def _zero1_collectives(dev):
             row = {"bit_equal_to_gloo_cpu": equal,
                    "ms": _device_ms(lambda: fn(inputs, nccl), reps)}
             if not equal:
-                # the int8 codec's scale is amax / 127: the card's
-                # division by a Python scalar multiplies by its float32
-                # reciprocal, the CPU's divides, so a scale may differ
-                # in its last bit and an element by one quantization
-                # step of its block (plus, for the delta gather, one
-                # float32 rounding of the sum with its base row)
-                src = inputs[0].view(1, -1).cpu()
-                pad = (-n) % block
-                bmax = torch.nn.functional.pad(src.abs(), (0, pad)).view(
-                    1, -1, block).amax(-1) / 127.0
-                # a byte apart, and 127 bytes of a scale an ulp apart
-                eps = torch.finfo(torch.float32).eps
-                step = bmax.repeat_interleave(block, -1)[:, :n].reshape(
-                    got.shape) * (1 + 127 * eps)
-                if name == "delta_gather_int8":
-                    step = step + eps * want.abs()
+                # every wire, the int8 codec included, divides as the CPU
+                # does (ops.quantized.div127): any differing bit fails
                 diff = (got.cpu().float() - want.float()).abs()
-                excess = float((diff / step.clamp_min(1e-30)).max())
-                row["max_diff_in_quantization_steps"] = excess
                 row["elements_differing"] = int((diff > 0).sum())
-                if "int8" not in name or excess > 1.0:
-                    raise AssertionError(f"{name}: card and CPU differ: "
-                                         f"{row}")
+                raise AssertionError(f"{name}: card and CPU differ: {row}")
             # captured: the communicator exists (the eager calls made it)
             graph = torch.cuda.CUDAGraph()
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -4675,6 +4731,337 @@ def train_zero1(dev, ref=None):
     return out
 
 
+def _sgd_keras():
+    from bigdl_tpu_torch.optim import SGD
+
+    return SGD(learning_rate=KERAS["lr"], momentum=KERAS["momentum"])
+
+
+def keras_inception(dev, data):
+    """Inception-v1 through the keras surface: compile, fit (one epoch,
+    validation), predict, evaluate, get_weights -> set_weights ->
+    predict to the bit; the fit's losses equal a hand-built Optimizer's
+    on the same Model from the same weights."""
+    from bigdl_tpu_torch import keras
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.models import inception_v1
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (Optimizer, Top1Accuracy,
+                                       Top5Accuracy, Trigger)
+
+    (x, y), (xv, yv) = data
+    b = KERAS["batch"]
+
+    def build():
+        inp = keras.Input(IMAGE)
+        net = inception_v1(1000, dropout=KERAS["dropout"],
+                           generator=torch.Generator().manual_seed(SEED))
+        return keras.Model(inp, net(inp))
+
+    model = build()
+    events = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model.compile(_sgd_keras(), "nll", ["top1", "top5"])
+    t0 = time.perf_counter()
+    trained = model.fit(x, y, batch_size=b, nb_epoch=1,
+                        validation_data=(xv, yv), device=dev,
+                        end_trigger=Trigger.or_(_step_clock(events),
+                                                Trigger.max_epoch(1)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_losses = list(trained.losses)
+    steps = len(fit_losses)
+    step_ms = _step_ms(events, 0, steps)
+    med = float(np.median(step_ms[1:]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pred = model.predict(xv, batch_size=b)
+    evaluation = {r.name: r.result for r in model.evaluate(xv, yv,
+                                                           batch_size=b)}
+    weights = model.get_weights()
+    model.set_weights(weights, device=dev)
+    again = model.predict(xv, batch_size=b)
+    del model, trained
+    _release()
+
+    ref = build()
+    opt = (Optimizer(ref, DataSet.array(x, y), ClassNLLCriterion(),
+                     batch_size=b, device=dev)
+           .set_optim_method(_sgd_keras())
+           .set_end_when(Trigger.max_epoch(1))
+           .set_validation(Trigger.every_epoch(), DataSet.array(xv, yv),
+                           [Top1Accuracy(), Top5Accuracy()], batch_size=b))
+    opt.optimize()
+    want = opt.losses
+    del ref, opt
+    _release()
+    out = {"phase": "keras_inception", "model": "inception_v1",
+           "classes": 1000, "batch": b, "images": len(x),
+           "compute_dtype": "bfloat16", "losses": fit_losses,
+           "optimizer_losses": want, "step_ms": step_ms,
+           "median_step_ms": med, "images_per_s": b / med * 1e3,
+           "wall_s": wall, "peak_mem_gb": peak, "evaluate": evaluation,
+           "predict_shape": list(pred.shape),
+           "predict_finite": bool(np.isfinite(pred).all()),
+           "set_weights_predict_bit_equal": bool(np.array_equal(pred, again)),
+           "weights_nodes": len(weights["params"])}
+    emit(out)
+    if fit_losses != want:
+        raise AssertionError("keras fit's losses differ from the "
+                             f"Optimizer's: {fit_losses} vs {want}")
+    if not (out["predict_finite"] and out["set_weights_predict_bit_equal"]
+            and pred.shape == (len(xv), 1000)
+            and all(np.isfinite(v) for v in evaluation.values())
+            and len(evaluation) == 2):
+        raise AssertionError(f"keras_inception: {out}")
+    return out
+
+
+def keras_resnet(dev, data):
+    """ResNet-50 (resnet_model()) through keras fit for a few steps of
+    train_resnet's recipe; the losses equal to the Optimizer's on the
+    bare module to the bit."""
+    from bigdl_tpu_torch import keras
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+
+    (x, y), _ = data
+    n = KERAS["resnet_steps"]
+    inp = keras.Input(IMAGE)
+    model = keras.Model(inp, resnet_model()(inp))
+    model.compile(_resnet_recipe(), CrossEntropyCriterion())
+    events = {}
+    got = model.fit(x, y, batch_size=RESNET_TRAIN["batch"], device=dev,
+                    end_trigger=Trigger.or_(_step_clock(events),
+                                            Trigger.max_iteration(n))).losses
+    torch.cuda.synchronize()
+    step_ms = _step_ms(events, 0, n)
+    del model
+    _release()
+    opt = (Optimizer(resnet_model(), DataSet.array(x, y),
+                     CrossEntropyCriterion(),
+                     batch_size=RESNET_TRAIN["batch"], device=dev)
+           .set_optim_method(_resnet_recipe())
+           .set_end_when(Trigger.max_iteration(n)))
+    opt.optimize()
+    want = opt.losses
+    del opt
+    _release()
+    out = {"phase": "keras_resnet", "steps": n, "losses": got,
+           "optimizer_losses": want, "bit_equal": got == want,
+           "step_ms": step_ms, "compute_dtype": "bfloat16"}
+    emit(out)
+    if got != want or len(got) != n:
+        raise AssertionError(f"keras_resnet: {out}")
+    return out
+
+
+def _translation_data():
+    """The reverse task: ``(src, tgt_in), tgt`` of seeded tokens in
+    [3, vocab), the target the source reversed, teacher-forced after
+    BOS."""
+    c = TRANSLATION
+    rs = np.random.RandomState(SEED + 3)
+    n = c["batch"] * c["steps"]
+    src = rs.randint(3, c["vocab"], (n, c["src"])).astype(np.int32)
+    tgt = src[:, ::-1][:, :c["tgt"]].copy()
+    tgt_in = np.concatenate([np.full((n, 1), c["bos"], np.int32),
+                             tgt[:, :-1]], axis=1)
+    return src, tgt_in, tgt
+
+
+def _translation_model():
+    from bigdl_tpu_torch.nn import Transformer
+
+    c = TRANSLATION
+    return Transformer(c["vocab"], c["d"], c["heads"], ffn_size=c["ffn"],
+                       num_layers=c["layers"], dropout=0.0,
+                       mode="translation", seed=SEED)
+
+
+def _first_gap(model, src_row, tokens_u, tokens_c, dev):
+    """The first step where the cached tokens leave the uncached ones,
+    and the uncached logits' top-two gap there, against the tolerance."""
+    t = int(np.nonzero(tokens_u != tokens_c)[0][0])
+    c = TRANSLATION
+    prefix = np.full((1, c["max_len"] + 1), c["bos"], np.int32)
+    prefix[0, :t] = tokens_u[:t]
+    with torch.no_grad():
+        logits = model(torch.from_numpy(src_row[None]).to(dev),
+                       torch.from_numpy(prefix).to(dev))[0, t - 1]
+    top2 = torch.topk(logits, 2).values
+    gap = float(top2[0] - top2[1])
+    tol = DECODE_GAP_RTOL * max(1.0, float(logits.abs().max()))
+    return {"step": t, "top2_gap": gap, "tolerance": tol,
+            "within": gap <= tol}
+
+
+def train_translation(dev):
+    """The translation Transformer at Transformer-base width through the
+    Optimizer at K = 1 and K = 4 (losses equal to the bit, finite and
+    falling; 18 flash forward and 18 + 18 backward launches a step,
+    credited at replay), a float32 gradient check of flash against plain
+    attention, and the decoders: greedy and beam search over the whole
+    prefix, the cached greedy decode held to the uncached one."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import (CrossEntropyCriterion,
+                                    transformer_decode,
+                                    transformer_decode_cached)
+    from bigdl_tpu_torch.optim import Adam, Optimizer
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    c = TRANSLATION
+    src, tgt_in, tgt = _translation_data()
+    with compute_dtype(torch.float32):
+        model = _translation_model()
+        grad = grad_check(model, (src[:c["batch"]], tgt_in[:c["batch"]]),
+                          tgt[:c["batch"]], dev, phase="translation_gradcheck")
+        del model
+        _release()
+
+    def make(end):
+        return (Optimizer(_translation_model(),
+                          DataSet.array((src, tgt_in), tgt),
+                          CrossEntropyCriterion(), batch_size=c["batch"],
+                          device=dev)
+                .set_optim_method(Adam(learning_rate=c["lr"]))
+                .set_end_when(end))
+
+    runs = [_bundle_run(make, k, c["steps"]) for k in (1, BUNDLE["k"])]
+    runs.append({**_bundle_run(make, BUNDLE["k"], c["steps"],
+                               busy=_BusyWindow(BUNDLE["timed_from"],
+                                                c["steps"])),
+                 "run": "profiled"})
+    tokens = c["batch"] * c["tgt"]
+    for r in runs:
+        r["target_tokens_per_s"] = tokens / r["step_ms"] * 1e3
+        r["tokens_per_s"] = c["batch"] * (c["src"] + c["tgt"]) \
+            / r["step_ms"] * 1e3
+    ref = runs[0]["losses"]
+    want = {n: float(3 * c["layers"]) for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+
+    # the decoders on 8 held-out sources, float32 products
+    rs = np.random.RandomState(SEED + 4)
+    srcd = torch.from_numpy(rs.randint(3, c["vocab"], (
+        c["decode_sources"], c["src"])).astype(np.int32)).to(dev)
+    decode = {}
+    with compute_dtype(torch.float32):
+        model = _translation_model().to(dev)
+        for name, fn in (
+                ("greedy", lambda: transformer_decode(
+                    model, srcd, c["bos"], c["eos"], max_len=c["max_len"])),
+                ("beam", lambda: transformer_decode(
+                    model, srcd, c["bos"], c["eos"], max_len=c["max_len"],
+                    beam_size=c["beam"])),
+                ("cached", lambda: transformer_decode_cached(
+                    model, srcd, c["bos"], c["eos"],
+                    max_len=c["max_len"]))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens_, scores = fn()
+            torch.cuda.synchronize()
+            decode[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                            "tokens": tokens_.cpu().numpy(),
+                            "finite": bool(torch.isfinite(scores).all())}
+        tu, tc = decode["greedy"]["tokens"], decode["cached"]["tokens"]
+        rows_equal = [bool(np.array_equal(a, b)) for a, b in zip(tu, tc)]
+        gaps = [_first_gap(model, srcd[i].cpu().numpy(), tu[i], tc[i], dev)
+                for i, eq in enumerate(rows_equal) if not eq]
+        del model
+        _release()
+    out = {"phase": "train_translation", "config": TRANSLATION,
+           "compute_dtype": "bfloat16",
+           "runs": [{k: v for k, v in r.items()} for r in runs],
+           "losses_k1": ref, "gradcheck": grad,
+           "flash_launches_per_step": {
+               f"k{r['k']}": {n: r["launches_per_step"].get(n)
+                              for n in want} for r in runs[:2]},
+           "decode": {
+               "max_len": c["max_len"], "sources": c["decode_sources"],
+               "beam_size": c["beam"],
+               **{n: {"ms": d["ms"], "finite": d["finite"]}
+                  for n, d in decode.items()},
+               "beam_shape": list(decode["beam"]["tokens"].shape),
+               "cached_rows_equal_uncached": sum(rows_equal),
+               "first_differences": gaps}}
+    emit(out)
+    for r in runs:
+        got = {n: r["launches_per_step"].get(n) for n in want}
+        if got != want:
+            raise AssertionError(f"flash launches a step at K = {r['k']}: "
+                                 f"{got}, want {want}")
+        if r["losses"] != ref[:len(r["losses"])]:
+            raise AssertionError(f"K = {r['k']} losses differ from K = 1: "
+                                 f"{r['losses']} vs {ref}")
+    if not (np.all(np.isfinite(ref)) and ref[-1] < ref[0]):
+        raise AssertionError(f"translation losses: {ref}")
+    if not all(d["finite"] for d in decode.values()) or not all(
+            g["within"] for g in gaps):
+        raise AssertionError(f"translation decode: {out['decode']}")
+    return out
+
+
+def train_ptb_lstm(dev):
+    """The PTB medium LM (char_rnn(10000, 650, 650, layers=2), 35 steps,
+    batch 20, SGD 1.0, L2 clipping 5) through the Optimizer at K = 1 and
+    K = 4: the losses equal to the bit; tokens/s, step ms, peak
+    memory."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.models import char_rnn
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer
+
+    c = PTB
+    rs = np.random.RandomState(SEED + 5)
+    ids = rs.randint(0, c["vocab"], (c["batch"] * c["steps"],
+                                     c["steps_t"] + 1)).astype(np.int32)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def make(end):
+        model = char_rnn(c["vocab"], c["embed"], c["hidden"],
+                         layers=c["layers"],
+                         generator=torch.Generator().manual_seed(SEED))
+        return (Optimizer(model, DataSet.array(x, y),
+                          TimeDistributedCriterion(ClassNLLCriterion()),
+                          batch_size=c["batch"], device=dev)
+                .set_optim_method(SGD(learning_rate=c["lr"]))
+                .set_gradient_clipping_by_l2_norm(c["clip"])
+                .set_end_when(end))
+
+    runs = [_bundle_run(make, k, c["steps"]) for k in (1, BUNDLE["k"])]
+    tokens = c["batch"] * c["steps_t"]
+    for r in runs:
+        r["tokens_per_s"] = tokens / r["step_ms"] * 1e3
+    ref = runs[0]["losses"]
+    out = {"phase": "train_ptb_lstm", "config": PTB,
+           "compute_dtype": "bfloat16", "runs": runs, "losses_k1": ref,
+           "bit_equal": runs[1]["losses"] == ref}
+    emit(out)
+    if not out["bit_equal"] or not np.all(np.isfinite(ref)):
+        raise AssertionError(f"train_ptb_lstm: {out}")
+    return out
+
+
+def run_alone(phase, dev):
+    """One of the sequence and keras phases by itself
+    (``python3 chip_smoke.py --phase NAME [NAME ...]``)."""
+    if phase in ("keras_inception", "keras_resnet"):
+        torch.backends.cudnn.deterministic = True
+        try:
+            globals()[phase](dev, resnet_train_data())
+        finally:
+            torch.backends.cudnn.deterministic = False
+    elif phase in ("train_translation", "train_ptb_lstm"):
+        globals()[phase](dev)
+    else:
+        raise SystemExit(f"--phase {phase}: keras_inception, keras_resnet, "
+                         "train_translation or train_ptb_lstm")
+    _release()
+
+
 def main() -> int:
     # the port first: in a directory without it this fails before any
     # result is printed
@@ -4703,6 +5090,15 @@ def main() -> int:
     if sys.argv[1:] == ["--zero1"]:
         _build.build_all()
         train_zero1(dev)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if sys.argv[1:2] == ["--phase"]:
+        _build.build_all()
+        for phase in sys.argv[2:]:
+            run_alone(phase, dev)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -4811,6 +5207,8 @@ def main() -> int:
         bundles = train_resnet_bundles(dev, data)
         recovery(dev, data, bundles["losses_k1"])
         profile_window(dev, data)
+        keras_inception(dev, data)
+        keras_resnet(dev, data)
         del data
         _release()
         with tempfile.TemporaryDirectory(prefix="resnet_records_") as d:
@@ -4824,6 +5222,14 @@ def main() -> int:
         stream_jpeg(dev)
     finally:
         torch.backends.cudnn.deterministic = False
+    translation = train_translation(dev)
+    for row, kernel in ((fwd_row, "flash_attention_fwd"),
+                        (bwd_row, "flash_attention_bwd_dq")):
+        row["launches_train_translation_per_step"] = translation[
+            "flash_launches_per_step"][f"k{BUNDLE['k']}"][kernel]
+    _release()
+    train_ptb_lstm(dev)
+    _release()
     train_zero1(dev, lm_bundles["losses_k1"])
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
                       verify_row, int8mm_row, sparse_row, sparse_bf16_row,

@@ -138,5 +138,11 @@ def test_dropout_identity_at_inference():
 
 
 def test_translation_mode_refused():
-    with pytest.raises(ValueError, match="only 'lm'"):
-        Transformer(32, 16, 2, mode="translation")
+    """Translation mode is ported (tests/test_torch_port_translation.py):
+    what stays refused is a mode that is neither, and a translation
+    model called without its target."""
+    with pytest.raises(ValueError, match="translation \\| lm"):
+        Transformer(32, 16, 2, mode="seq2seq")
+    with pytest.raises(ValueError, match="needs \\(src, tgt\\)"):
+        Transformer(32, 16, 2, mode="translation", num_layers=1)(
+            torch.zeros(1, 3, dtype=torch.int32))
