@@ -33,9 +33,13 @@ from bigdl_tpu_torch.nn.layers import (
     SpatialBatchNormalization, SpatialConvolution, SpatialMaxPooling,
     Squeeze, Swish, Tanh, TemporalConvolution, Transpose, Unsqueeze, View,
     ZeroPadding2D)
-from bigdl_tpu_torch.nn.layers_extra import (CAdd, CAveTable, CMaxTable,
-                                             CosineDistance, DotProduct,
-                                             Maxout, Select)
+from bigdl_tpu_torch.nn.layers_extra import (
+    AddConstant, CAdd, CAveTable, CDivTable, CMaxTable, Conv2DTranspose,
+    CosineDistance, CSubTable, DotProduct, LogSigmoid, Maxout, Mean,
+    MulConstant, Select, UpSampling2D)
+from bigdl_tpu_torch.nn.layers_more import (HardShrink, Mish, SoftShrink,
+                                            TanhShrink)
+from bigdl_tpu_torch.nn.layers_tail import GroupNorm
 from bigdl_tpu_torch.nn.module import (CAddTable, CMulTable, Concat,
                                        ConcatTable, Container, Identity,
                                        JoinTable, Lambda, Module,
@@ -83,4 +87,6 @@ __all__ = [
     "MultiRNNCell", "Recurrent", "RecurrentDecoder", "RnnCell", "SimpleRNN",
     "TimeDistributed", "TransformerDecoderLayer", "beam_search",
     "greedy_decode", "sample_decode", "transformer_decode",
-    "transformer_decode_cached"]
+    "transformer_decode_cached", "AddConstant", "CDivTable", "CSubTable",
+    "Conv2DTranspose", "GroupNorm", "HardShrink", "LogSigmoid", "Mean",
+    "Mish", "MulConstant", "SoftShrink", "TanhShrink", "UpSampling2D"]

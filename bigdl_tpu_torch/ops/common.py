@@ -4,6 +4,7 @@ keeps."""
 
 import contextlib
 import ctypes
+import gc
 from collections import Counter
 from typing import Dict, Iterator, Sequence, Tuple
 
@@ -28,12 +29,22 @@ def captured_launches() -> Iterator[Counter]:
     without running any wrapper.  So what the wrappers counted inside
     comes back in the yielded Counter and ``LAUNCHES`` is put back as it
     was; the caller adds the Counter at every replay
-    (:func:`credit_launches`)."""
+    (:func:`credit_launches`).
+
+    Python's cyclic garbage collector is paused inside.  An engine or a
+    train step that was dropped holds its graphs and their memory pool
+    in reference cycles; a collection that ran during a capture would
+    free them there, and those CUDA calls invalidate the capture
+    (``cudaErrorStreamCaptureInvalidated``)."""
     before = Counter(LAUNCHES)
     captured: Counter = Counter()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         yield captured
     finally:
+        if collecting:
+            gc.enable()
         captured.update(LAUNCHES - before)
         LAUNCHES.clear()
         LAUNCHES.update(before)

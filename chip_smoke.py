@@ -201,7 +201,26 @@ one JSON line:
    medium LM (35 steps, batch 20, SGD 1.0, L2 clipping 5) through the
    ``Optimizer`` at K = 1 and K = 4: the losses equal to the bit,
    tokens/s, step ms, peak memory.
-   (train_translation and train_ptb_lstm run before train_zero1.)
+19d. estimator_bert — a stock torch BERT-base classifier (``StockBert``:
+   ``torch.nn.TransformerEncoder``, 12 layers, hidden 768, dropout 0.1)
+   fine-tuned through ``Estimator.from_torch`` with ``torch.optim.AdamW``
+   (2e-5) and ``torch.nn.CrossEntropyLoss``, 640 rows of 128 ids at batch
+   32: conversion seconds; K = 1, K = 4 and a profiled K = 4 epoch (step
+   ms, sequences/s, peak memory, busy share, 12 flash forward and 12 + 12
+   backward launches a step); the losses equal a hand-built Optimizer's
+   with ``AdamWeightDecay`` and K = 4's equal K = 1's, to the bit;
+   evaluate and predict; the exported ``state_dict`` round trip to the
+   bit; the stock module's own float32 forward within BERT_STOCK_ATOL; a
+   float32 gradient check of flash against plain attention.
+19e. forecast_autoformer, forecast_tcn — ``AutoformerForecaster`` in the
+   Autoformer paper's Electricity setting and ``TCNForecaster`` with
+   Chronos's defaults, on 1,280 seeded synthetic windows of 321
+   variables (input 96, horizon 96): step ms, windows/s, peak memory,
+   busy share; losses finite and falling; ``evaluate``; save, load and
+   ``predict`` to the bit; the float32 forward on the card against the
+   port's CPU forward, with the Autoformer's delays of both.
+   (train_translation, train_ptb_lstm, estimator_bert and the forecast
+   phases run before train_zero1.)
 
 Compute dtypes.  On the card the port's default compute dtype is
 bfloat16 (``tensor.policy``: bfloat16 products with float32 sums, the
@@ -236,7 +255,8 @@ same way, for an A/B of the draft's block-sparse kernel in one call
 
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` builds the kernels and
 runs only the named phases of keras_inception, keras_resnet,
-train_translation and train_ptb_lstm.
+train_translation, train_ptb_lstm, estimator_bert, forecast_autoformer
+and forecast_tcn.
 
 ``python3 chip_smoke.py --zero1`` builds the kernels and runs only
 ``train_zero1`` (its single-process reference run included).
@@ -404,6 +424,47 @@ DECODE_GAP_RTOL = 1e-4
 # epoch), K = 1 then K = 4 for 8 steps each
 PTB = dict(vocab=10000, embed=650, hidden=650, layers=2, steps_t=35,
            batch=20, lr=1.0, clip=5.0, steps=8)
+
+# estimator_bert: a stock torch BERT-base encoder (Devlin et al. 2019: 12
+# layers, hidden 768, 12 heads, FFN 3072, vocabulary 30,522, dropout 0.1,
+# GELU, post-norm) with a pooler (the first token, Linear 768 -> 768,
+# tanh) and a two-label head, fine-tuned through Estimator.from_torch with
+# torch.optim.AdamW(lr=2e-5) and torch.nn.CrossEntropyLoss on 640 seeded
+# rows of 128 token ids at batch 32 (BERT's fine-tuning recipe): one
+# epoch, 20 steps, at K = 1 and K = 4.  Cut: no position or token-type
+# embeddings (the converter has no arange node), random ids and labels
+ESTIMATOR_BERT = dict(vocab=30522, d=768, heads=12, ffn=3072, layers=12,
+                      dropout=0.1, length=128, rows=640, batch=32, lr=2e-5,
+                      labels=2, check_rows=8)
+# the stock module's own float32 forward (erf GELU, on the CPU) against
+# the converted model's float32 predict (tanh GELU, ROADMAP C.18): the two
+# GELUs differ by at most 4.8e-4 (at |x| = 2.7; the phase measures it);
+# per layer the FFN's second product sums 3072 such errors against
+# weights of scale 1/sqrt(3 * 3072) (torch's Linear init), at most about
+# 2.7e-4 rms a unit, which the LayerNorm after it keeps at the hidden's
+# unit scale; 12 layers in quadrature 9.5e-4, through the pooler and head
+# about as much in the two logits.  Bound: 5e-3 absolute, five times that
+BERT_STOCK_ATOL = 5e-3
+GELU_GAP_MAX = 4.8e-4
+# forecast_autoformer: AutoformerForecaster in the Autoformer paper's
+# Electricity setting (Wu et al. 2021: 321 variables, input 96, horizon 96,
+# d_model 512, 8 heads, 2 encoder and 1 decoder layers, d_ff 2048, moving
+# average 25, factor 1, batch 32, Adam 1e-4) on 1,280 windows of seeded
+# synthetic hourly series (daily and weekly periods plus noise; no
+# pandas on the card machine, so numpy (x, y) windows), one epoch, 40
+# steps.  forecast_tcn: TCNForecaster on the same windows with
+# num_channels [30] * 7, kernel_size 3, dropout 0.1, Adam 1e-3, batch 32
+FORECAST = dict(variables=321, lookback=96, horizon=96, windows=1280,
+                batch=32, check_windows=8)
+AUTOFORMER = dict(d_model=512, n_heads=8, e_layers=2, d_layers=1,
+                  d_ff=2048, moving_avg=25, lr=1e-4)
+TCN_CFG = dict(num_channels=[30] * 7, kernel_size=3, dropout=0.1, lr=1e-3)
+# the float32 forward on the card against the port's CPU forward of the
+# same weights, 8 windows: float32 sums in another order (cuBLAS, cuFFT
+# and cuDNN against the CPU's), each summing at most 2048 terms, over a
+# few dozen stages: far below 1e-4 of max(1, max |y|), the card tests'
+# tolerance, which is the bound
+FORECAST_ATOL = 1e-4
 
 # speculative decoding of the spec phases: SpecConfig(k=4, sparsity=0.5),
 # the draft's FFN blocks (8, 8)
@@ -1924,11 +1985,12 @@ def _train_data():
     return ids, tgt
 
 
-def grad_check(model, ids, tgt, dev, phase="gradcheck") -> dict:
+def grad_check(model, ids, tgt, dev, phase="gradcheck", key=None) -> dict:
     """One batch's gradients of every parameter with the flash kernels
     (``use_flash=None``, auto on CUDA) against plain attention
     (``use_flash=False``), on the same weights; ``ids`` an array or a
-    tuple of the model's inputs."""
+    tuple of the model's inputs; ``key`` the dropout key of both runs
+    (the same masks) for a model that drops."""
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, MultiHeadAttention
 
     mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
@@ -1941,7 +2003,8 @@ def grad_check(model, ids, tgt, dev, phase="gradcheck") -> dict:
         for m in mhas:
             m.use_flash = use_flash
         model.zero_grad(set_to_none=True)
-        loss = CrossEntropyCriterion()(model(*xs), y)
+        out = model(*xs) if key is None else model(*xs, key=key)
+        loss = CrossEntropyCriterion()(out, y)
         loss.backward()
         return loss.item(), {n: p.grad.detach().clone()
                              for n, p in model.named_parameters()}
@@ -1962,14 +2025,14 @@ def grad_check(model, ids, tgt, dev, phase="gradcheck") -> dict:
         rel[n] = diff / norm if norm > 0 else float("inf")
         floored[n] = diff / (norm + GRAD_FLOOR * total)
     worst = max(floored, key=floored.get)
-    others = {n: e for n, e in rel.items() if not n.endswith("attn.bk")}
+    others = {n: e for n, e in rel.items() if not n.endswith(".bk")}
     worst_other = max(others, key=others.get)
     out = {"loss_flash": loss_f, "loss_plain": loss_p,
            "params": len(g_p), "grad_norm": total, "rtol": GRAD_RTOL,
            "floor": GRAD_FLOOR, "worst_param": worst,
            "worst_err": floored[worst],
            "key_bias_max_rel_err": max(e for n, e in rel.items()
-                                       if n.endswith("attn.bk")),
+                                       if n.endswith(".bk")),
            "worst_other_param": worst_other,
            "worst_other_rel_err": others[worst_other]}
     emit({"phase": phase, **out})
@@ -5045,6 +5108,388 @@ def train_ptb_lstm(dev):
     return out
 
 
+class StockBert(torch.nn.Module):
+    """A stock torch BERT-base classifier (``ESTIMATOR_BERT``): token
+    embeddings, a ``torch.nn.TransformerEncoder``, the first token through
+    a tanh pooler, a two-label head."""
+
+    def __init__(self, c=None):
+        super().__init__()
+        c = c or ESTIMATOR_BERT
+        self.emb = torch.nn.Embedding(c["vocab"], c["d"])
+        self.enc = torch.nn.TransformerEncoder(
+            torch.nn.TransformerEncoderLayer(
+                c["d"], c["heads"], c["ffn"], dropout=c["dropout"],
+                activation="gelu", batch_first=True),
+            c["layers"], enable_nested_tensor=False)
+        self.pool = torch.nn.Linear(c["d"], c["d"])
+        self.act = torch.nn.Tanh()
+        self.cls = torch.nn.Linear(c["d"], c["labels"])
+
+    def forward(self, ids):
+        h = self.enc(self.emb(ids))
+        return self.cls(self.act(self.pool(h[:, 0])))
+
+
+@contextlib.contextmanager
+def _clocked(module, busy=None, steps=None):
+    """Patch ``module.Optimizer`` (the Optimizer an entry point builds
+    inside) so that its end trigger also records a CUDA event at every
+    bundle edge (and runs ``busy``, a ``_BusyWindow``, and ends the run
+    at iteration ``steps``).  Yields ``(events, made)``: iteration ->
+    event, and the Optimizers built."""
+    from bigdl_tpu_torch.optim import Trigger
+
+    events, made = {}, []
+
+    def tick(state):
+        it = state["iteration"]
+        if it not in events:
+            events[it] = torch.cuda.Event(enable_timing=True)
+            events[it].record()
+        return False
+
+    real = module.Optimizer
+
+    class Clocked(real):
+        def set_end_when(self, trigger):
+            made.append(self)
+            ends = [Trigger(tick, "clock")] + ([busy] if busy else [])
+            if steps is not None:
+                ends.append(Trigger.max_iteration(steps))
+            return super().set_end_when(Trigger.or_(*ends, trigger))
+
+    module.Optimizer = Clocked
+    try:
+        yield events, made
+    finally:
+        module.Optimizer = real
+
+
+def _clocked_fit(module, fit, rows, busy=None):
+    """``fit()`` under ``_clocked(module)``: step ms (CUDA events, from
+    iteration BUNDLE["timed_from"] to the last edge), rows/s, peak
+    memory, the run's wall time, kernel launches a step (replays
+    credited), losses and the graphs captured.  With ``busy`` the run
+    ends where the profiled window does."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _clocked(module, busy, busy and busy.stop) as (events, made):
+        fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    opt = made[-1]
+    edges = sorted(events)
+    last = edges[-1]
+    a = min(e for e in edges if e >= BUNDLE["timed_from"])
+    step_ms = events[a].elapsed_time(events[last]) / (last - a)
+    out = {"steps": last, "edges": edges, "step_ms": step_ms,
+           "rows_per_s": rows / step_ms * 1e3, "wall_s": wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": {n: v / last for n, v in LAUNCHES.items()},
+           "losses": list(opt.losses)}
+    if busy is not None:
+        out["busy"] = busy.out
+    return out
+
+
+def _bert_data():
+    c = ESTIMATOR_BERT
+    rs = np.random.RandomState(SEED + 6)
+    ids = rs.randint(0, c["vocab"], (c["rows"], c["length"]))
+    labels = rs.randint(0, c["labels"], c["rows"]).astype(np.int32)
+    return ids, labels
+
+
+def estimator_bert(dev):
+    """A stock torch BERT-base fine-tuned through ``Estimator.from_torch``
+    (the converter re-emits it as the port's keras Model, its attention on
+    the flash kernels): conversion seconds; one epoch at K = 1, then at
+    K = 4 and a profiled K = 4 run (step ms, sequences/s, peak memory,
+    busy share, flash launches a step credited at replay: 12 forward,
+    12 + 12 backward); the fit's losses equal to a hand-built Optimizer's
+    on the same converted model with the mapped AdamWeightDecay, and
+    K = 4's to K = 1's, to the bit; evaluate with Top1Accuracy and
+    predict; the exported state_dict loaded into a fresh stock module
+    (strict) and converted again predicts the Estimator's float32 answers
+    to the bit; the stock module's own float32 forward within
+    BERT_STOCK_ATOL of them (C.18: the tanh GELU); a float32 gradient
+    check of flash against plain attention on every MultiHeadAttention."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.estimator import Estimator
+    from bigdl_tpu_torch.estimator import estimator as est_mod
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (AdamWeightDecay, Optimizer,
+                                       Top1Accuracy)
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    c = ESTIMATOR_BERT
+    ids, labels = _bert_data()
+    ids32 = ids.astype(np.int32)
+    torch.manual_seed(SEED)
+    t0 = time.perf_counter()
+    stock = StockBert()
+    build_s = time.perf_counter() - t0
+
+    def make_est():
+        return Estimator.from_torch(
+            lambda cfg: stock,
+            lambda m, cfg: torch.optim.AdamW(m.parameters(), lr=c["lr"]),
+            lambda cfg: torch.nn.CrossEntropyLoss(),
+            example_input=ids[:1], device=dev)
+
+    t0 = time.perf_counter()
+    est = make_est()
+    convert_s = time.perf_counter() - t0
+    steps = c["rows"] // c["batch"]
+    want = {n: float(c["layers"]) for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+
+    def fit(k, busy=None):
+        est.config["steps_per_call"] = k
+        r = _clocked_fit(est_mod, lambda: est.fit((ids32, labels), epochs=1,
+                                                 batch_size=c["batch"]),
+                         c["batch"], busy)
+        r["k"] = k
+        r["graphs_captured"] = est._trained._step.graphs_captured
+        r["sequences_per_s"] = r.pop("rows_per_s")
+        return r
+
+    runs = [fit(1)]
+    ref = runs[0]["losses"]
+    # the trained K = 1 model: evaluate, predict, the state-dict round trip
+    top1 = est.evaluate((ids32[:256], labels[:256]), [Top1Accuracy()],
+                        batch_size=c["batch"])
+    pred = est.predict(ids32[:c["check_rows"]])
+    n = c["check_rows"]
+    with compute_dtype(torch.float32):
+        pred32 = est.predict(ids32[:n])
+        sd = est.state_dict()
+        torch.manual_seed(SEED + 1)
+        fresh = StockBert()
+        fresh.load_state_dict(sd, strict=True)
+        again = Estimator.from_torch(
+            lambda cfg: fresh, lambda cfg: AdamWeightDecay(),
+            lambda cfg: CrossEntropyCriterion(), example_input=ids[:1],
+            device=dev)
+        pred_again = again.predict(ids32[:n])
+        del again
+        _release()
+        with torch.no_grad():
+            stock_out = fresh.eval()(torch.from_numpy(ids[:n])).numpy()
+    xs = np.linspace(-8, 8, 200001, dtype=np.float64)
+    gelu_gap = float(np.max(np.abs(
+        torch.nn.functional.gelu(torch.from_numpy(xs)).numpy()
+        - torch.nn.functional.gelu(torch.from_numpy(xs),
+                                   approximate="tanh").numpy())))
+    stock_err = float(np.abs(stock_out - pred32).max())
+    del fresh, sd
+    _release()
+
+    # the same converted model through a hand-built Optimizer
+    def make(end):
+        return (Optimizer(est.model, DataSet.array(ids32, labels),
+                          CrossEntropyCriterion(), batch_size=c["batch"],
+                          device=dev)
+                .set_optim_method(AdamWeightDecay(learning_rate=c["lr"],
+                                                  weight_decay=0.01))
+                .set_initial_variables(est._initial_variables)
+                .set_end_when(end))
+
+    hand = _bundle_run(make, 1, steps)
+    runs.append(fit(BUNDLE["k"]))
+    runs.append({**fit(BUNDLE["k"], _BusyWindow(
+        BUNDLE["timed_from"], BUNDLE["timed_from"] + 2 * BUNDLE["k"])),
+        "run": "profiled"})
+    # a float32 gradient check of the converted model (the same dropout
+    # masks through both attentions)
+    from bigdl_tpu_torch.utils import prng
+
+    with compute_dtype(torch.float32):
+        grad = grad_check(est.model, ids32[:n], labels[:n], dev,
+                          phase="estimator_bert_gradcheck",
+                          key=prng.PRNGKey(SEED + 7, device=dev))
+    out = {"phase": "estimator_bert", "config": ESTIMATOR_BERT,
+           "compute_dtype": "bfloat16",
+           "cuts": ["no position or token-type embeddings",
+                    "random ids and labels", f"{steps} steps"],
+           "stock_build_s": build_s, "conversion_s": convert_s,
+           "optim_method": type(est.optim_method).__name__,
+           "criterion": type(est.criterion).__name__,
+           "runs": runs, "losses_k1": ref,
+           "hand_built_losses_equal": hand["losses"] == ref,
+           "hand_built_step_ms": hand["step_ms"],
+           "flash_launches_per_step": {
+               f"k{r['k']}": {k: r["launches_per_step"].get(k)
+                              for k in want} for r in runs[:2]},
+           "top1_256_rows": top1, "predict_shape": list(pred.shape),
+           "predict_finite": bool(np.isfinite(pred).all()),
+           "state_dict_round_trip_bit_equal": bool(
+               np.array_equal(pred_again, pred32)),
+           "gelu_erf_tanh_max_gap": gelu_gap,
+           "stock_forward_max_abs_err": stock_err,
+           "stock_forward_atol": BERT_STOCK_ATOL, "gradcheck": grad}
+    emit(out)
+    for r in runs:
+        got = {k: r["launches_per_step"].get(k) for k in want}
+        if got != want:
+            raise AssertionError(f"flash launches a step at K = {r['k']}: "
+                                 f"{got}, want {want}")
+        # the profiled run stops at the end of its window
+        if r["losses"] != ref[:len(r["losses"])]:
+            raise AssertionError(f"K = {r['k']} losses differ from K = 1")
+    if not out["hand_built_losses_equal"]:
+        raise AssertionError(f"Estimator losses {ref} differ from the "
+                             f"hand-built Optimizer's {hand['losses']}")
+    if not (np.all(np.isfinite(ref)) and out["predict_finite"]
+            and out["predict_shape"] == [n, c["labels"]]):
+        raise AssertionError(f"estimator_bert outputs: {out}")
+    if not out["state_dict_round_trip_bit_equal"]:
+        raise AssertionError("the state_dict round trip changed predict")
+    if gelu_gap > GELU_GAP_MAX or stock_err > BERT_STOCK_ATOL:
+        raise AssertionError(f"the stock forward is {stock_err} from "
+                             f"predict (bound {BERT_STOCK_ATOL})")
+    del est
+    _release()
+    return out
+
+
+def forecast_data():
+    """``FORECAST["windows"]`` windows of seeded synthetic hourly series
+    of ``FORECAST["variables"]`` variables: a daily and a weekly period
+    of random phase and amplitude per variable, plus noise."""
+    c = FORECAST
+    rs = np.random.RandomState(SEED + 8)
+    n = c["windows"] + c["lookback"] + c["horizon"] - 1
+    t = np.arange(n, dtype=np.float64)[:, None]
+    v = c["variables"]
+    series = (rs.uniform(0.5, 1.5, (1, v))
+              * np.sin(2 * np.pi * t / 24 + rs.rand(1, v) * 6.28)
+              + rs.uniform(0.2, 0.8, (1, v))
+              * np.sin(2 * np.pi * t / 168 + rs.rand(1, v) * 6.28)
+              + 0.1 * rs.randn(n, v)).astype(np.float32)
+    idx = np.arange(c["windows"])[:, None]
+    x = series[idx + np.arange(c["lookback"])]
+    y = series[idx + c["lookback"] + np.arange(c["horizon"])]
+    return x, y
+
+
+def _forecast_phase(dev, name, make, data):
+    """One forecaster on ``data``: a timed epoch, then a profiled one
+    from the first's weights (busy share); ``evaluate``; save, load into
+    a new forecaster, ``predict`` to the bit; the float32 forward on the
+    card against the port's CPU forward of the same weights, with the
+    delays each picked (the Autoformer's)."""
+    import copy
+
+    from bigdl_tpu_torch.forecast import autoformer
+    from bigdl_tpu_torch.forecast import forecaster as fc_mod
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    c = FORECAST
+    x, y = data
+    f = make()
+    run = _clocked_fit(fc_mod, lambda: f.fit((x, y), epochs=1,
+                                             batch_size=c["batch"]),
+                       c["batch"])
+    run["windows_per_s"] = run.pop("rows_per_s")
+    losses = run["losses"]
+    evaluation = f.evaluate((x[:256], y[:256]), ("mse", "mae"))
+    n = c["check_windows"]
+    pred = f.predict(x[:n])
+    with tempfile.TemporaryDirectory(prefix=f"{name}_") as d:
+        f.save(d)
+        saved_bytes = _dir_bytes(d)
+        g = make()
+        g.load(d)
+        loaded = g.predict(x[:n])
+        del g
+    picked = []
+    real = autoformer.top_delays
+
+    def record(mean_corr, top_k):
+        vals, idx = real(mean_corr, top_k)
+        picked.append(idx.cpu().numpy().tolist())
+        return vals, idx
+
+    autoformer.top_delays = record
+    try:
+        with compute_dtype(torch.float32), torch.no_grad():
+            f.model.eval()
+            on_card = f.model(torch.from_numpy(x[:n]).to(dev)).cpu()
+            n_card = len(picked)
+            on_cpu = copy.deepcopy(f.model).cpu()(torch.from_numpy(x[:n]))
+    finally:
+        autoformer.top_delays = real
+    scale = max(1.0, float(on_cpu.abs().max()))
+    err = float((on_card - on_cpu).abs().max())
+    # a profiled run of 4 more steps for the busy share (the weights go
+    # on training; the profiler costs each of the eager step's thousands
+    # of launches)
+    busy = _BusyWindow(BUNDLE["timed_from"], BUNDLE["timed_from"] + 4)
+    prof = _clocked_fit(fc_mod, lambda: f.fit((x, y), epochs=1,
+                                              batch_size=c["batch"]),
+                        c["batch"], busy)
+    prof["windows_per_s"] = prof.pop("rows_per_s")
+    out = {"phase": name, "data": FORECAST, "compute_dtype": "bfloat16",
+           "config": {k: str(v) if k == "device" else v
+                      for k, v in f._init_args.items()
+                      if k not in ("optimizer", "loss")},
+           "params": sum(p.numel() for p in f.model.parameters()),
+           "runs": [run, {**prof, "run": "profiled"}],
+           "evaluate_256": evaluation, "predict_shape": list(pred.shape),
+           "save_load_bit_equal": bool(np.array_equal(pred, loaded)),
+           "saved_bytes": saved_bytes,
+           "float32_card_vs_cpu_max_abs_err": err,
+           "float32_tolerance": FORECAST_ATOL * scale,
+           "delays_card": picked[:n_card] or None,
+           "delays_cpu": picked[n_card:] or None}
+    emit(out)
+    k = max(1, len(losses) // 4)
+    if not (np.all(np.isfinite(losses))
+            and np.mean(losses[-k:]) < np.mean(losses[:k])):
+        raise AssertionError(f"{name} losses not finite and falling: "
+                             f"{losses}")
+    if not out["save_load_bit_equal"]:
+        raise AssertionError(f"{name}: load changed predict")
+    if picked[:n_card] != picked[n_card:] or err > FORECAST_ATOL * scale:
+        raise AssertionError(f"{name}: the card's float32 forward is {err} "
+                             f"from the CPU's (delays {out['delays_card']}"
+                             f" vs {out['delays_cpu']})")
+    del f
+    _release()
+    return out
+
+
+def forecast_autoformer(dev, data):
+    from bigdl_tpu_torch.forecast import AutoformerForecaster
+
+    c = FORECAST
+    kw = dict(AUTOFORMER)
+    lr = kw.pop("lr")
+    return _forecast_phase(dev, "forecast_autoformer", lambda:
+                           AutoformerForecaster(
+                               c["lookback"], c["horizon"], c["variables"],
+                               c["variables"], lr=lr, seed=SEED,
+                               device=dev, **kw), data)
+
+
+def forecast_tcn(dev, data):
+    from bigdl_tpu_torch.forecast import TCNForecaster
+
+    c = FORECAST
+    kw = dict(TCN_CFG)
+    lr = kw.pop("lr")
+    return _forecast_phase(dev, "forecast_tcn", lambda: TCNForecaster(
+        c["lookback"], c["horizon"], c["variables"], c["variables"], lr=lr,
+        seed=SEED, device=dev, **kw), data)
+
+
 def run_alone(phase, dev):
     """One of the sequence and keras phases by itself
     (``python3 chip_smoke.py --phase NAME [NAME ...]``)."""
@@ -5054,11 +5499,14 @@ def run_alone(phase, dev):
             globals()[phase](dev, resnet_train_data())
         finally:
             torch.backends.cudnn.deterministic = False
-    elif phase in ("train_translation", "train_ptb_lstm"):
+    elif phase in ("train_translation", "train_ptb_lstm", "estimator_bert"):
         globals()[phase](dev)
+    elif phase in ("forecast_autoformer", "forecast_tcn"):
+        globals()[phase](dev, forecast_data())
     else:
         raise SystemExit(f"--phase {phase}: keras_inception, keras_resnet, "
-                         "train_translation or train_ptb_lstm")
+                         "train_translation, train_ptb_lstm, estimator_bert, "
+                         "forecast_autoformer or forecast_tcn")
     _release()
 
 
@@ -5229,6 +5677,18 @@ def main() -> int:
             "flash_launches_per_step"][f"k{BUNDLE['k']}"][kernel]
     _release()
     train_ptb_lstm(dev)
+    _release()
+    bert = estimator_bert(dev)
+    # the encoder's attention is the non-causal instance
+    for row, kernel in ((fwd_nc_row, "flash_attention_fwd"),
+                        (bwd_row, "flash_attention_bwd_dq")):
+        row["launches_estimator_bert_per_step"] = bert[
+            "flash_launches_per_step"][f"k{BUNDLE['k']}"][kernel]
+    _release()
+    data = forecast_data()
+    forecast_autoformer(dev, data)
+    forecast_tcn(dev, data)
+    del data
     _release()
     train_zero1(dev, lm_bundles["losses_k1"])
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,

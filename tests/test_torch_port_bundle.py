@@ -524,3 +524,34 @@ def test_plateau_drop_reaches_the_next_bundled_step(init):
     assert s4.seen == s1.seen == [(i, 0.1 if i < 8 else 0.05)
                                   for i in range(12)]
     assert l4 == l1 and len(l4) == 12
+
+
+def test_captured_launches_pauses_the_collector():
+    """Inside ``captured_launches`` (around every capture: the step
+    bundles' and the decode engine's) Python's cyclic collector is off,
+    so no collection can free a dropped graph's pool during a capture;
+    it is back on after, also when the capture raises, and stays off
+    when it was off before.  The launches counted inside come back in
+    the Counter, and ``LAUNCHES`` is as it was."""
+    import gc
+
+    from bigdl_tpu_torch.ops.common import LAUNCHES, captured_launches
+
+    assert gc.isenabled()
+    LAUNCHES["k"] += 1
+    with captured_launches() as got:
+        assert not gc.isenabled()
+        LAUNCHES["k"] += 2
+    assert gc.isenabled() and got == {"k": 2} and LAUNCHES["k"] == 1
+    with pytest.raises(RuntimeError):
+        with captured_launches():
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with captured_launches():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+    del LAUNCHES["k"]

@@ -1418,14 +1418,18 @@ def _serve_engine(card, graphs, int8=False, spec=False, **over):
 
 def _serve_waves(eng, prompts):
     """A greedy wave, then a sampled one (seeded), through the engine:
-    the results and the launch counts of the whole run."""
+    the results and the launch counts of the whole run.  Each wave is
+    queued with ``submit_many``, so the engine admits it as one batch and
+    two engines run the same schedule (queued one request at a time, an
+    engine may admit a wave's first request before the rest arrive, and
+    different schedules leave different bytes in the pools)."""
     from bigdl_tpu_torch.serving import DecodeRequest
 
     out = []
     for temp in (0.0, 1.1):
-        reqs = [eng.submit(DecodeRequest(tokens=p, temperature=temp,
-                                         top_k=20, top_p=0.9, seed=7 + i))
-                for i, p in enumerate(prompts)]
+        reqs = eng.submit_many([
+            DecodeRequest(tokens=p, temperature=temp, top_k=20, top_p=0.9,
+                          seed=7 + i) for i, p in enumerate(prompts)])
         out += [r.wait(timeout=120) for r in reqs]
     return out
 
@@ -1750,3 +1754,144 @@ def test_sharded_step_at_world1_equals_train_step(card, option):
             assert torch.equal(a, b)
         assert opt.metrics.snapshot()["gauges"][
             "train.collective_ici_bytes_per_step"] == 0
+
+
+# ---- the converted stock-torch encoder, the Autoformer, the serializer --------
+
+
+class _StockEncoder(torch.nn.Module):
+    """A stock torch encoder classifier: two post-norm layers with dropout
+    0.1 and GELU, the first token's state, a three-label head."""
+
+    def __init__(self):
+        super().__init__()
+        self.emb = torch.nn.Embedding(100, 64)
+        self.enc = torch.nn.TransformerEncoder(
+            torch.nn.TransformerEncoderLayer(64, 2, 128, dropout=0.1,
+                                             activation="gelu",
+                                             batch_first=True), 2)
+        self.head = torch.nn.Linear(64, 3)
+
+    def forward(self, ids):
+        return self.head(self.enc(self.emb(ids))[:, 0])
+
+
+def test_converted_encoder_trains_on_the_flash_kernels(card):
+    """``utils.torch_convert`` drops torch's attention dropout (ROADMAP
+    C.18), so a converted encoder's training step runs the flash forward
+    and both backward entry points, once a layer each, with its dropout
+    layers drawing their masks; its loss and gradients agree with
+    ``use_flash=False`` (the same masks) within 1e-4 of each gradient's
+    norm plus 1e-4 of the total (the key bias apart, ROADMAP C.4)."""
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import reset_launches
+    from bigdl_tpu_torch.utils import prng
+    from bigdl_tpu_torch.utils.torch_convert import from_torch_module
+
+    torch.manual_seed(0)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 100, (4, 80))
+    model, _ = from_torch_module(_StockEncoder(), example_input=ids[:1])
+    model.to(card).train(True)
+    mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    assert len(mhas) == 2
+    x = torch.from_numpy(ids.astype(np.int32)).to(card)
+    y = torch.from_numpy(rs.randint(0, 3, 4)).to(card)
+    key = prng.PRNGKey(3, device=card)
+
+    def step(use_flash):
+        for m in mhas:
+            m.use_flash = use_flash
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = CrossEntropyCriterion()(model(x, key=key), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}, \
+            dict(LAUNCHES)
+
+    loss_f, g_f, n_f = step(None)
+    loss_p, g_p, n_p = step(False)
+    for m in mhas:
+        m.use_flash = None
+    assert {k: n_f.get(k) for k in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkdv")} == {
+        "flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+        "flash_attention_bwd_dkdv": 2}
+    assert not n_p.get("flash_attention_fwd")
+    assert abs(loss_f - loss_p) <= 1e-4 * abs(loss_p)
+    total = torch.sqrt(sum(g.square().sum() for g in g_p.values())).item()
+    for n in g_p:
+        if n.endswith(".bk"):
+            continue
+        err = (g_f[n] - g_p[n]).norm().item() / (g_p[n].norm().item()
+                                                  + 1e-4 * total)
+        assert err <= 1e-4, (n, err)
+
+
+def test_autoformer_forward_on_the_card_against_the_cpu(card):
+    """The Autoformer at a small width: the card (cuFFT) picks the CPU's
+    delays at every auto-correlation and its float32 forward agrees
+    within 1e-4.  The series are seeded so that no two chosen
+    correlations nearly tie."""
+    from bigdl_tpu_torch.forecast import autoformer
+
+    rs = np.random.RandomState(0)
+    t = np.arange(120 + 96)[:, None]
+    series = (np.sin(2 * np.pi * t / 24 + rs.rand(1, 7) * 6.28)
+              + 0.1 * rs.randn(len(t), 7)).astype(np.float32)
+    x = torch.from_numpy(np.stack([series[i:i + 96] for i in range(0, 120,
+                                                                   15)]))
+    model = autoformer.Autoformer(
+        7, 7, 96, 24, hidden=64, heads=4, enc_layers=2, dec_layers=1,
+        ff=128, kernel=25, generator=torch.Generator().manual_seed(0)).eval()
+    picked = []
+    real = autoformer.top_delays
+
+    def record(mean_corr, top_k):
+        vals, idx = real(mean_corr, top_k)
+        picked.append(idx.cpu())
+        return vals, idx
+
+    autoformer.top_delays = record
+    try:
+        with torch.no_grad():
+            want = model(x)
+            n_cpu = len(picked)
+            got = model.to(card)(x.to(card)).cpu()
+    finally:
+        autoformer.top_delays = real
+    assert n_cpu == len(picked) - n_cpu == 4
+    for a, b in zip(picked[:n_cpu], picked[n_cpu:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_serializer_round_trip_from_card_tensors(card, tmp_path):
+    """``save_model`` of tensors on the card writes the JAX format;
+    ``load_model`` gives them back bit for bit, and a forecaster trained
+    on the card saves and loads to the same predictions."""
+    from bigdl_tpu_torch.forecast import TCNForecaster
+    from bigdl_tpu_torch.utils.serializer import load_model, save_model
+
+    g = torch.Generator(device=card).manual_seed(0)
+    tree = {"params": {"w": torch.randn(3, 4, device=card, generator=g),
+                       "b": {"x": torch.arange(5.0, device=card)}},
+            "state": {}}
+    save_model(str(tmp_path / "t"), None, tree)
+    got = load_model(str(tmp_path / "t"), template=tree)
+    assert np.array_equal(got["params"]["w"], tree["params"]["w"].cpu())
+    assert np.array_equal(got["params"]["b"]["x"], np.arange(5.0))
+
+    rs = np.random.RandomState(1)
+    x = rs.randn(64, 24, 2).astype(np.float32)
+    y = rs.randn(64, 4, 2).astype(np.float32)
+    f = TCNForecaster(24, 4, 2, 2, num_channels=(8, 8), device=card)
+    f.fit((x, y), epochs=1, batch_size=32)
+    f.save(str(tmp_path / "f"))
+    back = TCNForecaster(24, 4, 2, 2, num_channels=(8, 8), seed=5,
+                         device=card)
+    back.load(str(tmp_path / "f"))
+    assert np.array_equal(back.predict(x[:8]), f.predict(x[:8]))
