@@ -11,15 +11,17 @@ re-emitted as the port's keras ``Model``, NHWC, weights carried over),
 so torch's own module never runs on the training path; ``state_dict()``
 exports the trained weights back under the module's names.
 
+A declarative layout (``parallelism`` in the config, else the engine's
+``EngineConfig.parallelism``, which ``BIGDL_TPU_PARALLELISM`` sets)
+trains through ``parallel.gspmd.fit_layout`` on every rank of the world
+(``_fit_layout``), with the JAX package's refusals.
+
 Not ported, each refused with a ``ValueError`` naming its ROADMAP item:
-the declarative layouts (``parallelism`` in the config, the engine or
-``BIGDL_TPU_PARALLELISM``; ``_fit_layout``: A.2), ``fault_tolerance``
-(the supervisor: A.6.9), ``slo_specs`` (A.6.7), and stock tf.keras
-models in ``from_keras`` with ``export_to_keras`` (``keras_convert``:
-A.6.11)."""
+``fault_tolerance`` (the supervisor: A.6.9), ``slo_specs`` (A.6.7), and
+stock tf.keras models in ``from_keras`` with ``export_to_keras``
+(``keras_convert``: A.6.11)."""
 
 import inspect
-import os
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -87,17 +89,6 @@ def _to_xy(data):
             x = np.asarray(x)
         return DataSet.array(x, np.asarray(y))
     raise TypeError(f"unsupported data type {type(data)}")
-
-
-def _refuse_parallelism(config: Dict) -> None:
-    par = config.get("parallelism")
-    if par is None:
-        par = getattr(Engine.get().config, "parallelism", None)
-    if par is None:
-        par = os.environ.get("BIGDL_TPU_PARALLELISM") or None
-    if par is not None:
-        raise ValueError(f"parallelism={par!r}: the declarative layouts "
-                         "are not ported yet (ROADMAP A.2)")
 
 
 def _refuse_tf_keras(what: str):
@@ -211,7 +202,27 @@ class Estimator:
         ``epochs``, ``num_samples``, and ``recoveries_total`` with
         ``time_lost_to_recovery_s`` when the in-run retry recovered)."""
         ds = _to_xy(data)
-        _refuse_parallelism(self.config)
+        par = self.config.get("parallelism")
+        if par is None:
+            par = Engine.get().config.parallelism
+        if par is not None:
+            # what the layout path does not carry fails loudly (a
+            # fleet-wide BIGDL_TPU_PARALLELISM must not drop a job's
+            # requested resilience)
+            unsupported = [n for n, v in (
+                ("fault_tolerance", fault_tolerance),
+                ("checkpoint_trigger", checkpoint_trigger),
+                ("profile_dir", profile_dir)) if v]
+            if unsupported:
+                raise ValueError(
+                    f"parallelism={par!r} (declarative GSPMD fit) does "
+                    f"not support {', '.join(unsupported)} yet — drop "
+                    "them or unset parallelism to use the classic "
+                    "ZeRO-1 driver (docs/parallelism.md §Declarative "
+                    "layouts)")
+            return self._fit_layout(ds, str(par), epochs, batch_size,
+                                    validation_data, validation_methods,
+                                    checkpoint_path)
         if fault_tolerance:
             raise ValueError("fit(fault_tolerance=...): the Supervisor is "
                              "not ported yet (ROADMAP A.6.9)")
@@ -256,9 +267,43 @@ class Estimator:
                 opt.metrics.counter("time_lost_to_recovery_s")
         return self._last_stats
 
-    def _fit_layout(self, *args, **kwargs):
-        raise ValueError("the declarative GSPMD fit (parallelism=...) is "
-                         "not ported yet (ROADMAP A.2)")
+    def _fit_layout(self, ds, parallelism: str, epochs: int,
+                    batch_size: int, validation_data, validation_methods,
+                    checkpoint_path: Optional[str]) -> Dict[str, Any]:
+        """The declarative layout fit (``fit_layout``) from the model's
+        weights (a ``from_torch`` estimator's converted ones); the same
+        seed gives every policy the same data order.  With
+        ``checkpoint_path`` rank 0 saves the final weights; with
+        ``validation_data`` one validation at the end."""
+        from bigdl_tpu_torch.parallel.gspmd import fit_layout
+
+        if self._initial_variables is not None:
+            load_jax_variables(self.model.to(self.device),
+                               self._initial_variables)
+        self._trained, stats = fit_layout(
+            self.model, self.criterion, self.optim_method, ds,
+            parallelism=parallelism, batch_size=batch_size,
+            epochs=epochs, seed=int(self.config.get("seed", 42)),
+            log_every=int(self.config.get("log_every", 10)),
+            device=self.device)
+        self._loaded = None
+        if checkpoint_path is not None:
+            from bigdl_tpu_torch.utils.serializer import save_model
+
+            variables = self._trained.variables     # every rank gathers
+            if _process_index_count()[0] == 0:
+                save_model(checkpoint_path, self.model, variables)
+        if validation_data is not None:
+            vds = _to_xy(validation_data)
+            methods = list(validation_methods) or [Loss(self.criterion)]
+            res = self._trained.evaluate(vds, methods, batch_size)
+            stats["validation"] = {r.name: r.result for r in res}
+        losses = stats.pop("losses", None) or []
+        if losses:
+            stats["first_loss"] = losses[0]
+            stats["final_loss"] = losses[-1]
+        self._last_stats = stats
+        return stats
 
     # ---- inference ----------------------------------------------------------
     def _model(self) -> TrainedModel:

@@ -2,8 +2,10 @@
 predict / evaluate / save / load harness over the forecast models, on the
 port's ``Optimizer`` on ``device`` (None is ``cuda``).
 
+``fit(parallelism=...)`` trains through the declarative layout driver
+(``parallel.gspmd.fit_layout``) on every rank of the world.
+
 Not ported, each refused with a ``ValueError`` naming its ROADMAP item:
-``fit(parallelism=...)`` (the declarative layouts, A.2) and
 ``optimize_predict`` / ``predict_with_optimized`` (``nano``'s
 InferenceOptimizer, A.6.10)."""
 
@@ -89,12 +91,26 @@ class BaseForecaster:
             validation_data=None,
             parallelism: Optional[str] = None) -> "BaseForecaster":
         """Train from the model's current weights; with
-        ``validation_data``, MSE at every epoch's end."""
-        if parallelism is not None:
-            raise ValueError(f"fit(parallelism={parallelism!r}): the "
-                             "declarative layouts are not ported yet "
-                             "(ROADMAP A.2)")
+        ``validation_data``, MSE at every epoch's end.  ``parallelism=``
+        trains through ``fit_layout`` (the layout's stats land on
+        ``self._layout_stats``) and, as in the JAX package, refuses
+        ``validation_data``."""
         x, y = _as_xy(data)
+        if parallelism is not None:
+            if validation_data is not None:
+                raise ValueError(
+                    f"parallelism={parallelism!r} (declarative GSPMD fit) "
+                    "does not support validation_data yet — drop it or "
+                    "unset parallelism to use the classic ZeRO-1 driver "
+                    "(docs/parallelism.md §Declarative layouts)")
+            from bigdl_tpu_torch.parallel.gspmd import fit_layout
+
+            self._trained, self._layout_stats = fit_layout(
+                self.model, self.criterion, self.optim,
+                DataSet.array(x, y), parallelism=str(parallelism),
+                batch_size=batch_size, epochs=epochs, seed=self.seed,
+                device=self.device)
+            return self
         opt = Optimizer(self.model, DataSet.array(x, y), self.criterion,
                         batch_size=batch_size, device=self.device)
         opt.set_optim_method(self.optim)

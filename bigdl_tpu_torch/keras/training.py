@@ -2,12 +2,14 @@
 keras strings of ``compile`` resolved to the port's optim methods,
 criteria and validation methods, and ``fit`` as one run of the port's
 ``Optimizer`` with the JAX package's triggers, validation and
-checkpoints.
+checkpoints, or, with ``parallelism=``, one run of the declarative
+layout driver (``parallel.gspmd.fit_layout``) on every rank of the
+world.
 
-The JAX package's declarative layouts (``fit(..., parallelism=...)``)
-and sequence-parallel fit (``seq_parallel=True``) are not ported: they
-raise, naming their ROADMAP items."""
+Sequence-parallel fit (``seq_parallel=True``) is not ported: it raises,
+naming its ROADMAP item."""
 
+import logging
 from typing import Any, Dict, Sequence
 
 import numpy as np
@@ -21,6 +23,8 @@ from bigdl_tpu_torch.optim import validation as _vm
 from bigdl_tpu_torch.optim.optimizer import Optimizer, TrainedModel
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.utils.convert import load_keras_variables
+
+log = logging.getLogger("bigdl_tpu_torch.keras")
 
 _OPTIMIZERS = {
     "sgd": lambda: _om.SGD(learning_rate=1e-2),
@@ -109,17 +113,51 @@ def fit_module(model, compiled: Dict[str, Any], x, y=None, batch_size=32,
     ``Optimizer`` run: ``nb_epoch`` epochs (or ``end_trigger``), a
     validation with the compiled metrics (else the loss) and a checkpoint
     at every epoch's end.  ``device=None`` is ``cuda``.  ``log_every`` is
-    accepted for the JAX signature; the port's driver reports every step
-    in its metrics."""
-    if parallelism is not None:
-        raise ValueError(f"fit(parallelism={parallelism!r}): declarative "
-                         "layouts are not ported yet (ROADMAP A.2)")
-    if seq_parallel:
-        raise ValueError("fit(seq_parallel=True): sequence parallelism is "
-                         "not ported yet (ROADMAP A.4)")
+    the layout driver's log period; the port's ``Optimizer`` reports
+    every step in its metrics.
+
+    ``parallelism=`` (``"dp"``, ``"fsdp:2,tp:2"``, ...) trains through
+    ``fit_layout`` over the world's ranks, then validates once; it keeps
+    the JAX package's refusals (``seq_parallel``, ``checkpoint_path``,
+    ``end_trigger``)."""
     n_inputs = len(getattr(model, "inputs", ()) or ())
     # one packing rule for fit, predict and evaluate: Model._pack_inputs
     pack = getattr(model, "_pack_inputs", np.asarray)
+    if parallelism is not None:
+        if seq_parallel:
+            raise ValueError(
+                "parallelism= and seq_parallel= are exclusive: express "
+                "sequence sharding as a layout axis ('dp:2,seq:4')")
+        unsupported = [n for n, v in (
+            ("checkpoint_path", checkpoint_path),
+            ("end_trigger", end_trigger)) if v]
+        if unsupported:
+            raise ValueError(
+                f"parallelism={parallelism!r} (declarative GSPMD fit) "
+                f"does not support {', '.join(unsupported)} yet — drop "
+                "them or unset parallelism for the classic driver "
+                "(docs/parallelism.md §Declarative layouts)")
+        from bigdl_tpu_torch.parallel.gspmd import fit_layout
+
+        trained, _ = fit_layout(
+            model, compiled["loss"], compiled["optimizer"],
+            _dataset(pack, x, y, "", n_inputs),
+            parallelism=str(parallelism), batch_size=batch_size,
+            epochs=nb_epoch, log_every=log_every, device=device)
+        if validation_data is not None:
+            if isinstance(validation_data, ArrayDataSet):
+                vds = validation_data
+            else:
+                vx, vy = validation_data
+                vds = ArrayDataSet(pack(vx), np.asarray(vy))
+            methods = compiled["metrics"] or [_vm.Loss(compiled["loss"])]
+            res = trained.evaluate(vds, methods, batch_size=batch_size)
+            log.info("[layout %s] validation: %s", parallelism,
+                     {r.name: r.result for r in res})
+        return trained
+    if seq_parallel:
+        raise ValueError("fit(seq_parallel=True): sequence parallelism is "
+                         "not ported yet (ROADMAP A.4)")
     ds = _dataset(pack, x, y, "", n_inputs)
     opt = Optimizer(model, ds, compiled["loss"], batch_size=batch_size,
                     device=device)

@@ -4,7 +4,9 @@
 Attention with the flash kernel dispatch (plain masked attention
 otherwise, and with attention dropout; sequence parallelism is not
 ported), self or cross (``context=``, the keys and values projected from
-the encoder's memory), the FFN (dense, or block-sparse with
+the encoder's memory), on plain tensors or on a layout's DTensors (the
+attention and the embedding lookup then run on each rank's shards,
+``parallel.local_ops``), the FFN (dense, or block-sparse with
 ``ffn_sparsity > 0``), the pre-LN encoder and decoder blocks, and
 ``Transformer`` in both modes: ``"translation"`` (encoder, causal
 decoder with cross-attention) and ``"lm"``, each with its sqrt(d)-scaled
@@ -25,6 +27,7 @@ into four (attention weights, attention residual, FFN, FFN residual),
 FFN; no residual dropout, as in JAX).  Without a key nothing is dropped
 in eval mode, and training with dropout > 0 raises."""
 
+import functools
 import math
 import os
 from contextlib import contextmanager
@@ -40,6 +43,7 @@ from bigdl_tpu_torch.nn.decode import (beam_search, greedy_decode,
 from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
+from bigdl_tpu_torch.parallel import local_ops
 from bigdl_tpu_torch.tensor.policy import matmul_f32, matmul_promote
 from bigdl_tpu_torch.utils import prng
 
@@ -139,7 +143,13 @@ class MultiHeadAttention(Module):
                          and os.environ.get("BIGDL_TPU_FLASH") != "0")
         else:
             use_flash = self.use_flash and flash_ok
-        if use_flash:
+        if flash_ok and local_ops.is_dtensor(q):
+            # a layout: the flash kernels or the plain attention on each
+            # rank's local batch and heads
+            out = local_ops.attention(
+                functools.partial(flash_attention, causal=self.causal)
+                if use_flash else self._plain, q, k, v)
+        elif use_flash:
             out = flash_attention(q, k, v, causal=self.causal)
         else:
             out = self._plain(q, k, v, mask, key)
@@ -147,7 +157,7 @@ class MultiHeadAttention(Module):
         out = out.transpose(1, 2).reshape(b, t, h * dh)
         return _attn_project(self, out, "wo", "bo").to(x.dtype)
 
-    def _plain(self, q, k, v, mask, key=None):
+    def _plain(self, q, k, v, mask=None, key=None):
         if self.causal:
             lq, lk = q.shape[2], k.shape[2]
             cmask = torch.ones(lq, lk, dtype=torch.bool,
@@ -317,7 +327,12 @@ class Transformer(Module):
         self.train(False)
 
     def _embed(self, ids):
-        e = self.embedding[ids.long()] * math.sqrt(self.hidden_size)
+        if local_ops.is_dtensor(self.embedding):
+            # a layout: each rank's rows of the table (vocab_lookup)
+            e = local_ops.vocab_lookup(self.embedding, ids)
+        else:
+            e = self.embedding[ids.long()]
+        e = e * math.sqrt(self.hidden_size)
         return e + positional_encoding(ids.shape[1], self.hidden_size,
                                        device=e.device)[None].to(e.dtype)
 

@@ -30,7 +30,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from bigdl_tpu_torch.nn.layers import Linear
-from bigdl_tpu_torch.ops.common import cdiv, launch
+from bigdl_tpu_torch.ops.common import cdiv, launch, refuse_dtensor
 from bigdl_tpu_torch.tensor.policy import cast_compute
 
 KERNEL = "block_sparse_matmul"
@@ -327,6 +327,7 @@ def block_sparse_matmul(x, w, mask=None, *, block_k: int = 0,
     copy is reused across calls).  ``x`` and ``w`` are both float32 or
     both bfloat16 (float32 sums either way).  Differentiable.  Returns
     (…, N) in x's dtype."""
+    refuse_dtensor("block_sparse_matmul", x, w)
     if plan is None:
         if mask is None or not block_k or not block_n:
             raise ValueError("block_sparse_matmul needs a plan, or a mask "

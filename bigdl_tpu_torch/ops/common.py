@@ -5,6 +5,7 @@ keeps."""
 import contextlib
 import ctypes
 import gc
+import sys
 from collections import Counter
 from typing import Dict, Iterator, Sequence, Tuple
 
@@ -84,6 +85,23 @@ def launch(kernel: str, signature: Tuple[str, str, Sequence], device,
         raise RuntimeError(f"{kernel} kernel failed: CUDA error {err} "
                            f"({err_str(err).decode()})")
     LAUNCHES[kernel] += 1
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (never true before DTensor's module is
+    imported, so a run without a layout does not import it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def refuse_dtensor(op: str, *tensors) -> None:
+    """Raise when a DTensor reaches a kernel wrapper: the kernels (and
+    their plain versions) take each rank's local tensors, so a layout
+    reaches them through ``local_map`` (``parallel.local_ops``), never
+    by falling back to another path."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{op} takes plain tensors, got a DTensor: reach "
+                        f"it through local_map (parallel.local_ops)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from bigdl_tpu_torch.ops.common import cdiv, launch
+from bigdl_tpu_torch.ops.common import cdiv, launch, refuse_dtensor
 
 KERNEL = "paged_decode_attention"
 KERNEL_INT8 = "paged_decode_attention_int8"
@@ -72,6 +72,8 @@ def _check_paged(q, k_pages, v_pages, page_table, rows, k_scales,
                  v_scales, rows_name):
     """Shapes, scales and one device of a paged call; ``q`` is (slots,
     heads, [chunk,] head_dim).  Returns the device."""
+    refuse_dtensor("paged attention", q, k_pages, v_pages, page_table,
+                   rows)
     if q.ndim not in (3, 4) or k_pages.ndim != 4:
         raise ValueError(f"q must be (slots, heads, [chunk,] head_dim) and "
                          f"pages (pages, heads, page, head_dim), got "
@@ -345,6 +347,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, *, causal: bool,
 def _check_flash(q, k, v, *more) -> torch.device:
     """Shapes (q (b, h, sq, d), k and v (b, h, skv, d)) and one device;
     on CUDA also float32 and a head_dim the kernels take."""
+    refuse_dtensor("flash_attention", q, k, v, *more)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q, k, v must be (batch, heads, seq, head_dim), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -16,7 +16,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from bigdl_tpu_torch.ops.common import launch
+from bigdl_tpu_torch.ops.common import launch, refuse_dtensor
 
 KERNEL = "fused_layernorm"
 _P = ctypes.c_void_p
@@ -97,6 +97,7 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor,
     dtype.  CUDA tensors launch the kernel and must be float32 (any
     layout: a non-contiguous ``x`` is copied first); CPU tensors take the
     plain version.  Differentiable in all three."""
+    refuse_dtensor("fused_layernorm", x, gamma, beta)
     d = x.shape[-1]
     if tuple(gamma.shape) != (d,) or tuple(beta.shape) != (d,):
         raise ValueError(f"gamma and beta must be ({d},) for x "

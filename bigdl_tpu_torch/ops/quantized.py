@@ -23,7 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from bigdl_tpu_torch.ops.common import cdiv, launch, round_up
+from bigdl_tpu_torch.ops.common import (cdiv, launch, refuse_dtensor,
+                                        round_up)
 
 KERNEL = "int8_matmul"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -210,6 +211,7 @@ def int8_matmul_nk(x_q: torch.Tensor, w_nk: torch.Tensor,
     ``x_q``'s rows may be a row-strided view (:func:`quantize_activations`
     pads them to 16 bytes); a weight that is not a contiguous (N, K) is
     copied into one.  CPU tensors take the plain version."""
+    refuse_dtensor("int8_matmul", x_q, w_nk, w_scales, sx, bias)
     if x_q.ndim != 2 or w_nk.ndim != 2 or x_q.shape[1] != w_nk.shape[1]:
         raise ValueError(f"int8_matmul_nk takes (M, K) x (N, K), got "
                          f"{tuple(x_q.shape)} and {tuple(w_nk.shape)}")

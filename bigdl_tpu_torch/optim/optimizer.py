@@ -162,7 +162,12 @@ log = logging.getLogger("bigdl_tpu_torch.optim")
 class TrainedModel:
     """What ``optimize()`` returns: the trained module, its variables as
     JAX-keyed ``{"params", "state"}`` trees, batched prediction and
-    evaluation, and ``losses``, the loss of every step of the run."""
+    evaluation, and ``losses``, the loss of every step of the run.
+
+    A layout's model (``parallel.gspmd.fit_layout``: its parameters
+    DTensors) predicts, evaluates and loads through its step, as the
+    JAX ``TrainedModel`` does through a layout engine; reading its
+    variables gathers them (a collective every rank calls)."""
 
     def __init__(self, model: torch.nn.Module, device: torch.device,
                  step: Optional[TrainStep] = None,
@@ -173,6 +178,10 @@ class TrainedModel:
         self.losses = list(losses)
 
     @property
+    def _layout(self) -> bool:
+        return hasattr(self._step, "predict_fn")
+
+    @property
     def variables(self) -> Dict[str, Any]:
         return export_variables(self.model)
 
@@ -181,13 +190,16 @@ class TrainedModel:
         """The EMA weights (with the live BatchNorm state) when the run
         kept one (``ema_decay``), else None; evaluate them through
         ``set_variables(trained.ema_variables)``."""
-        if self._step is None or self._step.ema is None:
+        if self._step is None or getattr(self._step, "ema", None) is None:
             return None
         return self._step.get_variables(ema=True)
 
     def set_variables(self, variables: Dict[str, Any]) -> None:
         """Copy a ``{"params", "state"}`` tree into the model."""
-        load_jax_variables(self.model, variables)
+        if self._layout:
+            self._step.set_variables(variables)
+        else:
+            load_jax_variables(self.model, variables)
 
     @torch.no_grad()
     def predict(self, x, batch_size: int = 0) -> np.ndarray:
@@ -198,6 +210,11 @@ class TrainedModel:
         xs = x if isinstance(x, tuple) else (x,)
         n = len(xs[0])
         step = batch_size if batch_size > 0 else max(n, 1)
+        if self._layout:
+            run = self._step.predict_fn()
+            return np.concatenate([
+                run(tuple(a[i:i + step] for a in xs) if len(xs) > 1
+                    else xs[0][i:i + step]) for i in range(0, n, step)])
         return np.concatenate([
             self.model(*(to_device(a[i:i + step], self.device)
                          for a in xs)).cpu().numpy()
@@ -208,8 +225,11 @@ class TrainedModel:
                  batch_size: int = 128) -> List[ValidationResult]:
         """Every method over ``dataset`` in order, every row once, in
         eval mode on the training device."""
-        return evaluate(self.model, list(methods), dataset.batches(
-            batch_size, shuffle=False, drop_last=False), self.device)
+        batches = dataset.batches(batch_size, shuffle=False,
+                                  drop_last=False)
+        if self._layout:
+            return self._step.evaluate(list(methods), batches)
+        return evaluate(self.model, list(methods), batches, self.device)
 
 
 class Optimizer:
@@ -279,6 +299,8 @@ class Optimizer:
         # this process's place in the engine's process group
         self._group = None
         self._rank, self._world = 0, 1
+        # the collective bytes a step (_publish_ledger)
+        self._ici_bytes_step = self._dcn_bytes_step = 0
         self._val_trigger: Optional[Trigger] = None
         self._val_dataset: Optional[DataSet] = None
         self._val_methods: List[ValidationMethod] = []
@@ -511,12 +533,15 @@ class Optimizer:
 
     def _publish_ledger(self, step: TrainStep) -> None:
         """The step's collective bytes a step as the JAX driver's gauges
-        (0 on one process; no cross-slice hop)."""
+        (0 on one process; the DCN hop's with more than one slice)."""
         grad = getattr(step, "grad_sync_ici_bytes_per_step", 0)
         param = getattr(step, "param_sync_ici_bytes_per_step", 0)
+        self._ici_bytes_step = grad + param
+        self._dcn_bytes_step = getattr(step, "dcn_bytes_per_step", 0)
         self.metrics.gauge("train.collective_ici_bytes_per_step",
                            grad + param)
-        self.metrics.gauge("train.collective_dcn_bytes_per_step", 0)
+        self.metrics.gauge("train.collective_dcn_bytes_per_step",
+                           self._dcn_bytes_step)
         self.metrics.gauge("train.collective_grad_ici_bytes_per_step", grad)
         self.metrics.gauge("train.collective_param_ici_bytes_per_step",
                            param)
@@ -674,6 +699,13 @@ class Optimizer:
             self.metrics.add("step_dispatch",
                              (time.perf_counter() - t0) / k)
         self._last_dispatch_end = time.perf_counter()
+        # every step moves the same sync traffic (a static layout)
+        if self._ici_bytes_step:
+            self.metrics.inc("train.collective_ici_bytes_total",
+                             self._ici_bytes_step * k)
+        if self._dcn_bytes_step:
+            self.metrics.inc("train.collective_dcn_bytes_total",
+                             self._dcn_bytes_step * k)
         self._trained.append((it0, losses))
         if self._needs_reads():
             self._pending.append((it0, *self._to_host(losses, gnorms)))

@@ -619,6 +619,16 @@ class ShardedParameterStep(TrainStep):
     and after the step the loss and every floating buffer (BatchNorm's
     running statistics) are averaged over the ranks.
 
+    With ``dcn_data > 1`` slices (``mesh.dcn_size``) the cycle is the JAX
+    step's hierarchical one: the reduce-scatter and the all-gather run
+    on the slice's ranks (``mesh.ici_group``, the ``data`` axis) and
+    each reduced bucket slice is summed across slices on
+    ``mesh.dcn_group`` in the ``grad_comm`` wire (:func:`collectives.
+    psum_wire`; int8: two quantized phases), so only ``1 / data`` of the
+    gradient crosses slices and no parameter does.  Every slice then
+    makes the same update; the mean divides by ``n_data_replicas``
+    (``data * dcn``), and rank ``r`` is data replica ``r``.
+
     On one rank there is no wire: the step is ``TrainStep``'s, to the
     bit, on the flat buffers.  On the card a bundle is a captured CUDA
     graph of one step with its NCCL collectives inside; the eager warm
@@ -657,9 +667,16 @@ class ShardedParameterStep(TrainStep):
         self.quant_block = int(quant_block)
         self.comm_bucket_bytes = comm_bucket_bytes
         self.mesh = mesh
-        self.group = mesh.group
+        # the ZeRO-1 cycle runs on the slice's ranks; loss, buffers and
+        # a layer-wise method's gradient average over every rank
+        self.group = mesh.ici_group if mesh.ici_group is not None \
+            else mesh.group
+        self.world_group = mesh.group
+        self.dcn_group = mesh.dcn_group
         self.rank = mesh.rank
         self.ndev = mesh.data_size
+        self.dcn = mesh.dcn_size
+        self.data_index = mesh.data_index
         super().__init__(model, criterion, optim_method, clip=clip,
                          seed=seed, accum_steps=accum_steps,
                          ema_decay=ema_decay, remat=remat,
@@ -721,7 +738,7 @@ class ShardedParameterStep(TrainStep):
                 off += n
         if not self._zero1:
             return self.optim_method.init_state(self.params), ema
-        lo = self.rank * self.shard_size
+        lo = self.data_index * self.shard_size
         state = self.optim_method.init_state(
             [self.flat_params[lo:lo + self.shard_size]])
         if len(self._cols) > 1:
@@ -743,9 +760,15 @@ class ShardedParameterStep(TrainStep):
 
     @property
     def _zero1(self) -> bool:
-        """Whether the optimizer state is sharded: an elementwise method
-        on more than one rank."""
-        return self.ndev > 1 and self.optim_method.elementwise
+        """Whether the update runs on the flat shards (the optimizer
+        state this rank's shard alone): an elementwise method on more
+        than one rank."""
+        return self.n_data_replicas > 1 and self.optim_method.elementwise
+
+    @property
+    def n_data_replicas(self) -> int:
+        """The data-parallel degree over both axes (data x dcn)."""
+        return self.ndev * self.dcn
 
     def _zero_grads(self) -> None:
         self.flat_grads.zero_()
@@ -762,20 +785,20 @@ class ShardedParameterStep(TrainStep):
     # ---- the step ---------------------------------------------------------------
     def _pmean(self, t: torch.Tensor) -> torch.Tensor:
         s = t.detach().float().reshape(1).clone()
-        dist.all_reduce(s, group=self.group)
-        return (s / self.ndev).reshape(t.shape)
+        dist.all_reduce(s, group=self.world_group)
+        return (s / self.n_data_replicas).reshape(t.shape)
 
     def _run(self, x, y, scalars, want_gnorm: bool = False):
         loss, gnorm = super()._run(x, y, scalars, want_gnorm)
-        if self.ndev > 1:
+        if self.n_data_replicas > 1:
             with torch.no_grad():
                 loss = self._pmean(loss)
                 bufs = [b for _, b in self._buffers()
                         if b.is_floating_point()]
                 if bufs:
                     flat = torch.cat([b.reshape(-1) for b in bufs])
-                    dist.all_reduce(flat, group=self.group)
-                    flat.div_(self.ndev)
+                    dist.all_reduce(flat, group=self.world_group)
+                    flat.div_(self.n_data_replicas)
                     off = 0
                     for b in bufs:
                         b.copy_(flat[off:off + b.numel()].view(b.shape))
@@ -785,7 +808,7 @@ class ShardedParameterStep(TrainStep):
     @torch.no_grad()
     def _apply(self, scalars, accum: int, want_gnorm: bool
                ) -> Optional[torch.Tensor]:
-        if self.ndev == 1:
+        if self.n_data_replicas == 1:
             return super()._apply(scalars, accum, want_gnorm)
         g, n = self.flat_grads, self.ndev
         if accum > 1:
@@ -795,15 +818,25 @@ class ShardedParameterStep(TrainStep):
         if not self.optim_method.elementwise:
             # layer-wise (LARS): the whole mean gradient, replicated update
             with record_function("train_step/grad_sync"):
-                dist.all_reduce(g, group=self.group)
-                g.div_(n)
+                dist.all_reduce(g, group=self.world_group)
+                g.div_(self.n_data_replicas)
             return super()._apply(scalars, 1, want_gnorm)
         group, block = self.group, self.quant_block
         g2d = g.view(n, self.shard_size)
         with record_function("train_step/grad_sync"):
-            slices = [collectives.reduce_scatter_wire(
-                g2d[:, c0:c1], group, self.grad_comm, block=block).float()
-                / n for c0, c1 in self._cols]
+            slices = []
+            for c0, c1 in self._cols:
+                # one slice's rank alone: no wire, no quantization
+                sb = (collectives.reduce_scatter_wire(
+                    g2d[:, c0:c1], group, self.grad_comm, block=block)
+                    if n > 1 else g[c0:c1])
+                if self.dcn > 1:
+                    # still in the wire dtype: bf16 crosses at half the
+                    # bytes, int8 in two quantized phases
+                    sb = collectives.psum_wire(sb, self.dcn_group,
+                                               self.dcn, self.grad_comm,
+                                               block=block)
+                slices.append(sb.float() / self.n_data_replicas)
         gnorm = None
         if want_gnorm:
             gnorm = self._global_sq(slices).sqrt()
@@ -822,7 +855,7 @@ class ShardedParameterStep(TrainStep):
             flat = self.flat_params
             old = flat.clone() if self._mask_flat is not None else None
             flat2d = flat.view(n, self.shard_size)
-            lo = self.rank * self.shard_size
+            lo = self.data_index * self.shard_size
             for (c0, c1), sb in zip(self._cols, slices):
                 p_b = flat[lo + c0:lo + c1]
                 o_b = (self.opt_state if len(self._cols) == 1 else
@@ -830,6 +863,8 @@ class ShardedParameterStep(TrainStep):
                 prev = p_b.clone() if self.param_comm == "int8" else None
                 self.optim_method.apply(scalars, [sb], [p_b], o_b)
                 rows = flat2d[:, c0:c1]
+                if n == 1:
+                    continue
                 if prev is not None:
                     # the delta on the wire; every rank adds the same
                     # dequantized bytes to its replicated base
@@ -851,9 +886,11 @@ class ShardedParameterStep(TrainStep):
         return gnorm
 
     def _global_sq(self, slices) -> torch.Tensor:
-        """The sum over ranks of the shards' squared entries."""
+        """The sum over a slice's ranks of the shards' squared entries
+        (every slice holds the same summed shards)."""
         sq = sum(torch.sum(sb * sb) for sb in slices).reshape(1)
-        dist.all_reduce(sq, group=self.group)
+        if self.ndev > 1:
+            dist.all_reduce(sq, group=self.group)
         return sq.reshape(())
 
     # ---- the byte ledger -----------------------------------------------------
@@ -888,6 +925,17 @@ class ShardedParameterStep(TrainStep):
         return (self.grad_sync_ici_bytes_per_step
                 + self.param_sync_ici_bytes_per_step)
 
+    @property
+    def dcn_bytes_per_step(self) -> int:
+        """Wire bytes a step across slices: the DCN psum of each bucket's
+        ``1 / data`` slice in the ``grad_comm`` wire (int8: both
+        quantized phases); 0 with one slice."""
+        if self.dcn <= 1:
+            return 0
+        return sum(collectives.psum_wire_bytes(
+            c1 - c0, self.dcn, self.grad_comm, self.quant_block)
+            for c0, c1 in self._cols)
+
     # ---- checkpoints --------------------------------------------------------------
     def opt_shard(self) -> Tuple[Dict[str, np.ndarray], int,
                                  Dict[str, np.ndarray]]:
@@ -902,7 +950,7 @@ class ShardedParameterStep(TrainStep):
                 whole[slot] = val.detach().cpu().numpy()
             else:
                 shards[slot] = val[0].detach().cpu().numpy()
-        return shards, self.rank * self.shard_size, whole
+        return shards, self.data_index * self.shard_size, whole
 
     def _flat_vectors(self):
         """The flat buffers at ``n_pad``, as the JAX step writes them."""
@@ -918,6 +966,9 @@ class ShardedParameterStep(TrainStep):
             if isinstance(val, torch.Tensor):
                 opt[slot] = val.detach().cpu().numpy()
                 continue
+            if self.ndev == 1:
+                opt[slot] = val[0].detach().cpu().numpy()
+                continue
             full = val[0].new_empty(self.n_pad)
             collectives.all_gather(full, val[0], self.group)
             opt[slot] = full.cpu().numpy()
@@ -926,7 +977,7 @@ class ShardedParameterStep(TrainStep):
     def _restore_opt(self, opt_state: Dict[str, np.ndarray]) -> None:
         if not self._zero1:
             return super()._restore_opt(opt_state)
-        lo = self.rank * self.shard_size
+        lo = self.data_index * self.shard_size
         for slot, val in self.opt_state.items():
             src = np.asarray(opt_state[slot])
             if isinstance(val, torch.Tensor):

@@ -1,6 +1,5 @@
 """The ZeRO-1 cycle's wire layer — the port of
-``bigdl_tpu.parallel.collectives`` over ``torch.distributed``, without
-the cross-slice (DCN) hop.
+``bigdl_tpu.parallel.collectives`` over ``torch.distributed``.
 
 The flat gradient is a ``(n, w)`` view, row ``r`` the chunk rank ``r``
 owns; a collective of one bucket of columns ``[c0, c1)`` reduces
@@ -21,6 +20,12 @@ tensors); none falls back to another.
   the int8 update delta and its scales and adds them to the replicated
   base rows; the gathered bytes are the same on every rank, so the
   parameters stay equal to the bit across ranks.
+- :func:`psum_wire` (the hierarchical DCN hop): the sum over the DCN
+  group of one reduced slice, ``all_reduce`` in fp32 or bf16 (the
+  slice's own dtype), or :func:`psum_quantized` for int8: an
+  all-to-all scatter with a dequantized sum (as the int8 reduce-scatter)
+  and an all-gather of the re-quantized summed sub-chunk, so every rank
+  dequantizes the same bytes.
 - ``bucket_columns`` splits the shard width into column buckets (one
   collective each; shard ownership, and so the optimizer state and
   checkpoints, identical for any bucket size).
@@ -121,6 +126,39 @@ def all_gather_delta_quantized(delta: torch.Tensor, base_rows: torch.Tensor,
     return torch.add(base_rows, rows, out=out)
 
 
+def psum_quantized(vec: torch.Tensor, group, n: int, *,
+                   block: int = DEFAULT_QUANT_BLOCK) -> torch.Tensor:
+    """The sum over the ``n`` ranks of ``group`` of the float32 vector
+    ``vec`` (w,) with int8 wire bytes, in two quantized phases: each
+    rank's ``ceil(w / n)``-wide sub-chunk (rounded up to the block) is
+    reduce-scattered by :func:`reduce_scatter_quantized`, re-quantized
+    and all-gathered.  The result is the same to the bit on every
+    rank."""
+    w = vec.shape[0]
+    block = max(1, min(block, -(-w // n)))
+    chunk = _round_up(-(-w // n), block)
+    gp = F.pad(vec.float(), (0, n * chunk - w))
+    part = reduce_scatter_quantized(gp.view(n, chunk), group, block=block)
+    q, scales = quantize_blockwise(part, block)
+    q_all = q.new_empty(n * chunk)
+    s_all = scales.new_empty(n * (chunk // block))
+    all_gather(q_all, q.contiguous(), group)
+    all_gather(s_all, scales.contiguous(), group)
+    return dequantize_blockwise(q_all, s_all)[:w]
+
+
+def psum_wire(vec: torch.Tensor, group, n: int, mode: str, *,
+              block: int = DEFAULT_QUANT_BLOCK) -> torch.Tensor:
+    """The DCN hop of one reduced slice: the sum over ``group`` (``n``
+    ranks) in the slice's own dtype (fp32, bf16), or through
+    :func:`psum_quantized` (int8, float32 out)."""
+    if mode == "int8":
+        return psum_quantized(vec, group, n, block=block)
+    out = vec.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
 def reduce_scatter_wire(g2d: torch.Tensor, group, mode: str, *,
                         block: int = DEFAULT_QUANT_BLOCK) -> torch.Tensor:
     """This rank's reduced ``(w,)`` chunk of one bucket ``g2d`` (n, w):
@@ -185,21 +223,32 @@ def ag_wire_bytes(w: int, n: int, mode: str,
     return int(n * w * 4)
 
 
+def psum_wire_bytes(w: int, n: int, mode: str,
+                    block: int = DEFAULT_QUANT_BLOCK) -> int:
+    """Wire bytes of the DCN psum of a ``w``-element slice over ``n``
+    ranks: two phases of about the slice's wire bytes (int8: padded
+    payload and scales, twice)."""
+    if n <= 1 or w <= 0:
+        return 0
+    if mode == "int8":
+        block = max(1, min(block, -(-w // n)))
+        chunk = _round_up(-(-w // n), block)
+        return 2 * (n * chunk + n * (chunk // block) * _SCALE_BYTES)
+    return int(2 * w * wire_itemsize(mode))
+
+
 def layout_ledger(n_params: int, ndev: int, dcn: int = 1,
                   mode: str = "fp32", bucket_bytes: Optional[int] = None,
                   block: int = DEFAULT_QUANT_BLOCK,
                   param_comm: str = "fp32") -> Dict[str, float]:
     """The per-step collective bytes of a ZeRO-1 cycle over ``n_params``
-    parameters on ``ndev`` ranks, from the layout alone (the JAX
-    ledger's keys; the DCN hop is not ported, so ``dcn`` must be 1)."""
+    parameters on ``ndev`` ranks a slice and ``dcn`` slices, from the
+    layout alone (the JAX ledger's keys and numbers)."""
     if mode not in GRAD_COMM_MODES:
         raise ValueError(f"grad_comm {mode!r}: one of {GRAD_COMM_MODES}")
     if param_comm not in PARAM_COMM_MODES:
         raise ValueError(f"param_comm {param_comm!r}: one of "
                          f"{PARAM_COMM_MODES}")
-    if dcn > 1:
-        raise ValueError("dcn > 1: the cross-slice hop is not ported yet "
-                         "(ROADMAP A.2 (hierarchical DCN hop))")
     n_pad = _round_up(n_params, ndev)
     shard = n_pad // ndev
     cols = bucket_columns(shard, ndev, bucket_bytes, wire_itemsize(mode),
@@ -207,6 +256,8 @@ def layout_ledger(n_params: int, ndev: int, dcn: int = 1,
     grad_ici = sum(rs_wire_bytes(c1 - c0, ndev, mode, block)
                    for c0, c1 in cols)
     param_ici = sum(ag_wire_bytes(c1 - c0, ndev, param_comm, block)
+                    for c0, c1 in cols)
+    dcn_bytes = sum(psum_wire_bytes(c1 - c0, dcn, mode, block)
                     for c0, c1 in cols)
     return {
         "grad_comm": mode,
@@ -217,6 +268,6 @@ def layout_ledger(n_params: int, ndev: int, dcn: int = 1,
         "grad_sync_ici_bytes_per_step": float(grad_ici),
         "param_sync_ici_bytes_per_step": float(param_ici),
         "ici_bytes_per_step": float(grad_ici + param_ici),
-        "grad_sync_dcn_bytes_per_step": 0.0,
-        "dcn_bytes_per_step": 0.0,
+        "grad_sync_dcn_bytes_per_step": float(dcn_bytes),
+        "dcn_bytes_per_step": float(dcn_bytes),
     }

@@ -66,13 +66,18 @@ class EngineConfig:
     # the process group's timeout for the rendezvous and every
     # collective, in seconds (None: torch.distributed's default)
     timeout_s: Optional[float] = None
-    # logical mesh: only the data axis may exceed 1 (runtime.mesh)
+    # logical mesh: only the dcn_data and data axes may exceed 1
+    # (runtime.mesh)
     mesh: MeshSpec = field(default_factory=MeshSpec)
     # the ZeRO-1 gradient wire ("fp32" | "bf16" | "int8") and the
     # largest flat-gradient bytes a collective (None: one collective);
     # the Optimizer's attributes override per run
     grad_comm: str = "fp32"
     comm_bucket_bytes: Optional[int] = None
+    # the declarative layout (parallel.mesh_policy: "dp", "fsdp:2,tp:2",
+    # ...) the Estimator fits under when its config names none; None
+    # keeps the ZeRO-1 driver
+    parallelism: Optional[str] = None
     # not ported: any other value raises (ROADMAP A.6.7)
     metrics_port: Optional[int] = None
     slo_specs: Optional[object] = None
@@ -135,8 +140,10 @@ class EngineConfig:
         ``BIGDL_TPU_NUM_PROCESSES``, ``BIGDL_TPU_PROCESS_ID``),
         ``BIGDL_TPU_GRAD_COMM``, ``BIGDL_TPU_COMM_BUCKET_BYTES``,
         ``BIGDL_TPU_RETRY_TIMES``, ``BIGDL_TPU_PROFILE_DIR``,
-        ``BIGDL_TPU_DATA_WORKERS`` and ``BIGDL_TPU_STEPS_PER_CALL`` (an
-        int or ``auto``; anything else raises ``ValueError``) applied."""
+        ``BIGDL_TPU_DATA_WORKERS``, ``BIGDL_TPU_STEPS_PER_CALL`` (an
+        int or ``auto``; anything else raises ``ValueError``),
+        ``BIGDL_TPU_PARALLELISM`` (lower-cased) and
+        ``BIGDL_TPU_DCN_SLICES`` (the mesh's ``dcn_data``) applied."""
         cfg = EngineConfig()
         env = os.environ
         if env.get("BIGDL_TPU_COORDINATOR"):
@@ -156,6 +163,12 @@ class EngineConfig:
         if env.get("BIGDL_TPU_STEPS_PER_CALL"):
             raw = env["BIGDL_TPU_STEPS_PER_CALL"].strip().lower()
             cfg.steps_per_call = "auto" if raw == "auto" else int(raw)
+        if env.get("BIGDL_TPU_PARALLELISM"):
+            # checked when it resolves against the world's ranks
+            cfg.parallelism = env["BIGDL_TPU_PARALLELISM"].strip().lower()
+        if env.get("BIGDL_TPU_DCN_SLICES"):
+            cfg.mesh = dataclasses.replace(
+                cfg.mesh, dcn_data=int(env["BIGDL_TPU_DCN_SLICES"]))
         return cfg
 
 

@@ -4,10 +4,17 @@
 The JAX package lays its logical axes (``dcn_data``, ``data``,
 ``model``, ``seq``, ``expert``, ``pipe``) over ``jax.devices()``; here
 one process drives one device, so the mesh is the process group: its
-world size, this process's rank and device, and the data axis's size
-and group.  Only the ``data`` axis may exceed 1 so far: the other axes
-raise, naming the ROADMAP item that brings them, and ``dcn_data = 0``
-(auto) resolves to 1 (no slice topology here)."""
+world size, this process's rank and device, and the sizes and groups of
+the two data axes.  ``dcn_data`` (the slice count of a multislice job)
+is the outer one: ranks are laid out ``(dcn_data, data)`` row-major, so
+rank ``r`` is JAX device ``r`` of ``build_mesh`` (the DCN axis
+outermost) and its data replica index is ``r`` itself.  The ICI group
+holds the ranks of one slice, the DCN group the ranks with the same
+data index; every rank creates every group, in one order.  The other
+axes may not exceed 1 here: each raises, naming the ROADMAP item that
+brings it (the declarative ``tp`` axis lives on another mesh,
+``parallel.mesh_policy``), and ``dcn_data = 0`` (auto) resolves to 1
+(no slice topology here; ``BIGDL_TPU_DCN_SLICES`` sets it)."""
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
@@ -26,9 +33,9 @@ AXIS_DCN = "dcn_data"
 
 # axes that may not exceed 1 yet, and the ROADMAP item of each
 _LATER = {
-    AXIS_DCN: "ROADMAP A.2 (hierarchical DCN hop)",
-    AXIS_MODEL: "ROADMAP A.2 (layout: parallel/layout.py, mesh_policy.py, "
-                "gspmd.py)",
+    AXIS_MODEL: "ROADMAP A.6.6 (parallel/tp.py, the manual tensor "
+                "parallelism; the declarative tp axis is "
+                "parallelism='tp:N')",
     AXIS_SEQ: "ROADMAP A.4 (sequence parallelism)",
     AXIS_EXPERT: "ROADMAP A.6.6 (parallel/moe.py)",
     AXIS_PIPE: "ROADMAP A.6.6 (parallel/pp.py)",
@@ -70,15 +77,19 @@ class MeshSpec:
 @dataclass
 class Mesh:
     """The processes one training run spans: ``world_size`` processes,
-    this one ``rank`` on ``device``; ``group`` is the data axis's process
-    group (None without ``torch.distributed``); ``shape`` the resolved
-    axis sizes."""
+    this one ``rank`` on ``device``; ``group`` spans every process (None
+    without ``torch.distributed``), ``ici_group`` the ranks of this
+    rank's slice (the ``data`` axis) and ``dcn_group`` the ranks of its
+    data index across slices (None with one slice); ``shape`` the
+    resolved axis sizes."""
 
     world_size: int
     rank: int
     device: torch.device
     group: Optional[Any] = None
     shape: Dict[str, int] = field(default_factory=dict)
+    ici_group: Optional[Any] = None
+    dcn_group: Optional[Any] = None
 
     @property
     def distributed(self) -> bool:
@@ -86,14 +97,29 @@ class Mesh:
 
     @property
     def data_size(self) -> int:
+        """Ranks on the ICI data axis (one slice)."""
         return self.shape.get(AXIS_DATA, 1)
+
+    @property
+    def dcn_size(self) -> int:
+        return self.shape.get(AXIS_DCN, 1)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's index on the data axis (within its slice)."""
+        return self.rank % self.data_size
+
+    @property
+    def dcn_index(self) -> int:
+        return self.rank // self.data_size
 
 
 def build_mesh(spec: Optional[MeshSpec] = None,
                device: Optional[torch.device] = None) -> Mesh:
     """The mesh over the default process group (one process alone when
-    ``torch.distributed`` is not initialized).  Every axis but ``data``
-    must be 1, and the data axis spans every process."""
+    ``torch.distributed`` is not initialized).  Every axis but
+    ``dcn_data`` and ``data`` must be 1, and the two span every process;
+    with ``dcn_data > 1`` every rank creates the ICI and DCN groups."""
     spec = spec or MeshSpec()
     if dist.is_available() and dist.is_initialized():
         world, rank, group = (dist.get_world_size(), dist.get_rank(),
@@ -106,11 +132,25 @@ def build_mesh(spec: Optional[MeshSpec] = None,
             raise ValueError(f"mesh axis {axis}={size}: not ported yet "
                              f"({item}); only the data axis may exceed 1")
     sizes = spec.resolve(world)
-    if sizes[AXIS_DATA] != world:
+    data, dcn = sizes[AXIS_DATA], sizes[AXIS_DCN]
+    if data * dcn != world:
         raise ValueError(
-            f"mesh data={sizes[AXIS_DATA]} over {world} processes: the "
-            f"data axis spans every process (one device a process)")
-    return Mesh(world, rank, torch.device(device or "cpu"), group, sizes)
+            f"mesh dcn_data={dcn} x data={data} over {world} processes: "
+            f"the data axes span every process (one device a process)")
+    ici, across = group, None
+    if dcn > 1:
+        # one order on every rank: the slices' groups, then the groups
+        # of each data index across slices
+        for d in range(dcn):
+            g = dist.new_group(list(range(d * data, (d + 1) * data)))
+            if d == rank // data:
+                ici = g
+        for i in range(data):
+            g = dist.new_group(list(range(i, world, data)))
+            if i == rank % data:
+                across = g
+    return Mesh(world, rank, torch.device(device or "cpu"), group, sizes,
+                ici_group=ici, dcn_group=across)
 
 
 def mesh_fingerprint(mesh: Mesh) -> str:
@@ -125,13 +165,17 @@ def mesh_fingerprint(mesh: Mesh) -> str:
 
 
 def data_axis_size(mesh: Mesh) -> int:
-    return mesh.data_size
+    """The data-parallel degree over both data axes (dcn_data x data),
+    the JAX step's ``_batch_axes``."""
+    return mesh.data_size * mesh.dcn_size
 
 
 def local_batch_slice(mesh: Mesh, global_batch: int) -> Tuple[int, int]:
-    """(this process's batch start, size) of a global batch."""
-    if global_batch % mesh.world_size != 0:
-        raise ValueError(f"global batch {global_batch} % processes "
-                         f"{mesh.world_size} != 0")
-    per = global_batch // mesh.world_size
-    return mesh.rank * per, per
+    """(this process's batch start, size) of a global batch: replica
+    ``data_index + data * dcn_index``, which is the rank."""
+    n = data_axis_size(mesh)
+    if global_batch % n != 0:
+        raise ValueError(f"global batch {global_batch} % data replicas "
+                         f"{n} != 0")
+    per = global_batch // n
+    return (mesh.data_index + mesh.data_size * mesh.dcn_index) * per, per

@@ -3,7 +3,8 @@ model holder whose ``predict`` serves batches padded to a closed set of
 batch buckets, and whose ``generate`` routes through the paged-KV
 continuous decode engine, with int8 serving weights
 (``weight_quant="int8"``), int8 KV pages and speculative decoding
-(``decode=DecodeConfig(kv_dtype=..., speculative=SpecConfig(...))``)."""
+(``decode=DecodeConfig(kv_dtype=..., speculative=SpecConfig(...))``),
+and model-sharded serving over a declarative layout (``layout=``)."""
 
 import math
 import queue
@@ -18,6 +19,7 @@ from bigdl_tpu_torch.nn.module import Container
 from bigdl_tpu_torch.nn.quantized import (Int8Weights, quantize,
                                           refuse_keras_quantization)
 from bigdl_tpu_torch.ops.common import resolve_device
+from bigdl_tpu_torch.parallel import local_ops
 from bigdl_tpu_torch.serving.decode_engine import (DecodeConfig,
                                                    DecodeEngine,
                                                    DecodeRequest,
@@ -61,16 +63,43 @@ class InferenceModel:
     it also builds the weight-sharing block-sparse draft twin at load.
     On CUDA the engine's calls replay CUDA graphs that :meth:`warmup`
     captures (``DecodeConfig.cuda_graphs``); without a warmup each graph
-    is captured at its first call."""
+    is captured at its first call.
 
-    def __init__(self, model, decode: Optional[DecodeConfig] = None,
+    ``layout`` serves model-sharded: a ``parallelism=`` combo string
+    (``"tp:2"``, ``"fsdp:2,tp:2"``) or a ``ResolvedLayout``.  The
+    model's table places every parameter as a DTensor on the layout's
+    mesh (``ResolvedLayout.shard_params``, audited at load); every rank
+    of the world calls :meth:`predict` with the same (replicated) batch
+    and gets the whole output, bucket for bucket as without a layout.
+    With ``decode=`` (the captured decode programs over DTensors) or
+    ``weight_quant="int8"`` it is not ported yet (ROADMAP A.3.7), nor is
+    a custom ``predict_fn``."""
+
+    def __init__(self, model=None, decode: Optional[DecodeConfig] = None,
                  device=None, weight_quant: Optional[str] = None,
-                 batch_buckets: Sequence[int] = (1, 4, 16, 64, 256)):
+                 batch_buckets: Sequence[int] = (1, 4, 16, 64, 256),
+                 layout=None, predict_fn=None):
+        if predict_fn is not None:
+            if layout is not None:
+                raise ValueError("layout= applies to (model, variables) "
+                                 "serving, not a custom predict_fn")
+            raise ValueError("predict_fn=: serving a custom callable is "
+                             "not ported yet (ROADMAP A.3.7)")
+        if model is None:
+            raise ValueError("InferenceModel needs a model")
         if weight_quant not in (None, "int8"):
             raise ValueError(f"weight_quant {weight_quant!r}: "
                              "None | 'int8'")
         if decode is not None and getattr(model, "mode", None) != "lm":
             raise ValueError("decode= needs an LM-mode Transformer")
+        if layout is not None and decode is not None:
+            raise ValueError("layout= with decode=: the captured decode "
+                             "programs over DTensors are not ported yet "
+                             "(ROADMAP A.3.7)")
+        if layout is not None and weight_quant is not None:
+            raise ValueError("layout= with weight_quant='int8': int8 "
+                             "weights on a layout are not ported yet "
+                             "(ROADMAP A.3.7)")
         self.device = resolve_device(device)
         apply_precision_policy()
         self.weight_quant = weight_quant
@@ -83,6 +112,14 @@ class InferenceModel:
         if weight_quant is not None and layered:
             model = quantize(model)
         self.model = model.to(self.device).eval()
+        self.layout = None
+        if layout is not None:
+            from bigdl_tpu_torch.parallel.mesh_policy import (
+                ResolvedLayout, mesh_and_layout)
+
+            self.layout = (layout if isinstance(layout, ResolvedLayout)
+                           else mesh_and_layout(str(layout), self.device))
+            self.layout.shard_params(self.model)
         if weight_quant is not None and not layered and decode is None:
             self._w8 = Int8Weights(self.model)
             self.model = self._w8.module
@@ -115,9 +152,18 @@ class InferenceModel:
         if n < b:
             x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        with torch.no_grad(), self.weights():
-            out = self.model(xt)
+        with torch.no_grad(), self.weights(), self._replicated():
+            out = local_ops.replicated(self.model(xt))
         return out[:n].cpu().numpy()
+
+    def _replicated(self):
+        """On a layout, plain tensors (the batch) are replicated ones."""
+        if self.layout is None:
+            return nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
 
     def _engine(self) -> DecodeEngine:
         if self.decode_engine is None:

@@ -26,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.ops.common import is_dtensor
+
 # None = the device's default (bfloat16 on CUDA, float32 elsewhere)
 _COMPUTE_DTYPE = [None]
 
@@ -91,9 +93,10 @@ def _product_f32(a, b, out_dtype: Optional[torch.dtype] = None):
     rounded to ``out_dtype`` when given.  On CUDA (equal-dtype operands)
     one cuBLAS product with float32 accumulation (``out_dtype=float32``,
     or the operands' own dtype where the result is rounded to it
-    anyway); on the CPU the operands widened exactly and multiplied in
-    float32."""
-    if a.device.type != "cuda":
+    anyway); on the CPU, and for a layout's DTensors (DTensor has no
+    sharding rule for ``mm`` / ``bmm`` with ``out_dtype``), the operands
+    widened exactly and multiplied in float32."""
+    if a.device.type != "cuda" or is_dtensor(a) or is_dtensor(b):
         y = torch.matmul(a.float(), b.float())
         return y if out_dtype is None else y.to(out_dtype)
     if out_dtype == a.dtype:

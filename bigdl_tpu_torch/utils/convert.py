@@ -38,6 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from bigdl_tpu_torch.ops.common import is_dtensor
+
 _LISTS = {"dec": "decoder", "enc": "encoder"}
 _LISTED = re.compile(r"(dec|enc)(\d+)$")
 # the child of a wrapper whose JAX variables are that child's own
@@ -73,8 +75,27 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
             if tuple(target.shape) != arr.shape:
                 raise ValueError(f"{key}: shape {arr.shape} does not match "
                                  f"the port's {tuple(target.shape)}")
-            target.copy_(torch.from_numpy(arr))
+            target.copy_(_placed_like(target, torch.from_numpy(arr)))
     return model
+
+
+def _placed_like(target: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """``value`` (the whole tensor, the same on every rank) placed as
+    ``target``: its own local shard of a layout's DTensor, else itself."""
+    if not is_dtensor(target):
+        return value
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(value.to(target.device), target.device_mesh,
+                             target.placements, src_data_rank=None)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's whole value on the host as float32 (a layout's DTensor
+    gathered first: a collective every rank of its mesh calls)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
+    return t.detach().cpu().numpy().astype(np.float32)
 
 
 def load_jax_variables(model: nn.Module,
@@ -109,7 +130,7 @@ def nest(named, leaf: Callable = lambda v: v) -> Dict[str, Any]:
 
 
 def _tree(named) -> Dict[str, Any]:
-    return nest(named, lambda t: t.detach().cpu().numpy().astype(np.float32))
+    return nest(named, _host)
 
 
 def flat_order(names: Sequence[str]) -> List[int]:

@@ -59,9 +59,18 @@ class FusedLayerNorm(Module):
         return twin
 
     def forward(self, x):
+        from bigdl_tpu_torch.parallel import local_ops
+
+        if local_ops.is_dtensor(x):
+            # a layout: each rank's rows through the kernel
+            return local_ops.row_local(self._rows, x, self.weight,
+                                       self.bias)
+        return self._rows(x, self.weight, self.bias)
+
+    def _rows(self, x, weight, bias):
         shape = x.shape
-        y = fused_layernorm(x.reshape(-1, shape[-1]), self.weight,
-                            self.bias, eps=self.eps)
+        y = fused_layernorm(x.reshape(-1, shape[-1]), weight, bias,
+                            eps=self.eps)
         return y.reshape(shape)
 
 

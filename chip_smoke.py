@@ -164,7 +164,8 @@ one JSON line:
 20. train_zero1 — ZeRO-1 data parallelism over ``torch.distributed``:
    (a) ``train_zero1_collectives``: NCCL at world 1 on the card, the
    wire collectives (``reduce_scatter_wire`` fp32, bf16 and int8, the
-   int8 delta gather, the fp32 all-gather) on the LM's flat gradient
+   int8 delta gather, the fp32 all-gather, and the DCN hop's
+   ``psum_wire`` fp32, bf16 and int8) on the LM's flat gradient
    (110,221,824 elements), each eager and then captured in a CUDA graph
    and replayed, every result equal to the bit to the same call over gloo
    on the CPU at world 1, each call's device ms and the int8 codec's
@@ -184,6 +185,29 @@ one JSON line:
    (what each did is reported), and when all three run right they train
    the LM run of (b) at K = 1 over gloo, its last loss within 2e-3 of
    the single-process run's;
+21. the declarative layouts (``parallel.gspmd``: parameters DTensors on
+   a DeviceMesh, the flash kernels reached through ``local_map``), in
+   float32 products (``LAYOUT``'s comment says why):
+   (a) ``layout_lm``: NCCL at world 1 (a ``file://`` rendezvous);
+   ``fit_layout`` trains the LM (batch 8 x 1024, Adam 1e-4, 6 steps of
+   48 seeded rows) under ``"dp"``, ``"fsdp"`` and ``"tp"`` (one device
+   each here, the policy's axis kept at size 1, so fsdp's and tp's
+   ``Shard`` placements, each the whole tensor, go through the LM's ops,
+   its attention's ``local_map`` and the vocab lookup): step ms, tokens/s, peak memory, busy share, 12 flash
+   forward and 12 + 12 backward launches a step, ``replicated_params``,
+   and the losses held to the same 6 steps of a plain single-device
+   loop on the same batches (``LAYOUT_LOSS_RTOL``); (b)
+   ``layout_serve``: ``InferenceModel(lm, layout="tp")`` at world 1
+   (the tp-sharded table's placements on a tp axis of size 1),
+   ``predict`` on buckets 1 and 4 equal to the unsharded
+   ``InferenceModel``'s to the bit; (c) ``layout_gloo_card``: two
+   processes on the one card try the collectives a layout issues on
+   CUDA tensors over gloo (``torch.distributed``'s and the functional
+   ones DTensor calls), and when they run right train (a)'s LM, cut to
+   2 layers at batch 2 x 256 (``LAYOUT``'s comment says why), under
+   ``"tp:2"`` over gloo, the last loss within 2e-3 of the same cut run
+   in a plain loop; what gloo could not do is reported, and that alone
+   fails nothing;
 19b. train_translation — ``Transformer(mode="translation")`` at
    Transformer-base width (6 + 6 layers, d 512, 8 heads, d_ff 2048,
    vocabulary 37,000), dropout 0, batch 32 x source 256 x target 256
@@ -255,8 +279,9 @@ same way, for an A/B of the draft's block-sparse kernel in one call
 
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` builds the kernels and
 runs only the named phases of keras_inception, keras_resnet,
-train_translation, train_ptb_lstm, estimator_bert, forecast_autoformer
-and forecast_tcn.
+train_translation, train_ptb_lstm, estimator_bert, forecast_autoformer,
+forecast_tcn, train_zero1_collectives, layout_lm (with layout_serve)
+and layout_gloo_card.
 
 ``python3 chip_smoke.py --zero1`` builds the kernels and runs only
 ``train_zero1`` (its single-process reference run included).
@@ -276,6 +301,7 @@ import gc
 import json
 import multiprocessing as mp
 import os
+import queue
 import re
 import shutil
 import signal
@@ -385,6 +411,31 @@ BUNDLE = dict(k=4, steps=12, pairs=3, timed_from=4, sync_steps=8,
 ZERO1 = dict(block=1024, reps=10, delta_scale=1e-4, grad_rows=2,
              world_max=4, rel=2e-3, rows=64, batch=16, ckpt_every=3,
              resume_to=8, atol=1e-5, wait_s=900)
+
+# the layout phases (21): fit_layout's LM runs under LAYOUT["policies"]
+# at world 1, 6 steps of 48 seeded rows (batch 8 x 1024, Adam 1e-4);
+# layout_serve's predict at LAYOUT["serve_seq"] tokens on its buckets;
+# the step times are steps 1 to busy_from - 1, the busy share steps
+# busy_from on.  layout_gloo_card's "tp:2" run is cut to gloo_layers
+# layers at batch gloo_batch x gloo_seq for gloo_steps steps (the widths
+# stay): gloo carries each collective through host memory, and at full
+# size a step all-gathers the (8, 1024, 32768) logits (1 GB) besides 12
+# layers' activations, more than the phase's share of the time limit;
+# its last loss within LAYOUT["rel"] of the same cut run's in a plain
+# loop in this process (ZERO1["rel"]'s bound: gloo sums the row-split
+# products' partials in another order); every gloo wait bounded by
+# gloo_wait_s.  Float32 products (compute_dtype pinned): DTensor has
+# no sharding rule for the bfloat16 product with a float32 out_dtype, so
+# a layout widens those operands to float32 instead (tensor.policy); in
+# float32 the layout and the plain loop make the same cuBLAS calls.
+LAYOUT = dict(policies=("dp", "fsdp", "tp"), steps=6, serve_seq=128,
+              serve_buckets=(1, 4), gloo_policy="tp:2", rel=2e-3,
+              busy_from=4, gloo_layers=2, gloo_batch=2, gloo_seq=256,
+              gloo_steps=4, gloo_wait_s=300, gloo_probe_s=20)
+# each layout run's losses against the plain loop's: at world 1 every
+# redistribution is a copy within one device and every op the plain
+# loop's op on the same operands, so the bound is 0 (equal to the bit)
+LAYOUT_LOSS_RTOL = 0.0
 
 # keras_inception: Inception-v1 (1000 classes, dropout 0.4; NHWC 224^2)
 # as keras.Model(inp, inception_v1()(inp)), compiled with SGD (lr 0.001,
@@ -4417,6 +4468,13 @@ def _zero1_collectives(dev):
                                       a[0], a[1].view(1, -1), grp,
                                       block=block)),
             "all_gather_fp32": ((w,), lambda a, grp: gather(a[0], grp)),
+            # the DCN hop of a multislice step, at world 1 on its group
+            "psum_fp32": ((g,), lambda a, grp: pc.psum_wire(
+                a[0], grp, 1, "fp32")),
+            "psum_bf16": ((g.to(torch.bfloat16),), lambda a, grp:
+                          pc.psum_wire(a[0], grp, 1, "bf16")),
+            "psum_int8": ((g,), lambda a, grp: pc.psum_wire(
+                a[0], grp, 1, "int8", block=block)),
         }
         rows = {}
         side = torch.cuda.Stream(dev)
@@ -4520,7 +4578,12 @@ def _run_ranks(target, world, args):
     out, errors = {}, []
     try:
         for _ in range(world):
-            rank, ok, val = q.get(timeout=ZERO1["wait_s"])
+            try:
+                rank, ok, val = q.get(timeout=ZERO1["wait_s"])
+            except queue.Empty:
+                errors.append(f"ranks {sorted(set(range(world)) - set(out))}"
+                              f" gave no answer in {ZERO1['wait_s']} s")
+                break
             (out.__setitem__(rank, val) if ok
              else errors.append(f"rank {rank}: {val}"))
     finally:
@@ -4791,6 +4854,423 @@ def train_zero1(dev, ref=None):
     out["driver"] = _zero1_driver(dev, ref)
     out["checkpoint"] = _zero1_checkpoint(dev)
     out["gloo_card"] = _zero1_gloo_card(ref)
+    return out
+
+
+@contextlib.contextmanager
+def _nccl_world1():
+    """A process group of this process alone over NCCL (a ``file://``
+    rendezvous), destroyed after."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.runtime import Engine, EngineConfig, init_engine
+
+    with tempfile.TemporaryDirectory(prefix="layout_rdv_") as d:
+        init_engine(EngineConfig(
+            coordinator_address=f"file://{d}/rendezvous", num_processes=1,
+            process_id=0, timeout_s=ZERO1["wait_s"]))
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the card's group runs "
+                                     f"{dist.get_backend()}, not NCCL")
+            yield
+        finally:
+            dist.destroy_process_group()
+            Engine.reset()
+            _release()
+
+
+def _layout_data(batch=None, seq=None, steps=None):
+    rs = np.random.RandomState(SEED + 7)
+    shape = ((batch or TRAIN["batch"]) * (steps or LAYOUT["steps"]),
+             seq or TRAIN["seq"])
+    return tuple(rs.randint(0, LM["vocab_size"], shape).astype(np.int32)
+                 for _ in range(2))
+
+
+def _layout_plain(dev, ids, tgt, lm=None, batch=None):
+    """fit_layout's steps in a plain single-device loop: its batch plan,
+    the LM (``lm``, LM by default) from the same seed, Adam 1e-4 on the
+    plain parameters.  Returns (losses, step seconds)."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.optim import Adam
+
+    model = Transformer(**(lm or LM), dropout=0.0, seed=SEED).to(dev)
+    model.train(True)
+    crit, opt = CrossEntropyCriterion(), Adam(learning_rate=TRAIN["lr"])
+    params = list(model.parameters())
+    state = opt.init_state(params)
+    losses, times = [], []
+    for i, mb in enumerate(DataSet.array(ids, tgt).batches(
+            batch or TRAIN["batch"], shuffle=True, seed=SEED, epoch=0)):
+        t0 = time.perf_counter()
+        for p in params:
+            p.grad = None
+        x = torch.as_tensor(mb["input"]).to(dev)
+        y = torch.as_tensor(mb["target"]).to(dev)
+        loss = crit(model(x), y)
+        loss.backward()
+        with torch.no_grad():
+            opt.apply(opt.step_tensors(i, dev), [p.grad for p in params],
+                      params, state)
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t0)
+    del model, state
+    _release()
+    return losses, times
+
+
+class _StepClock:
+    """Wraps ``GSPMDTrainStep.train_step``: the time of each step (the
+    step ends synchronized: fit_layout reads its loss) and a profiled
+    window of steps [busy_from, the end): the device's kernel time over
+    the wall time.  ``busy_from=None`` profiles nothing."""
+
+    def __init__(self, busy_from=None):
+        from bigdl_tpu_torch.parallel import gspmd
+
+        self.cls, self.orig, self.busy_from = gspmd.GSPMDTrainStep, None, \
+            busy_from
+        self.step_s, self.prof, self.busy = [], None, None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        orig = self.orig = self.cls.train_step
+
+        def timed(step, it, *a, **k):
+            if it == self.busy_from:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+                self.t_busy = time.perf_counter()
+            t0 = time.perf_counter()
+            loss = orig(step, it, *a, **k)
+            float(loss)                  # what fit_layout does next
+            self.step_s.append(time.perf_counter() - t0)
+            return loss
+
+        self.cls.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+        if self.prof is not None:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t_busy
+            self.prof.stop()
+            kernels = _device_kernels(self.prof.key_averages())
+            dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
+            self.busy = {"steps": len(self.step_s) - self.busy_from,
+                         "wall_s": wall, "device_busy_s": dev_s,
+                         "busy_share": dev_s / wall,
+                         "kernel_launches": sum(e.count for e in kernels)}
+
+
+def _layout_fit(dev, policy, ids, tgt, lm=None, batch=None,
+                busy_from=None):
+    """One fit_layout run of the LM (``lm``, LM by default) under
+    ``policy``: its stats, step times (the profiled window's apart),
+    flash launches a step, peak memory and busy share."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.ops.common import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.optim import Adam
+    from bigdl_tpu_torch.parallel import fit_layout
+
+    lm = lm or LM
+    batch = batch or TRAIN["batch"]
+    model = Transformer(**lm, dropout=0.0, seed=SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with _StepClock(busy_from) as clock:
+        trained, stats = fit_layout(
+            model, CrossEntropyCriterion(), Adam(learning_rate=TRAIN["lr"]),
+            DataSet.array(ids, tgt), parallelism=policy, batch_size=batch,
+            epochs=1, seed=SEED, log_every=0, device=dev)
+    steps = stats["iterations"]
+    launches = {k: LAUNCHES.get(k, 0) / steps for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+    timed = clock.step_s[1:busy_from]      # after the first, unprofiled
+    placements = sorted({str(p.placements) for p in trained._step.params})
+    out = {"policy": policy, "mesh": stats["mesh"],
+           "dtensor_mesh": str(trained._step.mesh), "placements": placements,
+           "losses": stats["losses"],
+           "step_ms": [s * 1e3 for s in clock.step_s],
+           "median_step_ms": float(np.median(timed)) * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "busy": clock.busy, "flash_launches_per_step": launches,
+           "replicated_params": stats["replicated_params"],
+           "collective_bytes_by_axis": stats["collective_bytes_by_axis"],
+           "param_bytes_per_chip": stats["param_bytes_per_chip"]}
+    out["tokens_per_s"] = (batch * ids.shape[1]
+                           / out["median_step_ms"] * 1e3)
+    del trained, model
+    _release()
+    return out
+
+
+def layout_lm(dev):
+    """Phase 21(a): the LM through fit_layout at world 1 over NCCL under
+    each of LAYOUT["policies"], held to the plain loop."""
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    ids, tgt = _layout_data()
+    with compute_dtype(torch.float32):
+        plain, plain_s = _layout_plain(dev, ids, tgt)
+        runs = {}
+        with _nccl_world1():
+            for policy in LAYOUT["policies"]:
+                runs[policy] = _layout_fit(dev, policy, ids, tgt,
+                                           busy_from=LAYOUT["busy_from"])
+            serve = layout_serve(dev)
+    want = {k: float(LM["num_layers"]) for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+    for run in runs.values():
+        diff = np.abs(np.asarray(run["losses"]) - np.asarray(plain))
+        run["max_rel_loss_diff_to_plain"] = float(
+            np.max(diff / np.abs(np.asarray(plain))))
+        run["bit_equal_to_plain"] = run["losses"] == plain
+    out = {"phase": "layout_lm", "world": 1, "backend": "nccl",
+           "compute_dtype": "float32", "steps": LAYOUT["steps"],
+           "plain_losses": plain,
+           "plain_median_step_ms": float(np.median(
+               plain_s[1:LAYOUT["busy_from"]])) * 1e3,
+           "loss_rtol": LAYOUT_LOSS_RTOL, "runs": runs}
+    emit(out)
+    for policy, run in runs.items():
+        if run["flash_launches_per_step"] != want:
+            raise AssertionError(f"layout_lm {policy}: flash launches a "
+                                 f"step {run['flash_launches_per_step']}")
+        if not (run["max_rel_loss_diff_to_plain"] <= LAYOUT_LOSS_RTOL
+                and run["replicated_params"] == 0
+                and np.all(np.isfinite(run["losses"]))
+                and (policy == "dp" or any("Shard" in p
+                                           for p in run["placements"]))):
+            raise AssertionError(f"layout_lm {policy}: {run}")
+    out["serve"] = serve
+    return out
+
+
+def layout_serve(dev):
+    """Phase 21(b), inside layout_lm's world-1 group:
+    ``InferenceModel(lm, layout="tp")`` against the unsharded one."""
+    import copy
+
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.ops.common import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.serving.inference_model import InferenceModel
+
+    model = Transformer(**LM, dropout=0.0, seed=SEED)
+    ref = InferenceModel(copy.deepcopy(model), device=dev,
+                         batch_buckets=LAYOUT["serve_buckets"])
+    im = InferenceModel(model, device=dev,
+                        batch_buckets=LAYOUT["serve_buckets"], layout="tp")
+    rs = np.random.RandomState(SEED + 8)
+    x = rs.randint(0, LM["vocab_size"],
+                   (max(LAYOUT["serve_buckets"]), LAYOUT["serve_seq"]))
+    rows = {}
+    for n in LAYOUT["serve_buckets"]:
+        reset_launches()
+        got = im.predict(x[:n])
+        fwd = LAUNCHES.get("flash_attention_fwd", 0)
+        want = ref.predict(x[:n])
+        rows[n] = {"bit_equal": bool(np.array_equal(got, want)),
+                   "shape": list(got.shape),
+                   "flash_fwd_launches": fwd,
+                   "max_abs_diff": float(np.max(np.abs(got - want)))}
+    out = {"phase": "layout_serve", "world": 1, "layout": "tp",
+           "mesh": im.layout.sizes, "buckets": rows,
+           "embedding_placements": str(im.model.embedding.placements)}
+    emit(out)
+    if "Shard" not in out["embedding_placements"]:
+        raise AssertionError(f"layout_serve: the embedding is "
+                             f"{out['embedding_placements']}, not sharded")
+    for n, row in rows.items():
+        if not row["bit_equal"] or row["flash_fwd_launches"] != \
+                LM["num_layers"]:
+            raise AssertionError(f"layout_serve bucket {n}: {row}")
+    del im, ref, model
+    _release()
+    return out
+
+
+def _gloo_lm():
+    """layout_gloo_card's LM: LM's widths at LAYOUT["gloo_layers"]."""
+    return dict(LM, num_layers=LAYOUT["gloo_layers"])
+
+
+def _gloo_data():
+    return _layout_data(LAYOUT["gloo_batch"], LAYOUT["gloo_seq"],
+                        LAYOUT["gloo_steps"])
+
+
+def _layout_gloo_rank(rank, world, rdv, q):
+    """One of two processes on the one card over gloo (every gloo wait
+    bounded by LAYOUT["gloo_wait_s"]): the collectives a layout's
+    DTensors issue, through ``torch.distributed`` and through the
+    functional collectives DTensor calls, each announced on ``q`` before
+    it starts and reported after, then, when all ran right,
+    layout_gloo_card's LM under LAYOUT["gloo_policy"]."""
+    import datetime
+
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from bigdl_tpu_torch.parallel import collectives as pc
+    from bigdl_tpu_torch.tensor.policy import (apply_precision_policy,
+                                               compute_dtype)
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=rdv, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=LAYOUT["gloo_wait_s"]))
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        apply_precision_policy()
+        x = torch.arange(world * 8, dtype=torch.float32, device=dev)
+        grp = dist.group.WORLD
+
+        def gather():
+            out = torch.empty(world * 8, device=dev)
+            pc.all_gather(out, x[:8].contiguous(), grp)
+            return out
+
+        def reduce():
+            out = x.clone()
+            dist.all_reduce(out, group=grp)
+            return out
+
+        tries = {
+            "reduce_scatter": (lambda: pc.reduce_scatter_wire(
+                x.view(world, -1), grp, "fp32"),
+                world * x.view(world, -1)[rank]),
+            "all_gather": (gather, x[:8].repeat(world)),
+            "all_reduce": (reduce, world * x),
+            "funcol_all_reduce": (lambda: funcol.all_reduce(
+                x, "sum", grp).wait(), world * x),
+            "funcol_all_gather": (lambda: funcol.all_gather_tensor(
+                x[:8].contiguous(), 0, grp).wait(), x[:8].repeat(world)),
+            "funcol_reduce_scatter": (lambda: funcol.reduce_scatter_tensor(
+                x, "sum", 0, grp).wait(), world * x.view(world, -1)[rank]),
+        }
+        res = {}
+        for name, (fn, want) in tries.items():
+            q.put(("start", rank, name))
+            try:
+                got = fn()
+                torch.cuda.synchronize()
+                res[name] = ("ran, right" if got.device == dev and float(
+                    (got - want).abs().max()) == 0.0 else "ran, WRONG")
+            except Exception as e:       # what gloo says, reported
+                res[name] = f"{type(e).__name__}: {str(e)[:200]}"
+            q.put(("did", rank, name, res[name]))
+        out = {"collectives": res}
+        if all(v == "ran, right" for v in res.values()):
+            q.put(("train", rank))
+            ids, tgt = _gloo_data()
+            with compute_dtype(torch.float32):
+                out["lm"] = _layout_fit(dev, LAYOUT["gloo_policy"], ids, tgt,
+                                        lm=_gloo_lm(),
+                                        batch=LAYOUT["gloo_batch"])
+        q.put(("done", rank, out))
+    except BaseException:
+        q.put(("error", rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _gloo_card_ranks(rdv):
+    """layout_gloo_card's two processes: (what each collective did, each
+    rank's result or None).  A collective that gives no answer within
+    LAYOUT["gloo_probe_s"] is reported as hung (what gloo can do, which
+    fails nothing); a hang at start-up or in the training, or an error,
+    raises.  Every process is stopped before it returns."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_layout_gloo_rank, args=(r, 2, rdv, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    did, started, done, errors, training = {}, {}, {}, [], False
+    heard = set()
+    try:
+        while len(done) + len(errors) < 2:
+            # start-up (spawn, imports, the rendezvous) and the training
+            # take long; once both ranks probe, each collective is short
+            wait = (LAYOUT["gloo_probe_s"] if len(heard) == 2
+                    and not training else 2 * LAYOUT["gloo_wait_s"])
+            try:
+                msg = q.get(timeout=wait)
+            except queue.Empty:
+                if training or len(heard) < 2:
+                    errors.append(f"the {'training' if training else 'start'}"
+                                  f" over gloo gave no answer in {wait} s")
+                for rank, name in started.items():
+                    did.setdefault(name, f"hung (no answer in {wait} s, "
+                                         f"rank {rank})")
+                break
+            kind, rank = msg[0], msg[1]
+            heard.add(rank)
+            if kind == "start":
+                started[rank] = msg[2]
+            elif kind == "did":
+                started.pop(rank, None)
+                if msg[3] != "ran, right" or msg[2] not in did:
+                    did[msg[2]] = msg[3]
+            elif kind == "train":
+                training = True
+            elif kind == "done":
+                done[rank] = msg[2]
+            else:
+                errors.append(f"rank {rank}: {msg[2]}")
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    if errors:
+        raise AssertionError("layout_gloo_card:\n" + "\n".join(errors))
+    return did, [done.get(r) for r in range(2)]
+
+
+def layout_gloo_card(dev):
+    """Phase 21(c): two gloo processes on the one card, held to the same
+    cut run in a plain loop in this process."""
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    with tempfile.TemporaryDirectory(prefix="layout_gloo_") as d:
+        did, res = _gloo_card_ranks(f"file://{d}/rendezvous")
+    out = {"phase": "layout_gloo_card", "world": 2, "devices": "cuda:0",
+           "backend": "gloo", "policy": LAYOUT["gloo_policy"],
+           "lm": _gloo_lm(), "batch": [LAYOUT["gloo_batch"],
+                                       LAYOUT["gloo_seq"]],
+           "what_each_collective_did": did}
+    if res[0] is not None and "lm" in res[0]:
+        ids, tgt = _gloo_data()
+        with compute_dtype(torch.float32):
+            ref, _ = _layout_plain(dev, ids, tgt, lm=_gloo_lm(),
+                                   batch=LAYOUT["gloo_batch"])
+        out["plain_losses"] = ref
+        lm = res[0]["lm"]
+        rel = abs(lm["losses"][-1] - ref[-1]) / abs(ref[-1])
+        out.update(trained=True, run=lm, last_loss_rel_to_plain=rel,
+                   rel=LAYOUT["rel"])
+        emit(out)
+        if not (rel <= LAYOUT["rel"] and res[1]["lm"]["losses"]
+                == lm["losses"] and lm["flash_launches_per_step"][
+                    "flash_attention_fwd"] == LAYOUT["gloo_layers"]):
+            raise AssertionError(f"layout over gloo on one card: {out}")
+    else:
+        out["trained"] = False
+        emit(out)
     return out
 
 
@@ -5503,10 +5983,18 @@ def run_alone(phase, dev):
         globals()[phase](dev)
     elif phase in ("forecast_autoformer", "forecast_tcn"):
         globals()[phase](dev, forecast_data())
+    elif phase == "train_zero1_collectives":
+        _zero1_collectives(dev)
+    elif phase == "layout_lm":
+        layout_lm(dev)
+    elif phase == "layout_gloo_card":
+        layout_gloo_card(dev)
     else:
         raise SystemExit(f"--phase {phase}: keras_inception, keras_resnet, "
                          "train_translation, train_ptb_lstm, estimator_bert, "
-                         "forecast_autoformer or forecast_tcn")
+                         "forecast_autoformer, forecast_tcn, "
+                         "train_zero1_collectives, layout_lm or "
+                         "layout_gloo_card")
     _release()
 
 
@@ -5691,6 +6179,13 @@ def main() -> int:
     del data
     _release()
     train_zero1(dev, lm_bundles["losses_k1"])
+    layout = layout_lm(dev)
+    for row, kernel in ((fwd_row, "flash_attention_fwd"),
+                        (bwd_row, "flash_attention_bwd_dq")):
+        row["launches_layout_lm_per_step"] = layout["runs"]["dp"][
+            "flash_launches_per_step"][kernel]
+    layout_gloo_card(dev)
+    _release()
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
                       verify_row, int8mm_row, sparse_row, sparse_bf16_row,
                       ln_row]})

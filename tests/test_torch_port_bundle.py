@@ -295,7 +295,7 @@ def test_env_and_config_wiring(monkeypatch, tmp_path, init):
     assert Engine(EngineConfig(grad_comm="INT8")).config.grad_comm == "int8"
     for field, value, item in (("grad_comm", "int4", "grad_comm"),
                                ("metrics_port", 9090, "A.6.7"),
-                               ("mesh", {"model": 2}, "A.2")):
+                               ("mesh", {"model": 2}, "A.6.6")):
         with pytest.raises(ValueError, match=item):
             Engine(EngineConfig(**{field: value}))
 

@@ -1756,6 +1756,72 @@ def test_sharded_step_at_world1_equals_train_step(card, option):
             "train.collective_ici_bytes_per_step"] == 0
 
 
+@pytest.mark.parametrize("mode,block", [("fp32", 1024), ("bf16", 1024),
+                                        ("int8", 64)])
+def test_psum_wire_graph_equals_eager_and_gloo(card, mode, block):
+    """The DCN hop's ``psum_wire`` over NCCL at world 1: replayed from a
+    captured graph equal to the eager call, and both equal to the same
+    call over gloo on the CPU, to the bit."""
+    from bigdl_tpu_torch.parallel import collectives as pc
+
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(5003, generator=g) * torch.logspace(-3, 1, 5003))
+    if mode == "bf16":
+        x = x.to(torch.bfloat16)
+    with _NcclWorld1() as w:
+        want = pc.psum_wire(x, w.gloo, 1, mode, block=block)
+        got = pc.psum_wire(x.to(card), w.nccl, 1, mode, block=block)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        side = torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        xc = x.to(card)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=side):
+            out = pc.psum_wire(xc, w.nccl, 1, mode, block=block)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_through_local_map_equals_the_plain_call(card, causal):
+    """The flash kernels reached through ``local_map`` on a world-1
+    DeviceMesh (``parallel.local_ops.attention``, as a layout's
+    attention runs): forward and q, k, v gradients equal to the call on
+    plain tensors to the bit, and the kernels launched."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from bigdl_tpu_torch.ops import flash_attention
+    from bigdl_tpu_torch.parallel import local_ops, mesh_and_layout
+
+    g = torch.Generator().manual_seed(9)
+    q, k, v, go = (torch.randn(2, 4, 130, 64, generator=g).to(card)
+                   for _ in range(4))
+    with _NcclWorld1():
+        mesh = mesh_and_layout("dp", card).dtensor_mesh
+        for placements in ([Shard(0)], [Shard(1)], [Replicate()]):
+            leaves = [distribute_tensor(t.clone(), mesh, placements,
+                                        src_data_rank=None).requires_grad_()
+                      for t in (q, k, v)]
+            before = dict(LAUNCHES)
+            out = local_ops.attention(
+                lambda a, b, c: flash_attention(a, b, c, causal=causal),
+                *leaves)
+            out.backward(distribute_tensor(go, mesh, out.placements,
+                                           src_data_rank=None))
+            torch.cuda.synchronize()
+            for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkdv"):
+                assert LAUNCHES[kname] == before.get(kname, 0) + 1, kname
+            plain = [t.clone().requires_grad_() for t in (q, k, v)]
+            want = flash_attention(*plain, causal=causal)
+            want.backward(go)
+            assert torch.equal(out.full_tensor(), want)
+            for a, b in zip(leaves, plain):
+                assert torch.equal(a.grad.full_tensor(), b.grad)
+
+
 # ---- the converted stock-torch encoder, the Autoformer, the serializer --------
 
 

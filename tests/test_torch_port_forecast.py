@@ -371,8 +371,10 @@ def test_forecaster_save_load_across_packages(monkeypatch, tmp_path, cls):
 def test_refusals():
     x, y = _windows(BATCH, LOOKBACK, HORIZON, 1)
     f = PF.TCNForecaster(LOOKBACK, HORIZON, 1, 1, device=CPU)
-    with pytest.raises(ValueError, match="A.2"):
-        f.fit((x, y), parallelism="dp")
+    # parallelism= is ported (test_torch_port_layout_train); as in the
+    # JAX package it refuses validation_data
+    with pytest.raises(ValueError, match="validation_data"):
+        f.fit((x, y), parallelism="dp", validation_data=(x, y))
     with pytest.raises(RuntimeError, match="fit"):
         f.predict(x)
     f.fit((x, y), epochs=1, batch_size=BATCH)

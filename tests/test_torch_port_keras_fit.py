@@ -155,8 +155,14 @@ def test_epochs_alias_and_the_refusals():
         tm.predict(x)
     trained = tm.fit(x, y, batch_size=32, epochs=3, device=CPU)
     assert len(trained.losses) == 6              # 2 steps an epoch, 3 epochs
-    with pytest.raises(ValueError, match="A.2"):
-        tm.fit(x, y, batch_size=32, parallelism="dp", device=CPU)
+    # parallelism= is ported (test_torch_port_layout_train) and keeps the
+    # JAX package's refusals
+    with pytest.raises(ValueError, match="checkpoint_path"):
+        tm.fit(x, y, batch_size=32, parallelism="dp", device=CPU,
+               checkpoint_path="unused")
+    with pytest.raises(ValueError, match="exclusive"):
+        tm.fit(x, y, batch_size=32, parallelism="dp", device=CPU,
+               seq_parallel=True)
     with pytest.raises(ValueError, match="A.4"):
         tm.fit(x, y, batch_size=32, seq_parallel=True, device=CPU)
     with pytest.raises(RuntimeError, match="compile"):

@@ -450,8 +450,8 @@ def test_engine_config_refusals(field, value, match):
 
 
 @pytest.mark.parametrize("axes,match", [
-    (dict(dcn_data=2), r"A\.2 \(hierarchical DCN hop\)"),
-    (dict(model=2), r"A\.2 \(layout"), (dict(seq=2), r"A\.4"),
+    (dict(dcn_data=2), "not divisible"),
+    (dict(model=2), r"A\.6\.6 \(parallel/tp\.py"), (dict(seq=2), r"A\.4"),
     (dict(expert=2), r"A\.6\.6"), (dict(pipe=2), r"A\.6\.6"),
     (dict(data=2), "exceeds device count"),
 ])
