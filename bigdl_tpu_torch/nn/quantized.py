@@ -23,6 +23,12 @@ Two halves:
   matmul weights that way at rest and lends the copy a float32 view for
   the length of a ``with`` block.
 
+A keras ``Model`` is cloned node by node, as the JAX package's
+``_quantize_keras`` does: only its node layers are swapped and recorded
+(an attention's own projections are not nodes and stay float), and a
+layer used at several nodes gets one twin, its calibration recorded over
+the inputs of all of them.
+
 One divergence from the JAX package: its ``quantize`` and ``calibrate``
 recurse only through containers, so the convs inside a ResNet
 ``BasicBlock`` / ``Bottleneck`` (modules with ``body`` / ``proj``) stay
@@ -391,16 +397,46 @@ def _twin(leaf, calib, weight_only):
     return None
 
 
-def refuse_keras_quantization(model, what: str) -> None:
-    """Raise ``ValueError`` for a keras ``Model``: the JAX package
-    quantizes one by swapping its nodes' layers, which the port does not
-    do yet (ROADMAP A.6.1, the keras surface)."""
+def _keras_model(module):
+    """``module`` if it is a keras ``Model`` (or keras ``Sequential``),
+    else None."""
     from bigdl_tpu_torch.keras.engine import Model
 
-    if isinstance(model, Model):
-        raise ValueError(f"{what} of a keras Model is not ported yet "
-                         f"(ROADMAP A.6.1); quantize a Container or "
-                         f"the Transformer LM")
+    return module if isinstance(module, Model) else None
+
+
+def _clone_keras(model, memo: Dict[int, Any]):
+    """A new keras ``Model`` over copies of ``model``'s nodes, in its
+    topological order, as the JAX package's ``_clone_keras``: each node's
+    layer is ``memo``'s entry for it (an int8 twin, or a recording
+    layer), else a deep copy.  The copies share ``memo``, so a layer used
+    at several nodes stays one layer at all of them; the caller's model
+    is left as it is."""
+    from bigdl_tpu_torch.keras.engine import Model
+
+    by_id: Dict[int, Any] = {}
+    for node in model.order:           # parents before children
+        c = copy.copy(node)
+        c.parents = [by_id[p.id] for p in node.parents]
+        if node.layer is not None:
+            c.layer = copy.deepcopy(node.layer, memo)
+        by_id[node.id] = c
+    new = Model([by_id[n.id] for n in model.inputs],
+                [by_id[n.id] for n in model.outputs], name=model.name)
+    return new.train(model.training)
+
+
+def _keras_leaves(model):
+    """The distinct quantizable layers of a keras model's nodes: ``Linear``
+    and ``Conv2D`` node layers (the ones the JAX clone swaps), each once.
+    A ``Linear`` inside another node's layer (an attention's projections)
+    is not a node layer and stays float, as in the JAX package."""
+    out: Dict[int, torch.nn.Module] = {}
+    for node in model.order:
+        lay = node.layer
+        if type(lay) in (Linear, Conv2D):
+            out.setdefault(id(lay), lay)
+    return list(out.values())
 
 
 def quantize(module: torch.nn.Module,
@@ -410,6 +446,11 @@ def quantize(module: torch.nn.Module,
     it is) in which every ``Linear`` / ``Conv2D`` is an int8 twin on the
     same device, and every other module a copy.
 
+    A keras ``Model`` is cloned node by node (the JAX package's
+    ``_quantize_keras``): its ``Linear`` / ``Conv2D`` node layers become
+    twins and every other node layer a copy.  A layer used at several
+    nodes gets one twin, used at each of them.
+
     ``calib``: ``{id(leaf): activation scale}`` from :func:`calibrate`;
     a calibrated leaf quantizes its activations statically (a scalar, or
     per input channel), the others per row at each call.
@@ -417,13 +458,16 @@ def quantize(module: torch.nn.Module,
     if not isinstance(module, torch.nn.Module):
         raise ValueError(f"quantize takes a module of the port, got "
                          f"{type(module).__name__}")
-    refuse_keras_quantization(module, "quantize()")
     calib = calib or {}
+    keras = _keras_model(module)
     memo = {}
-    for leaf in module.modules():
+    for leaf in (_keras_leaves(keras) if keras is not None
+                 else module.modules()):
         twin = _twin(leaf, calib, weight_only)
         if twin is not None:
             memo[id(leaf)] = twin
+    if keras is not None:
+        return _clone_keras(keras, memo)
     # the twins enter the copy in their leaves' places, so the float
     # weights they replace are never copied
     if id(module) in memo:
@@ -443,8 +487,12 @@ def calibrate(module: torch.nn.Module, batches: Iterable,
     (the given abs-percentile).  ``granularity``: ``"tensor"`` (one
     scalar a leaf) or ``"channel"`` (one scale per input channel, folded
     into the weight rows by :func:`quantize`).  Returns ``{id(leaf):
-    scale}`` for :func:`quantize`'s ``calib``."""
-    refuse_keras_quantization(module, "calibrate()")
+    scale}`` for :func:`quantize`'s ``calib``.
+
+    On a keras ``Model`` the node layers are recorded, as the JAX
+    package's recording clone does: every ``Linear`` / ``Conv2D`` node
+    layer (a grouped conv too), over the inputs of every node it runs
+    at."""
     if method not in ("minmax", "percentile"):
         raise ValueError("method: minmax | percentile")
     if granularity not in ("tensor", "channel"):
@@ -460,8 +508,11 @@ def calibrate(module: torch.nn.Module, batches: Iterable,
             a = a[::stride][: max(1, cap // a.shape[1])]
         store.setdefault(id(leaf), []).append(a)
 
-    hooks = [m.register_forward_pre_hook(record) for m in module.modules()
-             if type(m) is Linear or (type(m) is Conv2D and m.groups == 1)]
+    keras = _keras_model(module)
+    leaves = (_keras_leaves(keras) if keras is not None else
+              [m for m in module.modules() if type(m) is Linear
+               or (type(m) is Conv2D and m.groups == 1)])
+    hooks = [m.register_forward_pre_hook(record) for m in leaves]
     was_training = module.training
     module.eval()
     try:

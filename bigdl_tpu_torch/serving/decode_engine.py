@@ -67,13 +67,31 @@ contiguous cache with no pages, slots or scheduling; it is the engine's
 own reference.  Both paths share ``chunk_forward`` (the layer math) and
 ``_select_tokens``.
 
-What this port covers: the LM adapter, float32 and int8 pages, int8
-serving weights, greedy and seeded sampled selection, speculative
-decoding, continuous and whole-batch-restart (``continuous=False``)
-scheduling, cancellation, and the engine's metrics, events and gauges.
-The prefix cache and the draft attention window
-(``SpecConfig.draft_window``) are refused with a ``ValueError`` until
-they are ported."""
+**The fleet half.**  ``DecodeConfig.prefix_cache_pages`` keeps the
+page-aligned prompt prefixes of finished cold requests in a
+:class:`~bigdl_tpu_torch.serving.fleet.PrefixCache`; a later request
+sharing one maps the cached pages read-only into the leading rows of its
+page table and prefills from the attach boundary on.  A prefill-only
+request (``DecodeRequest(export_kv=True)``) leaves its prompt's pages on
+``kv_export`` (``fleet.handoff.pack_handoff`` serialises them);
+:meth:`DecodeEngine.submit_prefilled` imports such a handoff into fresh
+pages and continues from its first token; :meth:`DecodeEngine.
+migrate_live_slots` exports every live slot the same way.  An attach,
+an import and an export are page-table rows and copies on the engine
+thread between calls: none adds a program or a capture.
+
+**Translation.**  A :class:`Seq2SeqAdapter`'s "prefill" is the encoder,
+run at admission; its cross-attention K/V and source length go into
+per-slot context buffers (``ctx_specs``) that the captured step and
+prefill programs read.  :class:`~bigdl_tpu_torch.serving.seq2seq.
+Seq2SeqService` serves ``translate`` over it.
+
+What this port covers: the LM and seq2seq adapters, float32 and int8
+pages, int8 serving weights, greedy and seeded sampled selection,
+speculative decoding (with the draft's attention window), the prefix
+cache, KV export / import / live migration, continuous and
+whole-batch-restart (``continuous=False``) scheduling, cancellation, and
+the engine's metrics, events and gauges."""
 
 import heapq
 import itertools
@@ -157,7 +175,11 @@ class SpecConfig:
     # and top-p thresholds are discontinuous in the last-ulp logit
     # drift of the chunk pass.
     verify_impl: str = "auto"
-    # not ported yet: a draft attending only its last W positions
+    # None = the draft attends its whole context; an int W = at every
+    # cache bucket wider than W the draft's k+1 steps attend a ring of
+    # its last W positions' K/V (slot q % W holds position q) instead of
+    # the whole gathered cache.  The verify still reads the whole cache,
+    # so the tokens are unchanged; only the acceptance moves
     draft_window: Optional[int] = None
 
 
@@ -190,7 +212,11 @@ class DecodeConfig:
     # True on the CPU runs the paged wiring through the kernel's plain
     # version
     use_flash_decode: Optional[bool] = None
-    # not ported yet; kept so a config asking for it is refused
+    # prefix/KV reuse: finished cold requests donate the page-aligned
+    # prefix of their prompt to a per-engine cache of up to this many
+    # pages (0 = off; continuous mode only), and later requests sharing
+    # the prefix attach to the cached pages instead of prefilling them.
+    # Idle entries are evicted (LRU) when admission runs short of pages
     prefix_cache_pages: int = 0
     # KV page storage: "float32", or "int8" pages with one float32
     # abs-max scale per (layer, page) — 4x fewer page bytes, token
@@ -213,9 +239,6 @@ class DecodeConfig:
             raise ValueError(f"DecodeConfig.speculative must be a "
                              f"SpecConfig or None, got "
                              f"{type(self.speculative).__name__}")
-        if self.prefix_cache_pages > 0:
-            raise ValueError("the prefix cache (prefix_cache_pages > 0) is "
-                             "not ported yet")
         if self.slots < 2 or self.prefill_batch < 2:
             raise ValueError("DecodeConfig.slots and prefill_batch must be "
                              ">= 2 (the JAX engine's parity rule)")
@@ -252,9 +275,15 @@ class DecodeConfig:
 
 @dataclass
 class DecodeRequest:
-    """One generation request; ``tokens`` is the prompt.
-    ``temperature > 0`` samples with ``top_k`` (0 = off), ``top_p`` (1.0
-    = off) and the request's ``seed``."""
+    """One generation request; ``tokens`` is the prompt (for a seq2seq
+    adapter, the SOURCE sequence).  ``temperature > 0`` samples with
+    ``top_k`` (0 = off), ``top_p`` (1.0 = off) and the request's ``seed``.
+
+    ``export_kv=True`` runs a prefill-only request (pair it with
+    ``max_new_tokens=1``): when it finishes, its prompt's pages are
+    copied to the host onto ``kv_export`` (``fleet.handoff``'s dict).
+    ``handoff``: an unpacked handoff whose prefill ran on another engine
+    (:meth:`DecodeEngine.submit_prefilled`)."""
 
     tokens: np.ndarray
     max_new_tokens: Optional[int] = None
@@ -266,7 +295,11 @@ class DecodeRequest:
     deadline_t: float = math.inf      # absolute; math.inf = never
     on_token: Optional[Callable[[str, int, int], None]] = None
     on_done: Optional[Callable[["DecodeRequest"], None]] = None
+    export_kv: bool = False
+    handoff: Optional[dict] = None
     # -- engine-internal ----------------------------------------------------
+    kv_export: Optional[dict] = None   # filled by the export_kv path
+    prepared: Optional[tuple] = None   # the adapter's prepare(), cached
     admit_t: float = 0.0
     seq: int = 0
     result: Optional["DecodeResult"] = None
@@ -294,21 +327,30 @@ class DecodeResult:
 class _ActiveSeq:
     """Host-side state of one occupied slot."""
 
-    __slots__ = ("req", "prompt", "pages", "reserved", "generated", "logp",
-                 "prefill_pos", "first_token_t", "max_new", "done")
+    __slots__ = ("req", "prompt", "ctx", "pages", "reserved", "generated",
+                 "logp", "first_logp", "last_logp", "prefill_pos", "shared",
+                 "shared_entry", "first_token_t", "max_new", "done",
+                 "frozen")
 
-    def __init__(self, req: DecodeRequest, prompt: np.ndarray,
+    def __init__(self, req: DecodeRequest, prompt: np.ndarray, ctx,
                  reserved: int, max_new: int):
         self.req = req
         self.prompt = prompt
-        self.pages: List[int] = []    # pages this slot owns
+        self.ctx = ctx                # the adapter's per-slot context
+        self.pages: List[int] = []    # pages this slot owns (the rows
+        #                               after any shared prefix rows)
         self.reserved = reserved      # owned pages reserved, not yet taken
         self.generated: List[int] = []
         self.logp = np.float32(0.0)
+        self.first_logp = np.float32(0.0)
+        self.last_logp = np.float32(0.0)
         self.prefill_pos = 0          # prompt tokens consumed by prefill
+        self.shared: List[int] = []   # prefix-cache pages mapped read-only
+        self.shared_entry = None      # the cache entry holding our ref
         self.first_token_t = 0.0
         self.max_new = max_new
         self.done = False
+        self.frozen = False           # migrated: exported, no more steps
 
     @property
     def prefilling(self) -> bool:
@@ -412,13 +454,10 @@ def _write_chunk(buf, positions, new, cap):
 # model adapter: the layer math both decode paths share
 # ---------------------------------------------------------------------------
 
-class LMAdapter:
-    """Causal LM (``Transformer(mode="lm")``): the prompt prefills the
-    self-attention cache; generation continues from its last token.
-
-    The step math over an explicit KV buffer: the engine feeds it a
-    page-gathered view (or attends through the paged kernel), the static
-    reference a contiguous cache.
+class _AdapterBase:
+    """The step math both decode paths share, over an explicit KV buffer:
+    the engine feeds it a page-gathered view (or attends through the
+    paged kernel), the static reference a contiguous cache.
 
     ``weight_quant="int8"`` serves a copy of the model whose matmul
     weights are int8 at rest (``nn.quantized.Int8Weights``: per-out-column
@@ -427,22 +466,13 @@ class LMAdapter:
     float32 view for that call only (inside a captured graph, the view's
     dequantize kernels are part of the graph)."""
 
-    def __init__(self, model, cap: int, weight_quant: Optional[str] = None):
-        if getattr(model, "mode", None) != "lm":
-            raise ValueError("LMAdapter needs a Transformer(mode='lm')")
+    def __init__(self, model, weight_quant: Optional[str] = None):
         if weight_quant not in (None, "int8"):
             raise ValueError(f"weight_quant {weight_quant!r}: None | 'int8'")
         self.weight_quant = weight_quant
         self._w8 = Int8Weights(model) if weight_quant == "int8" else None
         self.model = self._w8.module if self._w8 is not None else model
         self.device = model.embedding.device
-        layer = model.decoder[0].attn
-        self.num_heads = layer.num_heads
-        self.head_dim = layer.head_dim
-        self.num_layers = len(model.decoder)
-        self._pe = positional_encoding(cap + 1, model.hidden_size,
-                                       device=self.device)
-        self._scale = math.sqrt(model.hidden_size)
 
     def weights(self):
         """Context in which the model's parameters hold float32 values:
@@ -475,11 +505,71 @@ class LMAdapter:
         h = self.model.ln_out(x)
         return matmul_f32(h, self.model.embedding.T)
 
-    def prepare(self, tokens) -> np.ndarray:
-        """LM: the prompt IS the decoder prompt."""
-        return np.asarray(tokens, np.int32).reshape(-1)
+    def _embed(self, tokens, positions):
+        """Token embeddings at absolute positions ``positions[:, None] +
+        [0..C)``; a padded final chunk can run past the cap, and its tail
+        rows read the last position (their K/V is never written or
+        attended).  Returns (x, q_pos)."""
+        C = tokens.shape[1]
+        cap = self._pe.shape[0] - 1
+        q_pos = positions[:, None] + torch.arange(C, device=self.device)
+        x = (self.model.embedding[tokens] * self._scale
+             + self._pe[q_pos.clamp(max=cap)])
+        return x, q_pos
 
-    def chunk_forward(self, tokens, positions, kbuf, vbuf,
+    def _causal_valid(self, q_pos, kbuf, self_attend):
+        """The causal mask (B, C, K) over the buffers, built once a call;
+        None when ``self_attend`` owns the attention."""
+        if self_attend is not None:
+            return None
+        return (torch.arange(kbuf.shape[3], device=self.device)
+                [None, None, :] <= q_pos[:, :, None])
+
+    def _self_attention(self, i, layer_attn, h1, positions, kbuf, vbuf,
+                        self_attend, valid):
+        """Layer ``i``'s self-attention of the normed input ``h1``: the
+        engine's ``self_attend`` hook, or a write into the buffers and an
+        attention over them under ``valid`` (:meth:`_causal_valid`).
+        Returns (output, k_new, v_new)."""
+        sp = layer_attn
+        q = self._split(_attn_project(sp, h1, "wq", "bq"))
+        k_new = self._split(_attn_project(sp, h1, "wk", "bk"))
+        v_new = self._split(_attn_project(sp, h1, "wv", "bv"))
+        if self_attend is not None:
+            a = self_attend(i, q, k_new, v_new)
+        else:
+            cap = self._pe.shape[0] - 1
+            B = q.shape[0]
+            _write_chunk(kbuf[:, i], positions, k_new, cap)
+            _write_chunk(vbuf[:, i], positions, v_new, cap)
+            a = self._attend(q, kbuf[:B, i], vbuf[:B, i], valid)
+        return a, k_new, v_new
+
+
+class LMAdapter(_AdapterBase):
+    """Causal LM (``Transformer(mode="lm")``): the prompt prefills the
+    self-attention cache; generation continues from its last token."""
+
+    def __init__(self, model, cap: int, weight_quant: Optional[str] = None):
+        if getattr(model, "mode", None) != "lm":
+            raise ValueError("LMAdapter needs a Transformer(mode='lm')")
+        super().__init__(model, weight_quant)
+        layer = model.decoder[0].attn
+        self.num_heads = layer.num_heads
+        self.head_dim = layer.head_dim
+        self.num_layers = len(model.decoder)
+        self._pe = positional_encoding(cap + 1, model.hidden_size,
+                                       device=self.device)
+        self._scale = math.sqrt(model.hidden_size)
+
+    def ctx_specs(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        return {}
+
+    def prepare(self, tokens):
+        """LM: the prompt IS the decoder prompt; no context."""
+        return np.asarray(tokens, np.int32).reshape(-1), {}
+
+    def chunk_forward(self, tokens, positions, kbuf, vbuf, ctx=None,
                       self_attend=None, model=None):
         """One step of C tokens per row: embed at absolute positions,
         write each layer's K/V into the buffer, attend causally over the
@@ -491,32 +581,15 @@ class LMAdapter:
         replaces the buffer attention (the engine's paged path, which
         owns its own cache writes); ``kbuf/vbuf`` may then be None.
         ``model`` walks a twin's layers instead (the speculative draft:
-        the same parameters, block-sparse FFNs)."""
-        B, C = tokens.shape
-        cap = self._pe.shape[0] - 1
-        q_pos = positions[:, None] + torch.arange(C, device=self.device)
-        # a padded final chunk can run past the cap: its tail rows read
-        # the last position (their K/V is never written or attended)
-        x = (self.model.embedding[tokens] * self._scale
-             + self._pe[q_pos.clamp(max=cap)])
-        if self_attend is None:
-            K = kbuf.shape[3]
-            valid = (torch.arange(K, device=self.device)[None, None, :]
-                     <= q_pos[:, :, None])
+        the same parameters, block-sparse FFNs).  An LM has no ``ctx``."""
+        x, q_pos = self._embed(tokens, positions)
+        valid = self._causal_valid(q_pos, kbuf, self_attend)
         k_news, v_news = [], []
         for i, layer in enumerate((model or self.model).decoder):
-            h1 = layer.ln1(x)
-            sp = layer.attn
-            q = self._split(_attn_project(sp, h1, "wq", "bq"))
-            k_new = self._split(_attn_project(sp, h1, "wk", "bk"))
-            v_new = self._split(_attn_project(sp, h1, "wv", "bv"))
-            if self_attend is not None:
-                a = self_attend(i, q, k_new, v_new)
-            else:
-                _write_chunk(kbuf[:, i], positions, k_new, cap)
-                _write_chunk(vbuf[:, i], positions, v_new, cap)
-                a = self._attend(q, kbuf[:B, i], vbuf[:B, i], valid)
-            x = x + self._merge(a, x, sp)
+            a, k_new, v_new = self._self_attention(
+                i, layer.attn, layer.ln1(x), positions, kbuf, vbuf,
+                self_attend, valid)
+            x = x + self._merge(a, x, layer.attn)
             x = x + layer.ffn(layer.ln2(x))
             k_news.append(k_new)
             v_news.append(v_new)
@@ -550,6 +623,115 @@ class LMAdapter:
             with self.weights():
                 derive_draft_masks(draft, sparsity)
         return draft
+
+
+class Seq2SeqAdapter(_AdapterBase):
+    """Translation Transformer (``mode="translation"``): the "prefill" is
+    the ENCODER, run once a request at admission (:meth:`prepare`), which
+    turns the source into each decoder layer's cross-attention K/V,
+    padded to ``src_cap`` (the largest of ``src_buckets``), and the
+    source length.  The decoder prompt is one BOS, and every decode step
+    is query-length 1 over the paged self-attention cache plus the fixed
+    cross context, masked to the source length: the op sequence of
+    ``nn.attention.transformer_decode_cached``.  A source is encoded at
+    the smallest of ``src_buckets`` that holds it, under a key-padding
+    mask, so a padded encode gives the exact-length encode's rows."""
+
+    def __init__(self, model, cap: int, bos_id: int,
+                 src_buckets: Sequence[int] = (8, 16, 32, 64),
+                 weight_quant: Optional[str] = None):
+        if getattr(model, "mode", None) != "translation":
+            raise ValueError("Seq2SeqAdapter needs a translation-mode "
+                             "Transformer")
+        super().__init__(model, weight_quant)
+        layer = model.decoder[0].self_attn
+        self.num_heads = layer.num_heads
+        self.head_dim = layer.head_dim
+        self.num_layers = len(model.decoder)
+        self.bos_id = int(bos_id)
+        self.src_buckets = tuple(sorted(int(b) for b in src_buckets))
+        self.src_cap = self.src_buckets[-1]
+        self._pe = positional_encoding(cap + 1, model.hidden_size,
+                                       device=self.device)
+        self._scale = math.sqrt(model.hidden_size)
+
+    def ctx_specs(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        L, h, hd = self.num_layers, self.num_heads, self.head_dim
+        return {"ck": ((L, h, self.src_cap, hd), torch.float32),
+                "cv": ((L, h, self.src_cap, hd), torch.float32),
+                "src_len": ((), torch.int32)}
+
+    @torch.no_grad()
+    def _encode(self, src: np.ndarray, src_len: int):
+        """The cross-attention K/V of one bucket-padded source (1, bucket)
+        under a key-padding mask: (L, h, src_cap, hd) each."""
+        m = self.model
+        bucket = src.shape[1]
+        src_t = torch.from_numpy(src).to(self.device)
+        mask = (torch.arange(bucket, device=self.device)
+                < src_len)[None, None, None, :]
+        with self.weights():
+            x = m._embed(src_t)
+            for layer in m.encoder:
+                x = layer(x, mask=mask)
+            pad = self.src_cap - bucket
+            cks, cvs = [], []
+            for layer in m.decoder:
+                cp = layer.cross_attn
+                for out, w, b in ((cks, "wk", "bk"), (cvs, "wv", "bv")):
+                    t = self._split(_attn_project(cp, x, w, b)).float()
+                    out.append(torch.nn.functional.pad(t, (0, 0, 0, pad))[0])
+        return torch.stack(cks), torch.stack(cvs)
+
+    def prepare(self, tokens):
+        """(the BOS decoder prompt, the context of the source ``tokens``)."""
+        src = np.asarray(tokens, np.int32).reshape(1, -1)
+        t = src.shape[1]
+        bucket = next((b for b in self.src_buckets if b >= t), None)
+        if bucket is None:
+            raise ValueError(f"source length {t} exceeds the largest "
+                             f"src bucket {self.src_buckets[-1]}")
+        if bucket > t:
+            src = np.pad(src, ((0, 0), (0, bucket - t)))
+        ck, cv = self._encode(src, t)
+        ctx = {"ck": ck, "cv": cv,
+               "src_len": torch.tensor(t, dtype=torch.int32,
+                                       device=self.device)}
+        return np.asarray([self.bos_id], np.int32), ctx
+
+    def warmup_buckets(self, sample_src_lens: Optional[Sequence[int]] = None
+                       ) -> None:
+        """One encode of every source bucket."""
+        for b in (sample_src_lens or self.src_buckets):
+            self._encode(np.zeros((1, int(b)), np.int32), int(b))
+
+    def chunk_forward(self, tokens, positions, kbuf, vbuf, ctx=None,
+                      self_attend=None):
+        """Decoder step: causal self-attention over the cache (as
+        :meth:`LMAdapter.chunk_forward`), cross-attention over each row's
+        context ``ctx`` (``ck`` / ``cv`` (B, L, h, src_cap, hd),
+        ``src_len`` (B,)) masked to its source length, and the FFN."""
+        x, q_pos = self._embed(tokens, positions)
+        B, C = tokens.shape
+        src_valid = (torch.arange(self.src_cap, device=self.device)
+                     [None, None, :] < ctx["src_len"].reshape(-1, 1, 1))
+        src_valid = src_valid.expand(B, C, self.src_cap)
+        valid = self._causal_valid(q_pos, kbuf, self_attend)
+        k_news, v_news = [], []
+        for i, layer in enumerate(self.model.decoder):
+            a, k_new, v_new = self._self_attention(
+                i, layer.self_attn, layer.ln1(x), positions, kbuf, vbuf,
+                self_attend, valid)
+            x = x + self._merge(a, x, layer.self_attn)
+            cp = layer.cross_attn
+            qc = self._split(_attn_project(cp, layer.ln2(x), "wq", "bq"))
+            a = self._attend(qc, ctx["ck"][:, i], ctx["cv"][:, i], src_valid)
+            x = x + self._merge(a, x, cp)
+            x = x + layer.ffn(layer.ln3(x))
+            k_news.append(k_new)
+            v_news.append(v_new)
+        return (self._logits(x), kbuf, vbuf,
+                torch.stack(k_news, 1), torch.stack(v_news, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -680,7 +862,7 @@ class DecodeEngine:
     # eager runs of a program on idle rows before its capture
     WARM_RUNS = 1
 
-    def __init__(self, adapter: LMAdapter,
+    def __init__(self, adapter: _AdapterBase,
                  config: Optional[DecodeConfig] = None, metrics=None,
                  name: str = "decode"):
         apply_precision_policy()
@@ -718,6 +900,23 @@ class DecodeEngine:
         # pages popped off the free list whose scales still hold the last
         # owner's: zeroed by the next call before it reads them
         self._fresh_pages: List[int] = []
+        # the adapter's per-slot context (a seq2seq adapter's encoder
+        # output): static buffers written at admission, outside the
+        # programs, and read by the captured step and prefill programs
+        self._ctx_bufs = {
+            k: torch.zeros((cfg.slots,) + tuple(shape), dtype=dt,
+                           device=self.device)
+            for k, (shape, dt) in adapter.ctx_specs().items()}
+        # prefix/KV reuse: pages the cache holds are off the free list,
+        # so the page accounting stays exact
+        self._prefix_cache = None
+        if cfg.prefix_cache_pages > 0 and cfg.continuous:
+            from bigdl_tpu_torch.serving.fleet.prefix_cache import \
+                PrefixCache
+
+            self._prefix_cache = PrefixCache(
+                min(cfg.prefix_cache_pages, cfg.total_pages),
+                cfg.page_size, page_dtype=cfg.kv_dtype)
         # speculative decoding: the draft's K/V live in a parallel float32
         # pool indexed by the SAME page table, so one allocation and one
         # release cover both
@@ -729,6 +928,10 @@ class DecodeEngine:
             if not cfg.continuous:
                 raise ValueError("speculative decoding requires "
                                  "continuous mode")
+            if adapter.ctx_specs() or not hasattr(adapter, "build_draft"):
+                raise ValueError(
+                    "speculative decoding supports LM adapters only (a "
+                    "seq2seq draft would need its own cross context)")
             if not 1 <= int(sp.k) < cfg.cap:
                 raise ValueError(f"SpecConfig.k must be in [1, {cfg.cap}), "
                                  f"got {sp.k}")
@@ -740,9 +943,9 @@ class DecodeEngine:
                     "SpecConfig.verify_impl='chunk' requires float32 KV "
                     "pages (the int8 page write is per position; the scan "
                     "verify handles kv_dtype='int8')")
-            if sp.draft_window is not None:
-                raise ValueError("SpecConfig.draft_window is not ported "
-                                 "yet: the draft attends its full context")
+            if sp.draft_window is not None and int(sp.draft_window) < 1:
+                raise ValueError(f"SpecConfig.draft_window must be None or "
+                                 f">= 1, got {sp.draft_window}")
             self._draft_model = adapter.build_draft(sp)
             self._dr_k = torch.zeros(shape, dtype=torch.float32,
                                      device=self.device)
@@ -830,10 +1033,13 @@ class DecodeEngine:
             if len(prompt) == 0:
                 raise ValueError("empty prompt: a generate request needs "
                                  "at least one input token")
-            if len(prompt) >= self.cfg.cap:
+            if getattr(self.adapter, "bos_id", None) is None \
+                    and len(prompt) >= self.cfg.cap:
                 raise ValueError(
                     f"prompt of {len(prompt)} tokens exceeds the cache cap "
                     f"{self.cfg.cap} (page_size * pages_per_slot)")
+            if req.handoff is not None or req.export_kv:
+                self._validate_fleet_request(req, prompt)
         now = time.time()
         for req in reqs:
             req.admit_t = now
@@ -855,6 +1061,64 @@ class DecodeEngine:
                                  for p in prompts])
         return [r.wait(timeout=300.0) for r in reqs]
 
+    def submit_prefilled(self, handoff: dict, **kw) -> DecodeRequest:
+        """Admit a request whose prefill ran on another engine:
+        ``handoff`` is the dict ``fleet.handoff.unpack_handoff`` returns
+        (the prompt tokens, the first generated token and its log-prob,
+        the prompt's page images).  The sampling parameters and seed
+        default to the handoff's own; ``kw`` overrides ride through to
+        :class:`DecodeRequest` (``max_new_tokens``, ``rid``,
+        ``on_token``, ``deadline_t`` ...)."""
+        meta = {k: handoff[k]
+                for k in ("temperature", "top_k", "top_p", "seed")
+                if k in handoff}
+        meta.update(kw)
+        return self.submit(DecodeRequest(
+            tokens=np.asarray(handoff["tokens"], np.int32), handoff=handoff,
+            **meta))
+
+    def _validate_fleet_request(self, req: DecodeRequest,
+                                prompt: np.ndarray) -> None:
+        """Refuse a malformed handoff or export at the door: admitted, it
+        would fail on the engine thread and take the in-flight batch with
+        it.  The JAX engine's checks and messages."""
+        if not self.cfg.continuous:
+            raise ValueError("KV handoff/export requires continuous mode")
+        if self.adapter.ctx_specs():
+            raise ValueError(
+                "KV handoff/export supports LM adapters only (a seq2seq "
+                "'prefill' is the encoder — there are no prompt KV "
+                "pages to transfer)")
+        if req.handoff is None:
+            return
+        h = req.handoff
+        cfg, a = self.cfg, self.adapter
+        hd_dt = str(h.get("kv_dtype", "float32"))
+        if hd_dt != cfg.kv_dtype:
+            raise ValueError(
+                f"handoff kv_dtype {hd_dt!r} does not match this "
+                f"engine's kv_dtype {cfg.kv_dtype!r}; refusing the "
+                "page import (re-prefill instead)")
+        n = -(-len(prompt) // cfg.page_size)
+        want = (a.num_layers, n, a.num_heads, cfg.page_size, a.head_dim)
+        k = np.asarray(h.get("k"))
+        v = np.asarray(h.get("v"))
+        if k.shape != want or v.shape != want:
+            raise ValueError(f"handoff K/V shape {k.shape} does not "
+                             f"match engine geometry {want}")
+        if self._quant_kv:
+            ks = np.asarray(h.get("k_scales"))
+            vs = np.asarray(h.get("v_scales"))
+            if ks.shape != (a.num_layers, n) \
+                    or vs.shape != (a.num_layers, n):
+                raise ValueError(
+                    f"int8 handoff scale shape {ks.shape} does not "
+                    f"match (layers, pages) {(a.num_layers, n)}")
+        toks = np.asarray(h.get("tokens"), np.int32).reshape(-1)
+        if not np.array_equal(toks, prompt):
+            raise ValueError("handoff prompt tokens do not match the "
+                             "request's tokens")
+
     def queue_depth(self) -> int:
         with self._cv:
             return len(self._heap)
@@ -863,14 +1127,15 @@ class DecodeEngine:
         return int(self._active_mask.sum())
 
     def decode_pressure(self) -> Dict[str, Any]:
-        """Admission-pressure snapshot: free slots, reservable pages and
-        the prefill backlog (prefilling slots + queued requests), with
-        the JAX engine's keys (``kv_exports`` / ``kv_imports`` stay 0
-        until the fleet handoff is ported).  Read from any thread: a
-        torn read across fields skews a score, never correctness."""
+        """Admission-pressure snapshot for the fleet router: free slots,
+        reservable pages, the prefill backlog (prefilling slots + queued
+        requests), the handoffs exported and imported, and the prefix
+        cache's counters, with the JAX engine's keys.  Read from any
+        thread: a torn read across fields skews a score, never
+        correctness."""
         queued = self.queue_depth()
         slots = list(self._slots)
-        return {
+        out = {
             "total_slots": self.cfg.slots,
             "free_slots": sum(s is None for s in slots),
             "total_pages": self.cfg.total_pages,
@@ -887,6 +1152,9 @@ class DecodeEngine:
             "speculative": self._spec is not None,
             "spec_k": int(self._spec.k) if self._spec is not None else 0,
         }
+        if self._prefix_cache is not None:
+            out["prefix_cache"] = self._prefix_cache.stats()
+        return out
 
     def cancel(self, rid: str, reason: str = "cancelled") -> None:
         """Cancel a queued or in-flight request from any thread.  The
@@ -897,6 +1165,80 @@ class DecodeEngine:
         with self._cv:
             self._cancelled[rid] = reason
             self._cv.notify_all()
+
+    def migrate_live_slots(self) -> Tuple[List[dict], List[str], List[str]]:
+        """Freeze and export every migratable live slot: under
+        ``_iter_lock`` (so no token is emitted after its slot's state
+        left), each eligible slot's written pages and sampling state are
+        copied into a handoff dict another engine imports with
+        :meth:`submit_prefilled`, and the slot stops decoding.  The
+        caller ships the handoffs, then evicts the frozen rids with
+        :meth:`cancel` (``reason="migrated"``).
+
+        A handoff is shaped as a fresh prefill of ``prompt +
+        generated[:-1]`` would export it: ``lengths[s]`` cache positions
+        are written and the pending last token travels as
+        ``first_token``.  Sampling keys are counter-based at absolute
+        positions, so the importing engine continues as the slot would
+        have.  Returns ``(exports, frozen_rids, leftover_rids)``: the
+        leftovers are live slots that cannot move (still prefilling, no
+        token yet, an export request, a seq2seq slot) and the queued
+        requests; the caller evicts those too."""
+        exports: List[dict] = []
+        frozen: List[str] = []
+        leftover: List[str] = []
+        cfg = self.cfg
+        if not cfg.continuous:
+            return exports, frozen, leftover
+        with self._iter_lock:
+            for s, seq in enumerate(self._slots):
+                if seq is None or seq.done or seq.frozen:
+                    continue
+                req = seq.req
+                if (seq.ctx or seq.prefilling or not seq.generated
+                        or req.export_kv):
+                    leftover.append(req.rid)
+                    continue
+                n = -(-int(self._lengths[s]) // cfg.page_size)
+                export = {
+                    "tokens": np.concatenate([
+                        np.asarray(seq.prompt, np.int32),
+                        np.asarray(seq.generated[:-1], np.int32)]),
+                    "first_token": int(seq.generated[-1]),
+                    "first_logp": float(seq.last_logp),
+                    "temperature": float(req.temperature),
+                    "top_k": int(req.top_k),
+                    "top_p": float(req.top_p),
+                    "seed": int(req.seed),
+                    "request_id": req.rid,
+                    "migrated": True,
+                    "resume_len": len(seq.generated),
+                    "kv_dtype": cfg.kv_dtype,
+                    **self._export_pages(self._page_table[s, :n])}
+                exports.append(export)
+                seq.frozen = True
+                self._active_mask[s] = False
+                frozen.append(req.rid)
+                self.stats["kv_exports"] += 1
+                self.metrics.inc("serving.fleet.kv_exports")
+                self.events.append(("kv_export", req.rid, int(n)))
+            with self._cv:
+                leftover.extend(r.rid for _, _, r in self._heap)
+        return exports, frozen, leftover
+
+    def _export_pages(self, pids) -> Dict[str, np.ndarray]:
+        """Host copies of the pages ``pids`` in their stored type, (L, n,
+        h, page, hd) K and V, and for int8 their (L, n) scales: a copy on
+        the engine thread between calls."""
+        if (np.asarray(pids) == self._sink).any():
+            raise AssertionError("the sink page is never exported")
+        ids = torch.from_numpy(np.asarray(pids, np.int64)).to(self.device)
+        out = {"k": self._kv_k[:, ids].cpu().numpy(),
+               "v": self._kv_v[:, ids].cpu().numpy()}
+        if self._quant_kv:
+            out["k_scales"] = self._kv_sk[:, ids].cpu().numpy()
+            out["v_scales"] = self._kv_sv[:, ids].cpu().numpy()
+        return out
 
     # -- lifecycle ----------------------------------------------------------
     def _ensure_thread(self) -> None:
@@ -950,11 +1292,14 @@ class DecodeEngine:
         a capture after warmup counts as
         ``serving.decode.unexpected_captures``.  Eagerly, each runs once
         on idle rows (the kernels built, the libraries initialised).
-        Idle rows write only the sink pages."""
+        Idle rows write only the sink pages.  An adapter's encoder
+        (``warmup_buckets``) runs once at each source bucket first."""
         t0 = time.perf_counter()
         with self._iter_lock:
             self._warming = True
             try:
+                if hasattr(self.adapter, "warmup_buckets"):
+                    self.adapter.warmup_buckets()
                 for key in self.closed_set():
                     if not self._graphs_on:
                         prog = self._programs[key[0]]
@@ -1032,7 +1377,7 @@ class DecodeEngine:
                  ("tokens", (B, cfg.prompt_chunk), "int32"),
                  ("position", (B,), "int32"), ("last_index", (B,), "int32"),
                  ("active", (B,), "int32"), *boards(B),
-                 ("fresh", (F,), "int32")],
+                 ("slot_idx", (B,), "int32"), ("fresh", (F,), "int32")],
                 [("tok", (B,), "int32"), ("logp", (B,), "float32")],
                 self._sink, self.device)}
         if self._spec is not None:
@@ -1066,7 +1411,7 @@ class DecodeEngine:
         with self.adapter.weights():
             logits = self._decode_body(n_blocks, x["pt"], pos,
                                        x["last"].long()[:, None],
-                                       x["active"].bool())
+                                       x["active"].bool(), self._ctx_bufs)
             return self._sampling(x, sampled).select(logits, self._base_key,
                                                      pos + 1)
 
@@ -1075,8 +1420,9 @@ class DecodeEngine:
         call: attend over the pages written so far, write every active
         row's chunk K/V into its pages, and select the FIRST generated
         token at ``last_index`` (meaningful for rows on their final
-        chunk).  With speculation the draft twin consumes the same chunk
-        into its own pool.  Returns (tokens, log-probs)."""
+        chunk).  Each row reads the context of its slot ``slot_idx``.
+        With speculation the draft twin consumes the same chunk into its
+        own pool.  Returns (tokens, log-probs)."""
         self._reset_scales(x["fresh"])
         a = self.adapter
         pt_rows = x["pt"]
@@ -1092,8 +1438,10 @@ class DecodeEngine:
             else:
                 kbuf = self._gather(self._kv_k, pt)
                 vbuf = self._gather(self._kv_v, pt)
+            rows = x["slot_idx"].long()
+            ctx = {k: v[rows] for k, v in self._ctx_bufs.items()}
             logits, _, _, k_new, v_new = a.chunk_forward(tok_t, pos_t, kbuf,
-                                                         vbuf)
+                                                         vbuf, ctx=ctx)
             B = logits.shape[0]
             last = logits[torch.arange(B, device=self.device), li]  # (B, V)
             tok, logp = self._sampling(x, sampled).select(
@@ -1203,9 +1551,9 @@ class DecodeEngine:
             pool[:, pid] = q
             scales[:, pid] = sc
 
-    def _decode_body(self, n_blocks, pt_full, pos, tokens, active):
+    def _decode_body(self, n_blocks, pt_full, pos, tokens, active, ctx=None):
         """One decode-step body: ``tokens`` (S, 1) int64 sit at positions
-        ``pos`` (S,) int64.  Writes every row's K/V at its position into
+        ``pos`` (S,) int64, each row reading its slot's context ``ctx``.  Writes every row's K/V at its position into
         the pool — an inactive row's, or one at the cap, into the sink —
         then attends (a row at the cap still attends); returns the
         logits (S, V).  With int8 pages the write is a read-modify-write
@@ -1249,7 +1597,7 @@ class DecodeEngine:
                          [None, :] <= pos[:, None])[:, None, :]
                 return adapter._attend(q, kb, vb, valid)
 
-            return adapter.chunk_forward(tokens, pos, None, None,
+            return adapter.chunk_forward(tokens, pos, None, None, ctx=ctx,
                                          self_attend=self_attend)[0][:, 0]
         if use_flash:
             def self_attend(i, q, k_new, v_new):
@@ -1262,13 +1610,13 @@ class DecodeEngine:
                                              pt, len32)
                 return out[:, :, None]
 
-            return adapter.chunk_forward(tokens, pos, None, None,
+            return adapter.chunk_forward(tokens, pos, None, None, ctx=ctx,
                                          self_attend=self_attend)[0][:, 0]
         pt64 = pt.long()
         kbuf = self._gather(self._kv_k, pt64)
         vbuf = self._gather(self._kv_v, pt64)
         logits, _, _, k_new, v_new = adapter.chunk_forward(tokens, pos, kbuf,
-                                                           vbuf)
+                                                           vbuf, ctx=ctx)
         self._kv_k[:, wid, :, off] = k_new[:, :, :, 0]
         self._kv_v[:, wid, :, off] = v_new[:, :, :, 0]
         return logits[:, 0]
@@ -1292,15 +1640,30 @@ class DecodeEngine:
         accepted chunk's bonus token needs next iteration), then the
         chunk's K/V go into the draft pool.  Selection uses the verify's
         keys and positions, so a close draft samples the target's token.
-        Returns the drafted tokens (S, k+1) on the device."""
+
+        With ``SpecConfig.draft_window=W`` and a bucket wider than W the
+        steps carry a RING of the last W positions' draft K/V instead of
+        the gathered cache (:meth:`_draft_ring`).  Returns the drafted
+        tokens (S, k+1) on the device."""
         pt = pt_full[:, :n_blocks].long()
-        kbuf = self._gather(self._dr_k, pt)
-        vbuf = self._gather(self._dr_v, pt)
+        W = self._spec.draft_window
+        ring = None
+        if W is not None and int(W) < n_blocks * self.cfg.page_size:
+            ring = self._draft_ring(int(W), pt, pos)
+        else:
+            kbuf = self._gather(self._dr_k, pt)
+            vbuf = self._gather(self._dr_v, pt)
         p = pos
         toks, k_news, v_news = [], [], []
         for _ in range(self._spec.k + 1):
-            logits, kbuf, vbuf, k_new, v_new = self.adapter.chunk_forward(
-                last[:, None], p, kbuf, vbuf, model=self._draft_model)
+            if ring is not None:
+                logits, _, _, k_new, v_new = self.adapter.chunk_forward(
+                    last[:, None], p, None, None, model=self._draft_model,
+                    self_attend=ring(p))
+            else:
+                logits, kbuf, vbuf, k_new, v_new = \
+                    self.adapter.chunk_forward(last[:, None], p, kbuf, vbuf,
+                                               model=self._draft_model)
             last, _ = sampling.select(logits[:, 0], self._base_key, p + 1)
             toks.append(last)
             k_news.append(k_new)
@@ -1309,6 +1672,42 @@ class DecodeEngine:
         self._write_chunk_pages(self._dr_k, self._dr_v, torch.cat(k_news, 3),
                                 torch.cat(v_news, 3), pt_full, pos, active)
         return torch.stack(toks, 1)
+
+    def _draft_ring(self, W: int, pt, lengths):
+        """The draft's attention window: ring slot ``j`` starts with the
+        last cached position congruent to ``j`` mod ``W`` (a negative
+        position is not cached yet and stays masked), read from the draft
+        pool through the page table ``pt`` (S, nb).  Returns
+        ``ring(pos)``, the ``self_attend`` hook of the step at positions
+        ``pos``: it writes each layer's new K/V into slot ``pos % W`` and
+        attends the whole ring under a ``q >= 0`` mask.  The JAX engine's
+        ring, op for op."""
+        cfg = self.cfg
+        page, nb = cfg.page_size, pt.shape[1]
+        span = torch.arange(W, device=self.device)
+        last = (lengths - 1)[:, None]
+        q_seed = last - (last - span) % W                         # (S, W)
+        cell = q_seed.clamp(0, cfg.cap - 1)
+        pid = pt.gather(1, (cell // page).clamp(0, nb - 1))
+        off = cell % page
+        # (L, P+1, h, page, hd)[:, pid, :, off] -> (S, W, L, h, hd)
+        rk = self._dr_k[:, pid, :, off].permute(2, 0, 3, 1, 4).contiguous()
+        rv = self._dr_v[:, pid, :, off].permute(2, 0, 3, 1, 4).contiguous()
+        rows = torch.arange(pt.shape[0], device=self.device)
+
+        def ring(pos):
+            slot = pos % W
+            q_j = pos[:, None] - (pos[:, None] - span) % W
+            ok = (q_j >= 0)[:, None, :]                          # (S, 1, W)
+
+            def self_attend(i, q, k_new, v_new):
+                rk[i][rows, :, slot] = k_new[:, :, 0]
+                rv[i][rows, :, slot] = v_new[:, :, 0]
+                return self.adapter._attend(q, rk[i], rv[i], ok)
+
+            return self_attend
+
+        return ring
 
     def _verify(self, n_blocks, pt_full, pos, last, d_toks, active,
                 sampling: _Sampling, force_scan: bool):
@@ -1574,16 +1973,20 @@ class DecodeEngine:
                 self._finish_expired(seq.req, now, seq=seq)
                 self._release_slot(s)
 
-    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
+    def _pages_needed(self, prompt_len: int, max_new: int,
+                      start: int = 0) -> int:
         """Worst-case page rows the slot's page table will reference:
         the padded final prefill chunk or the full generation, capped.
-        Under speculation an iteration writes up to k positions past the
-        emitted length (draft lookahead and verify chunk), so the
-        reservation grows by k."""
+        ``start`` is where prefill resumes (a prefix-cache attach): the
+        chunks then run from it, so the padded final chunk can reach
+        past the cold padded extent.  Under speculation an iteration
+        writes up to k positions past the emitted length (draft lookahead
+        and verify chunk), so the reservation grows by k."""
         cfg = self.cfg
         C = cfg.prompt_chunk
         spec_k = self._spec.k if self._spec is not None else 0
-        padded_prompt = min(-(-prompt_len // C) * C, cfg.cap)
+        padded_prompt = min(start + -(-(prompt_len - start) // C) * C,
+                            cfg.cap)
         worst = min(max(padded_prompt, prompt_len + max_new + spec_k),
                     cfg.cap)
         return -(-worst // cfg.page_size)
@@ -1601,10 +2004,44 @@ class DecodeEngine:
                     return
                 d, _, req = heapq.heappop(self._heap)
                 self._cv.notify_all()
-            prompt = self.adapter.prepare(req.tokens)
             max_new = min(req.max_new_tokens or cfg.max_new_tokens,
-                          cfg.cap - len(prompt))
-            need = self._pages_needed(len(prompt), max_new)
+                          cfg.cap - 1)
+            try:
+                if req.prepared is None:
+                    # kept on the request: a page-pressure push-back must
+                    # not run the adapter's prepare (a seq2seq encoder
+                    # forward) again at every iteration
+                    req.prepared = self.adapter.prepare(req.tokens)
+                prompt, ctx = req.prepared
+            except Exception as e:  # noqa: BLE001 — this request only
+                self._finish_error(req, e)
+                continue
+            max_new = min(max_new, cfg.cap - len(prompt))
+            if max_new <= 0:
+                self._finish_error(req, ValueError(
+                    f"prompt of {len(prompt)} tokens leaves no room to "
+                    f"generate within the cache cap {cfg.cap}"))
+                continue
+            cache = self._prefix_cache
+            attach = None
+            if cache is not None and req.handoff is None:
+                attach = cache.match(prompt)
+            shared = len(attach.pages) if attach is not None else 0
+            attach_len = len(attach.key) if attach is not None else 0
+            # owned pages only: the shared prefix rows are the cache's
+            need = max(self._pages_needed(len(prompt), max_new,
+                                          start=attach_len) - shared, 0)
+            short = need - (len(self._free_pages) - self._reserved_pages)
+            if short > 0 and cache is not None:
+                # out of pages: reclaim idle cached prefixes (never a page
+                # a live slot references; the entry attached here is
+                # shielded)
+                freed = cache.evict(short, protect=attach)
+                if freed:
+                    self._free_pages.extend(freed)
+                    self.metrics.inc(
+                        "serving.fleet.prefix_cache_evicted_pages",
+                        len(freed))
             if len(self._free_pages) - self._reserved_pages < need:
                 # not enough reservable pages: push back and wait for a
                 # mid-flight release (ordering preserved — same key)
@@ -1612,9 +2049,10 @@ class DecodeEngine:
                     heapq.heappush(self._heap, (d, req.seq, req))
                 return
             s = free[0]
+            seq = _ActiveSeq(req, prompt, ctx, reserved=need,
+                             max_new=max_new)
             self._reserved_pages += need
-            self._slots[s] = _ActiveSeq(req, prompt, reserved=need,
-                                        max_new=max_new)
+            self._slots[s] = seq
             self._lengths[s] = 0
             self._last_tokens[s] = 0
             self._active_mask[s] = False          # active once prefilled
@@ -1622,20 +2060,43 @@ class DecodeEngine:
             self._temps[s] = np.float32(req.temperature)
             self._top_ks[s] = np.int32(req.top_k)
             self._top_ps[s] = np.float32(req.top_p)
+            if attach is not None:
+                # the cached pages lead the page table read-only; prefill
+                # resumes at the attach boundary (short of the prompt's
+                # end, so the chunk selecting the first token runs here),
+                # and every write lands in rows past the shared ones
+                cache.attach(attach)
+                seq.shared = list(attach.pages)
+                seq.shared_entry = attach
+                seq.prefill_pos = attach_len
+                self._page_table[s, :shared] = attach.pages
+                self.metrics.inc("serving.fleet.prefix_cache_hits")
+                self.events.append(("prefix_attach", req.rid, s,
+                                    attach_len))
+            elif cache is not None and req.handoff is None:
+                cache.record_miss()
+                self.metrics.inc("serving.fleet.prefix_cache_misses")
+            for k, v in ctx.items():
+                # outside the programs: the captured graphs read the buffer
+                self._ctx_bufs[k][s].copy_(v)
             self.stats["requests"] += 1
             self.metrics.inc("serving.decode.requests")
             self.events.append(("admit", req.rid, s))
+            if req.handoff is not None:
+                self._import_handoff(s, seq, req)
 
     def _ensure_pages(self, s: int, upto_tokens: int) -> None:
         """Allocate pages for slot ``s`` covering cache positions
         ``[0, upto_tokens)`` — lazily, inside the admission-time
-        reservation, so allocation can never fail mid-flight."""
+        reservation, so allocation can never fail mid-flight.  Shared
+        prefix-cache rows lead the table; owned pages follow them."""
         seq = self._slots[s]
         need = -(-min(upto_tokens, self.cfg.cap) // self.cfg.page_size)
-        while len(seq.pages) < need:
+        shared = len(seq.shared)
+        while shared + len(seq.pages) < need:
             pid = self._free_pages.pop()
             self._reserved_pages -= 1
-            self._page_table[s, len(seq.pages)] = pid
+            self._page_table[s, shared + len(seq.pages)] = pid
             seq.pages.append(pid)
             if self._quant_kv:
                 self._fresh_pages.append(pid)
@@ -1644,8 +2105,24 @@ class DecodeEngine:
         seq = self._slots[s]
         if seq is None:
             return
-        self._free_pages.extend(seq.pages)
+        cache = self._prefix_cache
+        pages = seq.pages
+        if cache is not None and not seq.shared:
+            # donate the page-aligned PROMPT prefix of a cold request:
+            # positions below prefill_pos hold the prompt's K/V (decode
+            # and padded prefill tails write at >= the prompt length), so
+            # whole covered pages serve any prompt sharing the prefix.
+            # An attached request does not donate: its prefix is cached
+            n = min(seq.prefill_pos, len(seq.prompt)) // self.cfg.page_size
+            if n > 0 and cache.insert(seq.prompt[:n * self.cfg.page_size],
+                                      pages[:n],
+                                      page_dtype=self.cfg.kv_dtype):
+                self.events.append(("prefix_donate", seq.req.rid, n))
+                pages = pages[n:]   # ownership moved to the cache
+        self._free_pages.extend(pages)
         self._reserved_pages -= max(seq.reserved - len(seq.pages), 0)
+        if seq.shared_entry is not None:
+            cache.detach(seq.shared_entry)
         self._slots[s] = None
         self._active_mask[s] = False
         self._lengths[s] = 0
@@ -1684,6 +2161,7 @@ class DecodeEngine:
                               ("top_ks", self._top_ks),
                               ("top_ps", self._top_ps)):
                 x[name][b] = src[s]
+            x["slot_idx"][b] = s
             self._ensure_pages(s, min(p0 + C, cfg.cap))
             x["pt"][b] = self._page_table[s]
             rows.append((b, s, real, (p0 + real) >= len(seq.prompt)))
@@ -1855,9 +2333,11 @@ class DecodeEngine:
         req = seq.req
         if not seq.generated:
             seq.first_token_t = now
+            seq.first_logp = np.float32(logp)
             self.metrics.observe("serving.decode.ttft_s", now - req.admit_t)
         seq.generated.append(tok)
         seq.logp = np.float32(seq.logp + logp)
+        seq.last_logp = np.float32(logp)
         if req.on_token is not None:
             try:
                 req.on_token(req.rid, tok, len(seq.generated) - 1)
@@ -1877,6 +2357,9 @@ class DecodeEngine:
             tokens=np.asarray(seq.generated, np.int32),
             logp=float(seq.logp), prompt_len=len(seq.prompt),
             ttft_s=seq.first_token_t - req.admit_t, finish_reason=reason)
+        if req.export_kv:
+            # before the slot releases its pages
+            self._harvest_kv(seq)
         self.stats["completed"] += 1
         self.metrics.inc("serving.decode.completed")
         if self.cfg.continuous:
@@ -1892,6 +2375,64 @@ class DecodeEngine:
                 req.on_done(req)
             except Exception:  # noqa: BLE001
                 pass
+
+    def _harvest_kv(self, seq: _ActiveSeq) -> None:
+        """The export side of the prefill/decode split: the pages holding
+        the prompt (shared prefix rows included) copied to the host onto
+        ``kv_export``, in their stored type."""
+        cfg = self.cfg
+        req = seq.req
+        n = -(-len(seq.prompt) // cfg.page_size)
+        pids = list(seq.shared) + list(seq.pages)
+        req.kv_export = {
+            "tokens": np.asarray(seq.prompt, np.int32),
+            "first_token": int(seq.generated[0]),
+            "first_logp": float(seq.first_logp),
+            "temperature": float(req.temperature),
+            "top_k": int(req.top_k),
+            "top_p": float(req.top_p),
+            "seed": int(req.seed),
+            "request_id": req.rid,
+            "kv_dtype": cfg.kv_dtype,
+            **self._export_pages(pids[:n])}
+        self.stats["kv_exports"] += 1
+        self.metrics.inc("serving.fleet.kv_exports")
+        self.events.append(("kv_export", req.rid, int(n)))
+
+    def _import_handoff(self, s: int, seq: _ActiveSeq,
+                        req: DecodeRequest) -> None:
+        """The decode side of the split: pages for the prompt, the
+        handoff's page images written into them (a copy on the engine
+        thread, between calls), and the handoff's first token emitted.
+        The slot then decodes as if the prefill had run here.  The
+        imported pages take the handoff's int8 scales, so they leave the
+        list of pages whose scales the next call resets."""
+        cfg = self.cfg
+        h = req.handoff
+        plen = len(seq.prompt)
+        n = -(-plen // cfg.page_size)
+        self._ensure_pages(s, plen)
+        pids = self._page_table[s, :n].copy()
+        ids = torch.from_numpy(pids.astype(np.int64)).to(self.device)
+        dt = torch.int8 if self._quant_kv else torch.float32
+        for pool, key in ((self._kv_k, "k"), (self._kv_v, "v")):
+            pool[:, ids] = torch.from_numpy(np.array(h[key])).to(
+                self.device, dt)
+        if self._quant_kv:
+            for sc, key in ((self._kv_sk, "k_scales"),
+                            (self._kv_sv, "v_scales")):
+                sc[:, ids] = torch.from_numpy(np.array(
+                    h[key], np.float32)).to(self.device)
+            taken = set(pids.tolist())
+            self._fresh_pages = [p for p in self._fresh_pages
+                                 if p not in taken]
+        seq.prefill_pos = plen
+        self._lengths[s] = plen
+        self.stats["kv_imports"] += 1
+        self.metrics.inc("serving.fleet.kv_imports")
+        self.events.append(("kv_import", req.rid, s, int(n)))
+        self._emit_token(s, seq, int(h["first_token"]),
+                         np.float32(h["first_logp"]), time.time())
 
     def _finish_error(self, req: DecodeRequest, err: Exception) -> None:
         req.error = err
@@ -1930,6 +2471,12 @@ class DecodeEngine:
         self.metrics.gauge("serving.decode.queue_depth", self.queue_depth())
         self.metrics.gauge("serving.decode.kv_bytes_per_page",
                            float(self.kv_bytes_per_page()))
+        if self._prefix_cache is not None:
+            st = self._prefix_cache.stats()
+            self.metrics.gauge("serving.fleet.prefix_cache_pages",
+                               st["pages"])
+            self.metrics.gauge("serving.fleet.prefix_cache_entries",
+                               st["entries"])
         window = [(t, n) for t, n in self._tokens_window if now - t <= 2.0]
         if len(window) >= 2:
             span = now - window[0][0]
@@ -1957,15 +2504,15 @@ class DecodeEngine:
         JAX engine."""
         out = []
         for req in requests:
-            prompt = self.adapter.prepare(req.tokens)
+            prompt, ctx = self.adapter.prepare(req.tokens)
             max_new = min(req.max_new_tokens or self.cfg.max_new_tokens,
                           self.cfg.cap - len(prompt))
             with self.adapter.weights():
-                out.append(self._static_one(req, prompt, max_new))
+                out.append(self._static_one(req, prompt, ctx, max_new))
         return out
 
     @torch.no_grad()
-    def _static_one(self, req: DecodeRequest, prompt: np.ndarray,
+    def _static_one(self, req: DecodeRequest, prompt: np.ndarray, ctx,
                     max_new: int) -> DecodeResult:
         cfg = self.cfg
         a = self.adapter
@@ -1976,6 +2523,7 @@ class DecodeEngine:
         kbuf = torch.zeros((B + 1, a.num_layers, a.num_heads, cfg.cap,
                             a.head_dim), device=self.device)
         vbuf = torch.zeros_like(kbuf)
+        ctx2 = {k: torch.stack([v, v]) for k, v in ctx.items()}
         C = cfg.prompt_chunk
         t0 = time.time()
         tok = logp = None
@@ -1985,7 +2533,7 @@ class DecodeEngine:
             chunk[:real] = prompt[p0:p0 + C]
             logits, kbuf, vbuf, _, _ = a.chunk_forward(
                 self._t(np.stack([chunk, chunk]), torch.long),
-                self._t([p0, p0], torch.long), kbuf, vbuf)
+                self._t([p0, p0], torch.long), kbuf, vbuf, ctx=ctx2)
             tok, logp = sampling.select(
                 logits[:, real - 1], self._base_key,
                 self._t([p0 + real] * B, torch.long))
@@ -1995,7 +2543,8 @@ class DecodeEngine:
         pos = len(prompt)
         while reason != "eos" and len(gen) < max_new:
             logits, kbuf, vbuf, _, _ = a.chunk_forward(
-                tok[:, None], self._t([pos, pos], torch.long), kbuf, vbuf)
+                tok[:, None], self._t([pos, pos], torch.long), kbuf, vbuf,
+                ctx=ctx2)
             tok, logp = sampling.select(logits[:, 0], self._base_key,
                                         self._t([pos + 1] * B, torch.long))
             gen.append(int(tok[0]))

@@ -15,9 +15,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.keras.engine import Model as KerasModel
 from bigdl_tpu_torch.nn.module import Container
-from bigdl_tpu_torch.nn.quantized import (Int8Weights, quantize,
-                                          refuse_keras_quantization)
+from bigdl_tpu_torch.nn.quantized import Int8Weights, quantize
 from bigdl_tpu_torch.ops.common import resolve_device
 from bigdl_tpu_torch.parallel import local_ops
 from bigdl_tpu_torch.serving.decode_engine import (DecodeConfig,
@@ -47,16 +47,16 @@ class InferenceModel:
     ``utils.intermediate``) is served by :meth:`predict` as any model.
 
     ``weight_quant="int8"`` serves int8 weights.  A layered model (a
-    ``Container``: Sequential, LeNet, ResNet) is replaced by
-    :func:`~bigdl_tpu_torch.nn.quantized.quantize`'s copy, whose
-    ``Linear`` / ``Conv2D`` leaves run the int8 matmul kernel; the
-    caller's model stays as and where it is.  Any other model (the
+    ``Container``: Sequential, LeNet, ResNet) or a keras ``Model`` is
+    replaced by :func:`~bigdl_tpu_torch.nn.quantized.quantize`'s copy,
+    whose ``Linear`` / ``Conv2D`` leaves (a keras model's node layers)
+    run the int8 matmul kernel; the caller's model stays as and where it
+    is.  Any other model (the
     Transformer LM) is moved to ``device`` and served from a copy whose
     matmul weights are int8 at rest with per-out-column scales
     (``Int8Weights``): each call works on a dequantized view, and
     :meth:`weights` lends one to other callers; the caller's model keeps
-    its weights.  A keras ``Model`` is refused: the JAX package swaps its
-    nodes' layers, which is not ported yet (ROADMAP A.6.1).
+    its weights.
 
     A ``decode`` config serves an LM-mode Transformer's ``generate``
     through a :class:`DecodeEngine`; with ``speculative=SpecConfig(...)``
@@ -91,7 +91,9 @@ class InferenceModel:
             raise ValueError(f"weight_quant {weight_quant!r}: "
                              "None | 'int8'")
         if decode is not None and getattr(model, "mode", None) != "lm":
-            raise ValueError("decode= needs an LM-mode Transformer")
+            raise ValueError("decode= needs an LM-mode Transformer; for "
+                             "translation models use "
+                             "Seq2SeqService(continuous=True)")
         if layout is not None and decode is not None:
             raise ValueError("layout= with decode=: the captured decode "
                              "programs over DTensors are not ported yet "
@@ -106,9 +108,7 @@ class InferenceModel:
         self.buckets = tuple(sorted(int(b) for b in batch_buckets))
         self._w8 = None
         self.decode_engine = None
-        if weight_quant is not None:
-            refuse_keras_quantization(model, "weight_quant='int8'")
-        layered = isinstance(model, Container)
+        layered = isinstance(model, (Container, KerasModel))
         if weight_quant is not None and layered:
             model = quantize(model)
         self.model = model.to(self.device).eval()

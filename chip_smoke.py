@@ -53,12 +53,38 @@ one JSON line:
    then serve_sweep on the same warmed engines: a mixed stream reaching
    every cache bucket, greedy and sampled, one request disconnecting
    mid-stream — no capture after warmup, the cancel counted, every page
-   back, the graphs' tokens equal to the eager engine's;
+   back, the graphs' tokens equal to the eager engine's; then
+   serve_spec_window: ``SpecConfig(k=4, sparsity=0.5, draft_window=128)``
+   beside serve_spec's graphs engine (no window) and a
+   non-speculative engine, 16 prompts of 512 tokens: verify and
+   block-sparse launches by serve_spec's formulas, tokens within the
+   bfloat16 tolerance of a full forward, no capture after warmup; the
+   acceptance and the draft's device time an iteration with and without
+   the window, the tokens against the non-speculative engine (reported);
 7. serve_int8 — int8 KV pages and int8 weights, once without and once
    with speculation (the scan verify on the int8 decode kernel), graphs
    beside eager: every token within the int8 tolerance of a full
    forward of the dequantized weights, launch counts of the int8
    kernel, agreement and log-prob drift against serve, page bytes;
+7b. the decode engine's fleet half and translation serving, each on
+   its own engines: serve_prefix (``prefix_cache_pages=128``: a warm
+   448-token system prefix, then 15 requests of it plus 64 tokens, on a
+   graphs engine, an eager one and a cold graphs engine without the
+   cache, float32 and int8 pages: 15 hits, 1 miss, the shared pages'
+   bytes and scales unchanged, graphs equal to eager to the bit, 12
+   paged-kernel launches a decode step, no capture after warmup, fewer
+   prefill calls than cold, the agreement with cold reported);
+   serve_handoff (8 prefill-only requests of 512 tokens on engine A,
+   packed, unpacked and imported on B; then 8 live requests migrated
+   from A to B after their 8th token; float32 and int8 pages: bytes a
+   handoff, pack and unpack ms, the first token A's, every imported and
+   migrated slot on the paged kernel, no capture after warmup, an int8
+   blob refused by a float32 engine; the tokens against one engine's
+   run reported); serve_seq2seq (the Transformer-base translation model
+   through ``Seq2SeqService(continuous=True)``: 16 sources of 16-64
+   tokens, max_len 64, 6 paged-kernel launches a decode step, no
+   capture after warmup, tokens/s, beam 4 over 4 sources; the greedy
+   tokens against ``transformer_decode_cached`` reported);
 8. serve_resnet — ResNet-50 (random weights from seed 0, every BN
    redrawn) served through ``InferenceModel.predict`` in float32 and
    with ``weight_quant="int8"``: requests of 1, 3, 16 and 50 NHWC
@@ -78,7 +104,17 @@ one JSON line:
    then 20 of 64; every answer held to the unfused model's direct
    forward with plain attention, 25 LayerNorm-kernel and 12 non-causal
    flash launches a bucket call, the plain LayerNorm never run; then
-   bert_profile;
+   bert_profile; then serve_keras_int8: the same encoder (float32
+   products) through ``InferenceModel(m, weight_quant="int8")``,
+   ``quantize(m, calibrate(m, batches))`` per tensor and per channel,
+   and the fused model with ``weight_quant="int8"``: one int8-kernel
+   launch per Dense node (26) a bucket call, 25 LayerNorm-kernel
+   launches on the fused model, 12 flash launches, the plain versions
+   never run, answers within ``BERT_INT8_LOGP_RTOL``
+   (``BERT_INT8_CALIB_LOGP_RTOL`` calibrated) of the float model's and
+   top-1 agreeing on ``BERT_INT8_TOP1_FLOOR`` of the rows, a control
+   (per-channel scales a quarter of the calibrated ones) outside the
+   per-channel bound, sequences/s at bucket 64;
 10. gradcheck — one batch's gradients of every parameter of the same LM
    with the flash kernels against plain attention (``use_flash=False``);
 11. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
@@ -115,7 +151,7 @@ one JSON line:
 17b. sync_audit — one eager ResNet-50 TrainStep step and three steps of
    the driver under ``torch.cuda.set_sync_debug_mode("warn")``: the
    count and call sites of the host syncs (none may be left in the step);
-   train_resnet_bundles — K = 1 and K = 4 alternating (three runs each,
+   train_resnet_bundles — K = 1 and K = 4 alternating (two runs each,
    12 steps): step ms, the host's dispatch of a step onto an idle card,
    busy share, peak memory, graphs captured, K = 4's losses equal to
    K = 1's to the bit with the epoch-tail bundle, and a K = 4 run
@@ -280,8 +316,9 @@ same way, for an A/B of the draft's block-sparse kernel in one call
 ``python3 chip_smoke.py --phase NAME [NAME ...]`` builds the kernels and
 runs only the named phases of keras_inception, keras_resnet,
 train_translation, train_ptb_lstm, estimator_bert, forecast_autoformer,
-forecast_tcn, train_zero1_collectives, layout_lm (with layout_serve)
-and layout_gloo_card.
+forecast_tcn, train_zero1_collectives, layout_lm (with layout_serve),
+layout_gloo_card, serve_keras_int8, serve_prefix, serve_handoff,
+serve_spec_window and serve_seq2seq.
 
 ``python3 chip_smoke.py --zero1`` builds the kernels and runs only
 ``train_zero1`` (its single-process reference run included).
@@ -309,6 +346,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from collections import Counter
@@ -396,8 +434,9 @@ IMAGENET_STD = tuple(v * 255 for v in (0.229, 0.224, 0.225))
 # bundle holds the two eager warm steps and the capture); 8-step runs
 # synchronised at each edge for the host's dispatch and profiled over
 # [4, 8) for the busy share; a resume from a checkpoint off the grid of
-# 4 (every 6)
-BUNDLE = dict(k=4, steps=12, pairs=3, timed_from=4, sync_steps=8,
+# 4 (every 6); train_resnet_bundles runs 2 pairs (3 cost the whole
+# script its margin to its time limit beside the fleet phases)
+BUNDLE = dict(k=4, steps=12, pairs=2, timed_from=4, sync_steps=8,
               ckpt_every=6, records_pairs=2, lm_batches=6)
 
 # train_zero1: the int8 wire's block, timing repetitions, the update
@@ -553,6 +592,63 @@ SPARSE_BLOCK = (8, 8)
 SPARSE_KERNELS = ("bs_bf16_wgmma_kernel", "block_sparse_matmul")
 VERIFY_CHUNK = SPEC["k"] + 1
 
+# the fleet and translation serving phases.  serve_keras_int8: chip_smoke's
+# BERT-base keras encoder through InferenceModel(weight_quant="int8") and
+# quantize(calibrate(...)) per tensor and per channel (minmax over 16
+# batches of 8 seeded sequences), and the IR "fused" model, float32
+# products; requests of 1, 3, 16 and 50 sequences, then 10 of 64.
+KERAS_INT8 = dict(requests=(1, 3, 16, 50), throughput=(10, 64),
+                  calib_batches=16, calib_rows=8)
+# int8 against the float model's answers, max |log-prob difference| over
+# max |log-prob|.  Derived before the first run as INT8_LOGP_RTOL: a
+# dynamic (per-row) layer adds a relative RMS error of sqrt(2/12) *
+# (abs-max / RMS) / 127 = 0.013 for a row's abs-max / RMS of 4 (768 or 3072
+# near-Gaussian values: 3.2 sigma); the encoder's 26 Dense nodes in
+# quadrature give 0.013 * sqrt(26) = 0.066 of the logits' spread, which
+# max |log-prob| bounds: budget 0.1.  A calibrated (static) layer scales by
+# the abs-max of the whole calibration set, about 5.5 RMS for 32 x 128
+# rows (the GELU output's tail longer): 0.018 a layer, 0.09 over 26:
+# budget 0.15.  Per channel, calibrate keeps 8192 values of a batch, so a
+# channel's maximum comes from 16 x 8192 / C rows: 160 for the 768-wide
+# inputs (2.6 sigma), 32 for the FFN's 3072-wide GELU output (2.0
+# sigma), and served values past it clip.  A Gaussian's clipped excess
+# E[(X - t)^2; X > t] is 0.0017 sigma^2 at t = 2.6 and 0.0085 at 2.0, a
+# relative RMS error of 0.04 and 0.09 a layer; 14 + 12 such layers with
+# the 0.018 rounding of each, in quadrature: sqrt(14 * 0.0016 + 12 *
+# 0.0081 + 26 * 0.0003) = 0.36: the first budget, 0.4.  Two runs on an
+# H100 measured 0.113, and 0.4 sits near the max |log-prob| (about 1)
+# of this 2-label head, so the budget is now 0.2, and a control must
+# drift past it: the per-channel model with every activation scale a
+# quarter of the calibrated one (clipping at a quarter of each
+# channel's maximum).
+BERT_INT8_LOGP_RTOL = 0.1
+BERT_INT8_CALIB_LOGP_RTOL = {"tensor": 0.15, "channel": 0.2}
+BERT_INT8_CONTROL_SCALE = 0.25
+# each int8 model's argmax equals the float model's on at least this
+# share of the rows (134 in all): a model that lost its input agrees
+# only on the rows of the label it is stuck at
+BERT_INT8_TOP1_FLOOR = 0.9
+# serve_prefix: the LM with prefix_cache_pages=128; one warm request of a
+# seeded 448-token system prefix (28 pages of 16), then 15 requests of that
+# prefix plus 64 distinct tokens, 16 new tokens each
+PREFIX = dict(pages=128, prefix=448, suffix=64, requests=15, max_new=16)
+# serve_handoff: 8 prefill-only requests of 512 tokens on engine A,
+# imported on B with 32 new tokens; then 8 live requests of 128 new tokens
+# migrated from A to B once each has its 8th token (the engine runs on
+# while the caller takes the lock: 128 leaves it room)
+HANDOFF = dict(requests=8, prompt=512, max_new=32, live_new=128,
+               migrate_after=8)
+# serve_spec_window: serve_spec's speculation with draft_window=128, 16
+# prompts of 512 tokens (every cache bucket past 128 positions windowed)
+SPEC_WINDOW = dict(window=128, prompt=512)
+# serve_seq2seq: the Transformer-base translation model (TRANSLATION)
+# through Seq2SeqService(continuous=True), 16 seeded sources of 16, 32,
+# 48 and 64 tokens (four each), max_len 64, 16 slots of 5 pages of 16;
+# beam 4 over 4 sources of 32
+SEQ2SEQ = dict(src_lens=(16, 32, 48, 64), per_len=4, max_len=64,
+               src_buckets=(16, 32, 64), beam=4, beam_sources=4,
+               beam_len=32)
+
 # kernel check tolerance: f32 sums taken in another order over up to
 # 1024 keys
 RTOL, ATOL = 1e-4, 1e-5
@@ -655,7 +751,14 @@ BF16_LOGP_RTOL = 0.15
 FOLD_LOGP_RTOL = 1e-4
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the script
+    started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1553,16 +1656,17 @@ def _same_bits(name, want, got) -> None:
                 f"logp {a.logp!r} vs {b.logp!r}")
 
 
-def _serve_pairs(pair, prompts, n_pairs, name, busy=True, named=()):
+def _serve_pairs(pair, prompts, n_pairs, name, busy=None, named=()):
     """``n_pairs`` timed runs of each engine, alternating eager, graphs
     (graphs_f32 where the pair has it), then graphs_f32, graphs, eager,
     ...: every run's tokens and log-probs equal to the bit to the first
     run of its compute dtype (eager's for bfloat16), and every run's
     launches equal to that run's (a replay credits its capture's
-    counts); then, with ``busy``, one profiled run of each engine for the
-    device's busy share (and the device time of the kernels whose names
-    hold a substring of ``named``).  Returns {mode: summary} and the
-    first run of each mode."""
+    counts); then one profiled run of each engine in ``busy`` (the
+    modes to profile; None: every mode) for the device's busy share (the
+    device time of the kernels whose names hold a substring of
+    ``named``).  Returns {mode: summary} and the first run of each
+    mode."""
     first = [m for m in ("eager", "graphs", "graphs_f32") if m in pair]
     order = []
     for i in range(n_pairs):
@@ -1599,7 +1703,7 @@ def _serve_pairs(pair, prompts, n_pairs, name, busy=True, named=()):
         if mode != "eager":
             summary[mode]["replay_host_ms"] = _replay_host_ms(
                 pair[mode].decode_engine)
-        if busy:
+        if busy is None or mode in busy:
             with _dtype(mode):
                 prof = _profile(lambda im=pair[mode]: im.generate(prompts),
                                 named)
@@ -1710,8 +1814,11 @@ def serve_spec(dev, prompts, ref_results, ref_tps):
                            speculative=SpecConfig(**SPEC))
     try:
         setup_s = time.perf_counter() - t0
+        # the graphs engine's profile only (the block-sparse device ms
+        # read below): the three took 56 of the script's 986 s on one H100
         modes, first = _serve_pairs(pair, prompts, SERVE_PAIRS["spec"],
-                                    "serve_spec", named=SPARSE_KERNELS)
+                                    "serve_spec", busy=("graphs",),
+                                    named=SPARSE_KERNELS)
         run = first["graphs"]
         results, launches, d = run["results"], run["launches"], run["delta"]
         steps, calls = d["steps"], d["prefill_calls"]
@@ -1794,8 +1901,11 @@ def serve_int8(dev, prompts, ref_results):
         pair, setup = _lm_pair(dev, weight_quant="int8", kv_dtype="int8",
                                speculative=spec)
         try:
+            # the graphs engine's profile only: the eager engines' took 61
+            # of the script's 950 s on one H100
             modes, first = _serve_pairs(pair, prompts,
-                                        SERVE_PAIRS["int8"], "serve_int8")
+                                        SERVE_PAIRS["int8"], "serve_int8",
+                                        busy=("graphs",))
             run = first["graphs"]
             results, launches, d = (run["results"], run["launches"],
                                     run["delta"])
@@ -1972,6 +2082,679 @@ def serve_sweep(dev, pair):
           "spec_buckets": buckets, "calls": g["calls"],
           "graphs_equal_eager": True,
           "wall_s": {"graphs": g["wall_s"], "eager": e["wall_s"]}})
+
+
+def _counting(module, name, counter):
+    """Patch ``module.name`` to count its calls into ``counter[name]``;
+    returns the undo."""
+    fn = getattr(module, name)
+
+    def counted(*a, **kw):
+        counter[name] += 1
+        return fn(*a, **kw)
+
+    setattr(module, name, counted)
+    return lambda: setattr(module, name, fn)
+
+
+def serve_keras_int8(dev, cfg=BERT):
+    """The BERT-base keras encoder served int8 (keras ``quantize`` /
+    ``calibrate``): ``InferenceModel(m, weight_quant="int8")`` (dynamic
+    per-row activations), ``quantize(m, calibrate(m, batches))`` per
+    tensor and per channel (static activations), and the IR ``"fused"``
+    model with ``weight_quant="int8"``.  Every bucket call launches the
+    int8 kernel once per Dense node of the graph (and, fused, the
+    LayerNorm kernel once per LayerNorm node); the plain versions never
+    run.  Answers are held to the float model's, in float32 products
+    (the caller's ``compute_dtype``)."""
+    from bigdl_tpu_torch.keras.engine import Model as KModel
+    from bigdl_tpu_torch.nn import Linear
+    from bigdl_tpu_torch.nn.quantized import (QuantizedLinear, calibrate,
+                                              quantize)
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.ops import fused as fused_mod
+    from bigdl_tpu_torch.ops import quantized as q8
+    from bigdl_tpu_torch.serving import InferenceModel
+    from bigdl_tpu_torch.utils.intermediate import IRGraph
+
+    t0 = time.perf_counter()
+    model = bert_model(cfg).to(dev)
+    n_dense = sum(type(n.layer) is Linear for n in model.order)
+    n_ln = 1 + 2 * cfg["layers"]
+    rs = np.random.RandomState(SEED + 5)
+
+    def tokens(n):
+        return rs.randint(0, cfg["vocab"], (n, cfg["length"])).astype(
+            np.int32)
+
+    requests = [tokens(n) for n in KERAS_INT8["requests"]]
+    n_tp, b_tp = KERAS_INT8["throughput"]
+    burst = tokens(b_tp)
+    batches = [torch.from_numpy(tokens(KERAS_INT8["calib_rows"])).to(dev)
+               for _ in range(KERAS_INT8["calib_batches"])]
+    ref = InferenceModel(model, device=dev, batch_buckets=BERT_BUCKETS)
+    refs = [ref.predict(x) for x in requests + [burst]]
+    ims = {"dynamic": (InferenceModel(model, device=dev, weight_quant="int8",
+                                      batch_buckets=BERT_BUCKETS),
+                       BERT_INT8_LOGP_RTOL)}
+    for gran in ("tensor", "channel"):
+        calib = calibrate(model, batches, method="minmax", granularity=gran)
+        if len(calib) != n_dense:
+            raise AssertionError(f"calibrate ({gran}) recorded {len(calib)} "
+                                 f"nodes of {n_dense}")
+        ims[f"calibrated_{gran}"] = (
+            InferenceModel(quantize(model, calib), device=dev,
+                           batch_buckets=BERT_BUCKETS),
+            BERT_INT8_CALIB_LOGP_RTOL[gran])
+    fused = IRGraph.from_model(model).to_model("fused")
+    ims["fused_dynamic"] = (InferenceModel(fused, device=dev,
+                                           weight_quant="int8",
+                                           batch_buckets=BERT_BUCKETS),
+                            BERT_INT8_LOGP_RTOL)
+    # the control: wrong scales must fail the per-channel bound
+    wrong = {k: v * BERT_INT8_CONTROL_SCALE for k, v in calib.items()}
+    control = "control_channel_scales_x%g" % BERT_INT8_CONTROL_SCALE
+    ims[control] = (InferenceModel(quantize(model, wrong), device=dev,
+                                   batch_buckets=BERT_BUCKETS),
+                    BERT_INT8_CALIB_LOGP_RTOL["channel"])
+    for im, _ in ims.values():
+        im.warmup(requests[0])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rows, failures = {}, []
+    for tag, (im, rtol) in ims.items():
+        if not isinstance(im.model, KModel):
+            raise AssertionError(f"{tag}: serves {type(im.model).__name__}")
+        twins = sum(isinstance(n.layer, QuantizedLinear)
+                    for n in im.model.order)
+        calls, plain = [], Counter()
+        hook = im.model.register_forward_pre_hook(
+            lambda m, a: calls.append(a[0].shape[0]))
+        undo = [_counting(q8, "int8_matmul_plain", plain),
+                _counting(fused_mod, "fused_layernorm_plain", plain)]
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            outs = [im.predict(x) for x in requests]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(n_tp):
+                last = im.predict(burst)
+            torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t1
+            launches = dict(LAUNCHES)
+        finally:
+            for u in undo:
+                u()
+            hook.remove()
+        outs.append(last)
+        worst = max(float(np.abs(y - r).max() / np.abs(r).max())
+                    for y, r in zip(outs, refs))
+        agree = sum(int((y.argmax(1) == r.argmax(1)).sum())
+                    for y, r in zip(outs, refs))
+        total = sum(r.shape[0] for r in refs)
+        want = {"int8_matmul": n_dense * len(calls),
+                "flash_attention_fwd": cfg["layers"] * len(calls)}
+        if tag.startswith("fused"):
+            want["fused_layernorm"] = n_ln * len(calls)
+        rows[tag] = {"dense_nodes": n_dense, "int8_twins": twins,
+                     "bucket_calls": calls, "launches": launches,
+                     "want_launches": want, "plain_calls": dict(plain),
+                     "max_logp_rel_err_vs_float": worst, "rtol": rtol,
+                     "top1_agree_vs_float": f"{agree}/{total}",
+                     "top1_floor": BERT_INT8_TOP1_FLOOR,
+                     "sequences_per_s_bucket_64": n_tp * b_tp / tp_s,
+                     "weight_bytes_at_rest": sum(
+                         b.numel() * b.element_size()
+                         for n, b in im.model.named_buffers()
+                         if n.rsplit(".", 1)[-1] in ("weight_q", "scales"))}
+        if twins != n_dense or any(launches.get(k, 0) != v
+                                   for k, v in want.items()) or plain \
+                or not all(np.isfinite(y).all() for y in outs):
+            failures.append(f"{tag}: twins {twins} of {n_dense}, launches "
+                            f"{launches} (want {want}), plain {dict(plain)}")
+        if tag == control:
+            if worst <= rtol:
+                failures.append(f"{tag}: wrong scales drift {worst}, within "
+                                f"the per-channel bound {rtol}")
+            continue
+        if worst > rtol:
+            failures.append(f"{tag}: {worst} of max |log-prob| from the "
+                            f"float model's, past {rtol}")
+        if agree < BERT_INT8_TOP1_FLOOR * total:
+            failures.append(f"{tag}: top-1 {agree}/{total} against the "
+                            f"float model, under {BERT_INT8_TOP1_FLOOR}")
+    emit({"phase": "serve_keras_int8", "model": cfg,
+          "compute_dtype": "float32", "requests": list(KERAS_INT8[
+              "requests"]), "throughput": {"requests": n_tp,
+                                           "sequences": b_tp},
+          "calibration": {"method": "minmax",
+                          "batches": KERAS_INT8["calib_batches"],
+                          "rows": KERAS_INT8["calib_rows"]},
+          "float_labels": np.bincount(
+              np.concatenate([r.argmax(1) for r in refs])).tolist(),
+          "setup_s": setup_s, "variants": rows})
+    if failures:
+        raise AssertionError("serve_keras_int8: " + "; ".join(failures))
+    # the control checks the check: its launches are not the path's
+    return {k: sum(r["launches"].get(k, 0) for t, r in rows.items()
+                   if t != control)
+            for k in ("int8_matmul", "fused_layernorm",
+                      "flash_attention_fwd")}
+
+
+def _lm_model():
+    from bigdl_tpu_torch.nn import Transformer
+
+    return Transformer(**LM, dropout=0.0, seed=SEED)
+
+
+def _lm_engine(dev, model, **cfg):
+    """An InferenceModel of ``model`` with a decode engine of ``DECODE``
+    and ``cfg``, on a sample-keeping metrics registry, warmed up."""
+    from bigdl_tpu_torch.serving import DecodeConfig, InferenceModel
+
+    im = InferenceModel(model, decode=DecodeConfig(**{**DECODE, **cfg}),
+                        device=dev)
+    im.decode_engine.metrics = _sample_metrics()
+    im.warmup()
+    return im
+
+
+def _captures_after_warmup(im, captured):
+    eng = im.decode_engine
+    return {"graphs_captured": eng.graphs_captured,
+            "captured_at_warmup": captured,
+            "unexpected_captures": eng.metrics.counter(
+                "serving.decode.unexpected_captures")}
+
+
+def _agree(a, b):
+    return sum(x.tokens.tolist() == y.tokens.tolist() for x, y in zip(a, b))
+
+
+def serve_prefix(dev):
+    """The prefix cache (``DecodeConfig.prefix_cache_pages``) on the
+    12-layer LM, float32 and int8 pages: one warm request of a 448-token
+    system prefix, then 15 requests of that prefix plus 64 tokens, on a
+    graphs engine beside an eager one, and on a cold graphs engine (no
+    cache).  Holds: 15 hits and 1 miss, the prefix's pages unchanged by
+    the attached prefills (bytes and int8 scales), the graphs' tokens
+    equal to eager's to the bit, every decode step through the paged
+    kernel, no capture after warmup, fewer prefill calls than cold.
+    Reports the agreement with the cold engine (ROADMAP C.2)."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+
+    c = PREFIX
+    rs = np.random.RandomState(SEED + 6)
+    V = LM["vocab_size"]
+    prefix = rs.randint(2, V, c["prefix"]).astype(np.int32)
+    rest = [np.concatenate([prefix, rs.randint(2, V, c["suffix"])]).astype(
+        np.int32) for _ in range(c["requests"])]
+    model = _lm_model()
+    out, failures, launches_all = {}, [], Counter()
+    for kv in ("float32", "int8"):
+        kernel = ("paged_decode_attention_int8" if kv == "int8"
+                  else "paged_decode_attention")
+        t0 = time.perf_counter()
+        engines = {
+            "graphs": _lm_engine(dev, model, kv_dtype=kv,
+                                 prefix_cache_pages=c["pages"],
+                                 cuda_graphs=True),
+            "eager": _lm_engine(dev, model, kv_dtype=kv,
+                                prefix_cache_pages=c["pages"],
+                                cuda_graphs=False),
+            "cold": _lm_engine(dev, model, kv_dtype=kv, cuda_graphs=True)}
+        setup_s = time.perf_counter() - t0
+        runs = {}
+        try:
+            for name, im in engines.items():
+                eng = im.decode_engine
+                captured = eng.graphs_captured
+                warm = im.generate([prefix], max_new_tokens=c["max_new"],
+                                   return_results=True)
+                snap = None
+                if eng._prefix_cache is not None:
+                    entries = list(eng._prefix_cache._entries.values())
+                    ids = torch.tensor(entries[0].pages, device=dev) \
+                        if entries else None
+                    pools = [eng._kv_k, eng._kv_v] + (
+                        [eng._kv_sk, eng._kv_sv] if kv == "int8" else [])
+                    snap = [p[:, ids].clone() for p in pools] \
+                        if ids is not None else []
+                before = dict(eng.stats)
+                torch.cuda.synchronize()
+                reset_launches()
+                t1 = time.perf_counter()
+                res = im.generate(rest, max_new_tokens=c["max_new"],
+                                  return_results=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                launches = dict(LAUNCHES)
+                launches_all.update(launches)
+                d = {k: v - before.get(k, 0) for k, v in eng.stats.items()}
+                row = {"wall_s": wall, "steps": d["steps"],
+                       "prefill_calls": d["prefill_calls"],
+                       "prefill_chunks": d["prefill_chunks"],
+                       "launches": launches,
+                       "tokens_per_s": sum(len(r.tokens) for r in res) / wall,
+                       "prefill_ms_p50": _percentile_ms(
+                           eng.metrics.samples.get(
+                               "serving.decode.prefill_s", []), 50),
+                       "ttft_ms_p50": _percentile_ms(eng.metrics.samples.get(
+                           "serving.decode.ttft_s", []), 50),
+                       **_captures_after_warmup(im, captured)}
+                if eng._prefix_cache is not None:
+                    row["prefix_cache"] = eng._prefix_cache.stats()
+                    row["shared_pages_unchanged"] = snap is not None and all(
+                        torch.equal(a, p[:, ids]) for a, p in zip(
+                            snap, [eng._kv_k, eng._kv_v] + (
+                                [eng._kv_sk, eng._kv_sv] if kv == "int8"
+                                else [])))
+                    st = row["prefix_cache"]
+                    if st["hits"] != c["requests"] or st["misses"] != 1 \
+                            or not row["shared_pages_unchanged"]:
+                        failures.append(f"{kv} {name}: {st}, shared pages "
+                                        f"unchanged "
+                                        f"{row['shared_pages_unchanged']}")
+                if launches.get(kernel, 0) != LM["num_layers"] * d["steps"] \
+                        or d["steps"] < 1:
+                    failures.append(f"{kv} {name}: {kernel} {launches} over "
+                                    f"{d['steps']} steps")
+                if name != "eager" and (row["unexpected_captures"]
+                                        or row["graphs_captured"]
+                                        != captured):
+                    failures.append(f"{kv} {name}: captures after warmup "
+                                    f"{row}")
+                runs[name] = (warm + res, row)
+        finally:
+            for im in engines.values():
+                im.stop()
+        g, e, cold = (runs[k][0] for k in ("graphs", "eager", "cold"))
+        try:
+            _same_bits(f"serve_prefix {kv}", e, g)
+        except AssertionError as err:
+            failures.append(str(err))
+        rows = {k: r for k, (_, r) in runs.items()}
+        if rows["graphs"]["prefill_calls"] >= rows["cold"]["prefill_calls"]:
+            failures.append(f"{kv}: attached prefill calls "
+                            f"{rows['graphs']['prefill_calls']} not below "
+                            f"cold {rows['cold']['prefill_calls']}")
+        out[kv] = {"setup_s": setup_s, "runs": rows,
+                   "cold_agree": f"{_agree(g, cold)}/{len(g)}",
+                   "graphs_equal_eager": True}
+    emit({"phase": "serve_prefix", "model": LM, "decode": DECODE,
+          "prefix": c, "compute_dtype": "bfloat16", "pages": out})
+    if failures:
+        raise AssertionError("serve_prefix: " + "; ".join(failures))
+    return dict(launches_all)
+
+
+def serve_handoff(dev):
+    """The prefill/decode split and live migration on the 12-layer LM,
+    float32 and int8 pages, two graphs engines A and B: 8 prefill-only
+    requests of 512 tokens on A (``export_kv``), each handoff packed,
+    unpacked and imported on B (``submit_prefilled``); then 8 live
+    requests on A migrated to B after their 8th token
+    (``migrate_live_slots``, the frozen slots evicted with ``cancel``).
+    Reports the bytes a handoff, pack and unpack ms, and the tokens
+    against one engine's run (ROADMAP C.2).  Holds: every imported and
+    migrated slot decodes through the paged kernel, the first token is
+    A's, no capture after warmup, an int8 blob refused by a float32
+    engine, every page back."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.serving import DecodeRequest, RequestCancelledError
+    from bigdl_tpu_torch.serving.fleet import pack_handoff, unpack_handoff
+
+    c = HANDOFF
+    rs = np.random.RandomState(SEED + 7)
+    prompts = [rs.randint(2, LM["vocab_size"], c["prompt"]).astype(np.int32)
+               for _ in range(c["requests"])]
+    model = _lm_model()
+    out, failures, launches_all = {}, [], Counter()
+    keep = {}
+    for kv in ("float32", "int8"):
+        kernel = ("paged_decode_attention_int8" if kv == "int8"
+                  else "paged_decode_attention")
+        a = _lm_engine(dev, model, kv_dtype=kv, cuda_graphs=True)
+        b = _lm_engine(dev, model, kv_dtype=kv, cuda_graphs=True)
+        ea, eb = a.decode_engine, b.decode_engine
+        captured = (ea.graphs_captured, eb.graphs_captured)
+        row = {}
+        try:
+            ref = a.generate(prompts, max_new_tokens=c["max_new"],
+                             return_results=True)
+            pre = ea.submit_many([DecodeRequest(tokens=p, max_new_tokens=1,
+                                                export_kv=True)
+                                  for p in prompts])
+            for r in pre:
+                r.wait(timeout=300)
+            t1 = time.perf_counter()
+            blobs = [pack_handoff(r.kv_export) for r in pre]
+            pack_ms = (time.perf_counter() - t1) * 1e3 / len(blobs)
+            t1 = time.perf_counter()
+            handoffs = [unpack_handoff(x) for x in blobs]
+            unpack_ms = (time.perf_counter() - t1) * 1e3 / len(blobs)
+            before = dict(eb.stats)
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            got = [r.wait(timeout=300) for r in [
+                eb.submit_prefilled(h, max_new_tokens=c["max_new"])
+                for h in handoffs]]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = dict(LAUNCHES)
+            launches_all.update(launches)
+            steps = eb.stats["steps"] - before["steps"]
+            first_ok = all(int(r.kv_export["first_token"]) == int(g.tokens[0])
+                           for r, g in zip(pre, got))
+            row["handoff"] = {
+                "bytes_per_handoff": len(blobs[0]),
+                "pack_ms": pack_ms, "unpack_ms": unpack_ms,
+                "decode_wall_s": wall, "steps": steps, "launches": launches,
+                "kv_imports": eb.stats["kv_imports"],
+                "first_token_from_prefill": first_ok,
+                "one_engine_agree": f"{_agree(got, ref)}/{len(ref)}"}
+            if launches.get(kernel, 0) != LM["num_layers"] * steps \
+                    or steps < 1 or not first_ok:
+                failures.append(f"{kv} handoff: {kernel} {launches} over "
+                                f"{steps} steps, first token {first_ok}")
+            # live migration after the 8th token of every request
+            reached = threading.Event()
+            counts = Counter()
+
+            def on_token(rid, tok, idx):
+                if idx + 1 == c["migrate_after"]:
+                    counts["n"] += 1
+                    if counts["n"] == len(prompts):
+                        reached.set()
+
+            ref_live = a.generate(prompts, max_new_tokens=c["live_new"],
+                                  return_results=True)
+            live = ea.submit_many([DecodeRequest(tokens=p,
+                                                 max_new_tokens=c["live_new"],
+                                                 on_token=on_token)
+                                   for p in prompts])
+            if not reached.wait(timeout=300):
+                raise AssertionError(f"{kv}: the live requests never reached "
+                                     f"token {c['migrate_after']}")
+            t1 = time.perf_counter()
+            exports, frozen, left = ea.migrate_live_slots()
+            migrate_ms = (time.perf_counter() - t1) * 1e3
+            for rid in frozen + left:
+                ea.cancel(rid, reason="migrated")
+            for r in live:
+                try:
+                    r.wait(timeout=300)
+                except RequestCancelledError:
+                    pass
+            before = dict(eb.stats)
+            reset_launches()
+            cont = {}
+            for e in exports:
+                done = e["resume_len"] - 1
+                res = eb.submit_prefilled(
+                    unpack_handoff(pack_handoff(e)),
+                    max_new_tokens=c["live_new"] - done).wait(timeout=300)
+                cont[e["request_id"]] = np.concatenate(
+                    [e["tokens"][c["prompt"]:], res.tokens]).tolist()
+            launches = dict(LAUNCHES)
+            launches_all.update(launches)
+            steps = eb.stats["steps"] - before["steps"]
+            rid_ref = {r.rid: want for r, want in zip(live, ref_live)}
+            agree = sum(cont[rid] == rid_ref[rid].tokens.tolist()
+                        for rid in cont)
+            row["migrate"] = {
+                "exported": len(exports), "frozen": len(frozen),
+                "leftover": len(left), "migrate_ms": migrate_ms,
+                "resume_lens": [e["resume_len"] for e in exports],
+                "steps_on_b": steps, "launches_on_b": launches,
+                "unmigrated_agree": f"{agree}/{len(cont)}"}
+            if len(exports) < 1 or launches.get(kernel, 0) \
+                    != LM["num_layers"] * steps:
+                failures.append(f"{kv} migrate: {len(exports)} exports, "
+                                f"{kernel} {launches} over {steps} steps")
+            deadline = time.time() + 30
+            while len(ea._free_pages) != ea.cfg.total_pages \
+                    or len(eb._free_pages) != eb.cfg.total_pages:
+                if time.time() > deadline:
+                    failures.append(f"{kv}: pages never came back")
+                    break
+                time.sleep(0.01)
+            row["captures"] = {
+                "a": _captures_after_warmup(a, captured[0]),
+                "b": _captures_after_warmup(b, captured[1])}
+            for side in row["captures"].values():
+                if side["unexpected_captures"] \
+                        or side["graphs_captured"] != side[
+                            "captured_at_warmup"]:
+                    failures.append(f"{kv}: captures {row['captures']}")
+            if kv == "int8":
+                try:
+                    keep["float32"].decode_engine.submit_prefilled(
+                        handoffs[0])
+                    row["int8_refused_by_float32"] = False
+                    failures.append("an int8 handoff was accepted by a "
+                                    "float32 engine")
+                except ValueError as err:
+                    row["int8_refused_by_float32"] = str(err)
+            out[kv] = row
+        finally:
+            a.stop()
+            if kv == "float32":
+                keep["float32"] = b
+            else:
+                b.stop()
+                keep["float32"].stop()
+    emit({"phase": "serve_handoff", "model": LM, "decode": DECODE,
+          "handoff": c, "compute_dtype": "bfloat16", "pages": out})
+    if failures:
+        raise AssertionError("serve_handoff: " + "; ".join(failures))
+    return dict(launches_all)
+
+
+def serve_spec_window(dev, nowin=None):
+    """serve_spec's speculation with ``draft_window=128`` against the
+    same speculation without it (``nowin``, serve_spec's warmed graphs
+    engine, or a new one) and the non-speculative engine, 16 prompts of
+    512 tokens, greedy: two timed runs of each speculative engine,
+    alternating.  Holds: the windowed engine's verify and block-sparse
+    launches by serve_spec's formulas, every token within the bfloat16
+    tolerance of a full forward, no capture after warmup.  Reports the
+    tokens against the non-speculative engine, the acceptance and the
+    draft's device time an iteration with and without the window."""
+    from bigdl_tpu_torch.serving import SpecConfig
+
+    c = SPEC_WINDOW
+    rs = np.random.RandomState(SEED + 8)
+    prompts = [rs.randint(2, LM["vocab_size"], c["prompt"]).astype(np.int32)
+               for _ in range(N_REQUESTS)]
+    model = _lm_model()
+    t0 = time.perf_counter()
+    ims = {"window": _lm_engine(dev, model, cuda_graphs=True,
+                                speculative=SpecConfig(
+                                    **SPEC, draft_window=c["window"]))}
+    owned = ["window"]
+    if nowin is None:
+        ims["no_window"] = _lm_engine(dev, model, cuda_graphs=True,
+                                      speculative=SpecConfig(**SPEC))
+        owned.append("no_window")
+    else:
+        ims["no_window"] = nowin
+    ims["spec_off"] = _lm_engine(dev, model, cuda_graphs=True)
+    owned.append("spec_off")
+    setup_s = time.perf_counter() - t0
+    captured = ims["window"].decode_engine.graphs_captured
+    failures, rows, first = [], {}, {}
+    try:
+        first["spec_off"] = _serve_run(ims["spec_off"], prompts)
+        for name in ("window", "no_window", "no_window", "window"):
+            r = _serve_run(ims[name], prompts)
+            first.setdefault(name, r)
+            rows.setdefault(name, []).append(r["row"])
+        run = first["window"]
+        d = run["delta"]
+        L = LM["num_layers"]
+        if run["launches"].get("paged_verify_attention", 0) \
+                != L * d["steps"] or d["steps"] < 1:
+            failures.append(f"verify launched {run['launches']} over "
+                            f"{d['steps']} iterations")
+        try:
+            _spec_launches_check(run["launches"], d["steps"],
+                                 d["prefill_calls"], SPEC["k"],
+                                 "serve_spec_window",
+                                 "block_sparse_matmul_bf16")
+        except AssertionError as err:
+            failures.append(str(err))
+        gap, dlogp = check_tokens(ims["window"], prompts, run["results"],
+                                  dev, bf16_gap_tolerance)
+        caps = _captures_after_warmup(ims["window"], captured)
+        if caps["unexpected_captures"] or caps["graphs_captured"] != captured:
+            failures.append(f"captures after warmup {caps}")
+        off = first["spec_off"]["results"]
+
+        def acc(r):
+            dd = r["delta"]
+            return {"drafted": dd["spec_drafted"],
+                    "accepted": dd["spec_accepted"],
+                    "rejected": dd["spec_rejected"],
+                    "accept_rate": dd["spec_accepted"]
+                    / max(dd["spec_drafted"], 1),
+                    "iterations": dd["steps"]}
+
+        emit({"phase": "serve_spec_window", "spec": SPEC,
+              "draft_window": c["window"], "prompt": c["prompt"],
+              "requests": N_REQUESTS, "compute_dtype": "bfloat16",
+              "launches": run["launches"], "max_logit_gap": gap,
+              "max_logp_err": dlogp,
+              "spec_off_agree": {
+                  name: f"{_agree(first[name]['results'], off)}/{len(off)}"
+                  for name in ("window", "no_window")},
+              "acceptance": {name: acc(first[name])
+                             for name in ("window", "no_window")},
+              "draft_ms_per_iteration_p50": {
+                  name: [r.get("spec_draft_step_ms_p50") for r in rows[name]]
+                  for name in rows},
+              "verify_ms_per_iteration_p50": {
+                  name: [r.get("spec_verify_step_ms_p50") for r in rows[name]]
+                  for name in rows},
+              "tokens_per_s": {name: [r["tokens_per_s"] for r in rows[name]]
+                               for name in rows},
+              "spec_off_tokens_per_s": first["spec_off"]["row"][
+                  "tokens_per_s"],
+              "captures": caps, "setup_s": setup_s})
+    finally:
+        for name in owned:
+            ims[name].stop()
+    if failures:
+        raise AssertionError("serve_spec_window: " + "; ".join(failures))
+    return run["launches"]
+
+
+def serve_seq2seq(dev):
+    """Translation serving: the Transformer-base model (``TRANSLATION``,
+    random weights) through ``Seq2SeqService(continuous=True)``, 16
+    sources of 16-64 tokens in one ``translate``, max_len 64, warmed up
+    first; then beam 4 through a beam service.  Holds: every decoder
+    layer's self-attention through the paged decode kernel (6 launches a
+    decode step), no capture after warmup, finite scores.  Reports
+    tokens/s and the greedy tokens against ``transformer_decode_cached``
+    on the same model (ROADMAP C.2)."""
+    from bigdl_tpu_torch.nn.attention import transformer_decode_cached
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.serving import DecodeConfig, Seq2SeqService
+
+    c, t = SEQ2SEQ, TRANSLATION
+    model = _translation_model()
+    rs = np.random.RandomState(SEED + 9)
+    srcs = [rs.randint(3, t["vocab"], n).astype(np.int32)
+            for n in c["src_lens"] for _ in range(c["per_len"])]
+    cfg = DecodeConfig(slots=len(srcs), page_size=16,
+                       pages_per_slot=-(-(c["max_len"] + 1) // 16),
+                       prompt_chunk=16, prefill_batch=4,
+                       max_new_tokens=c["max_len"], eos_id=t["eos"])
+    t0 = time.perf_counter()
+    svc = Seq2SeqService(model, t["bos"], t["eos"], max_len=c["max_len"],
+                         src_buckets=c["src_buckets"], decode_config=cfg,
+                         device=dev)
+    eng = svc._engine()
+    eng.metrics = _sample_metrics()
+    svc.warmup()
+    setup_s = time.perf_counter() - t0
+    captured = eng.graphs_captured
+    failures = []
+    try:
+        before = dict(eng.stats)
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        toks, scores = svc.translate(srcs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+        steps = eng.stats["steps"] - before["steps"]
+        gen = [row[1:] for row in toks]
+        lengths = []
+        for row in gen:
+            hit = np.nonzero(row == t["eos"])[0]
+            lengths.append(int(hit[0]) + 1 if len(hit) else len(row))
+        n_tok = sum(lengths)
+        if launches.get("paged_decode_attention", 0) != t["layers"] * steps \
+                or steps < 1:
+            failures.append(f"paged_decode_attention {launches} over "
+                            f"{steps} decode steps of {t['layers']} layers")
+        if not np.isfinite(scores).all():
+            failures.append("non-finite scores")
+        caps = _captures_after_warmup(svc, captured)
+        if caps["unexpected_captures"] or caps["graphs_captured"] != captured:
+            failures.append(f"captures after warmup {caps}")
+        # the cached greedy decoder, a batch of each source length
+        agree = 0
+        with torch.no_grad():
+            for i in range(0, len(srcs), c["per_len"]):
+                batch = np.stack(srcs[i:i + c["per_len"]])
+                ref, _ = transformer_decode_cached(
+                    svc.model, torch.from_numpy(batch).to(dev), t["bos"],
+                    t["eos"], max_len=c["max_len"])
+                for j, row in enumerate(ref.cpu().numpy()):
+                    n = lengths[i + j]
+                    agree += int(row[1:1 + n].tolist() == gen[i + j][:n]
+                                 .tolist())
+        beam = Seq2SeqService(model, t["bos"], t["eos"], max_len=c["max_len"],
+                              beam_size=c["beam"], device=dev)
+        bsrc = rs.randint(3, t["vocab"], (c["beam_sources"], c["beam_len"])
+                          ).astype(np.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        btoks, bscores = beam.translate(bsrc)
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t1
+        if btoks.shape != (c["beam_sources"], c["max_len"] + 1) \
+                or not np.isfinite(bscores).all():
+            failures.append(f"beam: {btoks.shape}, finite "
+                            f"{np.isfinite(bscores).all()}")
+        emit({"phase": "serve_seq2seq", "model": {k: t[k] for k in (
+                  "vocab", "d", "heads", "ffn", "layers")},
+              "sources": len(srcs), "src_lens": list(c["src_lens"]),
+              "max_len": c["max_len"], "decode_steps": steps,
+              "prefill_calls": eng.stats["prefill_calls"]
+              - before["prefill_calls"], "launches": launches,
+              "generated_tokens": n_tok, "wall_s": wall,
+              "tokens_per_s": n_tok / wall,
+              "step_ms_p50": _percentile_ms(eng.metrics.samples.get(
+                  "serving.decode.step_s", []), 50),
+              "cached_decoder_agree": f"{agree}/{len(srcs)}",
+              "beam": {"beam_size": c["beam"], "sources": c["beam_sources"],
+                       "src_len": c["beam_len"], "wall_s": beam_s,
+                       "best_scores": bscores.tolist()},
+              "captures": caps, "setup_s": setup_s,
+              "compute_dtype": "bfloat16"})
+    finally:
+        svc.stop()
+    if failures:
+        raise AssertionError("serve_seq2seq: " + "; ".join(failures))
+    return launches
 
 
 def _device_kernels(events) -> list:
@@ -3221,16 +4004,10 @@ def serve_resnet(dev, model):
                       if isinstance(m, (Conv2D, Linear)))
     results, rows = {}, {}
     for tag, im in ims.items():
-        calls, plain = [], [0]
+        calls, plain = [], Counter()
         hook = im.model.register_forward_pre_hook(
             lambda m, a: calls.append(a[0].shape[0]))
-        plain_fn = q8.int8_matmul_plain
-
-        def counted(*a):
-            plain[0] += 1
-            return plain_fn(*a)
-
-        q8.int8_matmul_plain = counted
+        undo = _counting(q8, "int8_matmul_plain", plain)
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3247,7 +4024,7 @@ def serve_resnet(dev, model):
                 tp_s = time.perf_counter() - t1
             launches = dict(LAUNCHES)
         finally:
-            q8.int8_matmul_plain = plain_fn
+            undo()
             hook.remove()
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         outs.append(last)
@@ -3260,11 +4037,11 @@ def serve_resnet(dev, model):
             raise AssertionError(f"serve_resnet {tag}: bucket calls {calls}, "
                                  f"want {want_calls}")
         want_launches = RESNET_INT8_CALLS * len(calls) if tag == "int8" else 0
-        if launches.get("int8_matmul", 0) != want_launches or plain[0]:
+        if launches.get("int8_matmul", 0) != want_launches or plain:
             raise AssertionError(f"serve_resnet {tag}: int8_matmul launched "
                                  f"{launches} times over {len(calls)} bucket "
                                  f"calls (want {want_launches}), the plain "
-                                 f"version ran {plain[0]} times")
+                                 f"version ran {sum(plain.values())} times")
         results[tag] = outs
         if tag == "int8":
             wq = sum(b.numel() * b.element_size()
@@ -3277,7 +4054,8 @@ def serve_resnet(dev, model):
                                        else "bfloat16"),
                      "requests": [int(x.shape[0]) for x in requests],
                      "answered": len(requests), "bucket_calls": calls,
-                     "launches": launches, "plain_calls": plain[0],
+                     "launches": launches,
+                     "plain_calls": sum(plain.values()),
                      "requests_wall_s": req_s,
                      "throughput": {"requests": n_tp, "images": b_tp},
                      "throughput_wall_s": tp_s,
@@ -3555,16 +4333,10 @@ def serve_bert_fused(dev, model, cfg=BERT, buckets=BERT_BUCKETS,
     burst = tokens(b_tp)
     want_calls = [min(b for b in buckets if b >= n) for n in sizes]
     want_calls += [b_tp] * n_tp
-    calls, plain = [], [0]
+    calls, plain = [], Counter()
     hook = im.model.register_forward_pre_hook(
         lambda m, a: calls.append(a[0].shape[0]))
-    plain_fn = fused_mod.fused_layernorm_plain
-
-    def counted(*a):
-        plain[0] += 1
-        return plain_fn(*a)
-
-    fused_mod.fused_layernorm_plain = counted
+    undo = _counting(fused_mod, "fused_layernorm_plain", plain)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3580,7 +4352,7 @@ def serve_bert_fused(dev, model, cfg=BERT, buckets=BERT_BUCKETS,
         tp_s = time.perf_counter() - t1
         launches = dict(LAUNCHES)
     finally:
-        fused_mod.fused_layernorm_plain = plain_fn
+        undo()
         hook.remove()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     outs.append(last)
@@ -3595,12 +4367,12 @@ def serve_bert_fused(dev, model, cfg=BERT, buckets=BERT_BUCKETS,
     want_flash = cfg["layers"] * len(calls)
     if (launches.get("fused_layernorm", 0) != want_ln
             or launches.get("flash_attention_fwd", 0) != want_flash
-            or plain[0]):
+            or plain):
         raise AssertionError(f"serve_bert_fused: launches {launches} over "
                              f"{len(calls)} bucket calls (want "
                              f"fused_layernorm {want_ln}, "
                              f"flash_attention_fwd {want_flash}); the plain "
-                             f"LayerNorm ran {plain[0]} times")
+                             f"LayerNorm ran {sum(plain.values())} times")
 
     # every answer against the unfused model with plain attention and
     # plain LayerNorm: no kernel of the port in the reference
@@ -3626,7 +4398,8 @@ def serve_bert_fused(dev, model, cfg=BERT, buckets=BERT_BUCKETS,
     emit({"phase": "serve_bert_fused", "model": cfg,
           "requests": [int(x.shape[0]) for x in requests],
           "answered": len(requests), "bucket_calls": calls,
-          "launches": launches, "plain_layernorm_calls": plain[0],
+          "launches": launches,
+          "plain_layernorm_calls": sum(plain.values()),
           "fused_layernorm_nodes": n_ln,
           "max_logp_rel_err_vs_unfused_plain": worst,
           "rtol": BERT_LOGP_RTOL, "top1_agree": f"{agree}/{total}",
@@ -5989,12 +6762,21 @@ def run_alone(phase, dev):
         layout_lm(dev)
     elif phase == "layout_gloo_card":
         layout_gloo_card(dev)
+    elif phase == "serve_keras_int8":
+        from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+        with compute_dtype(torch.float32):
+            serve_keras_int8(dev)
+    elif phase in ("serve_prefix", "serve_handoff", "serve_spec_window",
+                   "serve_seq2seq"):
+        globals()[phase](dev)
     else:
         raise SystemExit(f"--phase {phase}: keras_inception, keras_resnet, "
                          "train_translation, train_ptb_lstm, estimator_bert, "
                          "forecast_autoformer, forecast_tcn, "
-                         "train_zero1_collectives, layout_lm or "
-                         "layout_gloo_card")
+                         "train_zero1_collectives, layout_lm, "
+                         "layout_gloo_card, serve_keras_int8, serve_prefix, "
+                         "serve_handoff, serve_spec_window or serve_seq2seq")
     _release()
 
 
@@ -6089,15 +6871,23 @@ def main() -> int:
     sparse_row["launches_path"] = "serve_spec graphs_f32"
     try:
         serve_sweep(dev, spec_pair)
+        launches = serve_spec_window(dev, spec_pair["graphs"])
+        for row in (verify_row, sparse_bf16_row):
+            row["launches_serve_spec_window"] = launches.get(row["name"], 0)
     finally:
         for im in spec_pair.values():
             im.stop()
     del spec_pair
-    torch.cuda.empty_cache()
+    _release()
     launches = serve_int8(dev, prompts, results)
     int8_row["launches"] = launches["plain"].get(int8_row["name"], 0)
     int8_row["launches_spec"] = launches["spec"].get(int8_row["name"], 0)
-    torch.cuda.empty_cache()
+    _release()
+    for phase in (serve_prefix, serve_handoff, serve_seq2seq):
+        launches = phase(dev)
+        for row in (decode_row, int8_row):
+            row[f"launches_{phase.__name__}"] = launches.get(row["name"], 0)
+        _release()
     launches = serve_resnet(dev, resnet)
     int8mm_row["launches"] = launches.get(int8mm_row["name"], 0)
     with compute_dtype(torch.float32):   # the fold's check is float32
@@ -6110,7 +6900,12 @@ def main() -> int:
         launches = serve_bert_fused(dev, bert_model())
     ln_row["launches"] = launches.get(ln_row["name"], 0)
     fwd_nc_row["launches"] = launches.get(fwd_nc_row["name"], 0)
-    torch.cuda.empty_cache()
+    _release()
+    with compute_dtype(torch.float32):   # int8 against the float model
+        launches = serve_keras_int8(dev)
+    for row in (int8mm_row, ln_row, fwd_nc_row):
+        row["launches_serve_keras_int8"] = launches.get(row["name"], 0)
+    _release()
     launches, trained = train(dev)
     fwd_row["launches"] = launches.get("flash_attention_fwd", 0)
     bwd_entries = {k: launches.get(k, 0) for k in (

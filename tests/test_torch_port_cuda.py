@@ -1961,3 +1961,160 @@ def test_serializer_round_trip_from_card_tensors(card, tmp_path):
                          device=card)
     back.load(str(tmp_path / "f"))
     assert np.array_equal(back.predict(x[:8]), f.predict(x[:8]))
+
+
+# ---------------------------------------------------------------------------
+# the decode engine's fleet half, the draft window and translation serving
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_attached_prefill_runs_in_the_captured_graphs(card, int8):
+    """A prefix-cache attach after warmup(): the attached prefill and the
+    steps replay the warmed graphs (no capture), the shared pages keep
+    their bytes and scales, 3 hits, and the graphs' tokens and log-probs
+    equal an eager engine's to the bit (attached against cold is
+    ROADMAP C.2's: chip_smoke.py reports it)."""
+    from bigdl_tpu_torch.serving import DecodeRequest
+
+    rs = np.random.RandomState(11)
+    prefix = rs.randint(2, 256, 48).astype(np.int32)
+    rest = [np.concatenate([prefix, rs.randint(2, 256, 9)]).astype(np.int32)
+            for _ in range(3)]
+    runs = {}
+    for graphs in (True, False):
+        eng = _serve_engine(card, graphs, int8,
+                            prefix_cache_pages=16).warmup()
+        captured = eng.graphs_captured
+        try:
+            eng.generate([prefix], max_new_tokens=4)
+            entry, = eng._prefix_cache._entries.values()
+            ids = torch.tensor(entry.pages, device=card)
+            pools = ["_kv_k", "_kv_v"] + (["_kv_sk", "_kv_sv"] if int8
+                                          else [])
+            snap = {p: getattr(eng, p)[:, ids].clone() for p in pools}
+            res = [r.wait(timeout=120) for r in eng.submit_many(
+                [DecodeRequest(tokens=p, max_new_tokens=6) for p in rest])]
+            torch.cuda.synchronize()
+            assert eng.graphs_captured == captured
+            assert eng.metrics.counter(
+                "serving.decode.unexpected_captures") == 0
+            assert eng._prefix_cache.stats()["hits"] == 3
+            for p, before in snap.items():
+                assert torch.equal(getattr(eng, p)[:, ids], before), p
+            runs[graphs] = res
+        finally:
+            eng.stop()
+    for a, b in zip(runs[True], runs[False]):
+        assert a.tokens.tolist() == b.tokens.tolist()
+        assert np.float32(a.logp).tobytes() == np.float32(b.logp).tobytes()
+
+
+def test_int8_handoff_import_on_the_card(card):
+    """An int8 prefill-only export imported on a second warmed engine:
+    the pages and scales land bit for bit, the imported slot decodes on
+    the int8 paged kernel inside the graphs, and its tokens equal one
+    engine's run; a float32 engine refuses the blob."""
+    from bigdl_tpu_torch.ops import reset_launches
+    from bigdl_tpu_torch.serving import DecodeRequest
+    from bigdl_tpu_torch.serving.fleet import pack_handoff, unpack_handoff
+
+    a = _serve_engine(card, True, int8=True).warmup()
+    b = _serve_engine(card, True, int8=True).warmup()
+    f32 = _serve_engine(card, True)
+    try:
+        p = _serve_prompts(1, seed=4)[0]
+        ref = a.generate([p], max_new_tokens=8)[0]
+        pre = a.submit(DecodeRequest(tokens=p, max_new_tokens=1,
+                                     export_kv=True))
+        pre.wait(timeout=120)
+        h = unpack_handoff(pack_handoff(pre.kv_export))
+        assert h["k"].dtype == np.int8
+        reset_launches()
+        got = b.submit_prefilled(h, max_new_tokens=8).wait(timeout=120)
+        torch.cuda.synchronize()
+        assert got.tokens.tolist() == ref.tokens.tolist()
+        assert LAUNCHES["paged_decode_attention_int8"] == 2 * b.stats["steps"]
+        assert b.graphs_captured == len(b.closed_set())
+        assert b.metrics.counter("serving.decode.unexpected_captures") == 0
+        with pytest.raises(ValueError, match="kv_dtype 'int8'"):
+            f32.submit_prefilled(h)
+    finally:
+        for e in (a, b, f32):
+            e.stop()
+
+
+def test_windowed_speculation_captured_without_recapture(card_bf16):
+    """``draft_window`` on the card: warmup captures every program of the
+    closed set (the draft's ring at every bucket wider than the window),
+    traffic reaching every bucket captures nothing more, and the verify
+    and block-sparse kernels run (12 verify launches an iteration here:
+    2 layers)."""
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.ops import reset_launches
+    from bigdl_tpu_torch.optim.metrics import Metrics
+    from bigdl_tpu_torch.serving import (DecodeConfig, DecodeEngine,
+                                         DecodeRequest, LMAdapter,
+                                         SpecConfig)
+
+    cfg = DecodeConfig(**SERVE_GEOMETRY, speculative=SpecConfig(
+        k=3, sparsity=0.5, draft_window=20))
+    model = Transformer(**LM_SERVE, dropout=0.0, seed=0).to(card_bf16).eval()
+    eng = DecodeEngine(LMAdapter(model, cfg.cap), cfg,
+                       metrics=Metrics()).warmup()
+    try:
+        assert eng.graphs_captured == len(eng.closed_set())
+        reset_launches()
+        rs = np.random.RandomState(9)
+        reqs = eng.submit_many([DecodeRequest(
+            tokens=rs.randint(2, 256, int(n)).astype(np.int32),
+            max_new_tokens=10) for n in (3, 20, 45, 110)])
+        res = [r.wait(timeout=120) for r in reqs]
+        torch.cuda.synchronize()
+        assert all(len(r.tokens) >= 1 for r in res)
+        assert eng.graphs_captured == len(eng.closed_set())
+        assert eng.metrics.counter("serving.decode.unexpected_captures") == 0
+        assert LAUNCHES["paged_verify_attention"] == 2 * eng.stats["steps"]
+        assert LAUNCHES["block_sparse_matmul_bf16"] > 0
+        buckets = {nb for name, nb, _ in eng.calls if name == "spec"}
+        assert max(buckets) * cfg.page_size > 20       # the ring ran
+    finally:
+        eng.stop()
+
+
+def test_seq2seq_engine_on_the_card(card):
+    """A translation model through ``Seq2SeqService`` on the card,
+    graphs beside eager: every decoder layer's self-attention on the
+    paged kernel (layers x steps launches), no capture after warmup,
+    finite scores, and the graphs' tokens and scores equal eager's to
+    the bit (float32 products)."""
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.ops import reset_launches
+    from bigdl_tpu_torch.serving import DecodeConfig, Seq2SeqService
+
+    src = [np.random.RandomState(2).randint(2, 256, n).astype(np.int32)
+           for n in (11, 5, 16)]
+    out = []
+    for graphs in (None, False):
+        model = Transformer(256, 128, 2, ffn_size=256, num_layers=2,
+                            dropout=0.0, mode="translation", seed=0)
+        cfg = DecodeConfig(slots=4, page_size=8, pages_per_slot=2,
+                           prompt_chunk=8, max_new_tokens=12, eos_id=1,
+                           cuda_graphs=graphs)
+        svc = Seq2SeqService(model, 0, 1, max_len=12, src_buckets=(8, 16),
+                             decode_config=cfg, device=card).warmup()
+        eng = svc.decode_engine
+        try:
+            captured = eng.graphs_captured
+            reset_launches()
+            toks, scores = svc.translate(src)
+            torch.cuda.synchronize()
+            steps = eng.stats["steps"]
+            assert steps > 0
+            assert LAUNCHES["paged_decode_attention"] == 2 * steps
+            assert eng.graphs_captured == captured
+            assert np.isfinite(scores).all()
+            out.append((toks, scores))
+        finally:
+            svc.stop()
+    (gt, gs), (et, es) = out
+    assert np.array_equal(gt, et) and gs.tobytes() == es.tobytes()

@@ -5,7 +5,7 @@ the atrous convolutions), ``Activation``, the ``nn.layers_extra`` subset,
 ``utils.convert.load_jax_keras_variables``, a tiny keras BERT (2 post-LN
 layers, d = 32, 4 heads, FFN 64, vocab 64, length 8) unfused and through
 the ``"fused"`` IR rewrite, and ``InferenceModel.predict`` of a keras
-model with its int8 refusals.
+model, int8 included.
 
 Both packages run the same numpy inputs on the same weights (the JAX
 variables, perturbed from a numpy seed so no LayerNorm is the identity
@@ -352,10 +352,23 @@ def test_predict_serves_a_keras_model(tiny_bert):
 
 
 def test_keras_models_refuse_int8():
+    """keras int8 is served now (its parity with the JAX package is in
+    test_torch_port_keras_quant.py); what the JAX package refuses is
+    still refused."""
     model = K.Model(*(lambda i: (i, K.Dense(4, 2)(i)))(K.Input((4,))))
-    for call in (lambda: InferenceModel(model, device="cpu",
-                                        weight_quant="int8"),
-                 lambda: quantize(model),
-                 lambda: calibrate(model, [np.zeros((2, 4), np.float32)])):
-        with pytest.raises(ValueError, match="keras Model .*A\\.6\\.1"):
+    x = np.random.RandomState(0).randn(2, 4).astype(np.float32)
+    im = InferenceModel(model, device="cpu", weight_quant="int8")
+    assert type(im.model.order[-1].layer).__name__ == "QuantizedLinear"
+    assert type(quantize(model).order[-1].layer).__name__ == \
+        "QuantizedLinear"
+    assert len(calibrate(model, [x])) == 1
+    with torch.no_grad():
+        _close(im.predict(x), model(torch.from_numpy(x)), 2e-2)
+    for call, match in (
+            (lambda: InferenceModel(model, device="cpu",
+                                    weight_quant="int4"), "weight_quant"),
+            (lambda: calibrate(model, [x], method="mean"), "method"),
+            (lambda: calibrate(model, [x], granularity="row"),
+             "granularity")):
+        with pytest.raises(ValueError, match=match):
             call()

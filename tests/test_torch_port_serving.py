@@ -188,7 +188,6 @@ def test_deadline_expires_request(lm):
     (dict(kv_dtype="int4"), "int8"),
     # speculation is ported; only a SpecConfig turns it on
     (dict(speculative=object()), "speculative"),
-    (dict(prefix_cache_pages=4), "prefix cache"),
     (dict(slots=1), ">= 2"),
 ])
 def test_config_refuses_unported(kw, match):

@@ -276,5 +276,71 @@ def test_spec_config_validation(lm):
         _port(lm, SpecConfig(k=2, verify_impl="magic"))
     with pytest.raises(ValueError, match="float32 KV"):
         _port(lm, SpecConfig(k=2, verify_impl="chunk"), kv_dtype="int8")
+    # the draft window is ported (test_draft_window_matches_jax); a
+    # window under one position is refused, as in the JAX package
     with pytest.raises(ValueError, match="draft_window"):
-        _port(lm, SpecConfig(k=2, draft_window=4))
+        _port(lm, SpecConfig(k=2, draft_window=0))
+
+
+def _windowed_jax(lm, window, sample):
+    """The JAX speculative engine with ``draft_window``: its results, its
+    stats and every spec call's drafts of the active slots."""
+    model, params = lm
+    cfg = jde.DecodeConfig(**GEOMETRY, speculative=jde.SpecConfig(
+        k=3, sparsity=0.5, draft_window=window))
+    eng = jde.DecodeEngine(jde.LMAdapter(model, params, cap=cfg.cap), cfg)
+    draft_prefill_fn, draft_fn = eng._draft_prefill_fn, eng._draft_fn
+    drafts = []
+
+    def blocking_draft_prefill_fn(nb):
+        fn = draft_prefill_fn(nb)
+        return lambda *a: jax.block_until_ready(fn(*a))
+
+    def logged_draft_fn(nb):
+        fn = draft_fn(nb)
+
+        def run(*a):
+            out = fn(*a)
+            active = np.asarray(a[5])
+            drafts.append(np.asarray(out[2])[active].tolist())
+            return out
+        return run
+
+    eng._draft_prefill_fn = blocking_draft_prefill_fn
+    eng._draft_fn = logged_draft_fn
+    kw = SAMPLE_KW if sample else {}
+    try:
+        with eng._iter_lock:
+            reqs = [eng.submit(jde.DecodeRequest(tokens=p, seed=100 + i,
+                                                 **kw))
+                    for i, p in enumerate(_prompts())]
+        return [r.wait(timeout=120) for r in reqs], dict(eng.stats), drafts
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("sample", [False, True])
+def test_draft_window_matches_jax(lm, spec_off, sample):
+    """``SpecConfig.draft_window`` (W = 5: the ring windows every bucket
+    of 8 and 16 positions): spec-off's tokens, and the JAX windowed
+    engine's tokens, drafts and acceptance."""
+    want, jstats, jdrafts = _windowed_jax(lm, 5, sample)
+    im = _port(lm, SpecConfig(k=3, sparsity=0.5, draft_window=5))
+    eng = im.decode_engine
+    drafts = []
+    call = eng._call
+
+    def logged_call(name, n_blocks, sampled):
+        out = call(name, n_blocks, sampled)
+        if name == "spec":
+            active = eng._active_mask.copy()
+            drafts.append(out["d_toks"][active].tolist())
+        return out
+
+    eng._call = logged_call
+    got = _run(im, sample)
+    _same(got, want, 1e-4)
+    _same(got, spec_off[int(sample)], 1e-4)
+    assert drafts == jdrafts
+    for key in ("spec_drafted", "spec_accepted", "spec_rejected", "tokens"):
+        assert eng.stats[key] == jstats[key], key
