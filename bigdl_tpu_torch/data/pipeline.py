@@ -49,6 +49,7 @@ import torch
 from torch.profiler import record_function
 
 from bigdl_tpu_torch.data.dataset import MiniBatch
+from bigdl_tpu_torch.obs import trace
 
 # slot states
 _FREE, _ASSIGNED, _READY, _LENT = range(4)
@@ -425,7 +426,8 @@ class StreamingPipeline:
                 if slot is None:
                     return
                 t0 = time.perf_counter()
-                with record_function(f"{self._name}/read"):
+                with record_function(f"{self._name}/read"), \
+                        trace.span(f"{self._name}/read", seq=seq):
                     raw = self._fetch(item, slot)
                 self._read_s += time.perf_counter() - t0
                 self._read_n += 1
@@ -482,7 +484,9 @@ class StreamingPipeline:
             seq, item, raw, slot, lo, hi = job
             try:
                 t0 = time.perf_counter()
-                with record_function(f"{self._name}/decode"):
+                with record_function(f"{self._name}/decode"), \
+                        trace.span(f"{self._name}/decode", seq=seq,
+                                   rows=hi - lo):
                     meta = self._decode(item, raw, self.ring.buffers(slot),
                                         lo, hi, slot)
                 with self._rate_lock:

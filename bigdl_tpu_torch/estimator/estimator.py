@@ -17,11 +17,12 @@ trains through ``parallel.gspmd.fit_layout`` on every rank of the world
 (``_fit_layout``), with the JAX package's refusals.
 
 Not ported, each refused with a ``ValueError`` naming its ROADMAP item:
-``fault_tolerance`` (the supervisor: A.6.9), ``slo_specs`` (A.6.7), and
-stock tf.keras models in ``from_keras`` with ``export_to_keras``
-(``keras_convert``: A.6.11)."""
+``fault_tolerance`` (the supervisor: A.6.9), and stock tf.keras models
+in ``from_keras`` with ``export_to_keras`` (``keras_convert``: A.6.11).
+``config["slo_specs"]`` runs an ``obs.slo.SLOEvaluator`` over a fit."""
 
 import inspect
+import logging
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -36,6 +37,8 @@ from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import Loss, ValidationMethod
 from bigdl_tpu_torch.runtime.engine import Engine, EngineConfig, init_engine
 from bigdl_tpu_torch.utils.convert import load_jax_variables
+
+log = logging.getLogger("bigdl_tpu_torch.estimator")
 
 
 def init_context(cluster_mode: str = "local",
@@ -226,9 +229,6 @@ class Estimator:
         if fault_tolerance:
             raise ValueError("fit(fault_tolerance=...): the Supervisor is "
                              "not ported yet (ROADMAP A.6.9)")
-        if "slo_specs" in self.config:
-            raise ValueError("config['slo_specs']: SLO evaluation is not "
-                             "ported yet (ROADMAP A.6.7)")
         opt = Optimizer(self.model, ds, self.criterion,
                         batch_size=batch_size, device=self.device)
         if "host_prefetch" in self.config:
@@ -242,6 +242,17 @@ class Estimator:
             opt.grad_comm = str(self.config["grad_comm"])
         if "comm_bucket_bytes" in self.config:
             opt.comm_bucket_bytes = int(self.config["comm_bucket_bytes"])
+        slo_ev = None
+        if "slo_specs" in self.config:
+            # burn-rate gauges and slo_burn flight lines over the fit; a
+            # bad spec costs the evaluation, never the training
+            from bigdl_tpu_torch.obs.slo import SLOEvaluator
+
+            try:
+                slo_ev = SLOEvaluator(self.config["slo_specs"]).start()
+            except Exception as e:  # noqa: BLE001
+                log.error("slo_specs unusable (%s); SLO evaluation "
+                          "disabled for this fit", e)
         if profile_dir is not None:
             opt.set_profile(profile_dir)
         if self._initial_variables is not None:
@@ -256,7 +267,11 @@ class Estimator:
             opt.set_checkpoint(checkpoint_path,
                                checkpoint_trigger or Trigger.every_epoch())
         t0 = time.time()
-        self._trained = opt.optimize()
+        try:
+            self._trained = opt.optimize()
+        finally:
+            if slo_ev is not None:
+                slo_ev.stop()
         self._loaded = None
         self._last_stats = {"train_time_s": time.time() - t0,
                             "epochs": epochs, "num_samples": ds.size()}

@@ -6,6 +6,7 @@ import contextlib
 import ctypes
 import gc
 import sys
+import threading
 from collections import Counter
 from typing import Dict, Iterator, Sequence, Tuple
 
@@ -54,6 +55,84 @@ def captured_launches() -> Iterator[Counter]:
 def credit_launches(captured: Counter) -> None:
     """Count one replay of a graph whose capture recorded ``captured``."""
     LAUNCHES.update(captured)
+
+
+class DeviceGate:
+    """Holds the process's device work off while a CUDA graph is being
+    captured.
+
+    Threads that work on the card (a server's predict thread, a decode
+    engine's loop) hold :meth:`work`, shared; a capture holds
+    :meth:`capture`, alone.  Two things make a capture exclusive: the
+    capture sets the process-wide sync debug mode to ``"error"``, so a
+    host read on another thread would raise there, and the launch counts
+    a capture takes (:func:`captured_launches`) must not swallow another
+    thread's launches.  A thread that holds :meth:`work` and starts a
+    capture (a lazy capture inside an engine iteration) steps out of its
+    share while it captures; a waiting capture goes before new work.
+    Work on a CPU device passes without waiting."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._readers = 0
+        self._writer = None        # ident of the capturing thread
+        self._waiting = 0          # captures waiting for the card
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def work(self, device=None):
+        if device is not None and torch.device(device).type != "cuda":
+            yield
+            return
+        depth = getattr(self._local, "depth", 0)
+        if depth or self._writer == threading.get_ident():
+            self._local.depth = depth + 1
+            try:
+                yield
+            finally:
+                self._local.depth = depth
+            return
+        with self._cv:
+            while self._writer is not None or self._waiting:
+                self._cv.wait()
+            self._readers += 1
+        self._local.depth = 1
+        try:
+            yield
+        finally:
+            self._local.depth = 0
+            with self._cv:
+                self._readers -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def capture(self):
+        me = threading.get_ident()
+        if self._writer == me:
+            yield
+            return
+        held = getattr(self._local, "depth", 0) > 0
+        with self._cv:
+            if held:
+                self._readers -= 1
+            self._waiting += 1
+            self._cv.notify_all()
+            while self._writer is not None or self._readers:
+                self._cv.wait()
+            self._waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writer = None
+                if held:
+                    self._readers += 1
+                self._cv.notify_all()
+
+
+# the process's gate: every capture and every serving thread's card work
+DEVICE_GATE = DeviceGate()
 
 
 # (library, C symbol) -> (C function, error-string function)

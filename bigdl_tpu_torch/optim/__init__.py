@@ -27,4 +27,16 @@ __all__ = ["AUC", "Adadelta", "Adagrad", "Adam", "AdamWeightDecay",
            "Optimizer", "Plateau", "Poly", "Precision", "RMSprop", "Recall",
            "SGD", "SequentialSchedule", "ShardedParameterStep", "Step", "Top1Accuracy",
            "Top5Accuracy", "TrainStep", "TrainedModel", "Trigger",
-           "ValidationMethod", "ValidationResult", "Warmup", "checkpoint"]
+           "ValidationMethod", "ValidationResult", "Warmup", "checkpoint",
+           "PredictionService"]
+
+
+def __getattr__(name):
+    # PredictionService serves through serving.InferenceModel, whose
+    # imports reach back into this package: resolved at first use
+    if name == "PredictionService":
+        from bigdl_tpu_torch.optim.prediction_service import \
+            PredictionService
+
+        return PredictionService
+    raise AttributeError(name)

@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from bigdl_tpu_torch.obs import trace
 from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.resilience.retry import RetryPolicy
 from bigdl_tpu_torch.utils import storage
@@ -94,7 +95,15 @@ def _shard_name(i: int, n: int, attempt: Optional[str]) -> str:
     return f"opt_state.shard{i:05d}-of-{n:05d}{tok}.npz"
 
 
-def save_checkpoint(path: str, step: int, *, flat_params=None,
+def save_checkpoint(path: str, step: int, **kwargs) -> str:
+    """Write ``<path>/ckpt-<step>`` and return it (a ``checkpoint/save``
+    span); the arguments are :func:`_save_checkpoint`'s."""
+    with trace.span("checkpoint/save", step=step,
+                    sharded=kwargs.get("opt_shards") is not None):
+        return _save_checkpoint(path, step, **kwargs)
+
+
+def _save_checkpoint(path: str, step: int, *, flat_params=None,
                     opt_state: Optional[Arrays] = None,
                     model_state: Optional[Arrays] = None,
                     driver_state: Optional[Dict[str, Any]] = None,
@@ -240,7 +249,15 @@ def merge_flat_shards(shard_dicts: Iterable[Arrays]) -> Arrays:
     return full
 
 
-def load_checkpoint(ckpt_dir: str) -> Tuple[np.ndarray, Arrays, Arrays,
+def load_checkpoint(ckpt_dir: str):
+    """(flat params, opt-state arrays, model-state arrays, loop state,
+    EMA flat or None) of one checkpoint directory, sharded or not (a
+    ``checkpoint/restore`` span)."""
+    with trace.span("checkpoint/restore", ckpt_dir=ckpt_dir):
+        return _load_checkpoint(ckpt_dir)
+
+
+def _load_checkpoint(ckpt_dir: str) -> Tuple[np.ndarray, Arrays, Arrays,
                                             Dict[str, Any],
                                             Optional[np.ndarray]]:
     """(flat params, opt-state arrays, model-state arrays, loop state,

@@ -138,6 +138,7 @@ from bigdl_tpu_torch.data.pipeline import bundle_batches, dispatch_to_device
 from bigdl_tpu_torch.data.prefetch import thread_prefetch
 from bigdl_tpu_torch.nn.freeze import has_frozen, trainable_mask_for
 from bigdl_tpu_torch.nn.layers import has_lazy
+from bigdl_tpu_torch.obs import flight, trace
 from bigdl_tpu_torch.ops.common import resolve_device
 from bigdl_tpu_torch.optim import checkpoint as ckpt
 from bigdl_tpu_torch.optim.metrics import Metrics, SummaryWriter, Timer
@@ -584,8 +585,13 @@ class Optimizer:
                             "checkpoint [cause %s] in %.2fs",
                             type(e).__name__, e, retries,
                             config.failure_retry_times, cause.value, delay)
+                flight.record("train_in_run_retry", cause=cause.value,
+                              retry=retries, iteration=state["iteration"],
+                              error=f"{type(e).__name__}: {e}")
                 time.sleep(delay)
-                with record_function("resilience/in_run_resume"):
+                with record_function("resilience/in_run_resume"), \
+                        trace.span("resilience/in_run_resume",
+                                   cause=cause.value, retry=retries):
                     self._try_resume(step, state)
                 self._trained = [(i, lv) for i, lv in self._trained
                                  if i < state["iteration"]]
@@ -682,22 +688,25 @@ class Optimizer:
         if self._last_dispatch_end is not None:
             self.metrics.observe("train.dispatch_gap_s",
                                  now - self._last_dispatch_end)
-        faults.fire_bundle(it0, k)
-        if self.watchdog is not None:
-            self.watchdog.step_started(it0)
-        if self._profiler is not None:
+        with trace.span("train/bundle", step=it0, size=k):
+            faults.fire_bundle(it0, k)
+            if self.watchdog is not None:
+                self.watchdog.step_started(it0)
             for j in range(k):
-                self._profiler.step(it0 + j)
-        with record_function("train/bundle"):
-            t0 = time.perf_counter()
-            if self._bundle_k > 1:
-                losses, gnorms = step.train_bundle(
-                    it0, [x for x, _ in mbs], [y for _, y in mbs])
-            else:
-                ((x, y),) = mbs
-                losses, gnorms = step(it0, x, y).reshape(1), None
-            self.metrics.add("step_dispatch",
-                             (time.perf_counter() - t0) / k)
+                with trace.span("train/step", step=it0 + j):
+                    if self._profiler is not None:
+                        self._profiler.step(it0 + j)
+            with record_function("train/bundle"), \
+                    trace.span("train/dispatch", step=it0, size=k):
+                t0 = time.perf_counter()
+                if self._bundle_k > 1:
+                    losses, gnorms = step.train_bundle(
+                        it0, [x for x, _ in mbs], [y for _, y in mbs])
+                else:
+                    ((x, y),) = mbs
+                    losses, gnorms = step(it0, x, y).reshape(1), None
+                self.metrics.add("step_dispatch",
+                                 (time.perf_counter() - t0) / k)
         self._last_dispatch_end = time.perf_counter()
         # every step moves the same sync traffic (a static layout)
         if self._ici_bytes_step:
@@ -731,6 +740,8 @@ class Optimizer:
             log.info("steps_per_call=auto: dispatch %.3f ms a step against "
                      "a %.3f ms step: bundles of %d", disp * 1e3,
                      step_s * 1e3, k)
+            flight.record("bundle_auto_pick", k=k, dispatch_s=disp,
+                          step_s=step_s)
         self._bundle_k = k
 
     def _epoch_batch_iter(self, epoch: int, skip: int, reshard=None):
@@ -781,6 +792,7 @@ class Optimizer:
         try:
             while True:
                 with record_function("train/data"), \
+                        trace.span("train/data"), \
                         Timer(self.metrics, "data_time"):
                     t0 = time.perf_counter()
                     try:
@@ -821,9 +833,10 @@ class Optimizer:
         (it may raise ``PoisonedStepError`` into the retry loop)."""
         while len(self._pending) > keep:
             it0, lv, gv, done = self._pending.pop(0)
-            if done is not None:
-                done.synchronize()
-            values = lv.tolist()
+            with trace.span("train/device_sync", step=it0):
+                if done is not None:
+                    done.synchronize()
+                values = lv.tolist()
             now = time.perf_counter()
             dt, self._log_t = (now - self._log_t) / len(values), now
             self._inflight -= len(values)
@@ -1020,6 +1033,9 @@ class Optimizer:
                 state["_resume_skip"] = 0
                 self.metrics.inc("elastic_resumes_total")
                 self.metrics.inc("elastic_resharded_total")
+                flight.record("elastic_reshard", epoch=state["epoch"],
+                              old_pc=int(saved_pc), new_pc=self._world,
+                              trained=state["epoch_batch"])
             else:
                 self._replay_epoch(state, saved_pc,
                                    "the per-process batch plan differs and "

@@ -28,8 +28,8 @@ Axis semantics (the JAX package's):
 A parameter that matches no rule (or whose matching rules are all
 rank-rejected) is replicated, visibly: :meth:`LayoutAudit.export` sets
 the ``parallel.layout.replicated_params`` gauge and logs one line
-listing the paths (the JAX package's flight-recorder line is a log line
-here until the flight recorder is ported, ROADMAP A.6.7)."""
+listing the paths, and records them as a ``layout_replicated_params``
+flight line."""
 
 import logging
 import re
@@ -266,7 +266,8 @@ class LayoutAudit:
 
     def export(self, metrics=None) -> "LayoutAudit":
         """The ``parallel.layout.replicated_params`` gauge (set even at
-        0) and one warning line naming the fallback paths."""
+        0), and one flight line and one warning line naming the fallback
+        paths."""
         if metrics is None:
             from bigdl_tpu_torch.optim.metrics import global_metrics
 
@@ -277,6 +278,11 @@ class LayoutAudit:
             listed = self.fallback_replicated[:_AUDIT_LIST_CAP]
             extra = len(self.fallback_replicated) - len(listed)
             suffix = f" (+{extra} more)" if extra > 0 else ""
+            from bigdl_tpu_torch.obs import flight
+
+            flight.record("layout_replicated_params", model=self.model,
+                          count=len(self.fallback_replicated),
+                          elems=int(self.fallback_elems), paths=listed)
             log.warning(
                 "layout_replicated_params: layout %r replicates %d "
                 "parameter(s) (%s elements) that matched no rule: %s%s — "

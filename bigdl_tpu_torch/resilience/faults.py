@@ -15,10 +15,15 @@ time.  The points instrumented on one process:
 - ``process_kill``          — ``os._exit`` (or raise) in the train iteration
 - ``slow_host``             — sleep inside the train iteration
 
-The serving, cluster and fleet points parse and carry their exception
-classes, so every plan of the JAX package parses here; nothing fires
-them until the serving stack and multi-GPU training are ported (ROADMAP
-A.3, A.2).
+The serving points fire in ``serving.server`` (``serving_predict_fail``,
+``serving_worker_kill``, ``serving_slow_batch``) and the fleet points in
+the decode engine, the HTTP frontend and the pool's proxy
+(``fleet_worker_kill``, ``fleet_handoff_corrupt``,
+``fleet_stream_sever``, ``fleet_health_stale``).  The cluster points
+parse and carry their exception classes, so every plan of the JAX
+package parses here; nothing fires them until multi-host supervision is
+ported.  Every fire is a ``fault_injected`` flight line, and an ``exit``
+fault dumps an installed flight recorder first.
 
 Triggers per spec: ``at_step`` (fires when the site passes that step),
 ``every`` (every Nth invocation), ``probability`` (a hash of (seed,
@@ -42,6 +47,8 @@ import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
+
+from bigdl_tpu_torch.obs import flight
 
 log = logging.getLogger("bigdl_tpu_torch.resilience")
 
@@ -188,9 +195,15 @@ class FaultInjector:
             self.events.append((point, step, count))
             log.warning("fault injection: firing %r (step=%s, invocation "
                         "%d)", point, step, count)
+            # the postmortem shows the fault before its consequences
+            flight.record("fault_injected", point=point, step=step,
+                          invocation=count, action=spec.action)
             if spec.action == "sleep":
                 time.sleep(spec.delay_s)
             elif spec.action == "exit":
+                # os._exit skips excepthook, atexit and signal handlers:
+                # an armed flight recorder dumps here
+                flight.dump_if_installed(f"injected {point} (exit)")
                 os._exit(113)
             else:
                 raise _EXC[point](point, step=step, count=count)

@@ -19,12 +19,15 @@ as it is.  An engine built while a process group is already up joins
 that group.  The mesh (``runtime.mesh``) is the group; without one it is
 this process alone.
 
-The metrics endpoint, the SLOs and the peak-FLOPs pin are there so that
-a config written for the JAX package reads the same; any value but the
-default raises, naming the ROADMAP item that ports it."""
+``metrics_port`` serves ``/metrics`` (``obs.export.MetricsServer``) and
+``slo_specs`` runs an ``obs.slo.SLOEvaluator`` for the engine's
+lifetime.  The peak-FLOPs pin is there so that a config written for the
+JAX package reads the same; any value but None raises, naming the
+ROADMAP item that ports it."""
 
 import dataclasses
 import datetime
+import logging
 import os
 from dataclasses import dataclass, field
 from typing import Optional, Union
@@ -38,6 +41,7 @@ from bigdl_tpu_torch.resilience.retry import (FailureCause, FailurePolicy,
                                               RetryPolicy)
 from bigdl_tpu_torch.runtime.mesh import Mesh, MeshSpec, build_mesh
 
+log = logging.getLogger("bigdl_tpu_torch.runtime")
 
 @dataclass
 class EngineConfig:
@@ -78,9 +82,15 @@ class EngineConfig:
     # ...) the Estimator fits under when its config names none; None
     # keeps the ZeRO-1 driver
     parallelism: Optional[str] = None
-    # not ported: any other value raises (ROADMAP A.6.7)
+    # metrics_port starts a standalone Prometheus /metrics endpoint
+    # (obs.export.MetricsServer; 0 picks a free port) on metrics_host;
+    # slo_specs (spec dicts, inline JSON or a JSON file path) runs an
+    # obs.slo.SLOEvaluator over the process registry for the engine's
+    # lifetime
     metrics_port: Optional[int] = None
+    metrics_host: str = "127.0.0.1"
     slo_specs: Optional[object] = None
+    # not ported: any other value raises (ROADMAP A.6.7)
     peak_flops: Optional[float] = None
 
     def check(self) -> None:
@@ -106,15 +116,10 @@ class EngineConfig:
                 f"coordinator_address needs num_processes and a process_id "
                 f"in [0, num_processes), got {self.num_processes} and "
                 f"{self.process_id}")
-        later = {"metrics_port": ("A.6.7", None),
-                 "slo_specs": ("A.6.7", None),
-                 "peak_flops": ("A.6.7", None)}
-        for name, (item, default) in later.items():
-            if getattr(self, name) != default:
-                raise ValueError(
-                    f"EngineConfig.{name}={getattr(self, name)!r}: not "
-                    f"ported yet (ROADMAP {item}); the port runs with "
-                    f"the default {default!r}")
+        if self.peak_flops is not None:
+            raise ValueError(
+                f"EngineConfig.peak_flops={self.peak_flops!r}: not ported "
+                f"yet (ROADMAP A.6.7); the port runs with the default None")
 
     def resolved_failure_policy(self) -> FailurePolicy:
         """The explicit policy, else one built from the legacy knobs: a
@@ -140,7 +145,9 @@ class EngineConfig:
         ``BIGDL_TPU_NUM_PROCESSES``, ``BIGDL_TPU_PROCESS_ID``),
         ``BIGDL_TPU_GRAD_COMM``, ``BIGDL_TPU_COMM_BUCKET_BYTES``,
         ``BIGDL_TPU_RETRY_TIMES``, ``BIGDL_TPU_PROFILE_DIR``,
-        ``BIGDL_TPU_DATA_WORKERS``, ``BIGDL_TPU_STEPS_PER_CALL`` (an
+        ``BIGDL_TPU_DATA_WORKERS``, ``BIGDL_TPU_METRICS_PORT``,
+        ``BIGDL_TPU_METRICS_HOST``, ``BIGDL_TPU_SLO_SPECS``,
+        ``BIGDL_TPU_STEPS_PER_CALL`` (an
         int or ``auto``; anything else raises ``ValueError``),
         ``BIGDL_TPU_PARALLELISM`` (lower-cased) and
         ``BIGDL_TPU_DCN_SLICES`` (the mesh's ``dcn_data``) applied."""
@@ -160,6 +167,12 @@ class EngineConfig:
             cfg.profile_dir = env["BIGDL_TPU_PROFILE_DIR"]
         if env.get("BIGDL_TPU_DATA_WORKERS"):
             cfg.data_workers = int(env["BIGDL_TPU_DATA_WORKERS"])
+        if env.get("BIGDL_TPU_METRICS_PORT"):
+            cfg.metrics_port = int(env["BIGDL_TPU_METRICS_PORT"])
+        if env.get("BIGDL_TPU_METRICS_HOST"):
+            cfg.metrics_host = env["BIGDL_TPU_METRICS_HOST"]
+        if env.get("BIGDL_TPU_SLO_SPECS"):
+            cfg.slo_specs = env["BIGDL_TPU_SLO_SPECS"]
         if env.get("BIGDL_TPU_STEPS_PER_CALL"):
             raw = env["BIGDL_TPU_STEPS_PER_CALL"].strip().lower()
             cfg.steps_per_call = "auto" if raw == "auto" else int(raw)
@@ -193,6 +206,30 @@ class Engine:
         elif device is not None:
             self.device = torch.device(device)
         self.mesh: Mesh = build_mesh(config.mesh, self.device)
+        self.metrics_server = None
+        if config.metrics_port is not None:
+            # a bind failure (the port in use) costs the endpoint, never
+            # the run
+            from bigdl_tpu_torch.obs.export import MetricsServer
+
+            try:
+                self.metrics_server = MetricsServer(
+                    host=config.metrics_host,
+                    port=config.metrics_port).start()
+            except OSError as e:
+                log.error("metrics server failed to bind %s:%s (%s); "
+                          "continuing WITHOUT a /metrics endpoint",
+                          config.metrics_host, config.metrics_port, e)
+        self.slo_evaluator = None
+        if config.slo_specs is not None:
+            # a bad spec costs the evaluation, never the run
+            from bigdl_tpu_torch.obs.slo import SLOEvaluator
+
+            try:
+                self.slo_evaluator = SLOEvaluator(config.slo_specs).start()
+            except Exception as e:  # noqa: BLE001
+                log.error("SLO specs unusable (%s); SLO evaluation "
+                          "disabled", e)
 
     @staticmethod
     def _join(config: EngineConfig, device) -> torch.device:

@@ -100,7 +100,7 @@ import math
 import threading
 import time
 from collections import Counter, deque
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -110,13 +110,15 @@ import torch
 from bigdl_tpu_torch.nn.attention import (Transformer, _attn_project,
                                           positional_encoding)
 from bigdl_tpu_torch.nn.quantized import Int8Weights
+from bigdl_tpu_torch.obs import flight, trace
 from bigdl_tpu_torch.ops.block_sparse import derive_draft_masks
-from bigdl_tpu_torch.ops.common import (captured_launches, cdiv,
-                                        credit_launches)
+from bigdl_tpu_torch.ops.common import (DEVICE_GATE, captured_launches,
+                                        cdiv, credit_launches)
 from bigdl_tpu_torch.ops.flash_attention import (_gather_pages,
                                                  paged_decode_attention,
                                                  paged_verify_attention)
 from bigdl_tpu_torch.ops.quantized import quantize_pages
+from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.tensor.policy import (apply_precision_policy,
                                            get_compute_dtype, matmul_f32,
                                            matmul_promote)
@@ -128,10 +130,14 @@ _NEG_INF = -1e30
 
 
 class DeadlineExceededError(TimeoutError):
-    """The request's deadline passed while it was queued or decoding."""
+    """The request's deadline passed while it was queued or decoding
+    (``serving.server`` raises the same class, with the JAX server's
+    message)."""
 
     def __init__(self, rid: str, waited_s: float):
-        super().__init__(f"request {rid} expired after {waited_s:.3f}s")
+        super().__init__(
+            f"request {rid} expired after {waited_s:.3f}s in queue "
+            "(deadline passed before predict)")
         self.rid = rid
         self.waited_s = waited_s
 
@@ -293,6 +299,7 @@ class DecodeRequest:
     seed: int = 0
     rid: Optional[str] = None
     deadline_t: float = math.inf      # absolute; math.inf = never
+    tenant: str = "default"           # the serving tenant (trace events)
     on_token: Optional[Callable[[str, int, int], None]] = None
     on_done: Optional[Callable[["DecodeRequest"], None]] = None
     export_kv: bool = False
@@ -989,9 +996,16 @@ class DecodeEngine:
         # thread; _iter_lock serialises one engine iteration (and warmup)
         self._cancelled: Dict[str, str] = {}
         self._iter_lock = threading.Lock()
+        # callers off the engine thread waiting for _iter_lock: the loop
+        # yields it at its next iteration edge (a lock is not fair, and
+        # the loop would take it back at once)
+        self._iter_waiting = 0
         # scheduling events ("admit", "prefill_chunk", "decode_step",
-        # "spec_step", "cancel", "expire", "release", ...)
+        # "spec_step", "cancel", "expire", "release", ...), also dumped by
+        # the flight recorder (weakref'd: a collected engine is pruned)
         self.events: deque = deque(maxlen=512)
+        flight.register_dump_source(
+            f"decode_engine:{name}:{id(self):x}", self._ring_snapshot)
         self._tokens_window: deque = deque(maxlen=256)   # (t, n)
         self._accept_window: deque = deque(maxlen=256)   # (t, acc, judged)
         self._gauge_t = 0.0
@@ -1119,6 +1133,28 @@ class DecodeEngine:
             raise ValueError("handoff prompt tokens do not match the "
                              "request's tokens")
 
+    @contextmanager
+    def _between_iterations(self):
+        """``_iter_lock`` for a caller off the engine thread, taken at
+        the loop's next iteration edge."""
+        with self._cv:
+            self._iter_waiting += 1
+        try:
+            self._iter_lock.acquire()
+        finally:
+            with self._cv:
+                self._iter_waiting -= 1
+        try:
+            yield
+        finally:
+            self._iter_lock.release()
+
+    def _ring_snapshot(self) -> dict:
+        """The scheduling ring and the stats as one flight-dump line."""
+        return {"engine": self.name,
+                "events": [list(e) for e in list(self.events)],
+                "stats": dict(self.stats)}
+
     def queue_depth(self) -> int:
         with self._cv:
             return len(self._heap)
@@ -1190,7 +1226,7 @@ class DecodeEngine:
         cfg = self.cfg
         if not cfg.continuous:
             return exports, frozen, leftover
-        with self._iter_lock:
+        with self._between_iterations(), DEVICE_GATE.work(self.device):
             for s, seq in enumerate(self._slots):
                 if seq is None or seq.done or seq.frozen:
                     continue
@@ -1295,7 +1331,7 @@ class DecodeEngine:
         Idle rows write only the sink pages.  An adapter's encoder
         (``warmup_buckets``) runs once at each source bucket first."""
         t0 = time.perf_counter()
-        with self._iter_lock:
+        with self._between_iterations(), DEVICE_GATE.work(self.device):
             self._warming = True
             try:
                 if hasattr(self.adapter, "warmup_buckets"):
@@ -1772,8 +1808,11 @@ class DecodeEngine:
         stream.  A synchronizing call inside the program raises
         (``set_sync_debug_mode("error")``) before it reaches the card,
         so the capture ends cleanly and the error names the call;
-        nothing runs eagerly in its place."""
-        name, n_blocks, sampled = key
+        nothing runs eagerly in its place.  The capture holds
+        ``ops.common.DEVICE_GATE`` alone, so a server's other threads
+        hold their card work off until it ends, and it runs in
+        ``capture_error_mode="thread_local"``."""
+        name = key[0]
         self.check_compute_dtype()
         if self.graph_dtype is None:
             self.graph_dtype = get_compute_dtype(self.device)
@@ -1784,6 +1823,12 @@ class DecodeEngine:
                 "a decode program cannot be captured inside an open "
                 "weights() view: the graph would read float32 weights "
                 "freed when the view closes; capture (warmup) outside it")
+        with DEVICE_GATE.capture():
+            return self._capture_alone(key, prog)
+
+    def _capture_alone(self, key, prog) -> _Graph:
+        """:meth:`_capture` while no other thread works on the card."""
+        name, n_blocks, sampled = key
         side = self._side_stream()
         cur = torch.cuda.current_stream(self.device)
         prog.dev_in.copy_(prog.idle)
@@ -1799,7 +1844,8 @@ class DecodeEngine:
                     # entering the capture synchronizes: the mode goes on
                     # inside it
                     with torch.cuda.graph(graph, pool=self._graph_pool,
-                                          stream=side):
+                                          stream=side,
+                                          capture_error_mode="thread_local"):
                         torch.cuda.set_sync_debug_mode("error")
                         try:
                             prog.run(n_blocks, sampled)
@@ -1885,8 +1931,10 @@ class DecodeEngine:
                             and not self._cancelled:
                         self._cv.wait(0.2)
                         continue
+                while self._iter_waiting:
+                    time.sleep(0.0005)
                 try:
-                    with self._iter_lock:
+                    with self._iter_lock, DEVICE_GATE.work(self.device):
                         now = time.time()
                         self._sweep_cancelled()
                         self._expire(now)
@@ -2084,6 +2132,12 @@ class DecodeEngine:
             self.events.append(("admit", req.rid, s))
             if req.handoff is not None:
                 self._import_handoff(s, seq, req)
+            tr = trace.active()
+            if tr is not None:
+                # submit -> slot claim, joined to the request by its id
+                tr.add_event("decode/admission", req.admit_t, time.time(),
+                             request_id=req.rid, slot=s,
+                             tenant=req.tenant)
 
     def _ensure_pages(self, s: int, upto_tokens: int) -> None:
         """Allocate pages for slot ``s`` covering cache positions
@@ -2176,8 +2230,14 @@ class DecodeEngine:
         self.metrics.inc("serving.decode.prefill_chunks", len(rows))
         self.events.append(("prefill_chunk",
                             [self._slots[s].req.rid for _, s, _, _ in rows]))
+        tr = trace.active()
         for b, s, real, final in rows:
             seq = self._slots[s]
+            if tr is not None:
+                # one event a co-batched row, sharing the call's window
+                tr.add_event("decode/prefill_chunk", t0, now,
+                             request_id=seq.req.rid, slot=s,
+                             chunk_start=seq.prefill_pos, tokens=real)
             seq.prefill_pos += real
             if final:
                 self._lengths[s] = len(seq.prompt)
@@ -2203,6 +2263,9 @@ class DecodeEngine:
         static_wave = not cfg.continuous and occupied
         if not active and not static_wave:
             return False
+        # a decode worker dying with streams in flight: the pool's proxy
+        # fails the streams over
+        faults.fire("fleet_worker_kill")
         for s in active:
             self._ensure_pages(s, int(self._lengths[s]) + 1)
         ref = active if active else occupied
@@ -2222,10 +2285,15 @@ class DecodeEngine:
             self.metrics.observe("serving.decode.inter_token_s",
                                  now - self._last_step_t)
         self._last_step_t = now
+        tr = trace.active()
         for s in active:
             seq = self._slots[s]
             self._lengths[s] += 1          # last_token's K/V just landed
             self._emit_token(s, seq, int(toks[s]), logps[s], now)
+            if tr is not None:
+                tr.add_event("decode/token_step", t0, now,
+                             request_id=seq.req.rid, slot=s,
+                             index=len(seq.generated) - 1)
         self._tokens_window.append((now, len(active)))
         self.stats["tokens"] += len(active)
         self.metrics.inc("serving.decode.tokens_total", len(active))
@@ -2262,6 +2330,7 @@ class DecodeEngine:
         active = [s for s in range(cfg.slots) if self._active_mask[s]]
         if not active:
             return False
+        faults.fire("fleet_worker_kill")
         for s in active:
             self._ensure_pages(s, min(int(self._lengths[s]) + 1 + k,
                                       cfg.cap))
@@ -2289,6 +2358,7 @@ class DecodeEngine:
                                  now - self._last_step_t)
         self._last_step_t = now
         n_tok = drafted = accepted = rejected = 0
+        tr = trace.active()
         for s in active:
             seq = self._slots[s]
             emitted = 0
@@ -2310,10 +2380,15 @@ class DecodeEngine:
             # accepted = draft tokens the target agreed with; rejected =
             # the one mismatch that ends a chunk.  Drafts past an eos or
             # length finish were never judged: drafted, not rejected
+            acc = min(max(emitted - 1, 0), k)
             drafted += k
-            accepted += min(max(emitted - 1, 0), k)
+            accepted += acc
             rejected += 1 if mismatch else 0
             n_tok += emitted
+            if tr is not None:
+                tr.add_event("decode/spec_step", t0, now,
+                             request_id=seq.req.rid, slot=s,
+                             emitted=emitted, accepted=acc)
         self.stats["tokens"] += n_tok
         self.stats["spec_drafted"] += drafted
         self.stats["spec_accepted"] += accepted
@@ -2362,6 +2437,12 @@ class DecodeEngine:
             self._harvest_kv(seq)
         self.stats["completed"] += 1
         self.metrics.inc("serving.decode.completed")
+        tr = trace.active()
+        if tr is not None:
+            t = time.time()
+            tr.add_event("decode/publish", t, t, request_id=req.rid,
+                         finish_reason=reason,
+                         tokens=len(seq.generated))
         if self.cfg.continuous:
             self._release_slot(s)
         else:
@@ -2447,6 +2528,10 @@ class DecodeEngine:
                         seq: Optional[_ActiveSeq] = None) -> None:
         self.stats["expired"] += 1
         self.metrics.inc("serving.decode.expired")
+        tr = trace.active()
+        if tr is not None:
+            tr.add_event("decode/publish", now, now, request_id=req.rid,
+                         finish_reason="expired")
         err = DeadlineExceededError(req.rid, now - req.admit_t)
         if seq is not None and seq.generated:
             # a streaming request that already produced tokens: the

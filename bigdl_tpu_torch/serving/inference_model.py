@@ -10,7 +10,7 @@ import math
 import queue
 import time
 from contextlib import nullcontext
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,7 +18,7 @@ import torch
 from bigdl_tpu_torch.keras.engine import Model as KerasModel
 from bigdl_tpu_torch.nn.module import Container
 from bigdl_tpu_torch.nn.quantized import Int8Weights, quantize
-from bigdl_tpu_torch.ops.common import resolve_device
+from bigdl_tpu_torch.ops.common import DEVICE_GATE, resolve_device
 from bigdl_tpu_torch.parallel import local_ops
 from bigdl_tpu_torch.serving.decode_engine import (DecodeConfig,
                                                    DecodeEngine,
@@ -72,24 +72,43 @@ class InferenceModel:
     of the world calls :meth:`predict` with the same (replicated) batch
     and gets the whole output, bucket for bucket as without a layout.
     With ``decode=`` (the captured decode programs over DTensors) or
-    ``weight_quant="int8"`` it is not ported yet (ROADMAP A.3.7), nor is
-    a custom ``predict_fn``."""
+    ``weight_quant="int8"`` it is not ported yet (ROADMAP A.3.7).
+
+    ``predict_fn`` serves any callable instead of a model:
+    :meth:`predict` returns ``np.asarray(predict_fn(x))`` for the whole
+    batch, unbucketed, on the caller's thread (grad mode and devices are
+    the callable's own concern); it takes no ``layout``,
+    ``weight_quant`` or ``decode``."""
 
     def __init__(self, model=None, decode: Optional[DecodeConfig] = None,
                  device=None, weight_quant: Optional[str] = None,
                  batch_buckets: Sequence[int] = (1, 4, 16, 64, 256),
-                 layout=None, predict_fn=None):
+                 layout=None, predict_fn: Optional[Callable] = None):
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"weight_quant {weight_quant!r}: "
+                             "None | 'int8'")
+        self.buckets = tuple(sorted(int(b) for b in batch_buckets))
+        self.decode_engine = None
+        self._custom = predict_fn
         if predict_fn is not None:
             if layout is not None:
                 raise ValueError("layout= applies to (model, variables) "
                                  "serving, not a custom predict_fn")
-            raise ValueError("predict_fn=: serving a custom callable is "
-                             "not ported yet (ROADMAP A.3.7)")
+            if weight_quant is not None:
+                raise ValueError("weight_quant= applies to (model, "
+                                 "variables) serving, not a custom "
+                                 "predict_fn")
+            if decode is not None:
+                raise ValueError("decode= needs an LM-mode Transformer "
+                                 "(model, variables), not a custom "
+                                 "predict_fn")
+            self.model = model
+            self.weight_quant = None
+            self.layout = None
+            self._w8 = None
+            return
         if model is None:
-            raise ValueError("InferenceModel needs a model")
-        if weight_quant not in (None, "int8"):
-            raise ValueError(f"weight_quant {weight_quant!r}: "
-                             "None | 'int8'")
+            raise ValueError("need a model or predict_fn")
         if decode is not None and getattr(model, "mode", None) != "lm":
             raise ValueError("decode= needs an LM-mode Transformer; for "
                              "translation models use "
@@ -105,9 +124,7 @@ class InferenceModel:
         self.device = resolve_device(device)
         apply_precision_policy()
         self.weight_quant = weight_quant
-        self.buckets = tuple(sorted(int(b) for b in batch_buckets))
         self._w8 = None
-        self.decode_engine = None
         layered = isinstance(model, (Container, KerasModel))
         if weight_quant is not None and layered:
             model = quantize(model)
@@ -129,6 +146,28 @@ class InferenceModel:
                           weight_quant=weight_quant), decode)
             self.model = self.decode_engine.adapter.model
 
+    @staticmethod
+    def load(path: str, model, **kwargs) -> "InferenceModel":
+        """Serve ``model`` with the weights saved at ``path`` by either
+        package's ``save_model``; ``kwargs`` go to the constructor."""
+        from bigdl_tpu_torch.utils.convert import load_jax_variables
+        from bigdl_tpu_torch.utils.serializer import load_model
+
+        return InferenceModel(load_jax_variables(model, load_model(path)),
+                              **kwargs)
+
+    @staticmethod
+    def load_tf(path: str, **kwargs) -> "InferenceModel":
+        raise NotImplementedError("InferenceModel.load_tf: the TF graph "
+                                  "import is not ported yet (ROADMAP "
+                                  "A.6.11)")
+
+    @staticmethod
+    def load_caffe(path: str, **kwargs) -> "InferenceModel":
+        raise NotImplementedError("InferenceModel.load_caffe: the Caffe "
+                                  "import is not ported yet (ROADMAP "
+                                  "A.6.11)")
+
     def weights(self):
         """Context in which ``self.model`` holds float32 weights (their
         dequantized view when they are int8 at rest)."""
@@ -140,6 +179,8 @@ class InferenceModel:
         """The model's output for the batch ``x`` (numpy or a tensor; the
         first dim is the batch), as a numpy array."""
         x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if self._custom is not None:
+            return np.asarray(self._custom(x))
         cap = self.buckets[-1]
         if x.shape[0] > cap:
             return np.concatenate([self._predict_bucketed(x[i:i + cap])
@@ -151,10 +192,12 @@ class InferenceModel:
         b = _bucket(n, self.buckets)
         if n < b:
             x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        with torch.no_grad(), self.weights(), self._replicated():
+        # grad mode is per thread: a server's predict thread sets its own
+        with DEVICE_GATE.work(self.device), torch.no_grad(), \
+                self.weights(), self._replicated():
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
             out = local_ops.replicated(self.model(xt))
-        return out[:n].cpu().numpy()
+            return out[:n].cpu().numpy()
 
     def _replicated(self):
         """On a layout, plain tensors (the batch) are replicated ones."""
@@ -225,7 +268,10 @@ class InferenceModel:
     def warmup(self, sample=None) -> "InferenceModel":
         """Before traffic: one predict per bucket from ``sample`` (one
         example, with or without a batch dim), and the decode engine's
-        closed program set (captured as CUDA graphs on the card)."""
+        closed program set (captured as CUDA graphs on the card).  A
+        custom ``predict_fn`` has nothing to warm."""
+        if self._custom is not None:
+            return self
         if sample is not None:
             row = np.asarray(sample)
             row = row[:1] if row.ndim >= 2 else row[None]

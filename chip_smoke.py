@@ -114,7 +114,24 @@ one JSON line:
    (``BERT_INT8_CALIB_LOGP_RTOL`` calibrated) of the float model's and
    top-1 agreeing on ``BERT_INT8_TOP1_FLOOR`` of the rows, a control
    (per-channel scales a quarter of the calibrated ones) outside the
-   per-channel bound, sequences/s at bucket 64;
+   per-channel bound, sequences/s at bucket 64; then serve_http: a
+   ``ServingServer`` of the LM (float32 pages in captured graphs) and
+   the int8 fused encoder behind an ``HttpFrontend``, 16 streamed
+   ``/generate`` requests beside 4 clients of 10 ``/predict`` requests,
+   tracing and a TTFT SLO on: paged decode launches = 12 x steps, 26
+   int8, 12 flash and 25 LayerNorm launches a bucket call, no plain
+   version, no capture after warmup, predictions within
+   ``HTTP_PREDICT_RTOL`` of a direct predict of the batches the server
+   assembled (and a control of rows shifted by one past it), each
+   request's rows alone reported (C.2) beside the cause of their drift
+   (cuBLAS's row bits at M = 128 and 512, the int8 model's answer to a
+   one-ulp change of one weight), ``/metrics`` equal to the
+   server's stats with both tenants' series, the streams' trace events
+   and the SLO burn gauge; then serve_pool: a ``ServingPool`` of 2
+   worker processes on the card (the LM, int8 pages), 8 streams, the
+   worker holding live streams killed mid-flight: every stream
+   finishes, a failover and resumed tokens counted, no orphan, the
+   worker respawned, the federated ``/metrics`` of both workers;
 10. gradcheck — one batch's gradients of every parameter of the same LM
    with the flash kernels against plain attention (``use_flash=False``);
 11. train  — the LM trained 10 steps (batch 8 x 1024 tokens, Adam 1e-4)
@@ -318,7 +335,7 @@ runs only the named phases of keras_inception, keras_resnet,
 train_translation, train_ptb_lstm, estimator_bert, forecast_autoformer,
 forecast_tcn, train_zero1_collectives, layout_lm (with layout_serve),
 layout_gloo_card, serve_keras_int8, serve_prefix, serve_handoff,
-serve_spec_window and serve_seq2seq.
+serve_spec_window, serve_seq2seq, serve_http and serve_pool.
 
 ``python3 chip_smoke.py --zero1`` builds the kernels and runs only
 ``train_zero1`` (its single-process reference run included).
@@ -335,6 +352,7 @@ no result."""
 
 import contextlib
 import gc
+import importlib
 import json
 import multiprocessing as mp
 import os
@@ -349,6 +367,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.request
 from collections import Counter
 
 import numpy as np
@@ -434,10 +453,10 @@ IMAGENET_STD = tuple(v * 255 for v in (0.229, 0.224, 0.225))
 # bundle holds the two eager warm steps and the capture); 8-step runs
 # synchronised at each edge for the host's dispatch and profiled over
 # [4, 8) for the busy share; a resume from a checkpoint off the grid of
-# 4 (every 6); train_resnet_bundles runs 2 pairs (3 cost the whole
-# script its margin to its time limit beside the fleet phases)
-BUNDLE = dict(k=4, steps=12, pairs=2, timed_from=4, sync_steps=8,
-              ckpt_every=6, records_pairs=2, lm_batches=6)
+# 4 (every 6); train_resnet_bundles and train_resnet_records_bundles run
+# one pair each (2 before: the whole script must end within its limit)
+BUNDLE = dict(k=4, steps=12, pairs=1, timed_from=4, sync_steps=8,
+              ckpt_every=6, records_pairs=1, lm_batches=6)
 
 # train_zero1: the int8 wire's block, timing repetitions, the update
 # delta's scale against the gradient for the delta gather, the rows of
@@ -562,11 +581,12 @@ SPEC = dict(k=4, sparsity=0.5)
 # the serving phases: an engine replaying CUDA graphs (cuda_graphs=True)
 # beside one running the same programs eagerly (cuda_graphs=False), over
 # one seeded LM, timed runs alternating eager, graphs, graphs, eager, ...:
-# serve 2 pairs, serve_spec 2, each serve_int8 configuration 1; serve and
-# serve_spec add a float32 graphs engine to each pair (eager, graphs,
+# one pair each (serve and serve_spec ran 2 before the serving stack's
+# phases joined the script, which must end within its time limit); serve
+# and serve_spec add a float32 graphs engine to each pair (eager, graphs,
 # graphs_f32, then graphs_f32, graphs, eager); then one profiled run of
 # each engine
-SERVE_PAIRS = dict(serve=2, spec=2, int8=1)
+SERVE_PAIRS = dict(serve=1, spec=1, int8=1)
 # the engines of a serving phase, and the compute dtype each runs in
 # (None: the card's default, bfloat16)
 MODE_DTYPE = {"graphs": None, "eager": None, "graphs_f32": torch.float32}
@@ -648,6 +668,37 @@ SPEC_WINDOW = dict(window=128, prompt=512)
 SEQ2SEQ = dict(src_lens=(16, 32, 48, 64), per_len=4, max_len=64,
                src_buckets=(16, 32, 64), beam=4, beam_sources=4,
                beam_len=32)
+
+# serve_http: the HTTP serving stack.  One ServingServer with two tenants
+# behind an HttpFrontend on 127.0.0.1:0: "lm" (the LM, float32 pages, its
+# graphs captured at warmup) and "bert_int8" (bert_model rebuilt by the
+# IR "fused" rewrite, weight_quant="int8", BERT_BUCKETS).  At once: the
+# 16 streamed greedy /generate requests of serve's prompts (32 new
+# tokens), one client thread each, and 4 client threads of 10 /predict
+# requests of 1-16 seeded sequences of 128 token ids.  Tracing on, a TTFT
+# SLO on the LM tenant.
+HTTP = dict(predict_clients=4, predict_requests=10, max_rows=16,
+            ttft_slo_s=2.0, slo_window_s=60.0)
+# predictions over HTTP against the same InferenceModel's predict of the
+# batches the server assembled (each serving/batch span's request ids,
+# their rows in that order), run again on the main thread once the
+# server has stopped: max |log-prob difference| over max |log-prob|.
+# The same rows in the same bucket on the same kernels: budget 1e-4.  A
+# server that answered a request with another request's rows, or
+# computed otherwise on its predict thread, lands far past it; the
+# control, each answer against its batch's rows shifted by one, must.
+# Against each request's rows predicted alone the answers are reported,
+# not held (C.2): a request of 1-4 rows runs alone in bucket 1 or 4, M
+# = 128 or 512 token rows, where cuBLAS rounds the float32 attention
+# projections' rows otherwise than at M >= 2048, and the int8 model
+# answers a one-ulp change anywhere with a drift of the order of its
+# own int8 error (both measured beside it).
+HTTP_PREDICT_RTOL = 1e-4
+# serve_pool: a ServingPool of 2 worker processes on the card, each the
+# LM with int8 pages warmed at load (_pool_lm_loader); 8 streamed greedy
+# requests of serve's first 8 prompts, 128 new tokens each so that a
+# worker killed after every stream's second token holds live streams
+POOL = dict(workers=2, requests=8, max_new=128, spawn_timeout_s=300.0)
 
 # kernel check tolerance: f32 sums taken in another order over up to
 # 1024 keys
@@ -2755,6 +2806,535 @@ def serve_seq2seq(dev):
     if failures:
         raise AssertionError("serve_seq2seq: " + "; ".join(failures))
     return launches
+
+
+def _serve_prompts():
+    """serve's 16 seeded prompts of 16-512 tokens."""
+    rs = np.random.RandomState(SEED)
+    return [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
+            for n in rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                N_REQUESTS)]
+
+
+def _http_stream(host, port, rid, payload, mid=None):
+    """One streamed ``/generate`` over its own connection: the status,
+    the token lines' tokens and host receive times, the final line and
+    the send time.  ``mid`` is set at the second token (and at the end)."""
+    import http.client
+
+    out = {"rid": rid, "tokens": [], "recv": [], "final": None}
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        out["t0"] = time.time()
+        conn.request("POST", "/generate", body=json.dumps(
+            dict(payload, stream=True)).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Request-Id": rid, "Connection": "close"})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            ev = json.loads(line)
+            if ev.get("done"):
+                out["final"] = ev
+                break
+            out["tokens"].append(int(ev["token"]))
+            out["recv"].append(time.time())
+            if mid is not None and len(out["tokens"]) == 2:
+                mid.set()
+    except Exception as e:  # noqa: BLE001 — reported as the stream's error
+        out["error"] = repr(e)
+    finally:
+        if mid is not None:
+            mid.set()
+        conn.close()
+    return out
+
+
+def _scrape(url):
+    """``GET url/metrics`` parsed: {family: [(labels, value)]}."""
+    from bigdl_tpu_torch.obs.export import parse_exposition
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    return {f["name"]: [(lab, float(v)) for _, lab, v in f["samples"]]
+            for f in parse_exposition(text)}
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _replay_batches(im, events, rows_of):
+    """The batches a ``ServingServer`` assembled for ``im``'s tenant, from
+    the ``serving/batch`` spans of a Chrome trace (their request ids, in
+    the rows' order), each predicted again through ``im`` on this thread:
+    {request id: (its rows of the output, its rows of the output shifted
+    by one row, or None in a batch of one row)}.  ``rows_of`` maps the
+    tenant's request ids to their inputs; a span of other ids is
+    another tenant's."""
+    out = {}
+    for e in events:
+        rids = e["args"].get("request_ids", "").split(",")
+        if e["name"] != "serving/batch" or not all(r in rows_of
+                                                    for r in rids):
+            continue
+        y = im.predict(np.concatenate([rows_of[r] for r in rids]))
+        shifted = np.roll(y, 1, axis=0) if len(y) > 1 else None
+        at = 0
+        for r in rids:
+            n = len(rows_of[r])
+            out[r] = (y[at:at + n],
+                      None if shifted is None else shifted[at:at + n])
+            at += n
+    return out
+
+
+def _row_drift_cause(q8, fused, dev, x, cfg):
+    """Why a request's rows alone drift from the same rows in a wider
+    bucket on the int8 encoder ``q8``: cuBLAS's float32 product of the
+    first attention's query projection at M = 1, 4 and 16 sequences of
+    token rows against the same rows of M = 64 sequences (max |diff|),
+    and ``q8``'s and the float model's (``fused`` served unquantized)
+    answers to ``x`` after a one-ulp change of that projection's first
+    weight (max |diff| over max |answer|)."""
+    from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+    from bigdl_tpu_torch.serving import InferenceModel
+
+    def first_attention(im):
+        return next(m for m in im.model.modules()
+                    if isinstance(m, MultiHeadAttention))
+
+    length = cfg["length"]
+    w = first_attention(q8).wq.detach()
+    g = torch.Generator().manual_seed(SEED)
+    a = torch.randn(64 * length, cfg["d"], generator=g).to(dev)
+    with torch.no_grad():
+        full = torch.matmul(a, w)
+        rows = {f"M={m * length}": float(
+            (torch.matmul(a[:m * length], w) - full[:m * length]).abs()
+            .max()) for m in (1, 4, 16)}
+    f32 = InferenceModel(fused, device=dev, batch_buckets=BERT_BUCKETS)
+    one_ulp = {}
+    for tag, im in (("int8", q8), ("float", f32)):
+        base = im.predict(x)
+        wq = first_attention(im).wq
+        with torch.no_grad():
+            old = wq[0, 0].clone()
+            wq[0, 0] = torch.nextafter(old, old + 1)
+            one_ulp[tag] = _rel_err(im.predict(x), base)
+            wq[0, 0] = old
+    return {"matmul_rows_vs_64_sequences": rows, "one_ulp_weight": one_ulp,
+            "int8_vs_float": _rel_err(q8.predict(x), f32.predict(x))}
+
+
+def serve_http(dev, cfg=BERT):
+    """The HTTP serving stack on the card (``HTTP``): a ``ServingServer``
+    of the LM tenant and the int8 fused BERT tenant behind an
+    ``HttpFrontend``, both warmed before the frontend starts, tracing on
+    (to a temporary file) and a TTFT SLO on the LM tenant.  16 streamed
+    ``/generate`` requests and 4 clients of 10 ``/predict`` requests run
+    at once; ``/metrics`` is scraped during the traffic and after it.
+    Holds: paged decode launches = 12 x decode steps, int8 = Dense nodes,
+    flash = 12 and LayerNorm = 25 a BERT bucket call, no plain version
+    runs, no capture after warmup, predictions within HTTP_PREDICT_RTOL
+    of the model's predict of the batches the server assembled (each
+    ``serving/batch`` span's rows, run again on this thread) and a
+    control of those rows shifted by one past it, every ``server.stats``
+    key in the scrape as its ``serving_*`` counter with the same value
+    (a key still 0 may be absent: a counter appears at its first
+    increment), both tenants' series, ``/health`` and ``/models``, each
+    stream's trace (its ``serving/http_generate`` span,
+    ``decode/admission`` and ``decode/prefill_chunk`` events) and the SLO
+    burn gauge.  Reports each request's answer against its rows
+    predicted alone with the cause of their drift (``_row_drift_cause``)
+    and the streams' tokens against the engine's in-process
+    ``generate`` (C.2), TTFT over HTTP against in-process,
+    tokens/s, sequences/s and the host time a streamed token spends
+    between the engine and the socket.  The caller holds the compute
+    dtype for the server's lifetime."""
+    from bigdl_tpu_torch.nn import Linear
+    from bigdl_tpu_torch.obs import trace
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.ops import fused as fused_mod
+    from bigdl_tpu_torch.ops import quantized as q8
+    from bigdl_tpu_torch.optim.metrics import Metrics
+    from bigdl_tpu_torch.serving import (DecodeConfig, HttpClient,
+                                         HttpFrontend, InferenceModel,
+                                         ServingConfig, ServingServer)
+    from bigdl_tpu_torch.utils.intermediate import IRGraph
+
+    # the module (the package's ``flash_attention`` is its function)
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+    t0 = time.perf_counter()
+    lm = InferenceModel(_lm_model(), decode=DecodeConfig(**DECODE),
+                        device=dev)
+    eng = lm.decode_engine
+    eng.metrics = _sample_metrics()
+    lm.warmup()
+    captured = eng.graphs_captured
+    model = bert_model(cfg)
+    n_dense = sum(type(n.layer) is Linear for n in model.order)
+    n_ln = 1 + 2 * cfg["layers"]
+    fused = IRGraph.from_model(model).to_model("fused")
+    bert = InferenceModel(fused, device=dev, weight_quant="int8",
+                          batch_buckets=BERT_BUCKETS)
+    rs = np.random.RandomState(SEED + 7)
+    bert.warmup(rs.randint(0, cfg["vocab"], (1, cfg["length"])))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = _serve_prompts()
+    batches = [[rs.randint(0, cfg["vocab"], (rs.randint(
+        1, HTTP["max_rows"] + 1), cfg["length"])).astype(np.int32)
+        for _ in range(HTTP["predict_requests"])]
+        for _ in range(HTTP["predict_clients"])]
+    tmp = tempfile.mkdtemp(prefix="serve_http_")
+    tracer = trace.enable()
+    slo = [{"tenant": "lm", "window_s": HTTP["slo_window_s"],
+            "objectives": {"ttft_p99_s": HTTP["ttft_slo_s"]}}]
+    reg = Metrics()
+    srv = ServingServer(models={"lm": lm, "bert_int8": bert},
+                        config=ServingConfig(batch_size=HTTP["max_rows"],
+                                             slo=slo,
+                                             result_gc_interval_s=0.2),
+                        metrics=reg).start()
+    fe = HttpFrontend(srv, port=0).start()
+    calls, plain = [], Counter()
+    hook = bert.model.register_forward_pre_hook(
+        lambda m, a: calls.append(a[0].shape[0]))
+    undo = [_counting(q8, "int8_matmul_plain", plain),
+            _counting(fused_mod, "fused_layernorm_plain", plain),
+            _counting(fa, "flash_attention_fwd_ref", plain),
+            _counting(fa, "paged_decode_attention_ref", plain)]
+    streams, preds, errors = {}, {}, []
+    try:
+        before = dict(eng.stats)
+        torch.cuda.synchronize()
+        reset_launches()
+
+        def stream(i):
+            streams[i] = _http_stream(fe.host, fe.port, f"http-{i}", {
+                "tokens": prompts[i].tolist(), "model": "lm",
+                "max_new_tokens": DECODE["max_new_tokens"]})
+
+        def predict(c):
+            client = HttpClient(fe.url, timeout=600)
+            for j, x in enumerate(batches[c]):
+                t1 = time.perf_counter()
+                try:
+                    y = client.predict(x, model="bert_int8",
+                                       request_id=f"bert-{c}-{j}")
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"predict {c}/{j}: {e!r}")
+                    return
+                preds[(c, j)] = (y, time.perf_counter() - t1)
+
+        threads = ([threading.Thread(target=stream, args=(i,))
+                    for i in range(len(prompts))]
+                   + [threading.Thread(target=predict, args=(c,))
+                      for c in range(HTTP["predict_clients"])])
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        during = _scrape(fe.url)
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        steps = eng.stats["steps"] - before["steps"]
+        srv.slo.evaluate()
+        after = _scrape(fe.url)
+        health = _get_json(fe.url + "/health")
+        models = _get_json(fe.url + "/models")
+        stats = dict(srv.stats)
+    finally:
+        for u in undo:
+            u()
+        hook.remove()
+        fe.stop()
+        srv.stop()
+    try:
+        path = tracer.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        trace.disable()
+        # the same engine in process: its tokens and TTFT
+        ref = lm.generate(prompts, return_results=True)
+        replay = _replay_batches(bert, events, {
+            f"bert-{c}-{j}": batches[c][j] for c, j in preds})
+        direct = {k: bert.predict(batches[k[0]][k[1]]) for k in preds}
+        cause = _row_drift_cause(bert, fused, dev, np.concatenate(
+            batches[0])[:HTTP["max_rows"]], cfg)
+        captures = eng.metrics.counter("serving.decode.unexpected_captures")
+    finally:
+        lm.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    failures = list(errors)
+    for i, s in streams.items():
+        if s.get("status") != 200 or s["final"] is None \
+                or "error" in s["final"] or "error" in s:
+            failures.append(f"stream {i}: {s.get('status')} "
+                            f"{s.get('error') or s['final']}")
+    agree = sum(streams[i]["tokens"] == ref[i].tokens.tolist()
+                for i in range(len(prompts)) if i in streams)
+    # every answer against its batch run again, and against its batch's
+    # rows shifted by one (the control a row-mixing server would meet)
+    rids = {k: f"bert-{k[0]}-{k[1]}" for k in preds}
+    unreplayed = sorted(r for r in rids.values() if r not in replay)
+    worst = max((_rel_err(y, replay[rids[k]][0])
+                 for k, (y, _) in preds.items() if rids[k] in replay),
+                default=None)
+    control = min((_rel_err(y, replay[rids[k]][1])
+                   for k, (y, _) in preds.items() if rids[k] in replay
+                   and replay[rids[k]][1] is not None), default=None)
+    if unreplayed or worst is None or worst > HTTP_PREDICT_RTOL \
+            or control is None or control <= HTTP_PREDICT_RTOL:
+        failures.append(f"predictions {worst} of max |log-prob| from the "
+                        f"server's batches run again (past "
+                        f"{HTTP_PREDICT_RTOL}?), the rows-shifted control "
+                        f"{control} (within it?), not in a batch span: "
+                        f"{unreplayed}")
+    # C.2, reported: each request's rows predicted alone, by the bucket
+    # they run in alone
+    alone = {"1-4 rows": [], "5-16 rows": []}
+    for k, (y, _) in preds.items():
+        alone["1-4 rows" if len(y) <= 4 else "5-16 rows"].append(
+            _rel_err(y, direct[k]))
+    alone = {g: {"requests": len(v), "bit_equal": sum(e == 0.0 for e in v),
+                 "max": max(v, default=None)} for g, v in alone.items()}
+    want = {"paged_decode_attention": LM["num_layers"] * steps,
+            "int8_matmul": n_dense * len(calls),
+            "flash_attention_fwd": cfg["layers"] * len(calls),
+            "fused_layernorm": n_ln * len(calls)}
+    if any(launches.get(k, 0) != v for k, v in want.items()) or plain \
+            or steps < 1 or not calls:
+        failures.append(f"launches {launches} (want {want}), plain "
+                        f"{dict(plain)}")
+    if captures:
+        failures.append(f"{captures} captures after warmup")
+    # /metrics: every key of server.stats as its serving_* counter (one
+    # still at 0 may be absent: a counter appears at its first increment),
+    # both tenants' series
+    counters = {k: dict(after.get(f"serving_{k}", [])).get("")
+                for k in stats}
+    if any((counters[k] or 0) != v for k, v in stats.items()) \
+            or not (stats["requests"] and stats["batches"]):
+        failures.append(f"/metrics counters {counters} against stats "
+                        f"{stats}")
+    tenants = {lab for lab, _ in after.get(
+        "serving_tenant_requests_total", [])}
+    if tenants != {'tenant="lm"', 'tenant="bert_int8"'} \
+            or "serving_tenant_requests_total" not in during:
+        failures.append(f"per-tenant series {sorted(tenants)} (during the "
+                        f"traffic: {'serving_tenant_requests_total' in during})")
+    burn = [v for lab, v in after.get("slo_burn_rate", [])
+            if 'tenant="lm"' in lab and "ttft_p99_s" in lab]
+    if not burn:
+        failures.append("no slo_burn_rate gauge for the LM tenant's TTFT")
+    if health.get("status") != "ok" or set(health.get("models", {})) \
+            != {"lm", "bert_int8"} or "decode" not in health \
+            or set(models.get("models", {})) != {"lm", "bert_int8"}:
+        failures.append(f"/health {sorted(health)} models "
+                        f"{sorted(models.get('models', {}))}")
+    # every stream's trace: its HTTP span, admission and prefill events
+    by_rid = {}
+    for e in events:
+        rid = e["args"].get("request_id")
+        if rid is not None:
+            by_rid.setdefault(rid, set()).add(e["name"])
+    missing = {r: sorted({"serving/http_generate", "decode/admission",
+                          "decode/prefill_chunk"} - by_rid.get(r, set()))
+               for r in (f"http-{i}" for i in range(len(prompts)))}
+    missing = {r: m for r, m in missing.items() if m}
+    if missing:
+        failures.append(f"trace events missing: {missing}")
+    # the host time of a streamed token between the engine (the end of
+    # its decode step) and the client's read
+    step_end = {(e["args"]["request_id"], e["args"]["index"]):
+                (e["ts"] + e["dur"]) / 1e6 for e in events
+                if e["name"] == "decode/token_step"}
+    host_s = [t - step_end[(s["rid"], k)] for s in streams.values()
+              for k, t in enumerate(s["recv"]) if (s["rid"], k) in step_end]
+    ttft_http = [s["recv"][0] - s["t0"] for s in streams.values()
+                 if s["recv"]]
+    ttft_inproc = [r.ttft_s for r in ref]
+    n_tok = sum(len(s["tokens"]) for s in streams.values())
+    n_seq = sum(len(y) for y, _ in preds.values())
+    emit({"phase": "serve_http", "model": LM, "decode": DECODE,
+          "bert": cfg, "compute_dtype": "float32", "traffic": HTTP,
+          "streams": len(streams), "predict_requests": len(preds),
+          "predict_sequences": n_seq, "bucket_calls": len(calls),
+          "decode_steps": steps, "launches": launches,
+          "want_launches": want, "plain_calls": dict(plain),
+          "dense_nodes": n_dense, "captures_after_warmup": captures,
+          "graphs_captured_at_warmup": captured,
+          "inprocess_agree": f"{agree}/{len(prompts)}",
+          "max_logp_rel_err_vs_batch_replay": worst,
+          "rtol": HTTP_PREDICT_RTOL, "rows_shifted_control": control,
+          "vs_rows_alone": alone, "row_drift_cause": cause,
+          "ttft_ms_http": {"p50": _percentile_ms(ttft_http, 50),
+                           "p99": _percentile_ms(ttft_http, 99)},
+          "ttft_ms_inprocess": {"p50": _percentile_ms(ttft_inproc, 50),
+                                "p99": _percentile_ms(ttft_inproc, 99)},
+          "tokens_per_s": n_tok / wall, "sequences_per_s": n_seq / wall,
+          "wall_s": wall,
+          "token_host_ms": {"p50": _percentile_ms(host_s, 50),
+                            "p99": _percentile_ms(host_s, 99),
+                            "tokens": len(host_s)},
+          "predict_ms_p50": _percentile_ms([t for _, t in preds.values()],
+                                           50),
+          "metrics_counters": counters, "stats": stats,
+          "tenants": sorted(tenants), "slo_burn_ttft": burn,
+          "slo_health": health.get("slo_health"),
+          "trace_events": len(events), "setup_s": setup_s})
+    if failures:
+        raise AssertionError("serve_http: " + "; ".join(failures))
+    return launches
+
+
+def _pool_lm_loader():
+    """The serve_pool workers' model (``chip_smoke:_pool_lm_loader``,
+    imported in each worker process): the seeded LM with int8 pages on
+    the card, its graphs captured at load."""
+    from bigdl_tpu_torch.serving import DecodeConfig, InferenceModel
+
+    return InferenceModel(_lm_model(), decode=DecodeConfig(**{
+        **DECODE, "kv_dtype": "int8", "max_new_tokens": POOL["max_new"]})
+    ).warmup()
+
+
+def serve_pool(dev):
+    """A ``ServingPool`` of 2 worker processes on the card (``POOL``):
+    8 streamed greedy requests through the proxy; the worker that holds
+    live streams (``/health``) is killed after every stream's second
+    token.  Holds: every stream finishes, the proxy counts a failover and
+    resumed tokens and no orphan, the supervisor respawns the worker, and
+    the federated ``/metrics`` shows both workers' series and
+    ``serving_fleet_failovers``.  Reports the streams' tokens against an
+    uninterrupted in-process run of the same model (C.2) and each
+    spawn's seconds to ``WORKER_URL``.  The workers' kernel launches live
+    in their processes: the proof that the kernels ran is that the
+    workers compute on CUDA tensors, which launch a kernel or raise."""
+    from bigdl_tpu_torch.serving import (DecodeConfig, InferenceModel,
+                                         ServingPool)
+
+    prompts = _serve_prompts()[:POOL["requests"]]
+    t0 = time.perf_counter()
+    ref_im = InferenceModel(_lm_model(), decode=DecodeConfig(**{
+        **DECODE, "kv_dtype": "int8", "max_new_tokens": POOL["max_new"]}),
+        device=dev).warmup()
+    try:
+        ref = [r.tokens.tolist() for r in ref_im.generate(
+            prompts, max_new_tokens=POOL["max_new"], return_results=True)]
+    finally:
+        ref_im.stop()
+    del ref_im
+    _release()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    pool = ServingPool("chip_smoke:_pool_lm_loader",
+                       workers=POOL["workers"], batch_size=8,
+                       worker_env=env, supervise_interval_s=0.5,
+                       predict_timeout=600.0, fleet_health_max_age_s=0.0)
+    failures = []
+    try:
+        pool.start()
+        start_s = time.perf_counter() - t0
+        spawns = {w.name: w.spawn_s for w in pool.worker_list()}
+        # one short request on each worker, so that each has served
+        for w in pool.worker_list():
+            req = urllib.request.Request(w.url + "/generate", data=json.dumps(
+                {"tokens": prompts[0][:8].tolist(), "max_new_tokens": 2}
+            ).encode(), headers={"Content-Type": "application/json"})
+            urllib.request.urlopen(req, timeout=300).read()
+        mids = [threading.Event() for _ in prompts]
+        streams = {}
+
+        def run(i):
+            streams[i] = _http_stream(pool.host, pool.port, f"pool-{i}", {
+                "tokens": prompts[i].tolist(),
+                "max_new_tokens": POOL["max_new"]}, mids[i])
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for m in mids:
+            m.wait(300)
+        fed_before = _scrape(pool.url)
+        health = _get_json(pool.url + "/health")
+        held = {w["name"]: w.get("decode", {}).get("generate_inflight", 0)
+                for w in health["workers"]}
+        victim_name = max(held, key=held.get)
+        victim = next(w for w in pool.worker_list()
+                      if w.name == victim_name)
+        restarts = pool.restarts
+        victim.proc.kill()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t1
+        deadline = time.time() + POOL["spawn_timeout_s"]
+        while time.time() < deadline and not (
+                victim.routable() and pool.restarts > restarts):
+            time.sleep(0.5)
+        respawned = victim.routable() and pool.restarts > restarts
+        respawn_s = victim.spawn_s if respawned else None
+        stats = dict(pool.stats)
+        fed = _scrape(pool.url)
+    finally:
+        pool.stop()
+    for i in range(len(prompts)):
+        s = streams.get(i, {})
+        if s.get("status") != 200 or s.get("final") is None \
+                or "error" in s.get("final", {}) or "error" in s:
+            failures.append(f"stream {i}: {s.get('status')} "
+                            f"{s.get('error') or s.get('final')}")
+    agree = sum(streams.get(i, {}).get("tokens") == ref[i]
+                for i in range(len(prompts)))
+    if stats.get("fleet_failovers", 0) < 1 \
+            or stats.get("fleet_resumed_tokens", 0) < 1 \
+            or stats.get("fleet_orphans", 0) != 0:
+        failures.append(f"pool stats {stats}")
+    if not respawned:
+        failures.append(f"the supervisor did not respawn {victim_name}")
+    labels = {lab for fam in fed_before.values() for lab, _ in fam}
+    workers = {w for w in (f"worker-{i}" for i in range(POOL["workers"]))
+               if any(f'worker="{w}"' in lab for lab in labels)}
+    if len(workers) != POOL["workers"] \
+            or "serving_fleet_failovers" not in fed:
+        failures.append(f"federated /metrics: workers {sorted(workers)}, "
+                        f"serving_fleet_failovers "
+                        f"{'serving_fleet_failovers' in fed}")
+    n_tok = sum(len(s.get("tokens", [])) for s in streams.values())
+    emit({"phase": "serve_pool", "model": LM,
+          "decode": {**DECODE, "kv_dtype": "int8",
+                     "max_new_tokens": POOL["max_new"]},
+          "workers": POOL["workers"], "streams": len(streams),
+          "killed": victim_name, "streams_held_at_kill": held,
+          "uninterrupted_agree": f"{agree}/{len(prompts)}",
+          "fleet_failovers": stats.get("fleet_failovers"),
+          "fleet_resumed_tokens": stats.get("fleet_resumed_tokens"),
+          "fleet_orphans": stats.get("fleet_orphans"),
+          "spawn_s": spawns, "respawn_s": respawn_s,
+          "start_s": start_s, "tokens_per_s": n_tok / wall,
+          "wall_s": wall, "federated_workers": sorted(workers),
+          "pool_stats": stats,
+          "launches": "in the worker processes (CUDA tensors: each "
+                      "wrapper launches its kernel or raises)"})
+    if failures:
+        raise AssertionError("serve_pool: " + "; ".join(failures))
 
 
 def _device_kernels(events) -> list:
@@ -6768,15 +7348,21 @@ def run_alone(phase, dev):
         with compute_dtype(torch.float32):
             serve_keras_int8(dev)
     elif phase in ("serve_prefix", "serve_handoff", "serve_spec_window",
-                   "serve_seq2seq"):
+                   "serve_seq2seq", "serve_pool"):
         globals()[phase](dev)
+    elif phase == "serve_http":
+        from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+        with compute_dtype(torch.float32):
+            serve_http(dev)
     else:
         raise SystemExit(f"--phase {phase}: keras_inception, keras_resnet, "
                          "train_translation, train_ptb_lstm, estimator_bert, "
                          "forecast_autoformer, forecast_tcn, "
                          "train_zero1_collectives, layout_lm, "
                          "layout_gloo_card, serve_keras_int8, serve_prefix, "
-                         "serve_handoff, serve_spec_window or serve_seq2seq")
+                         "serve_handoff, serve_spec_window, serve_seq2seq, "
+                         "serve_http or serve_pool")
     _release()
 
 
@@ -6905,6 +7491,13 @@ def main() -> int:
         launches = serve_keras_int8(dev)
     for row in (int8mm_row, ln_row, fwd_nc_row):
         row["launches_serve_keras_int8"] = launches.get(row["name"], 0)
+    _release()
+    with compute_dtype(torch.float32):   # open for the server's lifetime
+        launches = serve_http(dev)
+    for row in (decode_row, int8mm_row, fwd_nc_row, ln_row):
+        row["launches_serve_http"] = launches.get(row["name"], 0)
+    _release()
+    serve_pool(dev)
     _release()
     launches, trained = train(dev)
     fwd_row["launches"] = launches.get("flash_attention_fwd", 0)

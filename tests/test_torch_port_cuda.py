@@ -10,6 +10,7 @@ tests hold float32 semantics and pin ``compute_dtype(torch.float32)``
 (the ``card`` fixture); those of the card's default, bfloat16 products
 (``tensor.policy``), take ``card_bf16`` and state their own tolerances."""
 
+import threading
 import time
 
 import numpy as np
@@ -2118,3 +2119,106 @@ def test_seq2seq_engine_on_the_card(card):
             svc.stop()
     (gt, gs), (et, es) = out
     assert np.array_equal(gt, et) and gs.tobytes() == es.tobytes()
+
+
+def _server_lm(card, graphs):
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.serving import DecodeConfig, InferenceModel
+
+    model = Transformer(**LM_SERVE, dropout=0.0, seed=0)
+    return InferenceModel(model, device=card, decode=DecodeConfig(
+        **SERVE_GEOMETRY, cuda_graphs=graphs))
+
+
+def test_server_captures_lazily_beside_a_busy_predict_tenant(card):
+    """A ``ServingServer`` with an unwarmed decode tenant (its graphs
+    captured at first use, on the engine thread) and a predict tenant
+    under load from four client threads: no capture fails, the captures
+    count as unexpected, every prediction equals the model's direct
+    forward, and the tokens equal an eager engine's (each wave queued
+    at once under the engine's iteration lock, so both engines run one
+    schedule)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.serving import (InferenceModel, ServingConfig,
+                                         ServingServer)
+
+    torch.manual_seed(0)
+    mlp = nn.Sequential([nn.Linear(64, 512), nn.ReLU(), nn.Linear(512, 64)])
+    x_all = np.random.RandomState(1).rand(256, 64).astype(np.float32)
+    want = InferenceModel(mlp, device=card).predict(x_all)
+    lm = _server_lm(card, None)
+    captures = lm.decode_engine.metrics.counter(
+        "serving.decode.unexpected_captures")
+    srv = ServingServer(models={"lm": lm, "mlp": InferenceModel(
+        mlp, device=card)}, config=ServingConfig(batch_size=16)).start()
+    stop, errors, served = False, [], [0]
+
+    def client(i):
+        rs = np.random.RandomState(10 + i)
+        while not stop:
+            rows = rs.randint(0, 256, rs.randint(1, 9))
+            try:
+                rid = srv.enqueue(x_all[rows], model="mlp")
+                np.testing.assert_allclose(srv.query(rid, timeout=60),
+                                           want[rows], rtol=1e-4,
+                                           atol=1e-4)
+                served[0] += 1
+            except Exception as e:  # noqa: BLE001 — the failure is the bug
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    prompts = _serve_prompts()
+    try:
+        time.sleep(0.5)
+        eng = lm.decode_engine
+        with eng._iter_lock:
+            rids = [srv.enqueue_generate(p, model="lm") for p in prompts]
+        got = [srv.query(r, timeout=120).tolist() for r in rids]
+    finally:
+        stop = True
+        for t in threads:
+            t.join(60)
+        srv.stop()
+        lm.stop()
+    assert not errors, errors[:3]
+    assert served[0] > 0
+    assert eng.metrics.counter(
+        "serving.decode.unexpected_captures") > captures
+    ref = _server_lm(card, False)
+    try:
+        assert [r.tolist() for r in ref.generate(prompts)] == got
+    finally:
+        ref.stop()
+
+
+def test_http_stream_equals_generate_stream(card):
+    """A streamed ``/generate`` over the HTTP frontend on the card gives
+    the tokens of ``InferenceModel.generate_stream`` on the same warmed
+    engine, greedy and sampled."""
+    from bigdl_tpu_torch.serving import (HttpClient, HttpFrontend,
+                                         ServingServer)
+
+    im = _server_lm(card, None).warmup()
+    # the registry is the process's: count from here
+    captures = im.decode_engine.metrics.counter(
+        "serving.decode.unexpected_captures")
+    srv = ServingServer(im).start()
+    fe = HttpFrontend(srv, port=0).start()
+    try:
+        for p, kw in zip(_serve_prompts(n=4), (
+                {}, dict(temperature=1.1, top_k=20, top_p=0.9, seed=7),
+                {}, dict(temperature=0.8, seed=3))):
+            want = [int(t) for t in im.generate_stream(p, **kw)]
+            got = [int(ev["token"]) for ev in HttpClient(fe.url).generate(
+                p, stream=True, **kw) if "token" in ev]
+            assert got == want and len(got) > 0
+        assert im.decode_engine.metrics.counter(
+            "serving.decode.unexpected_captures") == captures
+    finally:
+        fe.stop()
+        srv.stop()
+        im.stop()

@@ -417,8 +417,11 @@ def test_refusals(monkeypatch):
     Engine.reset()
     with pytest.raises(ValueError, match="A.6.9"):
         est().fit((x, y), fault_tolerance=True)
-    with pytest.raises(ValueError, match="A.6.7"):
-        est({"slo_specs": ["p99<1s"]}).fit((x, y))
+    # slo_specs runs an evaluator over the fit (a bad spec costs only
+    # the evaluation, as in the JAX Estimator)
+    for specs in ('[{"tenant": "t", "objectives": {"availability": 0.9}}]',
+                  ["p99<1s"]):
+        assert est({"slo_specs": specs}).fit((x, y))["epochs"] == 1
     with pytest.raises(ValueError, match="A.6.11"):
         E.Estimator.from_keras(lambda c: FakeTfKeras(), device=CPU)
     with pytest.raises(ValueError, match="A.6.11"):

@@ -439,7 +439,6 @@ def test_engine_from_env_reads_the_jax_names(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("metrics_port", 9090, "A.6.7"), ("slo_specs", "[]", "A.6.7"),
     ("peak_flops", 1e15, "A.6.7"), ("grad_comm", "int4", "grad_comm"),
     ("comm_bucket_bytes", 0, "comm_bucket_bytes"),
     ("coordinator_address", "localhost:1", "num_processes"),
@@ -447,6 +446,30 @@ def test_engine_from_env_reads_the_jax_names(monkeypatch):
 def test_engine_config_refusals(field, value, match):
     with pytest.raises(ValueError, match=match):
         engine_mod.Engine(engine_mod.EngineConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("metrics_port", 0),
+    ("slo_specs", '[{"tenant": "t", "objectives": {"availability": 0.9}}]'),
+])
+def test_engine_config_obs_fields_run(field, value):
+    """``metrics_port`` serves ``/metrics`` and ``slo_specs`` runs an
+    evaluator, as in the JAX engine."""
+    eng = engine_mod.Engine(engine_mod.EngineConfig(**{field: value}),
+                            device="cpu")
+    try:
+        if field == "metrics_port":
+            from urllib import request as urlreq
+
+            with urlreq.urlopen(eng.metrics_server.url, timeout=10) as r:
+                assert r.status == 200
+        else:
+            assert [s.tenant for s in eng.slo_evaluator.specs] == ["t"]
+    finally:
+        if eng.metrics_server is not None:
+            eng.metrics_server.stop()
+        if eng.slo_evaluator is not None:
+            eng.slo_evaluator.stop()
 
 
 @pytest.mark.parametrize("axes,match", [
