@@ -304,6 +304,11 @@ class _Pool2D(Module):
         return pads
 
     def _pool(self, x, fn, fill):
+        from bigdl_tpu_torch.parallel import local_ops
+
+        if local_ops.is_dtensor(x):
+            # a layout: each rank pools its own rows and channels
+            return local_ops.spatial(lambda t: self._pool(t, fn, fill), x)
         xn = _pad_nchw(x.permute(0, 3, 1, 2), self._pads(x), fill)
         return fn(xn, self.kernel_size, self.stride).permute(0, 2, 3, 1)
 

@@ -46,8 +46,10 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.layers import Conv2D, Linear, conv2d_nhwc, conv_pads
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.ops.common import is_dtensor
 from bigdl_tpu_torch.ops.quantized import (div127, quantize_int8,
                                           quantized_linear)
+from bigdl_tpu_torch.parallel import local_ops
 from bigdl_tpu_torch.tensor.policy import get_compute_dtype, matmul_f32
 
 _Q8_KEY = "__w8__"
@@ -128,9 +130,7 @@ class Int8Weights:
         for name, leaf in q.items():
             if isinstance(leaf, dict):
                 p = named[name]
-                twin = torch.nn.Parameter(p.data.new_empty((0,)),
-                                          requires_grad=p.requires_grad)
-                memo[id(p)] = twin
+                memo[id(p)] = twin = _empty_twin(p)
                 self._q[name] = (twin, leaf[_Q8_KEY], leaf["scale"])
         self.module = copy.deepcopy(module, memo)
         self._depth = 0
@@ -159,7 +159,7 @@ class Int8Weights:
                 self._owner = threading.get_ident()
                 with torch.no_grad():
                     for p, w, s in self._q.values():
-                        p.data = w.float() * s
+                        _set_data(p, w.float() * s)
             self._depth += 1
             try:
                 yield
@@ -168,7 +168,37 @@ class Int8Weights:
                 if self._depth == 0:
                     self._owner = None
                     for p, _, _ in self._q.values():
-                        p.data = p.data.new_empty((0,))
+                        _set_data(p, None)
+
+
+def _empty_twin(p: torch.nn.Parameter) -> torch.nn.Parameter:
+    """An empty stand-in for ``p``.  A layout's DTensor keeps its global
+    shape and placements, and only its local tensor is emptied."""
+    if not is_dtensor(p):
+        return torch.nn.Parameter(p.data.new_empty((0,)),
+                                  requires_grad=p.requires_grad)
+    from torch.distributed.tensor import DTensor
+
+    local = p.to_local().detach().new_empty((0,))
+    return torch.nn.Parameter(DTensor.from_local(
+        local, p.device_mesh, p.placements, run_check=False,
+        shape=p.shape, stride=p.stride()), requires_grad=p.requires_grad)
+
+
+def _set_data(p: torch.nn.Parameter, value) -> None:
+    """Give ``p`` the data ``value`` (None: empty it again).  A DTensor's
+    local tensor takes this rank's shard of ``value`` in the placements
+    ``p`` was made with (the dequantized view of a payload placed as the
+    float weight was: no data moves)."""
+    if not is_dtensor(p):
+        p.data = (p.data.new_empty((0,)) if value is None else value)
+        return
+    local = p._local_tensor
+    if value is None:
+        local.data = local.data.new_empty((0,))
+    else:
+        local.data = value.redistribute(p.device_mesh,
+                                        p.placements).to_local()
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +253,17 @@ class QuantizedLinear(Module):
                                _f32(act_scale, w.device), name=layer.name)
 
     def forward(self, x):
+        if is_dtensor(self.weight_q):
+            # a layout: the kernel on each rank's output columns
+            return local_ops.int8_layer(_linear_local, x, self.weight_q,
+                                        self.scales, self.bias,
+                                        self.act_scale)
         return quantized_linear(x, self.weight_q, self.scales, self.bias,
                                 act_scale=self.act_scale)
+
+
+def _linear_local(x, w_q, scales, bias, act_scale):
+    return quantized_linear(x, w_q, scales, bias, act_scale=act_scale)
 
 
 class _ConvConfig(Module):
@@ -308,23 +347,31 @@ class QuantizedConv2D(_ConvConfig):
         return p, (n, oh, ow)
 
     def forward(self, x):
+        if is_dtensor(self.weight_q):
+            # a layout: the patches and the kernel on each rank's output
+            # channels, the input gathered
+            return local_ops.int8_layer(self._forward, x, self.weight_q,
+                                        self.scales, self.bias,
+                                        self.act_scale)
+        return self._forward(x, self.weight_q, self.scales, self.bias,
+                             self.act_scale)
+
+    def _forward(self, x, weight_q, scales, bias, act):
         p, (n, oh, ow) = self.patches(x)
         g = self.groups
         if g == 1:
-            y = quantized_linear(p, self.weight_q, self.scales, self.bias,
-                                 act_scale=self.act_scale)
+            y = quantized_linear(p, weight_q, scales, bias, act_scale=act)
             return y.reshape(n, oh, ow, -1).to(x.dtype)
         # the channel-major rows put each group's features together; a
         # group is a dense int8 layer of its own (per-channel scales (g,
         # rows) give it its row)
         xg = p.reshape(p.shape[0], g, -1)
-        act = self.act_scale
         y = torch.cat([quantized_linear(
-            xg[:, j], self.weight_q[j], self.scales[j],
+            xg[:, j], weight_q[j], scales[j],
             act_scale=act[j] if act is not None and act.ndim == 2 else act)
             for j in range(g)], dim=1).reshape(n, oh, ow, -1)
-        if self.bias is not None:
-            y = y + self.bias
+        if bias is not None:
+            y = y + bias
         return y.to(x.dtype)
 
 
@@ -459,17 +506,26 @@ def quantize(module: torch.nn.Module,
         raise ValueError(f"quantize takes a module of the port, got "
                          f"{type(module).__name__}")
     calib = calib or {}
+    return swap_leaves(module, lambda leaf: _twin(leaf, calib, weight_only))
+
+
+def swap_leaves(module: torch.nn.Module, fn) -> torch.nn.Module:
+    """A new module in which every leaf that ``fn`` maps to a
+    replacement (``fn(leaf)`` not None) is replaced, and every other
+    module is a copy; the caller's module is left as it is.  A keras
+    ``Model`` is cloned node by node, its node layers the leaves.  The
+    replacements enter the copy in their leaves' places, so what they
+    replace is never copied."""
     keras = _keras_model(module)
-    memo = {}
-    for leaf in (_keras_leaves(keras) if keras is not None
-                 else module.modules()):
-        twin = _twin(leaf, calib, weight_only)
-        if twin is not None:
-            memo[id(leaf)] = twin
+    memo: Dict[int, Any] = {}
+    for leaf in ([n.layer for n in keras.order if n.layer is not None]
+                 if keras is not None else module.modules()):
+        if id(leaf) not in memo:
+            got = fn(leaf)
+            if got is not None:
+                memo[id(leaf)] = got
     if keras is not None:
         return _clone_keras(keras, memo)
-    # the twins enter the copy in their leaves' places, so the float
-    # weights they replace are never copied
     if id(module) in memo:
         return memo[id(module)]
     return copy.deepcopy(module, memo)

@@ -30,7 +30,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from bigdl_tpu_torch.nn.layers import Linear
-from bigdl_tpu_torch.ops.common import cdiv, launch, refuse_dtensor
+from bigdl_tpu_torch.ops.common import (cdiv, is_dtensor, launch,
+                                        refuse_dtensor)
 from bigdl_tpu_torch.tensor.policy import cast_compute
 
 KERNEL = "block_sparse_matmul"
@@ -396,7 +397,10 @@ class BlockSparseLinear(Linear):
         survive.  Monotone: only kept blocks are candidates.  Returns
         the achieved sparsity."""
         bk, bn = self.block_shape
-        w = self.weight.detach().float().cpu().numpy()
+        w = self.weight.detach()
+        if is_dtensor(w):
+            w = w.full_tensor()      # a layout's weight, whole
+        w = w.float().cpu().numpy()
         k, n = w.shape
         nkb, nnb = self._mask.shape
         wp = np.zeros((nkb * bk, nnb * bn), np.float32)
@@ -418,7 +422,15 @@ class BlockSparseLinear(Linear):
         if bool(self._mask.all()):
             return super().forward(x)     # dense warmup: exactly Linear
         xc, wc = cast_compute(x, self.weight)
-        y = block_sparse_matmul(xc, wc, plan=self.plan())
+        if is_dtensor(wc):
+            # a layout: the kernel on the whole operands
+            from bigdl_tpu_torch.parallel import local_ops
+
+            plan = self.plan()
+            y = local_ops.block_sparse(
+                lambda a, b: block_sparse_matmul(a, b, plan=plan), xc, wc)
+        else:
+            y = block_sparse_matmul(xc, wc, plan=self.plan())
         return (y.float() + self.bias).to(x.dtype)
 
 

@@ -23,8 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from bigdl_tpu_torch.ops.common import (cdiv, launch, refuse_dtensor,
-                                        round_up)
+from bigdl_tpu_torch.ops.common import (cdiv, is_dtensor, launch,
+                                        refuse_dtensor, round_up)
 
 KERNEL = "int8_matmul"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -64,7 +64,19 @@ def quantize_int8(w: torch.Tensor, axis: int = 0
     gets per-out-column scales (out,)."""
     scales = abs_max_scales(w, axis)
     q = torch.clamp(torch.round(w / scales.unsqueeze(axis)), -127, 127)
-    return q.to(torch.int8), scales.float()
+    q, scales = q.to(torch.int8), scales.float()
+    if is_dtensor(w):
+        # a layout's weight: the payload keeps its placements, and each
+        # scale (the amax over the whole column) lies where its column
+        # does, as the JAX package's arrays do
+        from torch.distributed.tensor import Replicate, Shard
+
+        ax = axis % w.ndim
+        sp = [Shard(p.dim - (p.dim > ax)) if isinstance(p, Shard)
+              and p.dim != ax else Replicate() for p in w.placements]
+        q = q.redistribute(w.device_mesh, w.placements)
+        scales = scales.redistribute(w.device_mesh, sp)
+    return q, scales
 
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,

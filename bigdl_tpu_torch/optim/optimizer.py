@@ -139,6 +139,7 @@ from bigdl_tpu_torch.data.prefetch import thread_prefetch
 from bigdl_tpu_torch.nn.freeze import has_frozen, trainable_mask_for
 from bigdl_tpu_torch.nn.layers import has_lazy
 from bigdl_tpu_torch.obs import flight, trace
+from bigdl_tpu_torch.ops.block_sparse import apply_masks, collect_masks
 from bigdl_tpu_torch.ops.common import resolve_device
 from bigdl_tpu_torch.optim import checkpoint as ckpt
 from bigdl_tpu_torch.optim.metrics import Metrics, SummaryWriter, Timer
@@ -399,6 +400,12 @@ class Optimizer:
         torch.profiler into ``log_dir`` (a Chrome trace file)."""
         self._profiler = IterationProfiler(log_dir, start_iter, num_iters)
         return self
+
+    def set_cluster(self, coordinator) -> "Optimizer":
+        """Not ported yet: the cluster coordinator (membership, peer-shard
+        publishes and restores) comes with ROADMAP A.6.9."""
+        raise ValueError("Optimizer.set_cluster: the cluster coordinator "
+                         "is not ported yet (ROADMAP A.6.9)")
 
     def set_preemption_checkpoint(self, *signals) -> "Optimizer":
         """Checkpoint and stop cleanly when the process receives one of
@@ -938,6 +945,12 @@ class Optimizer:
         schedule = getattr(self.optim_method, "schedule", None)
         if schedule is not None and hasattr(schedule, "state_dict"):
             snapshot["schedule_state"] = schedule.state_dict()
+        # block-sparse masks are host state of the modules, not
+        # parameters: they ride the driver state, so a resumed process
+        # trains the same sparsity pattern, not dense again
+        masks = collect_masks(self.model)
+        if masks:
+            snapshot["block_sparse_masks"] = masks
         sharded = self.optim_method.elementwise and (
             self._world > 1 if self._ckpt_sharded == "auto"
             else bool(self._ckpt_sharded))
@@ -983,6 +996,8 @@ class Optimizer:
             latest)
         step.restore(flat, opt_state, model_state, ema)
         state.update(saved)
+        restore_block_sparse_masks(self.model, step,
+                                   state.pop("block_sparse_masks", None))
         sched_state = state.pop("schedule_state", None)
         schedule = getattr(self.optim_method, "schedule", None)
         if sched_state is not None and schedule is not None \
@@ -1053,6 +1068,26 @@ class Optimizer:
         state["_resume_skip"] = 0
         state.pop("reshard_origin", None)
         self.metrics.inc("elastic_resumes_total")
+
+
+def restore_block_sparse_masks(model: torch.nn.Module, step: TrainStep,
+                               masks) -> int:
+    """Set a checkpoint's block-sparse ``masks`` (``collect_masks``) on
+    ``model``; returns how many modules took one.  Where the pattern
+    changed (a fresh process starts all-ones), ``step``'s captured
+    bundles replay the old pattern's column plans: they are dropped and
+    captured again on the next steps, and the flight recorder notes the
+    restore (JAX's ``block_sparse_masks_restored``)."""
+    if not masks:
+        return 0
+    before = collect_masks(model)
+    n = apply_masks(model, masks)
+    if n and collect_masks(model) != before:
+        step.drop_graphs()
+        log.info("restored block-sparse masks for %d modules; step graphs "
+                 "are captured again", n)
+        flight.record("block_sparse_masks_restored", modules=n)
+    return n
 
 
 def _skip_closing(inner, n):

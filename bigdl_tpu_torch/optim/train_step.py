@@ -310,6 +310,14 @@ class TrainStep:
     def graphs_captured(self) -> int:
         return len(self._graphs)
 
+    def drop_graphs(self) -> None:
+        """Forget every captured bundle (and the eager steps counted
+        toward one): the model changed under them (a restored
+        block-sparse pattern), so each batch shape is captured again."""
+        self._graphs.clear()
+        self._warm.clear()
+        self.graph_dtype = None
+
     # ---- the step ----------------------------------------------------------
     def _forward(self, x, key):
         xs = _as_tuple(x)

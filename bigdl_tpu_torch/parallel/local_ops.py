@@ -14,7 +14,21 @@ the lookups that DTensor would otherwise gather a whole table for.
   lookup and one all-reduce); where the ids split (the batch), the table
   is gathered on that axis alone (fsdp's gather of a parameter).
 - :func:`row_local`: a row-wise op over the last dim (the fused
-  LayerNorm) on local rows, the last dim gathered first."""
+  LayerNorm) on local rows, the last dim gathered first.
+- :func:`paged_attention`: the decode engine's attention over its paged
+  KV pool (the paged decode and verify kernels, or the buffer attention
+  of the static reference) on whole heads: q and the new k / v are
+  gathered to every rank, which holds a replicated pool (see
+  ``serving/decode_engine.py``, ``_AdapterBase``).
+- :func:`int8_layer`: an int8 twin's forward (the int8 matmul kernel) on
+  each rank's output columns, the contraction dim and the input
+  gathered.
+- :func:`block_sparse`: the block-sparse product on whole operands (a
+  block mask is a plan over the whole weight).
+- :func:`spatial`: an NHWC op over H and W (a pool) on local batch
+  rows and channels, H and W gathered first.
+- :func:`replicated`: a DTensor's whole value as a plain tensor (the
+  engine samples from every rank's whole logits)."""
 
 from bigdl_tpu_torch.ops.common import is_dtensor
 
@@ -31,6 +45,19 @@ def attention(fn, q, k, v):
                        in_placements=(keep, keep, keep),
                        redistribute_inputs=True, device_mesh=q.device_mesh)
     return mapped(q, k, v)
+
+
+def spatial(fn, x):
+    """``fn(x)`` on local shards of an NHWC DTensor ``x``: its batch and
+    channel splits stay, any other becomes ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    keep = [p if isinstance(p, Shard) and p.dim in (0, x.ndim - 1)
+            else Replicate() for p in x.placements]
+    mapped = local_map(fn, out_placements=keep, in_placements=(keep,),
+                       redistribute_inputs=True, device_mesh=x.device_mesh)
+    return mapped(x)
 
 
 def row_local(fn, x, *params):
@@ -53,15 +80,13 @@ def row_local(fn, x, *params):
 def vocab_lookup(table, ids):
     """``table[ids]`` for a DTensor ``table`` (vocab, ...) and ids (a
     DTensor or a plain tensor, taken as replicated)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
 
     mesh = table.device_mesh
-    if not isinstance(ids, DTensor):
-        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
+    ids = _as_dtensor(ids, mesh)
     tpl, outp, gradp = [], [], []
     for tp, ip in zip(table.placements, ids.placements):
         if isinstance(ip, Shard):
@@ -100,6 +125,76 @@ def vocab_lookup(table, ids):
                        in_grad_placements=(gradp, ids.placements),
                        redistribute_inputs=True, device_mesh=mesh)
     return mapped(table, ids)
+
+
+def _rep(mesh):
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate()] * mesh.ndim
+
+
+def _as_dtensor(t, mesh):
+    """A plain tensor as a replicated DTensor on ``mesh`` (a DTensor as
+    it is)."""
+    from torch.distributed.tensor import DTensor
+
+    if t is None or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, _rep(mesh), run_check=False)
+
+
+def paged_attention(fn, q, k, v):
+    """``fn(q, k, v) -> (a, k, v)`` on plain tensors of whole heads: q,
+    k and v (b, heads, len, dim) DTensors are replicated first, and
+    ``fn`` (the engine's attention, which writes k and v into its pool)
+    runs on every rank.  Returns ``a`` as a replicated DTensor, ``k``
+    and ``v`` as plain tensors."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    rep = _rep(mesh)
+    mapped = local_map(fn, out_placements=(rep, rep, rep),
+                       in_placements=(rep, rep, rep),
+                       redistribute_inputs=True, device_mesh=mesh)
+    a, k, v = mapped(q, k, v)
+    return a, k.to_local(), v.to_local()
+
+
+def int8_layer(fn, x, w_q, scales, bias=None, act_scale=None):
+    """``fn(x, w_q, scales, bias, act_scale)`` (an int8 twin's forward
+    on plain tensors) on each rank's output columns: where ``w_q`` (K, N)
+    splits N, the scales and the bias split with it and so does the
+    output's last dim; every other split (K, a grouped weight) is
+    gathered, and so is ``x``."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w_q.device_mesh
+    cols = [w_q.ndim == 2 and isinstance(p, Shard) and p.dim == 1
+            for p in w_q.placements]
+    rep = _rep(mesh)
+    wp = [Shard(1) if c else r for c, r in zip(cols, rep)]
+    vp = [Shard(0) if c else r for c, r in zip(cols, rep)]
+    out = [Shard(x.ndim - 1) if c else r for c, r in zip(cols, rep)]
+    args = (_as_dtensor(x, mesh), w_q, _as_dtensor(scales, mesh),
+            _as_dtensor(bias, mesh), _as_dtensor(act_scale, mesh))
+    ins = (rep, wp, vp, None if bias is None else vp,
+           None if act_scale is None else rep)
+    mapped = local_map(fn, out_placements=out, in_placements=ins,
+                       redistribute_inputs=True, device_mesh=mesh)
+    return mapped(*args)
+
+
+def block_sparse(fn, x, w):
+    """``fn(x, w)`` (the block-sparse product) on whole operands: both
+    replicated, the output replicated."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    rep = _rep(mesh)
+    mapped = local_map(fn, out_placements=rep, in_placements=(rep, rep),
+                       redistribute_inputs=True, device_mesh=mesh)
+    return mapped(_as_dtensor(x, mesh), w)
 
 
 def replicated(t):

@@ -113,11 +113,12 @@ from bigdl_tpu_torch.nn.quantized import Int8Weights
 from bigdl_tpu_torch.obs import flight, trace
 from bigdl_tpu_torch.ops.block_sparse import derive_draft_masks
 from bigdl_tpu_torch.ops.common import (DEVICE_GATE, captured_launches,
-                                        cdiv, credit_launches)
+                                        cdiv, credit_launches, is_dtensor)
 from bigdl_tpu_torch.ops.flash_attention import (_gather_pages,
                                                  paged_decode_attention,
                                                  paged_verify_attention)
 from bigdl_tpu_torch.ops.quantized import quantize_pages
+from bigdl_tpu_torch.parallel import local_ops
 from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.tensor.policy import (apply_precision_policy,
                                            get_compute_dtype, matmul_f32,
@@ -471,15 +472,49 @@ class _AdapterBase:
     scales; the caller's model is left as it is); every engine program
     runs inside :meth:`weights`, which lends ``self.model`` a dequantized
     float32 view for that call only (inside a captured graph, the view's
-    dequantize kernels are part of the graph)."""
+    dequantize kernels are part of the graph).
 
-    def __init__(self, model, weight_quant: Optional[str] = None):
+    ``layout`` (a ``parallelism=`` combo string or a ``ResolvedLayout``)
+    serves the model sharded: its parameters become DTensors per its
+    table (unless they already are), then under ``weight_quant`` the
+    int8 payloads take the same placements.  The engine's pools, inputs
+    and outputs stay plain tensors, the same on every rank: each rank's
+    pool holds every head, and the attention gathers q and the new k /
+    v first (``parallel.local_ops.paged_attention``), so the kernels run
+    as without a layout and an int8 page's scale is the amax over all
+    its heads, as in the JAX engine.  Every rank must be called with the
+    same requests, in the same order."""
+
+    def __init__(self, model, weight_quant: Optional[str] = None,
+                 layout=None):
+        self.layout = None
+        if layout is not None:
+            from bigdl_tpu_torch.parallel.mesh_policy import (
+                ResolvedLayout, mesh_and_layout)
+
+            self.layout = (layout if isinstance(layout, ResolvedLayout)
+                           else mesh_and_layout(str(layout),
+                                                model.embedding.device))
+            if not is_dtensor(model.embedding):
+                self.layout.shard_params(model)
         if weight_quant not in (None, "int8"):
             raise ValueError(f"weight_quant {weight_quant!r}: None | 'int8'")
         self.weight_quant = weight_quant
+        # placed first, then quantized: the int8 payloads and their
+        # scales are DTensors with the float weights' placements
         self._w8 = Int8Weights(model) if weight_quant == "int8" else None
         self.model = self._w8.module if self._w8 is not None else model
         self.device = model.embedding.device
+
+    def _on_layout(self):
+        """Plain tensors (tokens, positions, the pools) are replicated
+        ones on a layout."""
+        if self.layout is None:
+            return nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
 
     def weights(self):
         """Context in which the model's parameters hold float32 values:
@@ -510,7 +545,8 @@ class _AdapterBase:
 
     def _logits(self, x):
         h = self.model.ln_out(x)
-        return matmul_f32(h, self.model.embedding.T)
+        # the engine samples from every rank's whole logits
+        return local_ops.replicated(matmul_f32(h, self.model.embedding.T))
 
     def _embed(self, tokens, positions):
         """Token embeddings at absolute positions ``positions[:, None] +
@@ -520,8 +556,10 @@ class _AdapterBase:
         C = tokens.shape[1]
         cap = self._pe.shape[0] - 1
         q_pos = positions[:, None] + torch.arange(C, device=self.device)
-        x = (self.model.embedding[tokens] * self._scale
-             + self._pe[q_pos.clamp(max=cap)])
+        emb = self.model.embedding
+        e = (local_ops.vocab_lookup(emb, tokens) if is_dtensor(emb)
+             else emb[tokens])
+        x = e * self._scale + self._pe[q_pos.clamp(max=cap)]
         return x, q_pos
 
     def _causal_valid(self, q_pos, kbuf, self_attend):
@@ -542,25 +580,32 @@ class _AdapterBase:
         q = self._split(_attn_project(sp, h1, "wq", "bq"))
         k_new = self._split(_attn_project(sp, h1, "wk", "bk"))
         v_new = self._split(_attn_project(sp, h1, "wv", "bv"))
-        if self_attend is not None:
-            a = self_attend(i, q, k_new, v_new)
-        else:
+
+        def attend(q, k_new, v_new):
+            if self_attend is not None:
+                return self_attend(i, q, k_new, v_new), k_new, v_new
             cap = self._pe.shape[0] - 1
             B = q.shape[0]
             _write_chunk(kbuf[:, i], positions, k_new, cap)
             _write_chunk(vbuf[:, i], positions, v_new, cap)
-            a = self._attend(q, kbuf[:B, i], vbuf[:B, i], valid)
-        return a, k_new, v_new
+            return (self._attend(q, kbuf[:B, i], vbuf[:B, i], valid),
+                    k_new, v_new)
+
+        if is_dtensor(q):
+            # a layout: the pool holds whole heads on every rank
+            return local_ops.paged_attention(attend, q, k_new, v_new)
+        return attend(q, k_new, v_new)
 
 
 class LMAdapter(_AdapterBase):
     """Causal LM (``Transformer(mode="lm")``): the prompt prefills the
     self-attention cache; generation continues from its last token."""
 
-    def __init__(self, model, cap: int, weight_quant: Optional[str] = None):
+    def __init__(self, model, cap: int, weight_quant: Optional[str] = None,
+                 layout=None):
         if getattr(model, "mode", None) != "lm":
             raise ValueError("LMAdapter needs a Transformer(mode='lm')")
-        super().__init__(model, weight_quant)
+        super().__init__(model, weight_quant, layout)
         layer = model.decoder[0].attn
         self.num_heads = layer.num_heads
         self.head_dim = layer.head_dim
@@ -589,19 +634,20 @@ class LMAdapter(_AdapterBase):
         owns its own cache writes); ``kbuf/vbuf`` may then be None.
         ``model`` walks a twin's layers instead (the speculative draft:
         the same parameters, block-sparse FFNs).  An LM has no ``ctx``."""
-        x, q_pos = self._embed(tokens, positions)
-        valid = self._causal_valid(q_pos, kbuf, self_attend)
-        k_news, v_news = [], []
-        for i, layer in enumerate((model or self.model).decoder):
-            a, k_new, v_new = self._self_attention(
-                i, layer.attn, layer.ln1(x), positions, kbuf, vbuf,
-                self_attend, valid)
-            x = x + self._merge(a, x, layer.attn)
-            x = x + layer.ffn(layer.ln2(x))
-            k_news.append(k_new)
-            v_news.append(v_new)
-        return (self._logits(x), kbuf, vbuf,
-                torch.stack(k_news, 1), torch.stack(v_news, 1))
+        with self._on_layout():
+            x, q_pos = self._embed(tokens, positions)
+            valid = self._causal_valid(q_pos, kbuf, self_attend)
+            k_news, v_news = [], []
+            for i, layer in enumerate((model or self.model).decoder):
+                a, k_new, v_new = self._self_attention(
+                    i, layer.attn, layer.ln1(x), positions, kbuf, vbuf,
+                    self_attend, valid)
+                x = x + self._merge(a, x, layer.attn)
+                x = x + layer.ffn(layer.ln2(x))
+                k_news.append(k_new)
+                v_news.append(v_new)
+            return (self._logits(x), kbuf, vbuf,
+                    torch.stack(k_news, 1), torch.stack(v_news, 1))
 
     def build_draft(self, spec: SpecConfig):
         """The weight-sharing speculative DRAFT twin: the same LM
@@ -646,11 +692,11 @@ class Seq2SeqAdapter(_AdapterBase):
 
     def __init__(self, model, cap: int, bos_id: int,
                  src_buckets: Sequence[int] = (8, 16, 32, 64),
-                 weight_quant: Optional[str] = None):
+                 weight_quant: Optional[str] = None, layout=None):
         if getattr(model, "mode", None) != "translation":
             raise ValueError("Seq2SeqAdapter needs a translation-mode "
                              "Transformer")
-        super().__init__(model, weight_quant)
+        super().__init__(model, weight_quant, layout)
         layer = model.decoder[0].self_attn
         self.num_heads = layer.num_heads
         self.head_dim = layer.head_dim
@@ -677,7 +723,7 @@ class Seq2SeqAdapter(_AdapterBase):
         src_t = torch.from_numpy(src).to(self.device)
         mask = (torch.arange(bucket, device=self.device)
                 < src_len)[None, None, None, :]
-        with self.weights():
+        with self.weights(), self._on_layout():
             x = m._embed(src_t)
             for layer in m.encoder:
                 x = layer(x, mask=mask)
@@ -686,7 +732,8 @@ class Seq2SeqAdapter(_AdapterBase):
             for layer in m.decoder:
                 cp = layer.cross_attn
                 for out, w, b in ((cks, "wk", "bk"), (cvs, "wv", "bv")):
-                    t = self._split(_attn_project(cp, x, w, b)).float()
+                    t = local_ops.replicated(
+                        self._split(_attn_project(cp, x, w, b))).float()
                     out.append(torch.nn.functional.pad(t, (0, 0, 0, pad))[0])
         return torch.stack(cks), torch.stack(cvs)
 
@@ -718,27 +765,30 @@ class Seq2SeqAdapter(_AdapterBase):
         :meth:`LMAdapter.chunk_forward`), cross-attention over each row's
         context ``ctx`` (``ck`` / ``cv`` (B, L, h, src_cap, hd),
         ``src_len`` (B,)) masked to its source length, and the FFN."""
-        x, q_pos = self._embed(tokens, positions)
-        B, C = tokens.shape
-        src_valid = (torch.arange(self.src_cap, device=self.device)
-                     [None, None, :] < ctx["src_len"].reshape(-1, 1, 1))
-        src_valid = src_valid.expand(B, C, self.src_cap)
-        valid = self._causal_valid(q_pos, kbuf, self_attend)
-        k_news, v_news = [], []
-        for i, layer in enumerate(self.model.decoder):
-            a, k_new, v_new = self._self_attention(
-                i, layer.self_attn, layer.ln1(x), positions, kbuf, vbuf,
-                self_attend, valid)
-            x = x + self._merge(a, x, layer.self_attn)
-            cp = layer.cross_attn
-            qc = self._split(_attn_project(cp, layer.ln2(x), "wq", "bq"))
-            a = self._attend(qc, ctx["ck"][:, i], ctx["cv"][:, i], src_valid)
-            x = x + self._merge(a, x, cp)
-            x = x + layer.ffn(layer.ln3(x))
-            k_news.append(k_new)
-            v_news.append(v_new)
-        return (self._logits(x), kbuf, vbuf,
-                torch.stack(k_news, 1), torch.stack(v_news, 1))
+        with self._on_layout():
+            x, q_pos = self._embed(tokens, positions)
+            B, C = tokens.shape
+            src_valid = (torch.arange(self.src_cap, device=self.device)
+                         [None, None, :] < ctx["src_len"].reshape(-1, 1, 1))
+            src_valid = src_valid.expand(B, C, self.src_cap)
+            valid = self._causal_valid(q_pos, kbuf, self_attend)
+            k_news, v_news = [], []
+            for i, layer in enumerate(self.model.decoder):
+                a, k_new, v_new = self._self_attention(
+                    i, layer.self_attn, layer.ln1(x), positions, kbuf, vbuf,
+                    self_attend, valid)
+                x = x + self._merge(a, x, layer.self_attn)
+                cp = layer.cross_attn
+                qc = local_ops.replicated(self._split(
+                    _attn_project(cp, layer.ln2(x), "wq", "bq")))
+                a = self._attend(qc, ctx["ck"][:, i], ctx["cv"][:, i],
+                                 src_valid)
+                x = x + self._merge(a, x, cp)
+                x = x + layer.ffn(layer.ln3(x))
+                k_news.append(k_new)
+                v_news.append(v_new)
+            return (self._logits(x), kbuf, vbuf,
+                    torch.stack(k_news, 1), torch.stack(v_news, 1))
 
 
 # ---------------------------------------------------------------------------

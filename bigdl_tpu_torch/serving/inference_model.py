@@ -71,8 +71,14 @@ class InferenceModel:
     mesh (``ResolvedLayout.shard_params``, audited at load); every rank
     of the world calls :meth:`predict` with the same (replicated) batch
     and gets the whole output, bucket for bucket as without a layout.
-    With ``decode=`` (the captured decode programs over DTensors) or
-    ``weight_quant="int8"`` it is not ported yet (ROADMAP A.3.7).
+    The weights are placed first and then quantized, as in the JAX
+    package: under ``weight_quant="int8"`` the int8 tensors and their
+    scales are DTensors with the float weights' placements (an int8
+    twin's kernel runs on each rank's output columns, ``parallel.
+    local_ops.int8_layer``).  With ``decode=`` the engine's adapter runs
+    over the placed (and quantized) model, each rank with a whole-head
+    KV pool (``_AdapterBase``); every rank must call :meth:`generate`
+    with the same prompts.
 
     ``predict_fn`` serves any callable instead of a model:
     :meth:`predict` returns ``np.asarray(predict_fn(x))`` for the whole
@@ -113,22 +119,11 @@ class InferenceModel:
             raise ValueError("decode= needs an LM-mode Transformer; for "
                              "translation models use "
                              "Seq2SeqService(continuous=True)")
-        if layout is not None and decode is not None:
-            raise ValueError("layout= with decode=: the captured decode "
-                             "programs over DTensors are not ported yet "
-                             "(ROADMAP A.3.7)")
-        if layout is not None and weight_quant is not None:
-            raise ValueError("layout= with weight_quant='int8': int8 "
-                             "weights on a layout are not ported yet "
-                             "(ROADMAP A.3.7)")
         self.device = resolve_device(device)
         apply_precision_policy()
         self.weight_quant = weight_quant
         self._w8 = None
         layered = isinstance(model, (Container, KerasModel))
-        if weight_quant is not None and layered:
-            model = quantize(model)
-        self.model = model.to(self.device).eval()
         self.layout = None
         if layout is not None:
             from bigdl_tpu_torch.parallel.mesh_policy import (
@@ -136,14 +131,20 @@ class InferenceModel:
 
             self.layout = (layout if isinstance(layout, ResolvedLayout)
                            else mesh_and_layout(str(layout), self.device))
-            self.layout.shard_params(self.model)
+            # placed first, then quantized (JAX's order): the int8
+            # tensors and their scales keep the float weights' placements
+            self.layout.shard_params(model.to(self.device))
+        if weight_quant is not None and layered:
+            model = quantize(model)
+        self.model = model.to(self.device).eval()
         if weight_quant is not None and not layered and decode is None:
             self._w8 = Int8Weights(self.model)
             self.model = self._w8.module
         if decode is not None:
             self.decode_engine = DecodeEngine(
                 LMAdapter(self.model, cap=decode.cap,
-                          weight_quant=weight_quant), decode)
+                          weight_quant=weight_quant, layout=self.layout),
+                decode)
             self.model = self.decode_engine.adapter.model
 
     @staticmethod
@@ -158,15 +159,13 @@ class InferenceModel:
 
     @staticmethod
     def load_tf(path: str, **kwargs) -> "InferenceModel":
-        raise NotImplementedError("InferenceModel.load_tf: the TF graph "
-                                  "import is not ported yet (ROADMAP "
-                                  "A.6.11)")
+        raise ValueError("InferenceModel.load_tf: the TF graph import is "
+                         "not ported yet (ROADMAP A.6.11)")
 
     @staticmethod
     def load_caffe(path: str, **kwargs) -> "InferenceModel":
-        raise NotImplementedError("InferenceModel.load_caffe: the Caffe "
-                                  "import is not ported yet (ROADMAP "
-                                  "A.6.11)")
+        raise ValueError("InferenceModel.load_caffe: the Caffe import is "
+                         "not ported yet (ROADMAP A.6.11)")
 
     def weights(self):
         """Context in which ``self.model`` holds float32 weights (their

@@ -11,8 +11,11 @@ Transformer::
 
 A translation Transformer's ``enc{i}`` is ``encoder[i]``.  A wrapper
 whose JAX variables are its wrapped layer's own (``TimeDistributed``,
-``Recurrent``) holds that layer as its child ``inlined``, a name the
-JAX paths leave out.
+``Recurrent``, the QAT and LoRA twins of ``nn/qat.py`` and
+``nn/lora.py``) holds that layer as its child ``inlined``, a name the
+JAX paths leave out, so a JAX QAT model's ``act_amax`` state and a JAX
+LoRA model's ``lora_a`` / ``lora_b`` sit beside the wrapped layer's
+``weight`` and ``bias`` in both trees.
 
 A container's child is the key ``f"{i}_{name}"`` in both packages, and
 BatchNorm's running statistics are the ``state`` tree's leaves and the

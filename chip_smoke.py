@@ -471,7 +471,7 @@ ZERO1 = dict(block=1024, reps=10, delta_scale=1e-4, grad_rows=2,
              resume_to=8, atol=1e-5, wait_s=900)
 
 # the layout phases (21): fit_layout's LM runs under LAYOUT["policies"]
-# at world 1, 6 steps of 48 seeded rows (batch 8 x 1024, Adam 1e-4);
+# at world 1, 4 steps of 32 seeded rows (batch 8 x 1024, Adam 1e-4);
 # layout_serve's predict at LAYOUT["serve_seq"] tokens on its buckets;
 # the step times are steps 1 to busy_from - 1, the busy share steps
 # busy_from on.  layout_gloo_card's "tp:2" run is cut to gloo_layers
@@ -486,14 +486,40 @@ ZERO1 = dict(block=1024, reps=10, delta_scale=1e-4, grad_rows=2,
 # no sharding rule for the bfloat16 product with a float32 out_dtype, so
 # a layout widens those operands to float32 instead (tensor.policy); in
 # float32 the layout and the plain loop make the same cuBLAS calls.
-LAYOUT = dict(policies=("dp", "fsdp", "tp"), steps=6, serve_seq=128,
+LAYOUT = dict(policies=("dp", "fsdp", "tp"), steps=4, serve_seq=128,
               serve_buckets=(1, 4), gloo_policy="tp:2", rel=2e-3,
-              busy_from=4, gloo_layers=2, gloo_batch=2, gloo_seq=256,
+              busy_from=3, gloo_layers=2, gloo_batch=2, gloo_seq=256,
               gloo_steps=4, gloo_wait_s=300, gloo_probe_s=20)
 # each layout run's losses against the plain loop's: at world 1 every
 # redistribution is a copy within one device and every op the plain
 # loop's op on the same operands, so the bound is 0 (equal to the bit)
 LAYOUT_LOSS_RTOL = 0.0
+# layout_decode (inside layout_lm's world-1 group, float32 products): the
+# LM served through InferenceModel(lm, layout="tp", decode=DECODE) with
+# its graphs captured by warmup(), N_REQUESTS prompts of PROMPT_LENS,
+# against the unlaid-out graphs engine on a copy of the same weights:
+# tokens and summed log-probs equal to the bit (every redistribution a
+# copy on one device, LAYOUT_LOSS_RTOL's reason), no capture after
+# warmup; then weight_quant="int8" against the unlaid-out int8 engine;
+# then a short speculative run (SPEC, eager: spec_prompts prompts,
+# spec_max_new tokens) on the layout against the unlaid-out eager one.
+LAYOUT_DECODE = dict(layout="tp", spec_prompts=4, spec_max_new=16)
+# layout_int8_predict: ResNet-50 int8 through InferenceModel(resnet,
+# layout="tp", weight_quant="int8") (the generic table's policy for a
+# conv net: output channels over tp) at bucket 16 against the unlaid-out
+# int8 model, to the bit, float32 products
+LAYOUT_INT8 = dict(layout="tp", bucket=16)
+# qat_lenet: train_lenet's trained LeNet-5 through prepare_qat, QAT's
+# epochs of Adam (lr) through Optimizer.optimize(), convert_qat, then
+# InferenceModel.predict of the 1024 validation images at bucket 256;
+# the int8 model's top-1 above min_top1
+QAT = dict(epochs=2, lr=1e-4, bucket=256, min_top1=0.9)
+# lora_bert (inside estimator_bert, on its converted stock BERT-base):
+# apply_lora(rank 8, alpha 16) on every Linear node, then rows / batch
+# steps through the Estimator with lora_filter as the trainable mask
+# (AdamWeightDecay, lr); the base bit-unchanged, the adapters moved;
+# merge_lora's float32 forward within merge_atol of the unmerged one
+LORA = dict(rank=8, alpha=16.0, rows=192, lr=1e-4, merge_atol=1e-5)
 
 # keras_inception: Inception-v1 (1000 classes, dropout 0.4; NHWC 224^2)
 # as keras.Model(inp, inception_v1()(inp)), compiled with SGD (lr 0.001,
@@ -538,12 +564,13 @@ PTB = dict(vocab=10000, embed=650, hidden=650, layers=2, steps_t=35,
 # layers, hidden 768, 12 heads, FFN 3072, vocabulary 30,522, dropout 0.1,
 # GELU, post-norm) with a pooler (the first token, Linear 768 -> 768,
 # tanh) and a two-label head, fine-tuned through Estimator.from_torch with
-# torch.optim.AdamW(lr=2e-5) and torch.nn.CrossEntropyLoss on 640 seeded
+# torch.optim.AdamW(lr=2e-5) and torch.nn.CrossEntropyLoss on 320 seeded
 # rows of 128 token ids at batch 32 (BERT's fine-tuning recipe): one
-# epoch, 20 steps, at K = 1 and K = 4.  Cut: no position or token-type
+# epoch, 10 steps, at K = 1 and K = 4, the profiled K = 4 run over one
+# bundle.  Cut: no position or token-type
 # embeddings (the converter has no arange node), random ids and labels
 ESTIMATOR_BERT = dict(vocab=30522, d=768, heads=12, ffn=3072, layers=12,
-                      dropout=0.1, length=128, rows=640, batch=32, lr=2e-5,
+                      dropout=0.1, length=128, rows=320, batch=32, lr=2e-5,
                       labels=2, check_rows=8)
 # the stock module's own float32 forward (erf GELU, on the CPU) against
 # the converted model's float32 predict (tanh GELU, ROADMAP C.18): the two
@@ -3679,7 +3706,86 @@ def train_lenet(dev):
             ema_top1.result <= c["min_top1"]:
         raise AssertionError(f"LeNet-5 top-1 at or below {c['min_top1']}: "
                              f"{out}")
-    return out
+    return out, opt.model
+
+
+def qat_lenet(dev, model):
+    """Quantization-aware training of train_lenet's LeNet-5 (its EMA
+    weights): ``prepare_qat``, QAT["epochs"] epochs through
+    ``Optimizer.optimize()``, ``convert_qat``, then
+    ``InferenceModel.predict`` of the validation set; the int8 model's
+    top-1 beside the QAT model's and the float model's, the drift of its
+    log-probs from the QAT model's, and its int8 matmul launches (4
+    layers a bucket call)."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.qat import QATConv2D, QATLinear, convert_qat, \
+        prepare_qat
+    from bigdl_tpu_torch.nn.quantized import (QuantizedConv2D,
+                                              QuantizedLinear)
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.serving import InferenceModel
+
+    c, lc = QAT, LENET_TRAIN
+    (x, y), (xv, yv) = lenet_data()
+
+    def predict(m):
+        return InferenceModel(m, device=dev,
+                              batch_buckets=(c["bucket"],)).predict(xv)
+
+    def top1(p):
+        return float(np.mean(np.argmax(p, -1) == yv))
+
+    float_pred = predict(model)
+    qat = prepare_qat(model)
+    wrapped = sum(isinstance(m, (QATLinear, QATConv2D))
+                  for m in qat.modules())
+    events = {}
+    opt = (Optimizer(qat, DataSet.array(x, y), CrossEntropyCriterion(),
+                     batch_size=lc["batch"], device=dev)
+           .set_optim_method(Adam(learning_rate=c["lr"]))
+           .set_end_when(Trigger.or_(_step_clock(events),
+                                     Trigger.max_epoch(c["epochs"]))))
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = opt.final_state["iteration"]
+    amax = [float(m.act_amax) for m in qat.modules()
+            if isinstance(m, (QATLinear, QATConv2D))]
+    qat_pred = predict(qat)
+    int8 = convert_qat(qat)
+    twins = sum(isinstance(m, (QuantizedLinear, QuantizedConv2D))
+                for m in int8.modules())
+    reset_launches()
+    int8_pred = predict(int8)
+    launches = LAUNCHES.get("int8_matmul", 0)
+    calls = -(-len(xv) // c["bucket"])
+    scale = float(np.abs(qat_pred).max())
+    out = {"phase": "qat_lenet", "config": c, "wrapped": wrapped,
+           "int8_layers": twins, "steps": steps, "wall_s": wall,
+           "median_step_ms": float(np.median(_step_ms(events, 0, steps)[2:])),
+           "first_loss": opt.losses[0], "last_loss": opt.losses[-1],
+           "act_amax": amax, "float_top1": top1(float_pred),
+           "qat_top1": top1(qat_pred), "int8_top1": top1(int8_pred),
+           "int8_vs_qat_max_abs_drift": float(
+               np.abs(int8_pred - qat_pred).max()),
+           "int8_vs_qat_rel_drift": float(
+               np.abs(int8_pred - qat_pred).max()) / scale,
+           "int8_vs_float_max_abs_drift": float(
+               np.abs(int8_pred - float_pred).max()),
+           "int8_matmul_launches": launches, "bucket_calls": calls}
+    emit(out)
+    if wrapped != 4 or twins != 4 or launches != 4 * calls:
+        raise AssertionError(f"qat_lenet: {wrapped} wrapped, {twins} int8 "
+                             f"layers, {launches} int8 launches over "
+                             f"{calls} bucket calls")
+    if not (all(a > 0 for a in amax) and np.all(np.isfinite(opt.losses))
+            and np.isfinite(int8_pred).all()
+            and out["int8_top1"] > c["min_top1"]):
+        raise AssertionError(f"qat_lenet: {out}")
+    return launches
 
 
 def resnet_train_data():
@@ -6380,6 +6486,8 @@ def layout_lm(dev):
                 runs[policy] = _layout_fit(dev, policy, ids, tgt,
                                            busy_from=LAYOUT["busy_from"])
             serve = layout_serve(dev)
+            decode = layout_decode(dev)
+            int8 = layout_int8_predict(dev)
     want = {k: float(LM["num_layers"]) for k in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkdv")}
@@ -6406,6 +6514,8 @@ def layout_lm(dev):
                                            for p in run["placements"]))):
             raise AssertionError(f"layout_lm {policy}: {run}")
     out["serve"] = serve
+    out["decode_launches"] = decode
+    out["int8_predict_launches"] = int8
     return out
 
 
@@ -6450,6 +6560,210 @@ def layout_serve(dev):
     del im, ref, model
     _release()
     return out
+
+
+def _layout_engine(dev, model, layout, **cfg):
+    """An InferenceModel of ``model`` with a decode engine of DECODE and
+    ``cfg`` (``layout`` None: unlaid-out), on a sample-keeping registry,
+    warmed up (its graphs captured, eager engines capture nothing):
+    (im, warmup row)."""
+    from bigdl_tpu_torch.serving import DecodeConfig, InferenceModel
+
+    wq = cfg.pop("weight_quant", None)
+    im = InferenceModel(model, decode=DecodeConfig(**{**DECODE, **cfg}),
+                        device=dev, layout=layout, weight_quant=wq)
+    eng = im.decode_engine
+    eng.metrics = _sample_metrics()
+    torch.cuda.synchronize()
+    im.warmup()
+    return im, {"warmup_s": eng.warmup_s,
+                "graphs_captured": eng.graphs_captured,
+                "graph_captures_counted": eng.metrics.counter(
+                    "serving.decode.graph_captures")}
+
+
+def _layout_pair(dev, prompts, name, **cfg):
+    """The unlaid-out engine and the one on LAYOUT_DECODE["layout"], each
+    on its own copy of the seeded LM, one timed run each: their rows,
+    and the check that the tokens and summed log-probs are equal to the
+    bit, that the layout's run captured nothing and that every decode
+    step of every layer launched the paged decode kernel."""
+    import copy
+
+    model = _lm_model()
+    out, results = {}, {}
+    for key, layout in (("plain", None), ("layout", LAYOUT_DECODE["layout"])):
+        im, warm = _layout_engine(
+            dev, copy.deepcopy(model) if layout else model, layout, **cfg)
+        try:
+            r = _serve_run(im, prompts)     # graphs, the ambient float32
+            eng = im.decode_engine
+            results[key] = r["results"]
+            steps = r["delta"]["steps"]
+            row = {**r["row"], "warmup": warm,
+                   "graph_captures_after_warmup": eng.metrics.counter(
+                       "serving.decode.graph_captures"),
+                   "unexpected_captures": eng.metrics.counter(
+                       "serving.decode.unexpected_captures"),
+                   "paged_decode_launches": r["launches"].get(
+                       "paged_decode_attention", 0),
+                   "decode_steps": steps, "launches": r["launches"]}
+            if layout:
+                row["wq_placements"] = str(
+                    eng.adapter.model.decoder[0].attn.wq.placements)
+                w8 = eng.adapter._w8
+                if w8 is not None:
+                    row["int8_weight_bytes_a_rank"] = sum(
+                        w.to_local().numel() + 4 * s.to_local().numel()
+                        for _, w, s in w8._q.values())
+            out[key] = row
+            if row["graph_captures_after_warmup"] or \
+                    row["unexpected_captures"]:
+                raise AssertionError(f"{name} {key}: graphs captured after "
+                                     f"warmup: {row}")
+            if steps < 1 or row["paged_decode_launches"] != \
+                    LM["num_layers"] * steps:
+                raise AssertionError(f"{name} {key}: paged_decode_attention "
+                                     f"launched {row['launches']} over "
+                                     f"{steps} steps")
+        finally:
+            im.stop()
+            del im
+            _release()
+    a, b = results["plain"], results["layout"]
+    out["tokens_equal"] = all(x.tokens.tolist() == y.tokens.tolist()
+                              for x, y in zip(a, b)) and len(a) == len(b)
+    out["logp_equal"] = all(x.logp == y.logp for x, y in zip(a, b))
+    if not (out["tokens_equal"] and out["logp_equal"]):
+        raise AssertionError(f"{name}: the layout's tokens differ from the "
+                             f"unlaid-out engine's")
+    return out
+
+
+def layout_decode(dev):
+    """Inside layout_lm's world-1 group, float32 products: the LM through
+    ``InferenceModel(lm, layout="tp", decode=DecodeConfig(**DECODE))``,
+    its graphs captured by warmup, against the unlaid-out graphs engine,
+    float32 then int8 weights, then a short speculative run on the
+    layout (eager) against the unlaid-out one: tokens to the bit, the
+    paged decode and verify kernels' launches counted."""
+    import copy
+
+    from bigdl_tpu_torch.serving import SpecConfig
+
+    rs = np.random.RandomState(SEED)
+    prompts = [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
+               for n in rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                   N_REQUESTS)]
+    out = {"phase": "layout_decode", "world": 1, "backend": "nccl",
+           "layout": LAYOUT_DECODE["layout"], "compute_dtype": "float32",
+           "decode": DECODE, "requests": len(prompts)}
+    out["f32"] = _layout_pair(dev, prompts, "layout_decode f32")
+    out["int8"] = _layout_pair(dev, prompts, "layout_decode int8",
+                               weight_quant="int8")
+    # speculation on the layout, eager: the draft's FFNs on the float32
+    # block-sparse kernel through local_map, every iteration's verify on
+    # the paged verify kernel
+    c = LAYOUT_DECODE
+    model = _lm_model()
+    spec, n_calls = {}, {}
+    for key, layout in (("plain", None), ("layout", c["layout"])):
+        im, warm = _layout_engine(
+            dev, copy.deepcopy(model) if layout else model, layout,
+            speculative=SpecConfig(**SPEC), cuda_graphs=False,
+            max_new_tokens=c["spec_max_new"])
+        try:
+            r = _serve_run(im, prompts[:c["spec_prompts"]], mode="eager")
+        finally:
+            im.stop()
+            del im
+            _release()
+        d, n = r["delta"], r["launches"]
+        _spec_launches_check(n, d["steps"], d["prefill_calls"], SPEC["k"],
+                             f"layout_decode spec {key}")
+        if n.get("paged_verify_attention", 0) != LM["num_layers"] * \
+                d["steps"]:
+            raise AssertionError(f"layout_decode spec {key}: "
+                                 f"paged_verify_attention launched {n}")
+        spec[key] = {**r["row"], "spec_iterations": d["steps"],
+                     "prefill_calls": d["prefill_calls"],
+                     "drafted": d["spec_drafted"],
+                     "accepted": d["spec_accepted"],
+                     "verify_launches": n.get("paged_verify_attention", 0),
+                     "block_sparse_launches": n.get("block_sparse_matmul",
+                                                    0)}
+        n_calls[key] = [(x.tokens.tolist(), x.logp) for x in r["results"]]
+    spec["tokens_equal"] = n_calls["plain"] == n_calls["layout"]
+    out["spec"] = spec
+    emit(out)
+    if not spec["tokens_equal"]:
+        raise AssertionError("layout_decode spec: the layout's tokens "
+                             "differ from the unlaid-out engine's")
+    return {"paged_decode_attention": out["f32"]["layout"][
+                "paged_decode_launches"],
+            "paged_decode_attention_int8_weights": out["int8"]["layout"][
+                "paged_decode_launches"],
+            "paged_verify_attention": spec["layout"]["verify_launches"],
+            "block_sparse_matmul": spec["layout"]["block_sparse_launches"]}
+
+
+def layout_int8_predict(dev):
+    """Inside layout_lm's world-1 group, float32 products: ResNet-50 int8
+    through ``InferenceModel(resnet, layout="tp", weight_quant="int8")``
+    at one bucket against the unlaid-out int8 model, to the bit, with
+    the int8 matmul's launches and the int8 weight bytes a rank."""
+    import copy
+
+    from bigdl_tpu_torch.nn.quantized import (QuantizedConv2D,
+                                              QuantizedLinear)
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.serving import InferenceModel
+
+    c = LAYOUT_INT8
+    model = resnet_model()
+    x = np.random.RandomState(SEED + 9).rand(
+        c["bucket"], *IMAGE).astype(np.float32)
+    rows = {}
+    for key, layout in (("plain", None), ("layout", c["layout"])):
+        im = InferenceModel(copy.deepcopy(model) if layout else model,
+                            device=dev, weight_quant="int8",
+                            batch_buckets=(c["bucket"],), layout=layout)
+        twins = [m for m in im.model.modules()
+                 if isinstance(m, (QuantizedConv2D, QuantizedLinear))]
+        local = (lambda t: t.to_local()) if layout else (lambda t: t)
+        im.predict(x[:1])                       # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        pred = im.predict(x)
+        torch.cuda.synchronize()
+        rows[key] = {
+            "pred": pred, "ms": (time.perf_counter() - t0) * 1e3,
+            "int8_matmul_launches": LAUNCHES.get("int8_matmul", 0),
+            "int8_layers": len(twins),
+            "int8_weight_bytes_a_rank": sum(
+                local(m.weight_q).numel() + 4 * local(m.scales).numel()
+                for m in twins)}
+        if layout:
+            rows[key]["weight_q_placements"] = sorted(
+                {str(m.weight_q.placements) for m in twins})
+        del im
+        _release()
+    a, b = rows["plain"].pop("pred"), rows["layout"].pop("pred")
+    out = {"phase": "layout_int8_predict", "world": 1, "backend": "nccl",
+           "layout": c["layout"], "bucket": c["bucket"],
+           "compute_dtype": "float32", "shape": list(b.shape),
+           "bit_equal": bool(np.array_equal(a, b)),
+           "max_abs_diff": float(np.max(np.abs(a - b))), **rows}
+    emit(out)
+    for key, row in rows.items():
+        if row["int8_matmul_launches"] != row["int8_layers"] or \
+                row["int8_layers"] != 54:
+            raise AssertionError(f"layout_int8_predict {key}: {row}")
+    if not (out["bit_equal"] and np.isfinite(b).all()):
+        raise AssertionError(f"layout_int8_predict: the layout's answers "
+                             f"differ from the unlaid-out model's: {out}")
+    return rows["layout"]["int8_matmul_launches"]
 
 
 def _gloo_lm():
@@ -7137,7 +7451,7 @@ def estimator_bert(dev):
     hand = _bundle_run(make, 1, steps)
     runs.append(fit(BUNDLE["k"]))
     runs.append({**fit(BUNDLE["k"], _BusyWindow(
-        BUNDLE["timed_from"], BUNDLE["timed_from"] + 2 * BUNDLE["k"])),
+        BUNDLE["timed_from"], BUNDLE["timed_from"] + BUNDLE["k"])),
         "run": "profiled"})
     # a float32 gradient check of the converted model (the same dropout
     # masks through both attentions)
@@ -7187,9 +7501,100 @@ def estimator_bert(dev):
     if gelu_gap > GELU_GAP_MAX or stock_err > BERT_STOCK_ATOL:
         raise AssertionError(f"the stock forward is {stock_err} from "
                              f"predict (bound {BERT_STOCK_ATOL})")
+    out["lora_flash_launches_per_step"] = lora_bert(dev, est, ids32, labels)
     del est
     _release()
     return out
+
+
+def lora_bert(dev, est, ids32, labels):
+    """Inside estimator_bert, on its fine-tuned converted BERT-base:
+    ``apply_lora`` on every Linear node, LORA["rows"] / batch steps
+    through an Estimator with ``lora_filter`` as the Optimizer's
+    trainable mask (AdamWeightDecay); the base parameters bit-unchanged
+    and the adapters moved, flash launches a step (12 forward, 12 + 12
+    backward), and ``merge_lora``'s float32 forward within
+    LORA["merge_atol"] of the unmerged one."""
+    from bigdl_tpu_torch.estimator import Estimator
+    from bigdl_tpu_torch.estimator import estimator as est_mod
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.lora import (LoRALinear, apply_lora,
+                                         lora_filter, merge_lora)
+    from bigdl_tpu_torch.optim import AdamWeightDecay
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    c, bc = LORA, ESTIMATOR_BERT
+    lm = apply_lora(est.model, rank=c["rank"], alpha=c["alpha"],
+                    generator=torch.Generator().manual_seed(SEED + 8))
+    lm = lm.to(dev)
+    wrapped = sum(isinstance(n.layer, LoRALinear) for n in lm.order
+                  if n.layer is not None)
+    mask = lora_filter(lm)
+    named = dict(lm.named_parameters())
+    base = {k: p.detach().clone() for k, p in named.items()
+            if k.split(".")[-1] not in ("lora_a", "lora_b")}
+    adapters = {k: p.detach().clone() for k, p in named.items()
+                if k.split(".")[-1] in ("lora_a", "lora_b")}
+    trainable = sum(p.numel() for p in adapters.values())
+    lest = Estimator.from_module(
+        lambda cfg: lm,
+        lambda cfg: AdamWeightDecay(learning_rate=c["lr"],
+                                    weight_decay=0.01),
+        lambda cfg: CrossEntropyCriterion(), device=dev)
+    real = est_mod.Optimizer
+
+    class Masked(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.trainable_mask = mask
+
+    est_mod.Optimizer = Masked
+    try:
+        run = _clocked_fit(est_mod, lambda: lest.fit(
+            (ids32[:c["rows"]], labels[:c["rows"]]), epochs=1,
+            batch_size=bc["batch"]), bc["batch"])
+    finally:
+        est_mod.Optimizer = real
+    named = dict(lm.named_parameters())
+    base_equal = all(torch.equal(named[k], v) for k, v in base.items())
+    moved = sum(not torch.equal(named[k], v) for k, v in adapters.items())
+    n = bc["check_rows"]
+    x = torch.as_tensor(ids32[:n]).to(dev)
+    merged = merge_lora(lm)
+    lm.eval()
+    merged.eval()
+    with compute_dtype(torch.float32), torch.no_grad():
+        a = lm(x).float().cpu().numpy()
+        b = merged(x).float().cpu().numpy()
+    want = {k: float(bc["layers"]) for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv")}
+    flash = {k: run["launches_per_step"].get(k) for k in want}
+    out = {"phase": "lora_bert", "config": c, "wrapped_linear_nodes":
+           wrapped, "trainable_params": trainable,
+           "base_params": int(sum(v.numel() for v in base.values())),
+           "steps": run["steps"], "step_ms": run["step_ms"],
+           "sequences_per_s": run["rows_per_s"], "losses": run["losses"],
+           "peak_mem_gb": run["peak_mem_gb"],
+           "flash_launches_per_step": flash,
+           "base_bit_unchanged": base_equal,
+           "adapters_moved": f"{moved}/{len(adapters)}",
+           "merge_max_abs_diff": float(np.abs(a - b).max()),
+           "merge_atol": c["merge_atol"]}
+    emit(out)
+    if flash != want:
+        raise AssertionError(f"lora_bert: flash launches a step {flash}, "
+                             f"want {want}")
+    if not (base_equal and moved == len(adapters) and wrapped > 0
+            and np.all(np.isfinite(run["losses"]))):
+        raise AssertionError(f"lora_bert: {out}")
+    if out["merge_max_abs_diff"] > c["merge_atol"]:
+        raise AssertionError(f"lora_bert: merged forward "
+                             f"{out['merge_max_abs_diff']} from the "
+                             f"unmerged one")
+    del lest, lm, merged
+    _release()
+    return flash
 
 
 def forecast_data():
@@ -7340,6 +7745,13 @@ def run_alone(phase, dev):
         _zero1_collectives(dev)
     elif phase == "layout_lm":
         layout_lm(dev)
+    elif phase in ("layout_decode", "layout_int8_predict"):
+        from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+        with compute_dtype(torch.float32), _nccl_world1():
+            globals()[phase](dev)
+    elif phase == "qat_lenet":
+        qat_lenet(dev, train_lenet(dev)[1])
     elif phase == "layout_gloo_card":
         layout_gloo_card(dev)
     elif phase == "serve_keras_int8":
@@ -7360,6 +7772,7 @@ def run_alone(phase, dev):
                          "train_translation, train_ptb_lstm, estimator_bert, "
                          "forecast_autoformer, forecast_tcn, "
                          "train_zero1_collectives, layout_lm, "
+                         "layout_decode, layout_int8_predict, qat_lenet, "
                          "layout_gloo_card, serve_keras_int8, serve_prefix, "
                          "serve_handoff, serve_spec_window, serve_seq2seq, "
                          "serve_http or serve_pool")
@@ -7517,7 +7930,9 @@ def main() -> int:
                         (bwd_row, "flash_attention_bwd_dq")):
         row["launches_per_step_in_graph"] = lm_bundles["summary"][
             f"k{BUNDLE['k']}"]["launches_per_step"][kernel]
-    train_lenet(dev)
+    _, lenet = train_lenet(dev)
+    int8mm_row["launches_qat_lenet"] = qat_lenet(dev, lenet)
+    del lenet
     # the training phases pin cuDNN to deterministic algorithms, so that a
     # resume can be held to the uninterrupted run
     torch.backends.cudnn.deterministic = True
@@ -7560,6 +7975,8 @@ def main() -> int:
                         (bwd_row, "flash_attention_bwd_dq")):
         row["launches_estimator_bert_per_step"] = bert[
             "flash_launches_per_step"][f"k{BUNDLE['k']}"][kernel]
+        row["launches_lora_bert_per_step"] = bert[
+            "lora_flash_launches_per_step"][kernel]
     _release()
     data = forecast_data()
     forecast_autoformer(dev, data)
@@ -7572,6 +7989,14 @@ def main() -> int:
                         (bwd_row, "flash_attention_bwd_dq")):
         row["launches_layout_lm_per_step"] = layout["runs"]["dp"][
             "flash_launches_per_step"][kernel]
+    got = layout["decode_launches"]
+    decode_row["launches_layout_decode"] = got["paged_decode_attention"]
+    decode_row["launches_layout_decode_int8_weights"] = got[
+        "paged_decode_attention_int8_weights"]
+    verify_row["launches_layout_decode_spec"] = got["paged_verify_attention"]
+    sparse_row["launches_layout_decode_spec"] = got["block_sparse_matmul"]
+    int8mm_row["launches_layout_int8_predict"] = layout[
+        "int8_predict_launches"]
     layout_gloo_card(dev)
     _release()
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,

@@ -2222,3 +2222,60 @@ def test_http_stream_equals_generate_stream(card):
         fe.stop()
         srv.stop()
         im.stop()
+
+
+def test_restored_masks_recapture_the_step_bundles(card):
+    """ROADMAP C.20 on the card: a step whose bundles were captured on
+    all-ones masks takes a pruned run's state at step 4 and its masks;
+    its graphs are dropped and captured again on the pruned pattern, and
+    its losses for steps 4-7 equal the uninterrupted pruned run's to the
+    bit."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops.block_sparse import (BlockSparseLinear,
+                                                  collect_masks,
+                                                  prune_model_to_sparsity)
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.optim.optimizer import restore_block_sparse_masks
+    from bigdl_tpu_torch.optim.train_step import TrainStep
+
+    def model():
+        g = torch.Generator().manual_seed(0)
+        return nn.Sequential([
+            BlockSparseLinear(64, 128, (32, 32), generator=g), nn.ReLU(),
+            BlockSparseLinear(128, 8, (32, 32), generator=g),
+            nn.LogSoftMax()]).to(card)
+
+    rs = np.random.RandomState(0)
+    xs = [torch.as_tensor(rs.randn(32, 64).astype(np.float32), device=card)
+          for _ in range(8)]
+    ys = [torch.as_tensor(rs.randint(0, 8, 32), device=card)
+          for _ in range(8)]
+
+    def step_of(m):
+        return TrainStep(m, nn.ClassNLLCriterion(),
+                         SGD(learning_rate=0.1, momentum=0.9))
+
+    pruned = model()
+    prune_model_to_sparsity(pruned, 0.5)
+    masks = collect_masks(pruned)
+    run, want = step_of(pruned), []
+    for s in range(0, 8, 2):
+        if s == 4:
+            saved = run.checkpoint_arrays()
+        want += run.train_bundle(s, xs[s:s + 2], ys[s:s + 2])[0].tolist()
+    assert run.graphs_captured >= 1
+
+    fresh = model()
+    step = step_of(fresh)
+    for s in range(0, 6, 2):
+        step.train_bundle(s, xs[s:s + 2], ys[s:s + 2])
+    assert step.graphs_captured >= 1
+    step.restore(saved["flat_params"], saved["opt_state"],
+                 saved["model_state"], saved["ema_flat"])
+    assert restore_block_sparse_masks(fresh, step, masks) == 2
+    assert step.graphs_captured == 0
+    got = []
+    for s in range(4, 8, 2):
+        got += step.train_bundle(s, xs[s:s + 2], ys[s:s + 2])[0].tolist()
+    assert step.graphs_captured >= 1
+    assert got == want[4:]

@@ -610,3 +610,12 @@ def test_checkpoints_cross_for_every_slot_layout(tmp_path, name, kw):
         np.testing.assert_allclose(got[1][k], want[1][k], rtol=1e-5,
                                    atol=1e-5, err_msg=k)
     assert got[3]["iteration"] == want[3]["iteration"] == 4
+
+
+def test_set_cluster_names_its_roadmap_item():
+    """The cluster coordinator is not ported: ``set_cluster`` raises the
+    conventions' ValueError naming A.6.9, not an AttributeError."""
+    x, y = synthetic_classification(n=64)
+    opt = _port_opt(x, y, optim.SGD(learning_rate=0.1), 1)
+    with pytest.raises(ValueError, match="A.6.9"):
+        opt.set_cluster(object())

@@ -33,7 +33,9 @@ Tolerances:
   (reduction order), each rank's local shard against its slice of the
   whole gradient.
 - ``InferenceModel(layout=)`` against the unsharded port: 1e-5 (the
-  all-reduced row-split products sum in another order).
+  all-reduced row-split products sum in another order); with
+  ``decode=`` the greedy tokens equal and the summed log-probs within
+  1e-5, with ``weight_quant="int8"`` the predictions within 1e-5.
 - one rank under ``"dp"``, ``"fsdp"``, ``"tp"``, ``"seq"``: losses
   equal to a plain loop's to the bit (each placement's local tensor is
   the whole tensor, each collective a copy, each op the plain loop's).
@@ -561,15 +563,26 @@ def _serve_worker(rank, world, variables, x):
     im2 = InferenceModel(load_jax_variables(_lm(), variables), device="cpu",
                          batch_buckets=(4,), layout=im.layout)
     out["pred_resolved"] = (im2.predict(x[:4]), ref.predict(x[:4]))
-    texts = []
-    for kw in (dict(decode=DecodeConfig(slots=2, page_size=4,
-                                        pages_per_slot=3)),
-               dict(weight_quant="int8")):
-        try:
-            InferenceModel(_lm(), device="cpu", layout="tp:2,dp", **kw)
-        except ValueError as e:
-            texts.append(str(e))
-    out["refusals"] = texts
+    # A.3.7: decode= and weight_quant="int8" on the layout, each against
+    # the unsharded port
+    served = {}
+    prompts = [row[:n] for row, n in zip(x, (3, 5, 2))]
+    for name, kw in (("decode", dict(decode=DecodeConfig(
+            slots=2, page_size=4, pages_per_slot=3, max_new_tokens=3,
+            eos_id=-1))), ("int8", dict(weight_quant="int8"))):
+        pair = [InferenceModel(load_jax_variables(_lm(), variables),
+                               device="cpu", batch_buckets=(4,), **lay, **kw)
+                for lay in (dict(layout="tp:2,dp"), {})]
+        if name == "decode":
+            served[name] = [[(r.tokens.tolist(), float(r.logp))
+                             for r in m.generate(prompts,
+                                                 return_results=True)]
+                            for m in pair]
+            for m in pair:
+                m.stop()
+        else:
+            served[name] = [m.predict(x[:4]) for m in pair]
+    out["a37"] = served
     # the fused LayerNorm (the IR "fused" rewrite's) on local rows, and a
     # kernel wrapper handed a DTensor refuses it
     from torch.distributed.tensor import Shard, distribute_tensor
@@ -611,8 +624,13 @@ def test_inference_model_layout_serves_as_unsharded(jobs):
         assert got["emb_local"] == (VOCAB // 2, 16)
         for a, b in got["pred"] + [got["pred_resolved"]]:
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
-        assert len(got["refusals"]) == 2
-        assert all("A.3.7" in t for t in got["refusals"])
+        laid, plain = got["a37"]["decode"]
+        assert [t for t, _ in laid] == [t for t, _ in plain]
+        np.testing.assert_allclose([lp for _, lp in laid],
+                                   [lp for _, lp in plain], rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(*got["a37"]["int8"], rtol=1e-5,
+                                   atol=1e-5)
         fused, plain, placements = got["fused_ln"]
         np.testing.assert_allclose(fused, plain, rtol=1e-5, atol=1e-5)
         assert placements == "(Shard(dim=0), Replicate())"

@@ -324,7 +324,7 @@ def test_load_and_prediction_service_match_jax(tmp_path):
     assert out is None and isinstance(err, ZeroDivisionError)
     for loader in (pim.InferenceModel.load_tf,
                    pim.InferenceModel.load_caffe):
-        with pytest.raises(NotImplementedError, match="A.6.11"):
+        with pytest.raises(ValueError, match="A.6.11"):
             loader(str(tmp_path / "m"))
     with pytest.raises(ValueError) as a:
         pim.InferenceModel(predict_fn=lambda a: a, weight_quant="int8")
