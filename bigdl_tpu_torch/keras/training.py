@@ -4,10 +4,9 @@ criteria and validation methods, and ``fit`` as one run of the port's
 ``Optimizer`` with the JAX package's triggers, validation and
 checkpoints, or, with ``parallelism=``, one run of the declarative
 layout driver (``parallel.gspmd.fit_layout``) on every rank of the
-world.
-
-Sequence-parallel fit (``seq_parallel=True``) is not ported: it raises,
-naming its ROADMAP item."""
+world.  ``seq_parallel=True`` shards each sequence over the engine mesh's
+``seq`` axis (``Optimizer.seq_parallel``); it and ``parallelism=`` are
+exclusive, as in JAX."""
 
 import logging
 from typing import Any, Dict, Sequence
@@ -113,8 +112,9 @@ def fit_module(model, compiled: Dict[str, Any], x, y=None, batch_size=32,
     ``Optimizer`` run: ``nb_epoch`` epochs (or ``end_trigger``), a
     validation with the compiled metrics (else the loss) and a checkpoint
     at every epoch's end.  ``device=None`` is ``cuda``.  ``log_every`` is
-    the layout driver's log period; the port's ``Optimizer`` reports
-    every step in its metrics.
+    the driver's log period (its attribution windows and MFU gauge), as
+    in JAX.  ``seq_parallel=True`` trains over the engine mesh's ``seq``
+    axis (``Optimizer.seq_parallel``).
 
     ``parallelism=`` (``"dp"``, ``"fsdp:2,tp:2"``, ...) trains through
     ``fit_layout`` over the world's ranks, then validates once; it keeps
@@ -155,14 +155,15 @@ def fit_module(model, compiled: Dict[str, Any], x, y=None, batch_size=32,
             log.info("[layout %s] validation: %s", parallelism,
                      {r.name: r.result for r in res})
         return trained
-    if seq_parallel:
-        raise ValueError("fit(seq_parallel=True): sequence parallelism is "
-                         "not ported yet (ROADMAP A.4)")
     ds = _dataset(pack, x, y, "", n_inputs)
     opt = Optimizer(model, ds, compiled["loss"], batch_size=batch_size,
                     device=device)
     opt.set_optim_method(compiled["optimizer"])
     opt.set_end_when(end_trigger or Trigger.max_epoch(nb_epoch))
+    opt.log_every = log_every
+    # long context: dim 1 over the mesh's seq axis (the model's attention
+    # must be sequence-parallel, optim.train_step)
+    opt.seq_parallel = bool(seq_parallel)
     if validation_data is not None:
         if isinstance(validation_data, ArrayDataSet):
             vds = validation_data

@@ -1,5 +1,7 @@
 from bigdl_tpu_torch.nn import init
-from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
+from bigdl_tpu_torch.nn.attention import (Attention, FeedForwardNetwork,
+                                          MultiHeadAttention,
+                                          PositionalEncoding,
                                           PositionwiseFFN, Transformer,
                                           TransformerDecoderLayer,
                                           TransformerLayer,
@@ -75,6 +77,7 @@ __all__ = [
     "HardSwish", "HardTanh", "Identity", "JoinTable", "Lambda", "LayerNorm",
     "LeakyReLU", "Linear", "LogSoftMax", "LookupTable", "MaxPool2D", "Module",
     "MultiHeadAttention", "ParallelTable", "PositionwiseFFN",
+    "Attention", "FeedForwardNetwork", "PositionalEncoding",
     "PReLU", "QuantizedConv2D", "QuantizedLinear", "RMSNorm", "ReLU", "ReLU6",
     "Reshape", "Select", "SelectTable", "Sequential", "SiLU", "Sigmoid",
     "SoftMax", "SoftPlus", "SoftSign", "SpatialAveragePooling",

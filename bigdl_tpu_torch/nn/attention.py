@@ -2,15 +2,20 @@
 ``bigdl_tpu.nn.attention``.
 
 Attention with the flash kernel dispatch (plain masked attention
-otherwise, and with attention dropout; sequence parallelism is not
-ported), self or cross (``context=``, the keys and values projected from
-the encoder's memory), on plain tensors or on a layout's DTensors (the
+otherwise, and with attention dropout), self or cross (``context=``, the
+keys and values projected from the encoder's memory), sequence-parallel
+(``seq_parallel="ring"`` or ``"ulysses"`` inside a bound ``seq`` axis,
+``runtime.mesh.seq_axis``: each rank holds one block of the sequence),
+on plain tensors or on a layout's DTensors (the
 attention and the embedding lookup then run on each rank's shards,
 ``parallel.local_ops``), the FFN (dense, or block-sparse with
 ``ffn_sparsity > 0``), the pre-LN encoder and decoder blocks, and
 ``Transformer`` in both modes: ``"translation"`` (encoder, causal
 decoder with cross-attention) and ``"lm"``, each with its sqrt(d)-scaled
-embedding, sinusoidal positions and weight-tied output projection; and
+embedding, sinusoidal positions and weight-tied output projection;
+``PositionalEncoding``, the positions as a layer (global under a bound
+``seq`` axis); the JAX aliases ``Attention`` and ``FeedForwardNetwork``;
+and
 the translation model's decoding, :func:`transformer_decode` (greedy or
 beam search over the whole prefix) and :func:`transformer_decode_cached`
 (per-layer K/V buffers, greedy or sampled).  Parameter names
@@ -44,16 +49,19 @@ from bigdl_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.parallel import local_ops
+from bigdl_tpu_torch.runtime.mesh import bound_seq_axis
 from bigdl_tpu_torch.tensor.policy import matmul_f32, matmul_promote
 from bigdl_tpu_torch.utils import prng
 
 
-def positional_encoding(length: int, dim: int,
-                        device=None) -> torch.Tensor:
+def positional_encoding(length: int, dim: int, device=None,
+                        offset: int = 0) -> torch.Tensor:
     """Sinusoidal positions (length, dim): sin on even columns, cos on
-    odd ones; an odd ``dim`` gives sin ceil(dim/2) columns."""
+    odd ones; an odd ``dim`` gives sin ceil(dim/2) columns.  ``offset``
+    shifts the positions: a sequence block starting at global position
+    ``offset`` gets its true positions."""
     n_sin = (dim + 1) // 2
-    pos = torch.arange(length, device=device)[:, None].float()
+    pos = (torch.arange(length, device=device) + offset)[:, None].float()
     i = torch.arange(n_sin, device=device)[None, :].float()
     # a fill on the device, not a host copy that waits: the forward runs
     # inside captured training steps
@@ -103,17 +111,33 @@ class MultiHeadAttention(Module):
     when there is no mask, no active attention dropout, the tensors are on
     CUDA and ``BIGDL_TPU_FLASH`` is not ``"0"`` (the JAX package's kill
     switch); ``True`` takes it on any device when there is no mask or
-    active dropout (its plain version on the CPU); ``False`` never."""
+    active dropout (its plain version on the CPU); ``False`` never.
+
+    ``seq_parallel`` (``"ring"`` or ``"ulysses"``): inside a bound
+    ``seq_axis`` (``runtime.mesh.seq_axis``, which the sequence-parallel
+    train step enters) ``x`` is this rank's block of the sequence and the
+    attention runs over the whole sequence by
+    ``parallel.ring_attention`` or ``parallel.ulysses``, on the flash
+    kernels on the card; self-attention only, with no mask and no active
+    attention dropout.  Outside one (building, plain predict, the cost
+    walk) the layer computes the same function on the whole sequence,
+    as in JAX."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attn_dropout: float = 0.0, causal: bool = False,
                  generator: Optional[torch.Generator] = None,
                  use_flash: Optional[bool] = None,
-                 context_size: Optional[int] = None, name=None):
+                 context_size: Optional[int] = None,
+                 seq_parallel: Optional[str] = None, seq_axis: str = "seq",
+                 name=None):
         super().__init__(name)
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
+        if seq_parallel not in (None, "ring", "ulysses"):
+            raise ValueError("seq_parallel: None | 'ring' | 'ulysses'")
+        self.seq_parallel = seq_parallel
+        self.seq_axis = seq_axis
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
@@ -137,6 +161,26 @@ class MultiHeadAttention(Module):
         k = self._split(_attn_project(self, ctx, "wk", "bk").to(x.dtype))
         v = self._split(_attn_project(self, ctx, "wv", "bv").to(x.dtype))
         dropout_active = self.training and self.dropout.p > 0.0
+        ax = (bound_seq_axis(self.seq_axis) if self.seq_parallel is not None
+              else None)
+        if ax is not None:
+            if context is not None or mask is not None or dropout_active:
+                raise ValueError(
+                    "seq_parallel attention supports self-attention with "
+                    "no extra mask and no attention dropout")
+            if self.seq_parallel == "ring":
+                from bigdl_tpu_torch.parallel.ring_attention import \
+                    ring_attention
+
+                out = ring_attention(q, k, v, group=ax.group,
+                                     causal=self.causal)
+            else:
+                from bigdl_tpu_torch.parallel.ulysses import \
+                    ulysses_attention
+
+                out = ulysses_attention(q, k, v, group=ax.group,
+                                        causal=self.causal)
+            return self._merge_project(out, x)
         flash_ok = mask is None and not dropout_active
         if self.use_flash is None:
             use_flash = (flash_ok and q.is_cuda
@@ -153,6 +197,9 @@ class MultiHeadAttention(Module):
             out = flash_attention(q, k, v, causal=self.causal)
         else:
             out = self._plain(q, k, v, mask, key)
+        return self._merge_project(out, x)
+
+    def _merge_project(self, out, x):
         b, h, t, dh = out.shape
         out = out.transpose(1, 2).reshape(b, t, h * dh)
         return _attn_project(self, out, "wo", "bo").to(x.dtype)
@@ -208,17 +255,20 @@ class PositionwiseFFN(Module):
 class TransformerLayer(Module):
     """Pre-LN transformer block: x + attn(ln1(x)), then + ffn(ln2(x)).
     ``key`` splits into four: attention weights, attention residual,
-    FFN, FFN residual."""
+    FFN, FFN residual.  With ``seq_parallel`` the attention is
+    sequence-parallel and its weights' dropout is 0 (the residual and
+    FFN dropout stay), as in JAX."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int = 0,
                  dropout: float = 0.1, causal: bool = False,
                  generator: Optional[torch.Generator] = None,
                  ffn_sparsity: float = 0.0, sparse_block=(64, 64),
-                 name=None):
+                 seq_parallel: Optional[str] = None, name=None):
         super().__init__(name)
-        self.attn = MultiHeadAttention(hidden_size, num_heads,
-                                       attn_dropout=dropout, causal=causal,
-                                       generator=generator)
+        self.attn = MultiHeadAttention(
+            hidden_size, num_heads,
+            attn_dropout=0.0 if seq_parallel else dropout, causal=causal,
+            generator=generator, seq_parallel=seq_parallel)
         self.ffn = PositionwiseFFN(hidden_size, ffn_size or 4 * hidden_size,
                                    dropout=dropout, generator=generator,
                                    ffn_sparsity=ffn_sparsity,
@@ -239,6 +289,23 @@ class TransformerLayer(Module):
         if r4 is not None:
             f = self.dropout(f, r4)
         return x + f
+
+
+class PositionalEncoding(Module):
+    """Adds sinusoidal positions to (batch, seq, dim) activations.  Inside
+    a bound ``seq_axis`` each block is offset by ``index * block_len``,
+    so positions stay global; outside one they start at 0."""
+
+    def __init__(self, seq_axis: str = "seq", name=None):
+        super().__init__(name)
+        self.seq_axis = seq_axis
+
+    def forward(self, x):
+        c, d = x.shape[1], x.shape[2]
+        ax = bound_seq_axis(self.seq_axis)
+        offset = ax.index * c if ax is not None else 0
+        return x + positional_encoding(c, d, device=x.device,
+                                       offset=offset)[None].to(x.dtype)
 
 
 class TransformerDecoderLayer(Module):
@@ -372,6 +439,11 @@ class Transformer(Module):
             for i, layer in enumerate(self.decoder):
                 h = layer(h, key=None if rs is None else rs[1 + i])
         return self.project(h)
+
+
+# the JAX package's aliases
+Attention = MultiHeadAttention
+FeedForwardNetwork = PositionwiseFFN
 
 
 @contextmanager

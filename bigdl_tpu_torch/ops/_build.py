@@ -57,11 +57,19 @@ def _target(src: Path) -> Path:
 
 
 def _build_missing() -> Dict[str, float]:
-    """Compile every source without an up-to-date library, all at once.
+    """Compile every source without an up-to-date library, all at once,
+    as one compile event of the recompile sentinel (``obs.attr``).
     Returns the seconds each build took.  Caller holds ``_lock``."""
     todo = [s for s in sources() if not _target(s).exists()]
     if not todo:
         return {}
+    from bigdl_tpu_torch.obs.attr import compile_event
+
+    with compile_event("kernel_build"):
+        return _build(todo)
+
+
+def _build(todo: List[Path]) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()

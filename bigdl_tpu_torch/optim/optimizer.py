@@ -112,11 +112,42 @@ summaries and histograms.  A process at world 1 keeps ``TrainStep``
 unless a process group is up, and ``ShardedParameterStep`` on one rank
 is ``TrainStep``'s step to the bit.
 
+``seq_parallel`` (the JAX attribute): the step shards dim 1 of every
+rank >= 2 input and target over the mesh's ``seq`` axis
+(``ShardedParameterStep(seq_parallel=True)``); the ranks of a data
+replica train on the replica's batch plan (``Mesh.replica_index`` of
+``Mesh.data_replicas``) and validate on it, each on its sequence block.
+
+Performance accounting (the JAX driver's ``_arm_perf_accounting``):
+before the first step the analytic cost model (``obs.cost``, a shape walk
+of a CPU copy of the model on one sample row, no kernel launched) gives
+``train.flops_per_step`` and ``train.effective_flops_per_step`` for the
+global batch, the device's peak (``obs.cost.peak_flops``:
+``BIGDL_TPU_PEAK_FLOPS``, ``EngineConfig.peak_flops``, the device name's
+table) the denominator, and the collective ledger the
+``train.collective_*`` gauges.  Best effort: a walk that fails leaves the
+FLOP gauges unset and never stops training.  Every ``log_every`` steps
+(JAX's default 1) a log point closes an attribution window when the
+host reads the bundle that reached it, one bundle late, so the card
+always has the next bundle queued: ``obs.attr.StepAttribution`` splits
+the window's wall time into data, dispatch, overhead and device
+(``train.attr.*_s``), and from the second window on (but for the windows
+of a flush: the run's end, a checkpoint) ``train.step_time_s``,
+``train.achieved_flops_per_chip``, ``train.mfu`` and
+``train.effective_mfu`` (the bfloat16 peak even in a float32-pinned run,
+as in JAX) are set, and across processes the stragglers'
+``train.step_time_{max,min,skew}_s``.  The recompile sentinel
+(``obs.attr``) goes steady after two windows; a CUDA graph capture or a
+kernel build after that, outside ``expected_compile``, counts as
+``train.unexpected_recompiles_total``.  ``attribution.table()`` is logged
+at the run's end.  ``BIGDL_TPU_MEASURE_OVERLAP=1`` runs the step's
+overlap audit on the first batch before training
+(``train.comm_overlap_efficiency``, ``train.comm_exposed_collective_s``,
+a ``comm_overlap_audit`` flight event).
+
 Not ported: the cluster hooks (``set_cluster``, gang recovery,
 membership, cluster-wide preemption notices; ROADMAP A.6.9): the
-preemption path and the in-run retry are per process; the overlap audit
-(``BIGDL_TPU_MEASURE_OVERLAP``) and the attribution, MFU accounting and
-Prometheus export (A.6.7)."""
+preemption path and the in-run retry are per process."""
 
 import itertools
 import logging
@@ -126,6 +157,7 @@ import time
 import uuid
 import warnings
 from collections import Counter
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -138,6 +170,8 @@ from bigdl_tpu_torch.data.pipeline import bundle_batches, dispatch_to_device
 from bigdl_tpu_torch.data.prefetch import thread_prefetch
 from bigdl_tpu_torch.nn.freeze import has_frozen, trainable_mask_for
 from bigdl_tpu_torch.nn.layers import has_lazy
+from bigdl_tpu_torch.obs import attr as obs_attr
+from bigdl_tpu_torch.obs import cost as obs_cost
 from bigdl_tpu_torch.obs import flight, trace
 from bigdl_tpu_torch.ops.block_sparse import apply_masks, collect_masks
 from bigdl_tpu_torch.ops.common import resolve_device
@@ -262,6 +296,11 @@ class Optimizer:
         self.param_comm: Optional[str] = None  # "fp32" | "int8"
         self.comm_bucket_bytes: Optional[int] = None
         self.quant_block: Optional[int] = None  # int8 elements a scale
+        # shard dim 1 over the mesh's seq axis (sequence-parallel
+        # attention layers required)
+        self.seq_parallel = False
+        # a log point (attribution window, MFU) every log_every steps
+        self.log_every = 1
         # the input side (the JAX Optimizer's attributes and defaults)
         self.prefetch = 2         # device-copy lookahead (1 = no overlap)
         self.host_prefetch = 2    # batches the host producer runs ahead
@@ -298,10 +337,35 @@ class Optimizer:
         self._ckpt_async: Optional[ckpt.AsyncCheckpointer] = None
         self._ckpt_sharded: Any = "auto"
         self._ckpt_mirror: Optional[str] = None
-        # this process's place in the engine's process group
+        # this process's place in the engine's process group, and its
+        # batch plan (its data replica's)
         self._group = None
         self._rank, self._world = 0, 1
-        # the collective bytes a step (_publish_ledger)
+        self._plan_rank, self._plan_count = 0, 1
+        self._seq = None
+        # performance accounting (_arm_perf_accounting)
+        self.attribution: Optional[obs_attr.StepAttribution] = None
+        self._recompile: Optional[obs_attr.RecompileSentinel] = None
+        self._flops_per_step: Optional[float] = None
+        self._eff_flops_per_step: Optional[float] = None
+        self.peak_flops: Optional[float] = None
+        self.peak_device: Optional[str] = None
+        self._cost_sample = None
+        self._attr_t0 = 0.0
+        self._attr_prev_it = 0
+        self._attr_data0 = 0.0
+        self._attr_dispatch = 0.0
+        self._attr_overhead = 0.0
+        self._attr_wall_windows = 0
+        # the completion event of the bundle that closed the last window
+        self._attr_event = None
+        # (first iteration, last iteration, seconds a step) of the last
+        # window that set the step time and MFU gauges
+        self.timed_window: Optional[Tuple[int, int, float]] = None
+        self._validated = False
+        # the last optimize()'s overlap audit (BIGDL_TPU_MEASURE_OVERLAP)
+        self.overlap_audit: Optional[Dict[str, Any]] = None
+        # the collective bytes a step (_arm_perf_accounting)
         self._ici_bytes_step = self._dcn_bytes_step = 0
         self._val_trigger: Optional[Trigger] = None
         self._val_dataset: Optional[DataSet] = None
@@ -438,11 +502,25 @@ class Optimizer:
         return self._final_state
 
     # ---- the training loop --------------------------------------------------
-    def _prepare_model(self) -> torch.nn.Module:
+    def _sample_batch(self) -> Optional[Dict[str, Any]]:
+        """The first batch of this process's plan, unshuffled: its first
+        row builds lazy widths and sizes the cost walk, the batch feeds
+        the overlap audit (the JAX driver's ``sample``).  None when the
+        plan has no batch (the loop then says so)."""
+        it = self.dataset.batches(self.batch_size, shuffle=False,
+                                  process_id=self._plan_rank,
+                                  process_count=self._plan_count)
+        try:
+            return next(iter(it), None)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _prepare_model(self, batch) -> torch.nn.Module:
         model = self.model.to(self.device)
-        if has_lazy(model):
-            sample = next(iter(self.dataset.batches(
-                self.batch_size, shuffle=False)))["input"]
+        if has_lazy(model) and batch is not None:
+            sample = batch["input"]
             with torch.no_grad():
                 model.train(False)
                 model(*(to_device(a[:1], self.device)
@@ -455,11 +533,13 @@ class Optimizer:
     def optimize(self) -> TrainedModel:
         engine = Engine.get()
         config, mesh = engine.config, engine.mesh
-        if os.environ.get("BIGDL_TPU_MEASURE_OVERLAP", "0") in ("1", "true"):
-            raise ValueError("BIGDL_TPU_MEASURE_OVERLAP: the overlap audit "
-                             "is not ported yet (ROADMAP A.6.7)")
         self._group = mesh.group
         self._rank, self._world = mesh.rank, mesh.world_size
+        self._plan_rank, self._plan_count = (mesh.replica_index,
+                                             mesh.data_replicas)
+        if self.seq_parallel and not mesh.distributed:
+            raise ValueError("seq_parallel needs a mesh seq axis > 1 "
+                             "(init_engine(seq=N))")
         if self._profiler is None and config.profile_dir:
             self.set_profile(config.profile_dir)
         spc = (self.steps_per_call if self.steps_per_call is not None
@@ -477,7 +557,8 @@ class Optimizer:
                 "set_preemption_checkpoint requires set_checkpoint")
         if self.device.type == "cuda":
             apply_precision_policy()
-        model = self._prepare_model()
+        batch = self._sample_batch()
+        model = self._prepare_model(batch)
         mask = self.trainable_mask
         if mask is None and has_frozen(model):
             mask = trainable_mask_for(model)
@@ -494,7 +575,8 @@ class Optimizer:
                 param_comm=self.param_comm,
                 comm_bucket_bytes=(self.comm_bucket_bytes
                                    if self.comm_bucket_bytes is not None
-                                   else config.comm_bucket_bytes), **kw)
+                                   else config.comm_bucket_bytes),
+                seq_parallel=self.seq_parallel, **kw)
             if self._rank == 0:
                 log.info("%s parameters; %d ranks; ZeRO-1 shard %s; "
                          "grad_comm %s", f"{step.n_real:,}", step.ndev,
@@ -502,7 +584,12 @@ class Optimizer:
         else:
             step = TrainStep(model, self.criterion, self.optim_method,
                              **kw)
-        self._publish_ledger(step)
+        self._seq = step.seq if getattr(step, "seq_parallel", False) \
+            else None
+        self._arm_perf_accounting(config, step, batch)
+        if batch is not None and os.environ.get(
+                "BIGDL_TPU_MEASURE_OVERLAP", "0") in ("1", "true"):
+            self._overlap_audit(step, batch)
         state: Dict[str, Any] = {
             "epoch": 1, "iteration": 0, "epoch_batch": 0,
             "epoch_finished": False, "loss": float("nan"),
@@ -527,6 +614,8 @@ class Optimizer:
             if self._ckpt_async is not None:
                 self._ckpt_async.wait()
         finally:
+            # the run's tail and a later run's warmup are not flagged
+            self._recompile.mark_warmup()
             model.train(False)
             if self._profiler is not None:
                 self._profiler.close()
@@ -537,24 +626,151 @@ class Optimizer:
         if self.losses:
             state["loss"] = self.losses[-1]
         self._final_state = dict(state)
+        if self.attribution.steps and self._rank == 0:
+            log.info("%s", self.attribution.table())
         return TrainedModel(model, self.device, step, self.losses)
 
-    def _publish_ledger(self, step: TrainStep) -> None:
-        """The step's collective bytes a step as the JAX driver's gauges
-        (0 on one process; the DCN hop's with more than one slice)."""
-        grad = getattr(step, "grad_sync_ici_bytes_per_step", 0)
-        param = getattr(step, "param_sync_ici_bytes_per_step", 0)
-        self._ici_bytes_step = grad + param
-        self._dcn_bytes_step = getattr(step, "dcn_bytes_per_step", 0)
+    def _arm_perf_accounting(self, config, step: TrainStep, batch) -> None:
+        """The run's accounting state (the JAX driver's): the analytic
+        FLOPs a step, the device's peak, the collective ledger's gauges,
+        the attribution accumulator and the recompile sentinel."""
+        self.attribution = obs_attr.StepAttribution(self.metrics)
+        self._attr_wall_windows = 0
+        self._recompile = obs_attr.recompile_sentinel()
+        self._recompile.mark_warmup()
+        self._flops_per_step = self._eff_flops_per_step = None
+        self._cost_sample = None
+        if batch is not None:
+            x = batch["input"]
+            self._cost_sample = tuple(np.asarray(a[:1]) for a in (
+                x if isinstance(x, tuple) else (x,)))
+        self._refresh_cost_model()
+        self.peak_device = obs_cost.device_name(self.device)
+        self.peak_flops = obs_cost.peak_flops(self.peak_device,
+                                               config.peak_flops)
+        led = obs_cost.collective_ledger(step)
+        self._ici_bytes_step = led["ici_bytes_per_step"]
+        self._dcn_bytes_step = led["dcn_bytes_per_step"]
         self.metrics.gauge("train.collective_ici_bytes_per_step",
-                           grad + param)
+                           self._ici_bytes_step)
         self.metrics.gauge("train.collective_dcn_bytes_per_step",
                            self._dcn_bytes_step)
-        self.metrics.gauge("train.collective_grad_ici_bytes_per_step", grad)
+        self.metrics.gauge("train.collective_grad_ici_bytes_per_step",
+                           led["grad_ici_bytes_per_step"])
         self.metrics.gauge("train.collective_param_ici_bytes_per_step",
-                           param)
-        self.metrics.gauge("train.grad_comm_buckets",
-                           getattr(step, "comm_buckets", 1))
+                           led["param_ici_bytes_per_step"])
+        self.metrics.gauge("train.grad_comm_buckets", led["comm_buckets"])
+
+    def _refresh_cost_model(self) -> None:
+        """The FLOP gauges from the cost walk of the model as it is now
+        (again after a restore changed its block-sparse masks); a walk
+        that fails leaves them as they were."""
+        if self._cost_sample is None:
+            return
+        try:
+            detail = obs_cost.train_step_flops_detail(
+                self.model, self._cost_sample, self.batch_size)
+        except Exception as e:  # noqa: BLE001 — observability only
+            log.debug("analytic cost model unavailable (%s); no live MFU "
+                      "gauge this run", e)
+            return
+        self._flops_per_step = detail["dense"]
+        self._eff_flops_per_step = detail["effective"]
+        self.metrics.gauge("train.flops_per_step", self._flops_per_step)
+        self.metrics.gauge("train.effective_flops_per_step",
+                           self._eff_flops_per_step)
+
+    def _overlap_audit(self, step: TrainStep, batch) -> None:
+        """``BIGDL_TPU_MEASURE_OVERLAP=1``: the step's overlap audit on
+        this rank's first batch, before the first step; it leaves the
+        step's state as it found it."""
+        x = batch["input"]
+        xs = tuple(to_device(a, self.device) for a in (
+            x if isinstance(x, tuple) else (x,)))
+        y = to_device(batch["target"], self.device)
+        try:
+            ov = step.measure_overlap(xs if len(xs) > 1 else xs[0], y)
+        except Exception as e:  # noqa: BLE001 — an audit never stops a run
+            log.warning("overlap audit failed (%s); skipped", e)
+            return
+        self.metrics.gauge("train.comm_overlap_efficiency",
+                           ov["overlap_efficiency"])
+        self.metrics.gauge("train.comm_exposed_collective_s",
+                           ov["exposed_collective_s"])
+        self.overlap_audit = ov
+        flight.record("comm_overlap_audit", **ov)
+
+    def _should_log(self, prev_it: int, it: int) -> bool:
+        """A log point is a multiple of ``log_every`` in (prev_it, it]."""
+        return bool(self.log_every) and \
+            it // self.log_every > prev_it // self.log_every
+
+    def _account_window(self, it: int, now: float, timed: bool = True,
+                        done=None) -> None:
+        """Close the attribution window that ends with step ``it``, read
+        at ``now``: the four components (``train.attr.*_s``), then, from
+        the second window on, the step time, MFU and straggler gauges;
+        the sentinel goes steady after two windows (the first holds the
+        set-up and the captures, the second the first replays).  A
+        window read by a flush (``timed=False``: the run's end, a
+        checkpoint) began when the bundle it waits for was mostly run
+        (its dispatch had filled the card's queue), so it is attributed
+        but sets no step time.  On the card (``done``, the completion
+        event of the bundle read) the step time is the card's time
+        between the two windows' last bundles finishing: the host's
+        read of a bundle may come late (its dispatch of the next one
+        waited on the card), which would move time from one window to
+        the next."""
+        steps = it - self._attr_prev_it
+        wall = now - self._attr_t0
+        data = self.metrics.total("data_time")
+        if steps <= 0 or wall <= 0:
+            return
+        self.attribution.window(steps, wall,
+                                data_s=data - self._attr_data0,
+                                dispatch_s=self._attr_dispatch,
+                                overhead_s=self._attr_overhead)
+        first, last_event = self._attr_prev_it, self._attr_event
+        self._attr_t0, self._attr_prev_it, self._attr_data0 = now, it, data
+        self._attr_event = done
+        self._attr_dispatch = self._attr_overhead = 0.0
+        self._attr_wall_windows += 1
+        if self.attribution.windows >= 2 and not self._recompile.steady:
+            self._recompile.mark_steady(it)
+        if self._attr_wall_windows < 2 or not timed:
+            return
+        if done is not None and last_event is not None:
+            wall = last_event.elapsed_time(done) / 1e3
+        dt = wall / steps
+        self.timed_window = (first, it, dt)
+        self.metrics.observe("train.step_time_s", dt)
+        if self._flops_per_step:
+            self.metrics.gauge("train.achieved_flops_per_chip",
+                               self._flops_per_step / dt / self._world)
+            m = obs_cost.mfu(self._flops_per_step, dt, self._world,
+                             self.peak_flops)
+            if m is not None:
+                self.metrics.gauge("train.mfu", m)
+            em = obs_cost.mfu(self._eff_flops_per_step or 0.0, dt,
+                              self._world, self.peak_flops)
+            if em is not None:
+                self.metrics.gauge("train.effective_mfu", em)
+        if self._world > 1:
+            stats = obs_attr.host_step_time_stats(dt, group=self._group)
+            if stats:
+                self.metrics.gauge("train.step_time_max_s", stats["max"])
+                self.metrics.gauge("train.step_time_min_s", stats["min"])
+                self.metrics.gauge("train.step_time_skew_s", stats["skew"])
+
+    def _restart_window(self, it: int) -> None:
+        """A new attribution window from iteration ``it`` now (the run's
+        start, a recovery); the first window after it holds set-up."""
+        self._attr_t0 = time.perf_counter()
+        self._attr_prev_it = it
+        self._attr_data0 = self.metrics.total("data_time")
+        self._attr_dispatch = self._attr_overhead = 0.0
+        self._attr_wall_windows = 0
+        self._attr_event = None
 
     def _loop(self, step: TrainStep, state) -> None:
         """``_train`` under the in-run retry loop (the JAX driver's): a
@@ -608,6 +824,7 @@ class Optimizer:
                                  time.perf_counter() - t_fail)
                 # recovery is not step time
                 self.metrics.reset()
+                self._restart_window(state["iteration"])
 
     def _train(self, step: TrainStep, state) -> None:
         self._pending = []
@@ -615,6 +832,7 @@ class Optimizer:
         self._inflight = 0
         self._last_dispatch_end = None
         self._log_t = time.perf_counter()
+        self._restart_window(state["iteration"])
         while not self.end_when(state):
             if self._preempted:
                 # the signal came during epoch-edge work: still save
@@ -639,8 +857,11 @@ class Optimizer:
                     self._one_bundle(step, state, mbs)
                     t_trig = time.perf_counter()
                     self._fire_triggers(step, state)
-                    # trigger work is not step time
-                    self._log_t += time.perf_counter() - t_trig
+                    # trigger work is not step time: the attribution's
+                    # overhead component
+                    trig_dt = time.perf_counter() - t_trig
+                    self._log_t += trig_dt
+                    self._attr_overhead += trig_dt
                     if self._preempted:
                         log.warning("preemption signal received: "
                                     "checkpointing at iteration %d and "
@@ -712,9 +933,11 @@ class Optimizer:
                 else:
                     ((x, y),) = mbs
                     losses, gnorms = step(it0, x, y).reshape(1), None
-                self.metrics.add("step_dispatch",
-                                 (time.perf_counter() - t0) / k)
+                disp_dt = time.perf_counter() - t0
+                self.metrics.add("step_dispatch", disp_dt / k)
+                self._attr_dispatch += disp_dt
         self._last_dispatch_end = time.perf_counter()
+        self._recompile.note_step(it0 + k)
         # every step moves the same sync traffic (a static layout)
         if self._ici_bytes_step:
             self.metrics.inc("train.collective_ici_bytes_total",
@@ -760,7 +983,8 @@ class Optimizer:
         elastic resume's ``{"process_count", "trained", "skip"}``) runs
         the epoch's re-sharded remainder plan instead."""
         kw = dict(shuffle=True, seed=self.seed, epoch=epoch,
-                  process_id=self._rank, process_count=self._world)
+                  process_id=self._plan_rank,
+                  process_count=self._plan_count)
         prefix = ""
         if reshard is not None:
             kw.update(trained_batches=int(reshard["trained"]),
@@ -815,9 +1039,11 @@ class Optimizer:
                 close()
 
     def _needs_reads(self) -> bool:
-        """Whether anyone reads the losses as the run goes: a train
-        summary, the watchdog, or ``"auto"`` timing its window."""
-        return (self._train_summary is not None or self.watchdog is not None
+        """Whether anyone reads the losses as the run goes: the log
+        points, a train summary, the watchdog, or ``"auto"`` timing its
+        window."""
+        return (bool(self.log_every) or self._train_summary is not None
+                or self.watchdog is not None
                 or (self._bundle_auto and not self._bundle_picked))
 
     def _to_host(self, losses, gnorms):
@@ -829,7 +1055,8 @@ class Optimizer:
             return losses, gnorms, None
         host = [None if t is None else t.to("cpu", non_blocking=True)
                 for t in (losses, gnorms)]
-        done = torch.cuda.Event()
+        # timed: a window's step time is the card's (_account_window)
+        done = torch.cuda.Event(enable_timing=True)
         done.record()
         return host[0], host[1], done
 
@@ -863,6 +1090,9 @@ class Optimizer:
             if self.watchdog is not None:
                 for j, value in enumerate(values):
                     self.watchdog.observe_loss(it0 + j, value)
+            if self._should_log(it0, it0 + len(values)):
+                self._account_window(it0 + len(values), now,
+                                     timed=keep > 0, done=done)
             # the first read's window holds the set-up: time the second
             if self._bundle_auto and not self._bundle_picked \
                     and self._reads >= 2:
@@ -893,13 +1123,19 @@ class Optimizer:
                     p.detach().cpu().numpy(), it)
 
     def _run_validation(self, step: TrainStep, state) -> None:
-        # every rank its own plan; the sums are reduced over the ranks
-        results = evaluate(step.model, self._val_methods,
-                           self._val_dataset.batches(
-                               self._val_batch, shuffle=False,
-                               drop_last=False, process_id=self._rank,
-                               process_count=self._world), self.device,
-                           group=self._group)
+        # every replica its own plan (each rank its sequence block under
+        # seq_parallel); the sums are reduced over the ranks.  The run's
+        # first validation is a new program (JAX's eval compile)
+        first, self._validated = not self._validated, True
+        with obs_attr.expected_compile() if first else nullcontext():
+            results = evaluate(step.model, self._val_methods,
+                               self._val_dataset.batches(
+                                   self._val_batch, shuffle=False,
+                                   drop_last=False,
+                                   process_id=self._plan_rank,
+                                   process_count=self._plan_count),
+                               self.device, group=self._group,
+                               seq=self._seq)
         self.validations.append((state["iteration"], results))
         if self._val_summary is not None and self._rank == 0:
             for r in results:
@@ -941,7 +1177,7 @@ class Optimizer:
         snapshot = dict(state)
         # the batch plan is keyed by the process count: a resume under
         # another count re-shards the epoch (_try_resume)
-        snapshot["process_count"] = self._world
+        snapshot["process_count"] = self._plan_count
         schedule = getattr(self.optim_method, "schedule", None)
         if schedule is not None and hasattr(schedule, "state_dict"):
             snapshot["schedule_state"] = schedule.state_dict()
@@ -951,7 +1187,14 @@ class Optimizer:
         masks = collect_masks(self.model)
         if masks:
             snapshot["block_sparse_masks"] = masks
-        sharded = self.optim_method.elementwise and (
+        # the ranks of a seq group hold the same optimizer shard: a
+        # seq-axis run saves the gathered state
+        seq_axis_up = self._world > self._plan_count
+        if seq_axis_up and self._ckpt_sharded is True:
+            raise ValueError("set_checkpoint(sharded=True) on a mesh with "
+                             "a seq axis: the sequence ranks share their "
+                             "shards; use sharded='auto' or False")
+        sharded = self.optim_method.elementwise and not seq_axis_up and (
             self._world > 1 if self._ckpt_sharded == "auto"
             else bool(self._ckpt_sharded))
         kw = dict(step.checkpoint_arrays(opt=not sharded),
@@ -996,8 +1239,12 @@ class Optimizer:
             latest)
         step.restore(flat, opt_state, model_state, ema)
         state.update(saved)
-        restore_block_sparse_masks(self.model, step,
-                                   state.pop("block_sparse_masks", None))
+        masks = state.pop("block_sparse_masks", None)
+        before = collect_masks(self.model) if masks else None
+        restore_block_sparse_masks(self.model, step, masks)
+        if masks and collect_masks(self.model) != before:
+            # the effective FLOPs moved with the pattern
+            self._refresh_cost_model()
         sched_state = state.pop("schedule_state", None)
         schedule = getattr(self.optim_method, "schedule", None)
         if sched_state is not None and schedule is not None \
@@ -1011,9 +1258,10 @@ class Optimizer:
         state["epoch_batch"] = int(saved.get("epoch_batch", 0) or 0)
         state["_resume_skip"] = state["epoch_batch"]
         saved_pc = saved.get("process_count")
-        state["process_count"] = self._world
+        state["process_count"] = self._plan_count
         origin = saved.get("reshard_origin")
-        pc_changed = saved_pc is not None and int(saved_pc) != self._world
+        pc_changed = saved_pc is not None \
+            and int(saved_pc) != self._plan_count
         can_reshard = hasattr(self.dataset, "resharded_batches")
         if origin is not None and state["_resume_skip"]:
             # into an epoch already on a re-sharded plan: the same plan,
@@ -1037,7 +1285,7 @@ class Optimizer:
                         "continues on a re-sharded batch plan (the %d "
                         "already-trained global batches are excluded; "
                         "nothing replays, nothing is dropped)",
-                        int(saved_pc), self._world, state["epoch"],
+                        int(saved_pc), self._plan_count, state["epoch"],
                         state["epoch_batch"])
                 state["_resume_reshard"] = {
                     "process_count": int(saved_pc),
@@ -1049,7 +1297,8 @@ class Optimizer:
                 self.metrics.inc("elastic_resumes_total")
                 self.metrics.inc("elastic_resharded_total")
                 flight.record("elastic_reshard", epoch=state["epoch"],
-                              old_pc=int(saved_pc), new_pc=self._world,
+                              old_pc=int(saved_pc),
+                              new_pc=self._plan_count,
                               trained=state["epoch_batch"])
             else:
                 self._replay_epoch(state, saved_pc,
@@ -1062,7 +1311,7 @@ class Optimizer:
                 "elastic resume: checkpoint written at process_count=%s, "
                 "resuming at %d — %s, so epoch %d REPLAYS from its start "
                 "(%d mid-epoch batches re-trained rather than silently "
-                "dropped)", saved_pc, self._world, why, state["epoch"],
+                "dropped)", saved_pc, self._plan_count, why, state["epoch"],
                 state["_resume_skip"])
         state["epoch_batch"] = 0
         state["_resume_skip"] = 0
@@ -1081,8 +1330,10 @@ def restore_block_sparse_masks(model: torch.nn.Module, step: TrainStep,
     if not masks:
         return 0
     before = collect_masks(model)
-    n = apply_masks(model, masks)
+    with obs_attr.expected_compile():
+        n = apply_masks(model, masks)
     if n and collect_masks(model) != before:
+        # the next captures are a new program's, as JAX's retrace is
         step.drop_graphs()
         log.info("restored block-sparse masks for %d modules; step graphs "
                  "are captured again", n)

@@ -65,11 +65,24 @@ at the capture, with the offending call named; it never falls back to
 eager steps.  A graph replays the products it captured, so the compute
 dtype (``tensor.policy``) is pinned at the first capture: a later bundle
 in another dtype raises.  On the CPU there are no graphs: the bundle
-runs the same step K times, the plain version of the graph."""
+runs the same step K times, the plain version of the graph.
+
+A batch signature seen for the first time is a new program, as a new
+bundle size is in JAX: its first steps (the eager warm-up, the capture,
+and the kernel builds they set off) run inside
+``obs.attr.expected_compile``, and every capture is a compile event of
+the recompile sentinel.
+
+``measure_overlap`` (the JAX overlap audit) times the step, the step
+with every collective replaced by a same-shaped local op, and the
+bucketed scatter/gather cycle alone, and puts back every tensor a step
+updates in place, so training goes on as if it had not run."""
 
 import functools
+import time
 import warnings
 from collections import Counter
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -80,6 +93,7 @@ from torch.profiler import record_function
 
 from bigdl_tpu_torch.nn.layers import BatchNorm, Dropout
 from bigdl_tpu_torch.nn.module import Module, Sequential, _as_tuple
+from bigdl_tpu_torch.obs.attr import compile_event, expected_compile
 from bigdl_tpu_torch.ops.common import (captured_launches, credit_launches,
                                         round_up)
 from bigdl_tpu_torch.optim.optim_method import OptimMethod
@@ -87,6 +101,7 @@ from bigdl_tpu_torch.optim.validation import (StatsAccumulator,
                                               ValidationMethod,
                                               ValidationResult)
 from bigdl_tpu_torch.parallel import collectives
+from bigdl_tpu_torch.runtime.mesh import SeqAxis, seq_axis
 from bigdl_tpu_torch.tensor.policy import get_compute_dtype
 from bigdl_tpu_torch.utils import prng
 from bigdl_tpu_torch.utils.convert import (flat_order, jax_path, nest,
@@ -189,6 +204,11 @@ def _remat_call(module: torch.nn.Module, fn, xs, policy):
                       preserve_rng_state=False, **kw)
 
 
+def _signature(x, y) -> tuple:
+    """A batch's shapes and dtypes: one program (one graph) each."""
+    return tuple((tuple(t.shape), t.dtype) for t in _as_tuple(x) + (y,))
+
+
 def _leaf_mask(tree, path):
     node = tree
     for part in path:
@@ -200,15 +220,30 @@ def _leaf_mask(tree, path):
     return node
 
 
+def seq_block(t: torch.Tensor, ax: SeqAxis) -> torch.Tensor:
+    """Block ``ax.index`` of ``ax.size`` of dim 1 of a rank >= 2 input or
+    target (a view); rank 0 and 1 tensors whole."""
+    if t.ndim < 2:
+        return t
+    c = t.shape[1] // ax.size
+    if c * ax.size != t.shape[1]:
+        raise ValueError(f"dim 1 of {tuple(t.shape)} does not split into "
+                         f"{ax.size} sequence blocks")
+    return t.narrow(1, ax.index * c, c)
+
+
 @torch.no_grad()
 def evaluate(model: torch.nn.Module, methods: Sequence[ValidationMethod],
-             batches: Iterable, device: torch.device, group=None
-             ) -> List[ValidationResult]:
+             batches: Iterable, device: torch.device, group=None,
+             seq: Optional[SeqAxis] = None) -> List[ValidationResult]:
     """Every method over host ``batches`` (a ``drop_last=False`` plan),
     ``model`` in eval mode; a padded last batch counts its real rows
     only.  The sums stay on the device until the end (the JAX
     ``_build_eval``); with a process ``group`` each rank passes its own
-    plan and the sums are added over the ranks (every rank calls it)."""
+    plan and the sums are added over the ranks (every rank calls it).
+    With ``seq`` (a sequence-parallel step's axis) each rank evaluates
+    its sequence block of every rank >= 2 input and target inside the
+    bound axis, and the sums add over the sequence blocks too."""
     model.train(False)
     acc = StatsAccumulator()
     for mb in batches:
@@ -216,8 +251,14 @@ def evaluate(model: torch.nn.Module, methods: Sequence[ValidationMethod],
         w = mb.get("weight")
         n = int(np.sum(w)) if w is not None else len(y)
         xs = tuple(to_device(a[:n], device) for a in _as_tuple(x))
-        out = model(*xs)
         yd = to_device(y[:n], device)
+        if seq is not None:
+            xs = tuple(seq_block(a, seq) for a in xs)
+            yd = seq_block(yd, seq)
+            with seq_axis(seq.group, seq.index, seq.size, seq.name):
+                out = model(*xs)
+        else:
+            out = model(*xs)
         acc.add([m.batch_stats(out, yd) for m in methods])
     if group is not None:
         flat = (torch.stack([t for pair in acc.totals for t in pair])
@@ -228,6 +269,27 @@ def evaluate(model: torch.nn.Module, methods: Sequence[ValidationMethod],
                       for i in range(len(methods))]
     totals = acc.fetch() or []
     return [m.fold(s, c) for m, (s, c) in zip(methods, totals)]
+
+
+def _check_seq_parallel_model(model: torch.nn.Module) -> None:
+    """A sequence block fed to plain attention attends only within the
+    block (silently wrong), so sequence-parallel training needs
+    sequence-parallel attention layers; a model with no catalog attention
+    (custom attention) gets a warning."""
+    from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+
+    mhas = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    if mhas and not any(m.seq_parallel for m in mhas):
+        raise ValueError(
+            "seq_parallel=True but none of the model's attention layers "
+            "is sequence-parallel-aware — build them with "
+            "MultiHeadAttention/TransformerLayer(seq_parallel='ring'|"
+            "'ulysses') or plain attention will silently attend only "
+            "within each sequence block")
+    if not mhas:
+        warnings.warn("seq_parallel=True with no catalog attention layers "
+                      "found: make sure custom attention uses the seq-axis "
+                      "collectives")
 
 
 class TrainStep:
@@ -291,6 +353,10 @@ class TrainStep:
         self.graph_dtype: Optional[torch.dtype] = None
         self._warm: Counter = Counter()
         self._side: Optional[torch.cuda.Stream] = None
+        # batch signatures whose first eager step has run
+        self._seen: set = set()
+        # False: the overlap audit's compute-only variant
+        self._comm = True
 
     def _init_state(self):
         """The optimizer's slots and the EMA (None without one)."""
@@ -316,6 +382,7 @@ class TrainStep:
         block-sparse pattern), so each batch shape is captured again."""
         self._graphs.clear()
         self._warm.clear()
+        self._seen.clear()
         self.graph_dtype = None
 
     # ---- the step ----------------------------------------------------------
@@ -379,7 +446,17 @@ class TrainStep:
             p.grad = None
 
     def __call__(self, step: int, x, y) -> torch.Tensor:
-        return self._run(x, y, self._set_step(step))[0]
+        with self._program(_signature(x, y)):
+            return self._run(x, y, self._set_step(step))[0]
+
+    def _program(self, sig):
+        """``expected_compile`` around the first eager step of a batch
+        signature (a new program: its kernels build, its libraries set
+        up), nothing after."""
+        if sig in self._seen:
+            return nullcontext()
+        self._seen.add(sig)
+        return expected_compile()
 
     @torch.no_grad()
     def _apply(self, scalars, accum: int, want_gnorm: bool
@@ -413,6 +490,80 @@ class TrainStep:
                     e.mul_(d).add_(p, alpha=1.0 - d)
         return gnorm
 
+    # ---- the overlap audit -----------------------------------------------------
+    def measure_overlap(self, x, y, *, steps: int = 3) -> Dict[str, Any]:
+        """How much of the gradient sync's collective time hides under
+        compute (the JAX ``measure_overlap``): the median over ``steps``
+        runs of the step, of its compute-only variant (every collective of
+        the ZeRO-1 cycle replaced by a same-shaped local op) and of the
+        bucketed scatter/gather cycle alone, after one warm run of each::
+
+            exposed_collective_s = max(0, step_s - compute_s)
+            overlap_efficiency   = 1 - exposed / collective_s  (in [0, 1])
+
+        ``x`` and ``y`` are one batch on the device.  The step updates in
+        place, so the parameters, the optimizer's slots, the buffers, the
+        EMA and the step counter are put back as they were: the steps
+        after the audit are the steps without it, to the bit."""
+        snap = self._snapshot()
+        try:
+            with expected_compile():
+                t_full = self._timed(lambda: self._run(
+                    x, y, self._set_step(0))[0], steps)
+                self._comm = False
+                try:
+                    t_nocomm = self._timed(lambda: self._run(
+                        x, y, self._set_step(0))[0], steps)
+                finally:
+                    self._comm = True
+                t_comm = self._timed(self._comm_probe, steps)
+        finally:
+            self._restore_snapshot(snap)
+        exposed = max(0.0, t_full - t_nocomm)
+        eff = (min(1.0, max(0.0, 1.0 - exposed / t_comm))
+               if t_comm > 0 else 0.0)
+        return {"step_s": t_full, "compute_s": t_nocomm,
+                "collective_s": t_comm, "exposed_collective_s": exposed,
+                "overlap_efficiency": eff,
+                "comm_buckets": float(getattr(self, "comm_buckets", 1)),
+                "grad_comm": getattr(self, "grad_comm", "fp32")}
+
+    def _timed(self, fn, steps: int) -> float:
+        """Median seconds of ``fn`` over ``steps`` runs after a warm one,
+        the card synchronized around each."""
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        fn()
+        sync()
+        ts = []
+        for _ in range(max(1, steps)):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    def _comm_probe(self) -> None:
+        """The gradient sync's collectives alone: none on one process."""
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step updates in place."""
+        out = list(self.params) + [b for _, b in self.model.named_buffers()]
+        for val in self.opt_state.values():
+            out += [val] if isinstance(val, torch.Tensor) else list(val)
+        if self.ema is not None:
+            out += list(self.ema)
+        return out + [self._step_t]
+
+    @torch.no_grad()
+    def _snapshot(self) -> List[torch.Tensor]:
+        return [t.detach().clone() for t in self._state_tensors()]
+
+    @torch.no_grad()
+    def _restore_snapshot(self, snap: List[torch.Tensor]) -> None:
+        for t, saved in zip(self._state_tensors(), snap):
+            t.copy_(saved)
+
     # ---- step bundles ---------------------------------------------------------
     def train_bundle(self, step0: int, xs: Sequence, ys: Sequence
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -430,7 +581,8 @@ class TrainStep:
         for j, (x, y) in enumerate(zip(xs, ys)):
             scalars = self._set_step(step0 + j)
             if self.device.type != "cuda":
-                loss, gnorm = self._run(x, y, scalars, want_gnorm=True)
+                with self._program(_signature(x, y)):
+                    loss, gnorm = self._run(x, y, scalars, want_gnorm=True)
             else:
                 loss, gnorm = self._graph_step(x, y, scalars)
             losses[j] = loss
@@ -451,21 +603,22 @@ class TrainStep:
                 f"this step's CUDA graphs were captured in compute dtype "
                 f"{self.graph_dtype} and a bundle runs in {dt}: train each "
                 f"dtype with its own Optimizer")
-        sig = tuple((tuple(t.shape), t.dtype) for t in _as_tuple(x) + (y,))
+        sig = _signature(x, y)
         entry = self._graphs.get(sig)
         if entry is None and self._warm[sig] < self.WARM_STEPS:
             self._warm[sig] += 1
             cur = torch.cuda.current_stream(self.device)
             side = self._side_stream()
             side.wait_stream(cur)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), expected_compile():
                 loss, gnorm = self._run(x, y, scalars, want_gnorm=True)
             cur.wait_stream(side)
             loss.record_stream(cur)
             gnorm.record_stream(cur)
             return loss, gnorm
         if entry is None:
-            entry = self._graphs[sig] = self._capture(x, y, scalars)
+            with expected_compile():
+                entry = self._graphs[sig] = self._capture(x, y, scalars)
             self.graph_dtype = dt
         for static, t in zip(entry.xs, _as_tuple(x)):
             static.copy_(t)
@@ -486,7 +639,8 @@ class TrainStep:
         side = self._side_stream()
         side.wait_stream(torch.cuda.current_stream(self.device))
         mode = torch.cuda.get_sync_debug_mode()
-        with captured_launches() as launches:
+        with captured_launches() as launches, \
+                compile_event("cuda_graph_capture"):
             try:
                 # entering the capture synchronizes: the mode goes on
                 # inside it
@@ -637,6 +791,18 @@ class ShardedParameterStep(TrainStep):
     makes the same update; the mean divides by ``n_data_replicas``
     (``data * dcn``), and rank ``r`` is data replica ``r``.
 
+    ``seq_parallel`` (the JAX step's): the mesh's ``seq`` axis splits
+    each sequence over the ranks of a data replica.  Every rank gets its
+    replica's batch and trains on its block of dim 1 of every rank >= 2
+    input and target, the forward inside the bound ``seq`` axis
+    (``runtime.mesh.seq_axis``), so the model's sequence-parallel
+    attention layers (``MultiHeadAttention(seq_parallel="ring" |
+    "ulysses")``) attend over the whole sequence; rank ``r`` draws its
+    dropout from ``fold_in(step_key, replica * seq + seq_index)`` (which
+    is ``r``); the gradient is averaged over the sequence group before
+    the ZeRO-1 cycle on the data axis, and the loss and the buffers over
+    every rank.
+
     On one rank there is no wire: the step is ``TrainStep``'s, to the
     bit, on the flat buffers.  On the card a bundle is a captured CUDA
     graph of one step with its NCCL collectives inside; the eager warm
@@ -654,7 +820,7 @@ class ShardedParameterStep(TrainStep):
                  comm_bucket_bytes: Optional[int] = None,
                  quant_block: int = collectives.DEFAULT_QUANT_BLOCK,
                  param_comm: Optional[str] = None,
-                 bf16_grads: bool = False):
+                 bf16_grads: bool = False, seq_parallel: bool = False):
         if grad_comm is not None:
             grad_comm = str(grad_comm).strip().lower()
         if bf16_grads:
@@ -685,6 +851,21 @@ class ShardedParameterStep(TrainStep):
         self.ndev = mesh.data_size
         self.dcn = mesh.dcn_size
         self.data_index = mesh.data_index
+        self.n_seq = mesh.seq_size
+        self.seq_parallel = bool(seq_parallel)
+        if self.seq_parallel:
+            if self.n_seq <= 1:
+                raise ValueError("seq_parallel needs a mesh seq axis > 1 "
+                                 "(init_engine(seq=N))")
+            _check_seq_parallel_model(model)
+        self.seq = SeqAxis("seq", mesh.seq_group, mesh.seq_index,
+                           mesh.seq_size)
+        # the dropout fold: every rank its own stream under seq_parallel
+        # (replica * seq + seq_index is the rank), else the replica's
+        self._key_index = (mesh.rank if self.seq_parallel
+                           else mesh.replica_index)
+        # loss and buffers average over every rank
+        self._n_stat = max(mesh.world_size, 1)
         super().__init__(model, criterion, optim_method, clip=clip,
                          seed=seed, accum_steps=accum_steps,
                          ema_decay=ema_decay, remat=remat,
@@ -788,17 +969,25 @@ class ShardedParameterStep(TrainStep):
         """This rank's dropout key of iteration ``step``."""
         if self._base_key is None:
             return None
-        return prng.fold_in(prng.fold_in(self._base_key, step), self.rank)
+        return prng.fold_in(prng.fold_in(self._base_key, step),
+                            self._key_index)
 
     # ---- the step ---------------------------------------------------------------
     def _pmean(self, t: torch.Tensor) -> torch.Tensor:
         s = t.detach().float().reshape(1).clone()
         dist.all_reduce(s, group=self.world_group)
-        return (s / self.n_data_replicas).reshape(t.shape)
+        return (s / self._n_stat).reshape(t.shape)
 
     def _run(self, x, y, scalars, want_gnorm: bool = False):
-        loss, gnorm = super()._run(x, y, scalars, want_gnorm)
-        if self.n_data_replicas > 1:
+        if self.seq_parallel:
+            x = (tuple(seq_block(a, self.seq) for a in x)
+                 if isinstance(x, tuple) else seq_block(x, self.seq))
+            y = seq_block(y, self.seq)
+            with seq_axis(self.seq.group, self.seq.index, self.seq.size):
+                loss, gnorm = super()._run(x, y, scalars, want_gnorm)
+        else:
+            loss, gnorm = super()._run(x, y, scalars, want_gnorm)
+        if self._n_stat > 1:
             with torch.no_grad():
                 loss = self._pmean(loss)
                 bufs = [b for _, b in self._buffers()
@@ -806,7 +995,7 @@ class ShardedParameterStep(TrainStep):
                 if bufs:
                     flat = torch.cat([b.reshape(-1) for b in bufs])
                     dist.all_reduce(flat, group=self.world_group)
-                    flat.div_(self.n_data_replicas)
+                    flat.div_(self._n_stat)
                     off = 0
                     for b in bufs:
                         b.copy_(flat[off:off + b.numel()].view(b.shape))
@@ -816,9 +1005,15 @@ class ShardedParameterStep(TrainStep):
     @torch.no_grad()
     def _apply(self, scalars, accum: int, want_gnorm: bool
                ) -> Optional[torch.Tensor]:
+        g, n = self.flat_grads, self.ndev
+        if self.seq_parallel:
+            # the sequence blocks' gradients average first; the ZeRO-1
+            # cycle below spans the data axes only
+            with record_function("train_step/seq_sync"):
+                dist.all_reduce(g, group=self.seq.group)
+                g.div_(self.n_seq)
         if self.n_data_replicas == 1:
             return super()._apply(scalars, accum, want_gnorm)
-        g, n = self.flat_grads, self.ndev
         if accum > 1:
             g.div_(accum)
         if self._mask_flat is not None:
@@ -827,18 +1022,25 @@ class ShardedParameterStep(TrainStep):
             # layer-wise (LARS): the whole mean gradient, replicated update
             with record_function("train_step/grad_sync"):
                 dist.all_reduce(g, group=self.world_group)
-                g.div_(self.n_data_replicas)
+                g.div_(self._n_stat)
             return super()._apply(scalars, 1, want_gnorm)
         group, block = self.group, self.quant_block
         g2d = g.view(n, self.shard_size)
+        lo = self.data_index * self.shard_size
         with record_function("train_step/grad_sync"):
             slices = []
             for c0, c1 in self._cols:
-                # one slice's rank alone: no wire, no quantization
-                sb = (collectives.reduce_scatter_wire(
-                    g2d[:, c0:c1], group, self.grad_comm, block=block)
-                    if n > 1 else g[c0:c1])
-                if self.dcn > 1:
+                # one slice's rank alone: no wire, no quantization; the
+                # overlap audit's compute-only variant takes the local
+                # chunk in place of the reduce-scatter
+                if n > 1 and self._comm:
+                    sb = collectives.reduce_scatter_wire(
+                        g2d[:, c0:c1], group, self.grad_comm, block=block)
+                elif n > 1:
+                    sb = g[lo + c0:lo + c1].clone()
+                else:
+                    sb = g[c0:c1]
+                if self.dcn > 1 and self._comm:
                     # still in the wire dtype: bf16 crosses at half the
                     # bytes, int8 in two quantized phases
                     sb = collectives.psum_wire(sb, self.dcn_group,
@@ -863,7 +1065,6 @@ class ShardedParameterStep(TrainStep):
             flat = self.flat_params
             old = flat.clone() if self._mask_flat is not None else None
             flat2d = flat.view(n, self.shard_size)
-            lo = self.data_index * self.shard_size
             for (c0, c1), sb in zip(self._cols, slices):
                 p_b = flat[lo + c0:lo + c1]
                 o_b = (self.opt_state if len(self._cols) == 1 else
@@ -873,7 +1074,10 @@ class ShardedParameterStep(TrainStep):
                 rows = flat2d[:, c0:c1]
                 if n == 1:
                     continue
-                if prev is not None:
+                if not self._comm:
+                    # the compute-only variant: a same-shaped local op
+                    rows.copy_(p_b.clone().expand(n, -1))
+                elif prev is not None:
                     # the delta on the wire; every rank adds the same
                     # dequantized bytes to its replicated base
                     delta = p_b - prev
@@ -892,6 +1096,56 @@ class ShardedParameterStep(TrainStep):
                 d = self.ema_decay
                 self._ema_flat.mul_(d).add_(flat, alpha=1.0 - d)
         return gnorm
+
+    def _comm_probe(self) -> None:
+        """The bucketed scatter/gather cycle of a step alone, on scratch
+        buffers of the flat gradient's and parameters' shape (the
+        parameters are not touched)."""
+        n, block = self.ndev, self.quant_block
+        if n <= 1 and self.dcn <= 1:
+            return
+        g = torch.zeros_like(self.flat_grads)
+        g2d = g.view(n, self.shard_size)
+        flat = torch.zeros_like(self.flat_params)
+        flat2d = flat.view(n, self.shard_size)
+        lo = self.data_index * self.shard_size
+        for c0, c1 in self._cols:
+            sb = (collectives.reduce_scatter_wire(
+                g2d[:, c0:c1], self.group, self.grad_comm, block=block)
+                if n > 1 else g[c0:c1])
+            if self.dcn > 1:
+                sb = collectives.psum_wire(sb, self.dcn_group, self.dcn,
+                                           self.grad_comm, block=block)
+            if n == 1:
+                continue
+            p_b = flat[lo + c0:lo + c1]
+            rows = flat2d[:, c0:c1]
+            if self.param_comm == "int8":
+                collectives.all_gather_delta_quantized(
+                    sb.float(), rows, self.group, block=block, out=rows)
+            else:
+                gathered = flat.new_empty((n, c1 - c0))
+                collectives.all_gather(gathered, p_b, self.group)
+                rows.copy_(gathered)
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The flat buffers whole (padding too), the buffers, the
+        optimizer's slots and the step counter."""
+        out = [self.flat_params] + [b for _, b in self.model.named_buffers()]
+        for val in self.opt_state.values():
+            out += [val] if isinstance(val, torch.Tensor) else list(val)
+        if self._ema_flat is not None:
+            out.append(self._ema_flat)
+        return out + [self._step_t]
+
+    def measure_overlap(self, x, y, *, steps: int = 3) -> Dict[str, Any]:
+        if self.seq_parallel:
+            raise NotImplementedError(
+                "overlap audit under seq_parallel: measure it on a "
+                "data-parallel mesh")
+        return super().measure_overlap(x, y, steps=steps)
+
+    measure_overlap.__doc__ = TrainStep.measure_overlap.__doc__
 
     def _global_sq(self, slices) -> torch.Tensor:
         """The sum over a slice's ranks of the shards' squared entries

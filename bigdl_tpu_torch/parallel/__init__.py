@@ -2,8 +2,9 @@
 ``bigdl_tpu.parallel``: the ZeRO-1 wire layer (``collectives``) and the
 declarative layouts (``layout``, ``mesh_policy``, ``gspmd``: a
 ``parallelism=`` combo string over a DeviceMesh, the parameters
-DTensors).  The manual tp / pp / moe modules and sequence parallelism
-are not ported (ROADMAP A.6.6, A.4)."""
+DTensors) and sequence parallelism on the flash kernels
+(``ring_attention``, ``ulysses``).  The manual tp / pp / moe modules
+are not ported (ROADMAP A.6.6)."""
 
 from bigdl_tpu_torch.parallel import collectives
 from bigdl_tpu_torch.parallel.layout import (ModelLayout, SpecLayout,
@@ -13,6 +14,10 @@ from bigdl_tpu_torch.parallel.mesh_policy import (ResolvedLayout,
                                                   mesh_and_layout,
                                                   parse_parallelism,
                                                   resolve_parallelism)
+from bigdl_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                     ring_attention_sharded)
+from bigdl_tpu_torch.parallel.ulysses import (ulysses_attention,
+                                              ulysses_attention_sharded)
 
 # gspmd imports the driver, which imports the nn modules that import
 # this package: its names load on first use
@@ -42,4 +47,8 @@ __all__ = [
     "parse_parallelism",
     "resolve_parallelism",
     "collectives",
+    "ring_attention",
+    "ring_attention_sharded",
+    "ulysses_attention",
+    "ulysses_attention_sharded",
 ]

@@ -5,9 +5,10 @@ the lookups that DTensor would otherwise gather a whole table for.
 - :func:`attention`: q, k, v (b, heads, len, dim) DTensors; the batch
   stays sharded on the data axes and the heads on tp, anything else
   (a seq-sharded length, a split head dim) is first redistributed to
-  ``Replicate`` (GSPMD's choice without ring attention, ROADMAP A.4),
-  and ``fn`` (the flash kernels or the plain attention) runs on each
-  rank's local shards.
+  ``Replicate`` (GSPMD's choice for a layout's ``seq`` axis; ring and
+  Ulysses attention run on the classic mesh's ``seq`` axis,
+  ``parallel.ring_attention``), and ``fn`` (the flash kernels or the
+  plain attention) runs on each rank's local shards.
 - :func:`vocab_lookup`: rows of a vocab-sharded table.  Where the ids
   are replicated and the table's rows split, each rank looks up the ids
   in its own rows and the result is ``Partial(sum)`` (GSPMD's masked

@@ -21,9 +21,9 @@ this process alone.
 
 ``metrics_port`` serves ``/metrics`` (``obs.export.MetricsServer``) and
 ``slo_specs`` runs an ``obs.slo.SLOEvaluator`` for the engine's
-lifetime.  The peak-FLOPs pin is there so that a config written for the
-JAX package reads the same; any value but None raises, naming the
-ROADMAP item that ports it."""
+lifetime.  ``peak_flops`` pins the device's peak FLOP/s for the live
+``train.mfu`` gauge (``obs.cost.peak_flops``: ``BIGDL_TPU_PEAK_FLOPS``
+wins over it, the device name's table comes after it)."""
 
 import dataclasses
 import datetime
@@ -70,7 +70,7 @@ class EngineConfig:
     # the process group's timeout for the rendezvous and every
     # collective, in seconds (None: torch.distributed's default)
     timeout_s: Optional[float] = None
-    # logical mesh: only the dcn_data and data axes may exceed 1
+    # logical mesh: only the dcn_data, data and seq axes may exceed 1
     # (runtime.mesh)
     mesh: MeshSpec = field(default_factory=MeshSpec)
     # the ZeRO-1 gradient wire ("fp32" | "bf16" | "int8") and the
@@ -90,7 +90,9 @@ class EngineConfig:
     metrics_port: Optional[int] = None
     metrics_host: str = "127.0.0.1"
     slo_specs: Optional[object] = None
-    # not ported: any other value raises (ROADMAP A.6.7)
+    # the device's peak FLOP/s for train.mfu (None: the device name's
+    # table; BIGDL_TPU_PEAK_FLOPS overrides, resolved by
+    # obs.cost.peak_flops at the run's start)
     peak_flops: Optional[float] = None
 
     def check(self) -> None:
@@ -116,10 +118,6 @@ class EngineConfig:
                 f"coordinator_address needs num_processes and a process_id "
                 f"in [0, num_processes), got {self.num_processes} and "
                 f"{self.process_id}")
-        if self.peak_flops is not None:
-            raise ValueError(
-                f"EngineConfig.peak_flops={self.peak_flops!r}: not ported "
-                f"yet (ROADMAP A.6.7); the port runs with the default None")
 
     def resolved_failure_policy(self) -> FailurePolicy:
         """The explicit policy, else one built from the legacy knobs: a

@@ -111,6 +111,7 @@ from bigdl_tpu_torch.nn.attention import (Transformer, _attn_project,
                                           positional_encoding)
 from bigdl_tpu_torch.nn.quantized import Int8Weights
 from bigdl_tpu_torch.obs import flight, trace
+from bigdl_tpu_torch.obs.attr import compile_event, expected_compile
 from bigdl_tpu_torch.ops.block_sparse import derive_draft_masks
 from bigdl_tpu_torch.ops.common import (DEVICE_GATE, captured_launches,
                                         cdiv, credit_launches, is_dtensor)
@@ -1379,9 +1380,12 @@ class DecodeEngine:
         ``serving.decode.unexpected_captures``.  Eagerly, each runs once
         on idle rows (the kernels built, the libraries initialised).
         Idle rows write only the sink pages.  An adapter's encoder
-        (``warmup_buckets``) runs once at each source bucket first."""
+        (``warmup_buckets``) runs once at each source bucket first.  It
+        all runs inside ``obs.attr.expected_compile``, so the recompile
+        sentinel counts these captures and kernel builds as expected."""
         t0 = time.perf_counter()
-        with self._between_iterations(), DEVICE_GATE.work(self.device):
+        with self._between_iterations(), DEVICE_GATE.work(self.device), \
+                expected_compile():
             self._warming = True
             try:
                 if hasattr(self.adapter, "warmup_buckets"):
@@ -1873,7 +1877,7 @@ class DecodeEngine:
                 "a decode program cannot be captured inside an open "
                 "weights() view: the graph would read float32 weights "
                 "freed when the view closes; capture (warmup) outside it")
-        with DEVICE_GATE.capture():
+        with DEVICE_GATE.capture(), compile_event("cuda_graph_capture"):
             return self._capture_alone(key, prog)
 
     def _capture_alone(self, key, prog) -> _Graph:

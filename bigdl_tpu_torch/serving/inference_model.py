@@ -267,17 +267,21 @@ class InferenceModel:
     def warmup(self, sample=None) -> "InferenceModel":
         """Before traffic: one predict per bucket from ``sample`` (one
         example, with or without a batch dim), and the decode engine's
-        closed program set (captured as CUDA graphs on the card).  A
-        custom ``predict_fn`` has nothing to warm."""
+        closed program set (captured as CUDA graphs on the card), inside
+        ``obs.attr.expected_compile``.  A custom ``predict_fn`` has
+        nothing to warm."""
         if self._custom is not None:
             return self
-        if sample is not None:
-            row = np.asarray(sample)
-            row = row[:1] if row.ndim >= 2 else row[None]
-            for b in self.buckets:
-                self._predict_bucketed(np.repeat(row, b, axis=0))
-        if self.decode_engine is not None:
-            self.decode_engine.warmup()
+        from bigdl_tpu_torch.obs.attr import expected_compile
+
+        with expected_compile():
+            if sample is not None:
+                row = np.asarray(sample)
+                row = row[:1] if row.ndim >= 2 else row[None]
+                for b in self.buckets:
+                    self._predict_bucketed(np.repeat(row, b, axis=0))
+            if self.decode_engine is not None:
+                self.decode_engine.warmup()
         return self
 
     def stop(self) -> None:

@@ -162,9 +162,12 @@ class Seq2SeqService:
     def warmup(self) -> "Seq2SeqService":
         """The engine's closed program set (captured as CUDA graphs on
         the card) and the encoder at every source bucket, before
-        traffic."""
+        traffic, inside ``obs.attr.expected_compile``."""
+        from bigdl_tpu_torch.obs.attr import expected_compile
+
         if not (self.beam_size and self.beam_size > 1):
-            self._engine().warmup()
+            with expected_compile():
+                self._engine().warmup()
         return self
 
     def stop(self) -> None:

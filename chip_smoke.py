@@ -261,6 +261,34 @@ one JSON line:
    ``"tp:2"`` over gloo, the last loss within 2e-3 of the same cut run
    in a plain loop; what gloo could not do is reported, and that alone
    fails nothing;
+22. the perf gauges and sequence parallelism: (a) ``train_gauges`` and
+   ``train_lm_bundles_gauges``, the driver's live accounting of the LM
+   runs (``obs.cost`` / ``obs.attr``): ``train.flops_per_step`` within
+   2% of the hand figure (12 layers x 2 x 8,192 tokens x 7.08M weights
+   plus 12 x 4 x 8 x 1024^2 x 768 for the attention, x 3; the tied head
+   counts 0, as in JAX, and is given apart), ``train.mfu`` and
+   ``train.effective_mfu`` over the card's dense bfloat16 peak with the
+   device name it was resolved from, the hand MFU at the phase's own
+   step time, the attribution table, every window's four components
+   within 1% of its wall, no unexpected recompile after steady, and the
+   CUDA graph captures the sentinel counted equal to the bundle programs
+   the phase captured; (b) ``train_zero1_overlap`` (inside train_zero1):
+   ``BIGDL_TPU_MEASURE_OVERLAP=1`` at world 1 over NCCL, the audit's
+   keys, then train_lm_bundles' K = 4 run to the single-process run's
+   bits; (c) ``ring_fold``: the ring's fold on the flash kernels at the
+   LM's attention width, 4 blocks of 256 as 4 ranks would hold them,
+   causal and not, outputs and gradients against one flash call and the
+   plain versions at 2e-5, its launches (causal: 10 forward calls and 10
+   backward pairs) and its time beside one call's; (d)
+   ``seq_gloo_card``: two gloo processes on the one card with
+   ``MeshSpec(seq=2)`` first try the collectives of each strategy on CUDA
+   tensors, then train ``SEQ_GLOO``'s model (Embedding,
+   ``PositionalEncoding``, 2 causal ``TransformerLayer(768, 12, 3072,
+   seq_parallel=...)``, a Linear head; batch 2 x 512, 4 steps, float32)
+   with ring and Ulysses attention: the last loss within 2e-3 of the
+   unsharded run here, both ranks' losses equal, the flash launches a
+   step of each rank; a strategy whose collective gloo cannot carry on
+   a CUDA tensor is named;
 19b. train_translation — ``Transformer(mode="translation")`` at
    Transformer-base width (6 + 6 layers, d 512, 8 heads, d_ff 2048,
    vocabulary 37,000), dropout 0, batch 32 x source 256 x target 256
@@ -335,7 +363,9 @@ runs only the named phases of keras_inception, keras_resnet,
 train_translation, train_ptb_lstm, estimator_bert, forecast_autoformer,
 forecast_tcn, train_zero1_collectives, layout_lm (with layout_serve),
 layout_gloo_card, serve_keras_int8, serve_prefix, serve_handoff,
-serve_spec_window, serve_seq2seq, serve_http and serve_pool.
+serve_spec_window, serve_seq2seq, serve_http, serve_pool, train (with
+its gauges), train_lm_bundles (with its gauges), train_zero1_overlap,
+ring_fold and seq_gloo_card.
 
 ``python3 chip_smoke.py --zero1`` builds the kernels and runs only
 ``train_zero1`` (its single-process reference run included).
@@ -490,20 +520,40 @@ LAYOUT = dict(policies=("dp", "fsdp", "tp"), steps=4, serve_seq=128,
               serve_buckets=(1, 4), gloo_policy="tp:2", rel=2e-3,
               busy_from=3, gloo_layers=2, gloo_batch=2, gloo_seq=256,
               gloo_steps=4, gloo_wait_s=300, gloo_probe_s=20)
+# the perf gauges (22): train.flops_per_step within MFU_HAND_RTOL of the
+# hand figure (_lm_hand_flops), train.mfu within MFU_HAND_RTOL of the hand
+# figure over the CUDA-event time of the steps the gauge timed (the
+# driver's last timed window), every attribution window's four
+# components within ATTR_SUM_RTOL of its wall.  ring_fold: the ring's fold
+# over RING["blocks"] blocks at the LM's attention width against one flash
+# call and the plain versions at RING["atol"] (the JAX ring test's bound),
+# timed over RING["reps"] calls.  seq_gloo_card: SEQ_GLOO's model (the
+# LM's widths, 2 causal layers, batch 2 x 512, 4 steps, float32 products)
+# on MeshSpec(seq=2) over gloo, its last loss within SEQ_GLOO["rel"]
+# (LAYOUT's) of the unsharded run; probes bounded by probe_s, the rest
+# by wait_s
+MFU_HAND_RTOL = 0.02
+ATTR_SUM_RTOL = 0.01
+RING = dict(blocks=4, atol=2e-5, reps=10)
+SEQ_GLOO = dict(vocab=32768, d=768, heads=12, ffn=3072, layers=2, batch=2,
+                seq=512, steps=4, lr=1e-4, strategies=("ulysses", "ring"),
+                rel=2e-3, wait_s=300, probe_s=20)
 # each layout run's losses against the plain loop's: at world 1 every
 # redistribution is a copy within one device and every op the plain
 # loop's op on the same operands, so the bound is 0 (equal to the bit)
 LAYOUT_LOSS_RTOL = 0.0
 # layout_decode (inside layout_lm's world-1 group, float32 products): the
 # LM served through InferenceModel(lm, layout="tp", decode=DECODE) with
-# its graphs captured by warmup(), N_REQUESTS prompts of PROMPT_LENS,
+# its graphs captured by warmup(), the first `requests` of the
+# N_REQUESTS prompts of PROMPT_LENS,
 # against the unlaid-out graphs engine on a copy of the same weights:
 # tokens and summed log-probs equal to the bit (every redistribution a
 # copy on one device, LAYOUT_LOSS_RTOL's reason), no capture after
 # warmup; then weight_quant="int8" against the unlaid-out int8 engine;
 # then a short speculative run (SPEC, eager: spec_prompts prompts,
 # spec_max_new tokens) on the layout against the unlaid-out eager one.
-LAYOUT_DECODE = dict(layout="tp", spec_prompts=4, spec_max_new=16)
+LAYOUT_DECODE = dict(layout="tp", requests=8, spec_prompts=2,
+                     spec_max_new=16)
 # layout_int8_predict: ResNet-50 int8 through InferenceModel(resnet,
 # layout="tp", weight_quant="int8") (the generic table's policy for a
 # conv net: output channels over tp) at bucket 16 against the unlaid-out
@@ -3418,6 +3468,162 @@ def _profile(fn, named=()) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 22: the perf gauges (obs.cost, obs.attr) on the training phases
+# ---------------------------------------------------------------------------
+
+# every compile event of the run, by kind (a listener registered once)
+_COMPILES = []
+_LISTENING = []
+
+
+def _compile_listener(name, duration_s, **kw):
+    from bigdl_tpu_torch.obs import attr
+
+    if name == attr.COMPILE_EVENT:
+        _COMPILES.append(kw.get("kind"))
+
+
+@contextlib.contextmanager
+def _perf_watch():
+    """Around a training phase: every attribution window the driver
+    closes (steps, wall, its four components), every compile event by
+    kind, and the sentinel's counters (``train.xla_compiles_total``,
+    ``train.unexpected_recompiles_total``), into the dict it yields."""
+    from bigdl_tpu_torch.obs import attr
+    from bigdl_tpu_torch.optim.metrics import global_metrics
+
+    if not _LISTENING:
+        attr.register_event_duration_secs_listener(_compile_listener)
+        _LISTENING.append(True)
+    g = global_metrics()
+    keys = ("train.xla_compiles_total", "train.unexpected_recompiles_total")
+    base, n0 = [g.counter(k) for k in keys], len(_COMPILES)
+    windows, real = [], attr.StepAttribution.window
+
+    def window(self, steps, wall_s, data_s, dispatch_s, overhead_s):
+        comps = real(self, steps, wall_s, data_s, dispatch_s, overhead_s)
+        windows.append({"steps": steps, "wall_s": wall_s, **comps})
+        return comps
+
+    attr.StepAttribution.window = window
+    out = {}
+    try:
+        yield out
+    finally:
+        attr.StepAttribution.window = real
+        kinds = Counter(_COMPILES[n0:])
+        out.update(windows=windows, compile_events=dict(kinds),
+                   xla_compiles_total=g.counter(keys[0]) - base[0],
+                   unexpected_recompiles_total=g.counter(keys[1]) - base[1])
+
+
+def _window_sums(windows):
+    """Each window's largest |sum of components - wall| / wall."""
+    return max((abs(sum(w[c] for c in ("data", "dispatch", "device",
+                                       "overhead")) - w["wall_s"])
+                / w["wall_s"] for w in windows), default=0.0)
+
+
+def _gauges(opt) -> dict:
+    """The driver's accounting after a run: FLOPs, MFU, the peak and the
+    device name it was resolved from, the step time and the
+    attribution."""
+    g = opt.metrics.gauges
+    out = {k[len("train."):]: g.get(k) for k in (
+        "train.flops_per_step", "train.effective_flops_per_step",
+        "train.mfu", "train.effective_mfu", "train.achieved_flops_per_chip")}
+    h = opt.metrics.hists.get("train.step_time_s")
+    out.update(peak_flops=opt.peak_flops, peak_device=opt.peak_device,
+               step_time_s_p50=(h.percentile(50) if h is not None and h.n
+                                else None),
+               timed_window=opt.timed_window,
+               attribution=opt.attribution.report())
+    return out
+
+
+def _window_events_s(opt, events):
+    """Seconds a step of the driver's last timed window (``opt.
+    timed_window``: the steps its ``train.mfu`` is over), from the step
+    clock's CUDA ``events`` at the window's two edges; None when a run
+    had no timed window."""
+    if opt.timed_window is None:
+        return None
+    a, b, _ = opt.timed_window
+    return events[a].elapsed_time(events[b]) / 1e3 / (b - a)
+
+
+def _lm_hand_flops(batch, seq, lm=LM):
+    """A training step's FLOPs counted as JAX's formulas count them, by
+    hand: 3 x (the layers' projections and FFN, 2 x tokens x weights,
+    plus the attention products, 4 x batch x seq^2 x d); the tied head,
+    a product the ``Transformer`` container computes, counts 0 there, and
+    its forward FLOPs are given apart."""
+    L, d, f = lm["num_layers"], lm["hidden_size"], lm["ffn_size"]
+    tokens = batch * seq
+    fwd = L * 2 * tokens * (4 * d * d + 2 * d * f) + L * 4 * batch * seq \
+        * seq * d
+    return {"train_flops_per_step": 3.0 * fwd,
+            "tied_head_flops_forward": 2.0 * tokens * d * lm["vocab_size"]}
+
+
+def _check_gauges(name, g, table, watch, captures_expected, step_s,
+                  window_s):
+    """A phase's gauges ``g`` (:func:`_gauges` of its last run) against
+    the hand figure: the FLOPs, and ``train.mfu`` over the CUDA-event
+    time ``window_s`` of the steps the gauge timed; the hand MFU at the
+    phase's median step ``step_s`` beside them; and ``watch``'s checks:
+    every window's components sum to its wall within ATTR_SUM_RTOL, no
+    unexpected recompile, the captures counted equal to the bundle
+    programs the phase captures."""
+    hand = _lm_hand_flops(TRAIN["batch"], TRAIN["seq"])
+    rel = abs(g["flops_per_step"] - hand["train_flops_per_step"]) \
+        / hand["train_flops_per_step"]
+    mfu_window = (hand["train_flops_per_step"] / window_s / g["peak_flops"]
+                  if window_s else None)
+    mfu_rel = (abs(g["mfu"] - mfu_window) / mfu_window
+               if mfu_window and g["mfu"] is not None else None)
+    out = {"phase": f"{name}_gauges", "nvidia_smi": nvidia_smi(),
+           "gauges": g, "hand": hand, "flops_rel_to_hand": rel,
+           "hand_rtol": MFU_HAND_RTOL, "window_step_s_events": window_s,
+           "mfu_hand_window": mfu_window, "mfu_rel_to_hand": mfu_rel,
+           "step_s_events": step_s,
+           "mfu_hand": hand["train_flops_per_step"] / step_s
+           / g["peak_flops"],
+           "mfu_with_tied_head_hand": (
+               hand["train_flops_per_step"]
+               + 3 * hand["tied_head_flops_forward"]) / step_s
+           / g["peak_flops"],
+           "attribution_table": table,
+           "windows": len(watch["windows"]),
+           "window_sum_max_rel_err": _window_sums(watch["windows"]),
+           "window_sum_rtol": ATTR_SUM_RTOL,
+           "compile_events": watch["compile_events"],
+           "captures_expected": captures_expected,
+           "xla_compiles_total": watch["xla_compiles_total"],
+           "unexpected_recompiles_total": watch[
+               "unexpected_recompiles_total"]}
+    emit(out)
+    bad = []
+    if rel > MFU_HAND_RTOL:
+        bad.append("train.flops_per_step against the hand figure")
+    if g["mfu"] is None or not 0 < g["mfu"] < 1:
+        bad.append("train.mfu unset or outside (0, 1)")
+    if mfu_rel is None or mfu_rel > MFU_HAND_RTOL:
+        bad.append("train.mfu against the hand figure over its steps")
+    if out["window_sum_max_rel_err"] > ATTR_SUM_RTOL or not watch["windows"]:
+        bad.append("attribution components against the window wall")
+    if watch["unexpected_recompiles_total"]:
+        bad.append("unexpected recompiles")
+    if watch["compile_events"].get("cuda_graph_capture", 0) \
+            != captures_expected:
+        bad.append("captures counted against the bundle programs")
+    if bad:
+        raise AssertionError(f"{name} gauges: {bad}: {out}")
+    return out
+
+
+
 def _train_data():
     rs = np.random.RandomState(SEED)
     shape = (TRAIN["batch"], TRAIN["seq"])
@@ -3510,7 +3716,8 @@ def train(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
-    trained = opt.optimize()
+    with _perf_watch() as watch:
+        trained = opt.optimize()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -3518,6 +3725,9 @@ def train(dev):
     losses = opt.losses
     step_ms = _step_ms(events, 0, steps)
     med = float(np.median(step_ms[1:]))
+    # the live gauges of this eager run (K = 1: no capture)
+    _check_gauges("train", _gauges(opt), opt.attribution.table(), watch, 0,
+                  med / 1e3, _window_events_s(opt, events))
     tokens = TRAIN["batch"] * TRAIN["seq"]
     want = LM["num_layers"] * steps
     out = {"phase": "train", "model": LM, "train": TRAIN,
@@ -5359,6 +5569,7 @@ def _bundle_run(make_opt, k, steps, sync=False, busy=None, extra=None):
                torch.cuda.max_memory_allocated(opt.device) / 2**30,
            "graphs_captured": trained._step.graphs_captured,
            "launches_per_step": {n: v / steps for n, v in LAUNCHES.items()},
+           "window_step_s_events": _window_events_s(opt, events),
            "losses": opt.losses, **(extra(opt) if extra else {})}
     del opt, trained
     _release()
@@ -5499,6 +5710,8 @@ def _dtype_pairs(make_opt, steps):
                    "copy_kernels_ms": prof["busy"]["copy_kernels_ms"],
                    "peak_mem_gb": max(r["peak_mem_gb"] for r in rs),
                    "launches_per_step": rs[0]["launches_per_step"],
+                   "graphs_captured": sum(r["graphs_captured"]
+                                          for r in rs + [prof]),
                    "losses": losses,
                    "losses_bit_equal": all(r["losses"] == losses
                                            for r in rs)}
@@ -5632,9 +5845,33 @@ def train_lm_bundles(dev):
     ms, tokens/s, the host's dispatch, busy share and peak memory.  48
     seeded rows: 6 steps an epoch."""
     make = _lm_bundle_maker(dev)
-    out, equal = _bundle_pairs(make, BUNDLE["steps"], 1, "train_lm_bundles")
-    out["compute_dtype"] = "bfloat16"
-    out["dtype_pairs"] = _dtype_pairs(make, BUNDLE["steps"])
+    with _perf_watch() as watch:
+        out, equal = _bundle_pairs(make, BUNDLE["steps"], 1,
+                                   "train_lm_bundles",
+                                   extra=lambda opt: {"gauges": _gauges(opt)})
+        out["compute_dtype"] = "bfloat16"
+        out["dtype_pairs"] = _dtype_pairs(make, BUNDLE["steps"])
+    # every run's graphs (one a K = 4 run: one batch shape) are the
+    # captures the sentinel counted, none after steady
+    captured = sum(r["graphs_captured"] for r in out["runs"]) + sum(
+        out["dtype_pairs"][dt]["graphs_captured"]
+        for dt in ("float32", "bfloat16"))
+    k4 = [r for r in out["runs"] if r["k"] == BUNDLE["k"]
+          and "run" not in r]
+    gauges = dict(k4[-1]["gauges"])
+    timed = [r for r in out["runs"] if "gauges" in r]
+    out["mfu_by_run"] = [{"k": r["k"], "mfu": r["gauges"]["mfu"],
+                          "effective_mfu": r["gauges"]["effective_mfu"],
+                          "step_ms": r["step_ms"],
+                          "window_step_s_events": r["window_step_s_events"],
+                          "timed_window": r["gauges"]["timed_window"]}
+                         for r in timed]
+    for r in timed:
+        del r["gauges"]["attribution"]
+    _check_gauges("train_lm_bundles", gauges,
+                  f"(K = {BUNDLE['k']}) {gauges['attribution']}", watch,
+                  captured, k4[-1]["step_ms"] / 1e3,
+                  k4[-1]["window_step_s_events"])
     tokens = TRAIN["batch"] * TRAIN["seq"]
     for summary in (*out["summary"].values(),
                     out["dtype_pairs"]["float32"],
@@ -5991,11 +6228,14 @@ def _zero1_collectives(dev):
         _release()
 
 
-def _zero1_lm_rank(rank, world, port, grad_comm, q):
+def _zero1_lm_rank(rank, world, port, grad_comm, audit, q):
     """One rank of the sharded LM driver: NCCL over ``world`` processes,
-    one card each; train_lm_bundles' run at K = 4."""
+    one card each; train_lm_bundles' run at K = 4 (with ``audit``, the
+    driver's overlap audit first, ``BIGDL_TPU_MEASURE_OVERLAP=1``)."""
     import torch.distributed as dist
 
+    if audit:
+        os.environ["BIGDL_TPU_MEASURE_OVERLAP"] = "1"
     try:
         from bigdl_tpu_torch.runtime import EngineConfig, init_engine
         from bigdl_tpu_torch.tensor.policy import apply_precision_policy
@@ -6009,7 +6249,9 @@ def _zero1_lm_rank(rank, world, port, grad_comm, q):
         def ledger(opt):
             snap = opt.metrics.snapshot()["gauges"]
             return {"gauges": {k: v for k, v in snap.items()
-                               if "collective" in k or "buckets" in k},
+                               if "collective" in k or "buckets" in k
+                               or "overlap" in k or "exposed" in k},
+                    "overlap_audit": opt.overlap_audit,
                     "device": str(eng.device),
                     "backend": dist.get_backend()}
 
@@ -6062,16 +6304,17 @@ def _zero1_driver(dev, ref):
     fp32 and int8 wires at world min(count, 4) within 2e-3 of world 1."""
     count = torch.cuda.device_count()
     runs = {}
-    ranks = _run_ranks(_zero1_lm_rank, count, (_free_port(), "fp32"))
+    ranks = _run_ranks(_zero1_lm_rank, count, (_free_port(), "fp32", False))
     runs[f"world{count}_fp32"] = ranks
     one = ranks[0] if count == 1 else None
     if count >= 2:
-        one = _run_ranks(_zero1_lm_rank, 1, (_free_port(), "fp32"))[0]
+        one = _run_ranks(_zero1_lm_rank, 1,
+                         (_free_port(), "fp32", False))[0]
         runs["world1_fp32"] = [one]
         world = min(count, ZERO1["world_max"])
         for wire in ("fp32", "int8"):
             runs[f"world{world}_{wire}"] = _run_ranks(
-                _zero1_lm_rank, world, (_free_port(), wire))
+                _zero1_lm_rank, world, (_free_port(), wire, False))
     if one["losses"] != ref:
         raise AssertionError(f"world 1's losses differ from the single-"
                              f"process run's: {one['losses']} vs {ref}")
@@ -6103,6 +6346,29 @@ def _zero1_driver(dev, ref):
            "world1_losses_bit_equal_to_single_process": True,
            "runs": summary}
     emit(out)
+    _zero1_overlap(ref)
+    return out
+
+
+def _zero1_overlap(ref):
+    """The driver's overlap audit (``BIGDL_TPU_MEASURE_OVERLAP=1``) at
+    world 1 over NCCL before train_lm_bundles' K = 4 run: the audit's
+    keys and gauges, and the run's losses equal to the single-process
+    run's (``ref``) to the bit, as a run without the audit's are."""
+    r = _run_ranks(_zero1_lm_rank, 1, (_free_port(), "fp32", True))[0]
+    ov = r["overlap_audit"]
+    out = {"phase": "train_zero1_overlap", "world": 1, "backend":
+           r["backend"], "nvidia_smi": nvidia_smi(), "overlap_audit": ov,
+           "gauges": {k: v for k, v in r["gauges"].items()
+                      if "overlap" in k or "exposed" in k},
+           "losses": r["losses"],
+           "losses_bit_equal_to_unaudited": r["losses"] == ref}
+    emit(out)
+    keys = {"step_s", "compute_s", "collective_s", "exposed_collective_s",
+            "overlap_efficiency", "comm_buckets", "grad_comm"}
+    if not (ov and set(ov) == keys and 0.0 <= ov["overlap_efficiency"]
+            <= 1.0 and r["losses"] == ref):
+        raise AssertionError(f"overlap audit: {out}")
     return out
 
 
@@ -6654,7 +6920,7 @@ def layout_decode(dev):
     rs = np.random.RandomState(SEED)
     prompts = [rs.randint(2, LM["vocab_size"], n).astype(np.int32)
                for n in rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
-                                   N_REQUESTS)]
+                                   N_REQUESTS)][:LAYOUT_DECODE["requests"]]
     out = {"phase": "layout_decode", "world": 1, "backend": "nccl",
            "layout": LAYOUT_DECODE["layout"], "compute_dtype": "float32",
            "decode": DECODE, "requests": len(prompts)}
@@ -6853,15 +7119,20 @@ def _layout_gloo_rank(rank, world, rdv, q):
             dist.destroy_process_group()
 
 
-def _gloo_card_ranks(rdv):
-    """layout_gloo_card's two processes: (what each collective did, each
-    rank's result or None).  A collective that gives no answer within
-    LAYOUT["gloo_probe_s"] is reported as hung (what gloo can do, which
-    fails nothing); a hang at start-up or in the training, or an error,
-    raises.  Every process is stopped before it returns."""
+def _gloo_card_ranks(rdv, target=None, wait_s=None, probe_s=None,
+                     name="layout_gloo_card"):
+    """Two processes of ``target`` (layout_gloo_card's by default): (what
+    each collective did, each rank's result or None).  A collective that
+    gives no answer within ``probe_s`` (LAYOUT["gloo_probe_s"]) is
+    reported as hung (what gloo can do, which fails nothing); a hang at
+    start-up or in the training (``2 x wait_s``), or an error, raises.
+    Every process is stopped before it returns."""
+    target = target or _layout_gloo_rank
+    wait_s = wait_s or LAYOUT["gloo_wait_s"]
+    probe_s = probe_s or LAYOUT["gloo_probe_s"]
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_layout_gloo_rank, args=(r, 2, rdv, q))
+    procs = [ctx.Process(target=target, args=(r, 2, rdv, q))
              for r in range(2)]
     for p in procs:
         p.start()
@@ -6871,8 +7142,8 @@ def _gloo_card_ranks(rdv):
         while len(done) + len(errors) < 2:
             # start-up (spawn, imports, the rendezvous) and the training
             # take long; once both ranks probe, each collective is short
-            wait = (LAYOUT["gloo_probe_s"] if len(heard) == 2
-                    and not training else 2 * LAYOUT["gloo_wait_s"])
+            wait = (probe_s if len(heard) == 2 and not training
+                    else 2 * wait_s)
             try:
                 msg = q.get(timeout=wait)
             except queue.Empty:
@@ -6893,6 +7164,8 @@ def _gloo_card_ranks(rdv):
                     did[msg[2]] = msg[3]
             elif kind == "train":
                 training = True
+            elif kind == "trained":
+                training = False
             elif kind == "done":
                 done[rank] = msg[2]
             else:
@@ -6904,7 +7177,7 @@ def _gloo_card_ranks(rdv):
                 p.terminate()
                 p.join(10)
     if errors:
-        raise AssertionError("layout_gloo_card:\n" + "\n".join(errors))
+        raise AssertionError(f"{name}:\n" + "\n".join(errors))
     return did, [done.get(r) for r in range(2)]
 
 
@@ -6938,6 +7211,297 @@ def layout_gloo_card(dev):
     else:
         out["trained"] = False
         emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 22: sequence parallelism on the card
+# ---------------------------------------------------------------------------
+
+def ring_fold(dev):
+    """The ring's fold on one card at the LM's attention width (8, 12,
+    1024, 64), float32, causal and not: P = RING["blocks"] blocks of 256
+    as P ranks would hold them, the rotation by indexing
+    (``parallel.ring_attention.ring_fold`` / ``ring_fold_bwd``: each
+    visiting block through the flash kernels, merged by its lse).  The
+    outputs and dQ / dK / dV against one flash call over the whole
+    sequence and against the plain versions at RING["atol"]; the flash
+    launches of the fold (causal: P (P + 1) / 2 forward calls and as many
+    backward pairs); the fold's time beside the one call's."""
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+    from bigdl_tpu_torch.parallel.ring_attention import (ring_fold as fold,
+                                                         ring_fold_bwd)
+
+    h, d = LM["num_heads"], LM["hidden_size"] // LM["num_heads"]
+    b, s, p = TRAIN["batch"], TRAIN["seq"], RING["blocks"]
+    g = torch.Generator().manual_seed(SEED + 11)
+    q, k, v, go = (torch.randn(b, h, s, d, generator=g).to(dev)
+                   for _ in range(4))
+    blocks = [t.chunk(p, dim=2) for t in (q, k, v, go)]
+    atol = RING["atol"]
+    out = {"phase": "ring_fold", "nvidia_smi": nvidia_smi(),
+           "shape": [b, h, s, d], "blocks": p, "atol": atol, "rtol": atol,
+           "runs": {}}
+    launches = Counter()
+
+    def timed(fn):
+        fn()
+        ts = []
+        for _ in range(RING["reps"]):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        return float(np.median(ts))
+
+    for causal in (True, False):
+        one_out, one_lse = flash_attention_fwd(q, k, v, causal=causal)
+        one = flash_attention_bwd(q, k, v, one_out, one_lse, go,
+                                  causal=causal)
+        ro, rl = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                         sm_scale=d ** -0.5)
+        rgrads = flash_attention_bwd_ref(q, k, v, ro, rl, go, causal=causal,
+                                         sm_scale=d ** -0.5)
+        reset_launches()
+        outs, lses = fold(*blocks[:3], causal=causal)
+        fwd_launches = dict(LAUNCHES)
+        reset_launches()
+        grads = ring_fold_bwd(*blocks[:3], outs, lses, blocks[3],
+                              causal=causal)
+        bwd_launches = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        got = [torch.cat(outs, 2), torch.cat(lses, 2)] + [
+            torch.cat(gr, 2) for gr in grads]
+        errs = {}
+        for ref_name, refs in (("one_call", [one_out, one_lse, *one]),
+                               ("plain", [ro, rl, *rgrads])):
+            for name, a, w in zip(("out", "lse", "dq", "dk", "dv"), got,
+                                  refs):
+                errs[f"{name}_vs_{ref_name}"] = float(
+                    (a - w).abs().max())
+                if not torch.allclose(a, w, rtol=atol, atol=atol):
+                    raise AssertionError(
+                        f"ring fold {name} (causal={causal}) disagrees "
+                        f"with the {ref_name}: {errs}")
+        want = p * (p + 1) // 2 if causal else p * p
+        run = {"max_abs_err": errs,
+               "launches_fwd": fwd_launches, "launches_bwd": bwd_launches,
+               "calls_expected": want,
+               "fold_fwd_ms": timed(lambda: fold(*blocks[:3],
+                                                 causal=causal)),
+               "one_call_fwd_ms": timed(lambda: flash_attention_fwd(
+                   q, k, v, causal=causal)),
+               "fold_bwd_ms": timed(lambda: ring_fold_bwd(
+                   *blocks[:3], outs, lses, blocks[3], causal=causal)),
+               "one_call_bwd_ms": timed(lambda: flash_attention_bwd(
+                   q, k, v, one_out, one_lse, go, causal=causal))}
+        out["runs"]["causal" if causal else "full"] = run
+        if (fwd_launches.get("flash_attention_fwd") != want
+                or bwd_launches.get("flash_attention_bwd_dq") != want
+                or bwd_launches.get("flash_attention_bwd_dkdv") != want):
+            raise AssertionError(f"ring fold launches (causal={causal}): "
+                                 f"{fwd_launches} {bwd_launches}, want "
+                                 f"{want} of each")
+        launches["flash_attention_fwd"] += want
+        launches["flash_attention_bwd"] += want
+    emit(out)
+    del q, k, v, go, blocks
+    _release()
+    return dict(launches)
+
+
+def _seq_model(strategy, seed=SEED):
+    """seq_gloo_card's model: Embedding, PositionalEncoding, SEQ_GLOO
+    ["layers"] causal TransformerLayers at the LM's widths, a Linear
+    head; random weights from ``seed``."""
+    from bigdl_tpu_torch import nn
+
+    c = SEQ_GLOO
+    g = torch.Generator().manual_seed(seed)
+    return nn.Sequential(
+        [nn.Embedding(c["vocab"], c["d"], generator=g),
+         nn.PositionalEncoding()]
+        + [nn.TransformerLayer(c["d"], c["heads"], c["ffn"], dropout=0.0,
+                               causal=True, seq_parallel=strategy,
+                               generator=g) for _ in range(c["layers"])]
+        + [nn.Linear(c["d"], c["vocab"], generator=g)])
+
+
+def _seq_data():
+    rs = np.random.RandomState(SEED + 13)
+    shape = (SEQ_GLOO["batch"] * SEQ_GLOO["steps"], SEQ_GLOO["seq"])
+    ids = rs.randint(0, SEQ_GLOO["vocab"], shape).astype(np.int32)
+    return ids, np.roll(ids, -1, axis=1)
+
+
+def _seq_fit(dev, strategy):
+    """SEQ_GLOO["steps"] eager steps of the seq model through the driver
+    in float32 products; the seq axis is the engine's when it has one."""
+    from bigdl_tpu_torch.data import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import LAUNCHES, reset_launches
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.tensor.policy import compute_dtype
+
+    ids, tgt = _seq_data()
+    with compute_dtype(torch.float32):
+        opt = (Optimizer(_seq_model(strategy), DataSet.array(ids, tgt),
+                         CrossEntropyCriterion(),
+                         batch_size=SEQ_GLOO["batch"], device=dev)
+               .set_optim_method(Adam(learning_rate=SEQ_GLOO["lr"]))
+               .set_end_when(Trigger.max_iteration(SEQ_GLOO["steps"])))
+        opt.seq_parallel = strategy is not None
+        reset_launches()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = SEQ_GLOO["steps"]
+    return {"losses": opt.losses, "wall_s": wall,
+            "flash_launches_per_step": {
+                n: v / steps for n, v in LAUNCHES.items()
+                if n.startswith("flash")}}
+
+
+def _seq_gloo_rank(rank, world, rdv, q):
+    """One of two processes on the one card over gloo with
+    ``MeshSpec(seq=2)``: first what gloo carries on CUDA tensors (each
+    collective the seq strategies call, announced on ``q``), then the
+    seq model trained with each strategy whose collectives ran right."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=rdv, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=SEQ_GLOO["wait_s"]))
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        x = torch.arange(world * 8, dtype=torch.float32, device=dev)
+        # every probe on a group of its own: a collective that fails and
+        # closes its connections leaves the others' (and the training's)
+        grps = {n: dist.new_group(list(range(world)))
+                for n in ("all_reduce", "all_to_all_single", "send_recv")}
+
+        def send_recv():
+            got = torch.empty(world * 8, device=dev)
+            grp = grps["send_recv"]
+            ops = [dist.P2POp(dist.isend, x, (rank + 1) % world, grp),
+                   dist.P2POp(dist.irecv, got, (rank - 1) % world, grp)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return got
+
+        def a2a():
+            got = torch.empty_like(x)
+            dist.all_to_all_single(got, x + 100 * rank,
+                                   group=grps["all_to_all_single"])
+            return got
+
+        def reduce():
+            out = x.clone()
+            dist.all_reduce(out, group=grps["all_reduce"])
+            return out
+
+        want_a2a = torch.cat([x.view(world, -1)[rank] + 100 * r
+                              for r in range(world)])
+        tries = {"send_recv": (send_recv, x),
+                 "all_to_all_single": (a2a, want_a2a),
+                 "all_reduce": (reduce, world * x)}
+        needs = {"ring": ("all_reduce", "send_recv"),
+                 "ulysses": ("all_reduce", "all_to_all_single")}
+        res = {}
+        out = {"collectives": res, "runs": {}}
+        from bigdl_tpu_torch.runtime import EngineConfig, init_engine
+        from bigdl_tpu_torch.runtime.mesh import MeshSpec
+
+        init_engine(EngineConfig(mesh=MeshSpec(seq=2)))   # the gloo group
+        # each strategy's collectives probed just before it trains, so a
+        # collective that hangs stops only what comes after it
+        for strategy in SEQ_GLOO["strategies"]:
+            for name in needs[strategy]:
+                if name in res:
+                    continue
+                fn, want = tries[name]
+                q.put(("start", rank, name))
+                try:
+                    got = fn()
+                    torch.cuda.synchronize()
+                    res[name] = ("ran, right" if got.device == dev and float(
+                        (got - want).abs().max()) == 0.0 else "ran, WRONG")
+                except Exception as e:   # what gloo says, reported
+                    res[name] = f"{type(e).__name__}: {str(e)[:200]}"
+                q.put(("did", rank, name, res[name]))
+            if all(res[n] == "ran, right" for n in needs[strategy]):
+                q.put(("train", rank))
+                out["runs"][strategy] = _seq_fit(dev, strategy)
+                q.put(("trained", rank))
+        q.put(("done", rank, out))
+    except BaseException:
+        q.put(("error", rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def seq_gloo_card(dev):
+    """Two gloo processes on the one card, ``MeshSpec(seq=2)``: what gloo
+    carries on CUDA tensors, then for each strategy it can carry the seq
+    model's losses on both ranks against the same model trained unsharded
+    in this process (last loss within SEQ_GLOO["rel"]), both ranks'
+    losses equal, the flash launches a step of each rank (the ring:
+    layers x (rank + 1) forward calls, as many backward pairs; Ulysses:
+    layers).  A strategy whose collective gloo cannot carry on a CUDA
+    tensor is named, and the ring's card proof rests on ring_fold."""
+    with tempfile.TemporaryDirectory(prefix="seq_gloo_") as d:
+        did, res = _gloo_card_ranks(
+            f"file://{d}/rendezvous", _seq_gloo_rank, SEQ_GLOO["wait_s"],
+            SEQ_GLOO["probe_s"], "seq_gloo_card")
+    ref = _seq_fit(dev, None)
+    out = {"phase": "seq_gloo_card", "world": 2, "devices": "cuda:0",
+           "backend": "gloo", "mesh": {"seq": 2}, "model": SEQ_GLOO,
+           "nvidia_smi": nvidia_smi(), "what_each_collective_did": did,
+           "each_rank": [r["collectives"] if r else None for r in res],
+           "unsharded": ref, "rel": SEQ_GLOO["rel"], "runs": {},
+           "not_carried": {}}
+    bad = []
+    layers = SEQ_GLOO["layers"]
+    for strategy in SEQ_GLOO["strategies"]:
+        ranks = [r["runs"].get(strategy) if r else None for r in res]
+        if ranks[0] is None:
+            out["not_carried"][strategy] = {
+                n: v for n, v in did.items() if v != "ran, right"
+                and n in ("all_reduce", {"ring": "send_recv",
+                                         "ulysses": "all_to_all_single"}[
+                                             strategy])}
+            continue
+        rel = abs(ranks[0]["losses"][-1] - ref["losses"][-1]) \
+            / abs(ref["losses"][-1])
+        want = [layers * (r + 1) if strategy == "ring" else layers
+                for r in range(2)]
+        got = [rk["flash_launches_per_step"].get("flash_attention_fwd")
+               for rk in ranks]
+        out["runs"][strategy] = {
+            "losses": [rk["losses"] for rk in ranks],
+            "wall_s": [rk["wall_s"] for rk in ranks],
+            "last_loss_rel_to_unsharded": rel,
+            "flash_launches_per_step": [rk["flash_launches_per_step"]
+                                        for rk in ranks],
+            "flash_fwd_launches_expected": want}
+        if not (rel <= SEQ_GLOO["rel"] and ranks[0]["losses"]
+                == ranks[1]["losses"] and got == want):
+            bad.append(strategy)
+    emit(out)
+    if bad:
+        raise AssertionError(f"seq_gloo_card {bad}: {out}")
     return out
 
 
@@ -7767,6 +8331,12 @@ def run_alone(phase, dev):
 
         with compute_dtype(torch.float32):
             serve_http(dev)
+    elif phase in ("train", "train_lm_bundles", "ring_fold",
+                   "seq_gloo_card"):
+        globals()[phase](dev)
+    elif phase == "train_zero1_overlap":
+        _zero1_overlap(_bundle_run(_lm_bundle_maker(dev), BUNDLE["k"],
+                                   BUNDLE["steps"])["losses"])
     else:
         raise SystemExit(f"--phase {phase}: keras_inception, keras_resnet, "
                          "train_translation, train_ptb_lstm, estimator_bert, "
@@ -7775,7 +8345,8 @@ def run_alone(phase, dev):
                          "layout_decode, layout_int8_predict, qat_lenet, "
                          "layout_gloo_card, serve_keras_int8, serve_prefix, "
                          "serve_handoff, serve_spec_window, serve_seq2seq, "
-                         "serve_http or serve_pool")
+                         "serve_http, serve_pool, train, train_lm_bundles, "
+                         "train_zero1_overlap, ring_fold or seq_gloo_card")
     _release()
 
 
@@ -7930,6 +8501,9 @@ def main() -> int:
                         (bwd_row, "flash_attention_bwd_dq")):
         row["launches_per_step_in_graph"] = lm_bundles["summary"][
             f"k{BUNDLE['k']}"]["launches_per_step"][kernel]
+    ring = ring_fold(dev)
+    fwd_row["launches_ring_fold"] = ring["flash_attention_fwd"]
+    bwd_row["launches_ring_fold"] = ring["flash_attention_bwd"]
     _, lenet = train_lenet(dev)
     int8mm_row["launches_qat_lenet"] = qat_lenet(dev, lenet)
     del lenet
@@ -7998,6 +8572,15 @@ def main() -> int:
     int8mm_row["launches_layout_int8_predict"] = layout[
         "int8_predict_launches"]
     layout_gloo_card(dev)
+    _release()
+    seq = seq_gloo_card(dev)
+    for strategy, run in seq["runs"].items():
+        fwd_row[f"launches_seq_gloo_card_{strategy}_per_step"] = [
+            r.get("flash_attention_fwd")
+            for r in run["flash_launches_per_step"]]
+        bwd_row[f"launches_seq_gloo_card_{strategy}_per_step"] = [
+            r.get("flash_attention_bwd_dq")
+            for r in run["flash_launches_per_step"]]
     _release()
     emit({"kernels": [decode_row, int8_row, fwd_row, fwd_nc_row, bwd_row,
                       verify_row, int8mm_row, sparse_row, sparse_bf16_row,

@@ -290,14 +290,15 @@ def test_env_and_config_wiring(monkeypatch, tmp_path, init):
     with pytest.raises(ValueError, match="param_dtype"):
         Engine(EngineConfig(param_dtype="bfloat16"))
     # the multi-process fields are ported (tests/test_torch_port_zero1.py),
-    # and so is the metrics endpoint; a bad wire, the peak-FLOPs pin and
-    # mesh axes beyond data still raise, naming what they need
+    # and so are the metrics endpoint and the peak-FLOPs pin (the live
+    # train.mfu's denominator, tests/test_torch_port_cost.py); a bad wire
+    # and mesh axes beyond data and seq still raise, naming what they need
     assert Engine(EngineConfig(grad_comm="INT8")).config.grad_comm == "int8"
+    assert Engine(EngineConfig(peak_flops=1e15)).config.peak_flops == 1e15
     served = Engine(EngineConfig(metrics_port=0))
     assert served.metrics_server.url.endswith("/metrics")
     served.metrics_server.stop()
     for field, value, item in (("grad_comm", "int4", "grad_comm"),
-                               ("peak_flops", 1e15, "A.6.7"),
                                ("mesh", {"model": 2}, "A.6.6")):
         with pytest.raises(ValueError, match=item):
             Engine(EngineConfig(**{field: value}))

@@ -2279,3 +2279,127 @@ def test_restored_masks_recapture_the_step_bundles(card):
         got += step.train_bundle(s, xs[s:s + 2], ys[s:s + 2])[0].tolist()
     assert step.graphs_captured >= 1
     assert got == want[4:]
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism and the perf gauges
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_fold_on_the_flash_kernels_matches_one_call(card, causal):
+    """The ring's fold over 4 blocks (the rotation by indexing) on the
+    flash kernels against one flash call over the whole sequence, forward
+    and backward, within the JAX ring test's 2e-5; every visiting block a
+    kernel launch (causal: 10 of 16)."""
+    from bigdl_tpu_torch.parallel.ring_attention import (ring_fold,
+                                                         ring_fold_bwd)
+
+    g = torch.Generator().manual_seed(9)
+    q, k, v, go = (torch.randn(2, 3, 256, 64, generator=g).to(card)
+                   for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    grads = flash_attention_bwd(q, k, v, out, lse, go, causal=causal)
+    blocks = [t.chunk(4, dim=2) for t in (q, k, v, go)]
+    before = dict(LAUNCHES)
+    outs, lses = ring_fold(*blocks[:3], causal=causal)
+    got = ring_fold_bwd(*blocks[:3], outs, lses, blocks[3], causal=causal)
+    calls = 10 if causal else 16
+    assert LAUNCHES["flash_attention_fwd"] \
+        - before.get("flash_attention_fwd", 0) == calls
+    assert LAUNCHES["flash_attention_bwd_dq"] \
+        - before.get("flash_attention_bwd_dq", 0) == calls
+    for a, w in ((torch.cat(outs, 2), out), (torch.cat(lses, 2), lse),
+                 *((torch.cat(gr, 2), r) for gr, r in zip(got, grads))):
+        torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5)
+
+
+def test_peak_flops_resolved_from_the_card_name(card, monkeypatch):
+    from bigdl_tpu_torch.obs import cost
+
+    monkeypatch.delenv("BIGDL_TPU_PEAK_FLOPS", raising=False)
+    name = torch.cuda.get_device_name(0)
+    assert cost.device_name(card) == name
+    peak = cost.peak_flops(name)
+    if "H100" in name:
+        assert peak == (756e12 if "PCIe" in name else 989e12)
+    # EngineConfig.peak_flops wins over the table, the environment over it
+    assert cost.peak_flops(name, override=1e12) == 1e12
+    monkeypatch.setenv("BIGDL_TPU_PEAK_FLOPS", "2e12")
+    assert cost.peak_flops(name, override=1e12) == 2e12
+
+
+def test_capture_after_steady_outside_expected_compile_is_unexpected(card):
+    """A step bundle's first capture (a new signature) is expected; a
+    capture after the sentinel went steady, outside ``expected_compile``,
+    counts as unexpected and is flight-recorded."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.obs import attr, flight
+    from bigdl_tpu_torch.optim.metrics import global_metrics
+    from bigdl_tpu_torch.optim.train_step import TrainStep
+
+    g = global_metrics()
+    sent = attr.recompile_sentinel()
+    model = nn.Sequential([nn.Linear(8, 16), nn.ReLU(),
+                           nn.Linear(16, 2)]).to(card)
+    step = TrainStep(model, nn.CrossEntropyCriterion(), optim.SGD(0.1))
+    x = torch.randn(8, 8, device=card)
+    y = torch.zeros(8, dtype=torch.long, device=card)
+    base = g.counter("train.unexpected_recompiles_total")
+    compiles = g.counter("train.xla_compiles_total")
+    try:
+        sent.mark_steady(0)
+        step.train_bundle(0, [x] * 4, [y] * 4)     # warm, capture, replay
+        assert step.graphs_captured == 1
+        assert g.counter("train.xla_compiles_total") == compiles + 1
+        assert g.counter("train.unexpected_recompiles_total") == base
+        flight.global_recorder().clear()
+        step._graphs.clear()          # a dropped graph, not announced
+        step._capture(x, y, step._set_step(4))
+        assert g.counter("train.unexpected_recompiles_total") == base + 1
+        assert any(e["kind"] == "unexpected_recompile"
+                   and e["compile_kind"] == "cuda_graph_capture"
+                   for e in flight.global_recorder().snapshot())
+    finally:
+        sent.mark_warmup()
+
+
+def test_mfu_window_is_the_cards_time_between_bundles(card):
+    """On the card the step time behind ``train.mfu`` is the card's time
+    between the timed window's bundles finishing, not the host's reads:
+    within 2% of CUDA events recorded at the same bundle edges, and the
+    gauge is the FLOPs a step over it."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.obs import cost
+    from bigdl_tpu_torch.optim import Trigger
+
+    events = {}
+
+    def tick(state):
+        it = state["iteration"]
+        if it not in events:
+            events[it] = torch.cuda.Event(enable_timing=True)
+            events[it].record()
+        return False
+
+    # wide enough that the card, not the host's loop, sets the pace
+    g, w = torch.Generator().manual_seed(0), 8192
+    layers = []
+    for _ in range(6):
+        layers += [nn.Linear(w, w, generator=g), nn.ReLU()]
+    model = nn.Sequential(layers + [nn.Linear(w, 3, generator=g),
+                                    nn.LogSoftMax()])
+    rs = np.random.RandomState(0)
+    x = rs.randn(32 * 12, w).astype(np.float32)
+    y = rs.randint(0, 3, 32 * 12)
+    opt, _ = _bundle_run(card, 4, model, x, y,
+                         Trigger.or_(Trigger(tick, "clock"),
+                                     Trigger.max_iteration(24)))
+    a, b, step_s = opt.timed_window
+    torch.cuda.synchronize()
+    want = events[a].elapsed_time(events[b]) / 1e3 / (b - a)
+    assert abs(step_s - want) <= 0.02 * want
+    peak = cost.peak_flops(cost.device_name(card))
+    if peak is not None:
+        m = opt.metrics.gauges["train.mfu"]
+        assert m == pytest.approx(opt.metrics.gauges["train.flops_per_step"]
+                                  / step_s / peak)

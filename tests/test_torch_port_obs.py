@@ -268,5 +268,10 @@ def test_engine_config_slo_specs_start_an_evaluator(_engine_reset,
     monkeypatch.setenv("BIGDL_TPU_METRICS_PORT", "0")
     cfg = engine_mod.EngineConfig.from_env()
     assert (cfg.slo_specs, cfg.metrics_port) == (json.dumps(spec), 0)
-    with pytest.raises(ValueError, match="A.6.7"):
-        engine_mod.EngineConfig(peak_flops=1e15).check()
+    # the peak-FLOPs pin is ported: the run's peak, below the environment
+    from bigdl_tpu_torch.obs import cost
+
+    cfg = engine_mod.EngineConfig(peak_flops=1e15)
+    cfg.check()
+    monkeypatch.delenv("BIGDL_TPU_PEAK_FLOPS", raising=False)
+    assert cost.peak_flops(cost.device_name("cpu"), cfg.peak_flops) == 1e15

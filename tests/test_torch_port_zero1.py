@@ -439,7 +439,8 @@ def test_engine_from_env_reads_the_jax_names(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("peak_flops", 1e15, "A.6.7"), ("grad_comm", "int4", "grad_comm"),
+    ("param_dtype", "bfloat16", "param_dtype"),
+    ("grad_comm", "int4", "grad_comm"),
     ("comm_bucket_bytes", 0, "comm_bucket_bytes"),
     ("coordinator_address", "localhost:1", "num_processes"),
 ])
@@ -474,7 +475,9 @@ def test_engine_config_obs_fields_run(field, value):
 
 @pytest.mark.parametrize("axes,match", [
     (dict(dcn_data=2), "not divisible"),
-    (dict(model=2), r"A\.6\.6 \(parallel/tp\.py"), (dict(seq=2), r"A\.4"),
+    (dict(model=2), r"A\.6\.6 \(parallel/tp\.py"),
+    # the seq axis is ported: one process cannot hold two sequence blocks
+    (dict(seq=2), "not divisible"),
     (dict(expert=2), r"A\.6\.6"), (dict(pipe=2), r"A\.6\.6"),
     (dict(data=2), "exceeds device count"),
 ])
@@ -967,13 +970,33 @@ def test_set_checkpoint_options_on_one_process(tmp_path):
 
 
 def test_measure_overlap_is_refused(monkeypatch):
-    monkeypatch.setenv("BIGDL_TPU_MEASURE_OVERLAP", "1")
+    """The overlap audit is ported: on one process (no collective) it
+    reports JAX's keys with no exposed collective time, sets the two
+    gauges, and training after it is training without it, to the bit
+    (tests/test_torch_port_seq.py runs it across ranks)."""
     x, y = synthetic_classification(n=64)
-    opt = optim.Optimizer(_dmlp(), DataSet.array(x, y),
-                          nn.ClassNLLCriterion(), batch_size=32,
-                          device="cpu")
-    with pytest.raises(ValueError, match="A.6.7"):
-        opt.optimize()
+
+    def run():
+        opt = optim.Optimizer(_dmlp(), DataSet.array(x, y),
+                              nn.ClassNLLCriterion(), batch_size=32,
+                              device="cpu")
+        opt.set_end_when(optim.Trigger.max_iteration(3))
+        return opt, opt.optimize().losses
+
+    _, plain = run()
+    monkeypatch.setenv("BIGDL_TPU_MEASURE_OVERLAP", "1")
+    opt, audited = run()
+    assert audited == plain
+    ov = opt.overlap_audit
+    assert set(ov) == {"step_s", "compute_s", "collective_s",
+                       "exposed_collective_s", "overlap_efficiency",
+                       "comm_buckets", "grad_comm"}
+    assert ov["collective_s"] < ov["step_s"] and ov["grad_comm"] == "fp32"
+    assert 0.0 <= ov["overlap_efficiency"] <= 1.0
+    assert opt.metrics.gauges["train.comm_overlap_efficiency"] \
+        == ov["overlap_efficiency"]
+    assert opt.metrics.gauges["train.comm_exposed_collective_s"] \
+        == ov["exposed_collective_s"]
 
 
 def test_optimizer_grad_comm_resolution():
